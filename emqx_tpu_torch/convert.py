@@ -1,0 +1,72 @@
+"""Host tables -> the port's device tensors.
+
+`tables_to_device` is the port's counterpart of "weights carried across":
+it takes the numpy arrays the host builders hand out —
+`ShapeIndex.device_snapshot()` and `SubscriberTable.pack()`, of either
+package, which agree byte for byte — and uploads them as the tensors the
+kernels read. uint32 arrays are reinterpreted bit for bit as int32 (the
+kernels read them back as uint32_t); no value is converted.
+
+`resolve_device` is the one place an entry point turns its `device`
+argument into a torch device: CUDA unless the caller asks for the CPU, and
+an error — never a quiet move to the CPU — when CUDA is asked for and
+absent.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from emqx_tpu_torch.ops.shape_index import SHAPE_TABLE_KEYS
+
+
+def resolve_device(device="cuda") -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "PyTorch twins of the kernels"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _as_int32(arr: np.ndarray, name: str) -> np.ndarray:
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype == np.uint32:
+        return arr.view(np.int32)
+    if arr.dtype != np.int32:
+        raise TypeError(f"{name}: expected int32 or uint32, got {arr.dtype}")
+    return arr
+
+
+def _to_device(arr: np.ndarray, name: str, device) -> torch.Tensor:
+    """One host array -> a fresh int32 tensor on `device` (always a copy:
+    the host builders mutate their arrays in place)."""
+    return torch.from_numpy(_as_int32(arr, name)).to(device, copy=True)
+
+
+def tables_to_device(
+    shape_snapshot: Dict[str, np.ndarray],
+    sub_bitmaps: np.ndarray,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """-> {shape_tab, shape_hot, shape_tomb, shape_mask, shape_len,
+    shape_flags, sub_bitmaps} int32 tensors on `device`.
+
+    shape_snapshot: `ShapeIndex.device_snapshot()`; sub_bitmaps: uint32
+    [Fcap, W] from `SubscriberTable.pack(index.num_filters_capacity)`."""
+    dev = resolve_device(device)
+    out = {k: _to_device(shape_snapshot[k], k, dev) for k in SHAPE_TABLE_KEYS}
+    if sub_bitmaps.ndim != 2:
+        raise ValueError(f"sub_bitmaps: expected [Fcap, W], got {sub_bitmaps.shape}")
+    out["sub_bitmaps"] = _to_device(sub_bitmaps, "sub_bitmaps", dev)
+    return out

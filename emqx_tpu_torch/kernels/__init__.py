@@ -1,0 +1,72 @@
+"""Hand-written CUDA kernels of the port, their launch counters, and the
+checks every wrapper shares.
+
+Each kernel lives beside its plain PyTorch twin in the module of its JAX
+counterpart (`ops/tokenizer.py`, `ops/shape_index.py`,
+`models/router_model.py`). A wrapper given CPU tensors runs the twin; given
+CUDA tensors it launches the kernel (built at first use by `build.load`)
+and raises on any failure — there is no fallback from one to the other.
+
+`LAUNCHES` counts kernel launches per wrapper: the wrapper adds one right
+after its kernel launched, and nowhere else, so a run can show that its
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {
+    "tokenize": 0,
+    "shape_match": 0,
+    "fanout_bitmaps": 0,
+    "compact_fanout_slots": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_tensor(t, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` with `ndim` dims."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when every one
+    lies on the CPU; raises on a mix or on any other device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {dev}")
+
+
+def launch(name: str, c_launcher: str, device: torch.device, *args) -> None:
+    """Call one C launcher of the kernel library on the current stream of
+    `device` and count the launch.
+
+    The launcher returns the `cudaGetLastError()` code read right after
+    its launch; anything but 0 raises, with the CUDA runtime's message."""
+    from emqx_tpu_torch.kernels import build
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(build.load(), c_launcher)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"{name}: CUDA launch failed ({rc}: {build.error_string(rc)})"
+        )
+    LAUNCHES[name] += 1

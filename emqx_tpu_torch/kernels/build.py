@@ -1,0 +1,148 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Every source under `csrc/` is compiled by its own `nvcc` process, all
+started together, into an object file for `sm_90a`; one more `nvcc` links
+them into a shared library with a plain C interface, loaded with `ctypes`.
+No source includes PyTorch's headers: the wrappers hand over
+`tensor.data_ptr()` and the current stream as integers, which keeps a
+cold build to seconds instead of the minutes a `torch/extension.h`
+translation unit costs.
+
+The library lands in `kernels/_build/` (ignored by git), named by a hash
+of the sources and flags, so a second process in the same checkout reuses
+it and a changed source rebuilds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-Xcompiler",
+    "-fPIC",
+    "--ptxas-options=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U = ctypes.c_uint32
+_L = ctypes.c_longlong
+
+# C launcher -> argument types; every launcher returns the cudaError_t
+# read right after its launch
+_SIGNATURES = {
+    # bytes, lengths, h1, h2, nwords, is_dollar, B, MB, L, seed1, seed2, stream
+    "emqx_tokenize": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _U, _P),
+    # h1, h2, nwords, dollar, mask, len, flags, tab, tcap, hot, hcap, tomb,
+    # out, B, L, M, probes, stream
+    "emqx_shape_match": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P,
+    ),
+    # sub_bitmaps, fcap, matched, out, popcount, B, K, W, stream
+    "emqx_fanout_bitmaps": (_P, _L, _P, _P, _P, _I, _I, _I, _P),
+    # bitmaps, slots, count, overflow, B, W, kslot, stream
+    "emqx_compact_fanout_slots": (_P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+_lib = None  # the loaded library (the port's one extension handle)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _tag() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Start every command at once; raise with the first failure's output."""
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT))
+        for cmd in cmds
+    ]
+    logs = []
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out.decode(errors="replace"))
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, logs[-1])
+    if failed is not None:
+        raise RuntimeError(
+            f"nvcc failed: {' '.join(failed[0])}\n{failed[1]}"
+        )
+    return logs
+
+
+def _build(target: Path) -> None:
+    nvcc = nvcc_path()
+    work = BUILD_DIR / f"work-{target.stem}-{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [work / (src.stem + ".o") for src in _sources()]
+    logs = _run_all(
+        [
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(_sources(), objs)
+        ]
+    )
+    tmp = work / target.name
+    logs += _run_all(
+        [[nvcc, NVCC_FLAGS[0], "-shared", "-Xcompiler", "-fPIC", *map(str, objs),
+          "-o", str(tmp)]]
+    )
+    (BUILD_DIR / (target.stem + ".log")).write_text("".join(logs))
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def load():
+    """-> the ctypes library with every launcher bound (built if needed)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libemqx_kernels-{_tag()}.so"
+    if not target.exists():
+        _build(target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.emqx_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.emqx_cuda_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def error_string(code: int) -> str:
+    return load().emqx_cuda_error_string(code).decode()
