@@ -5,27 +5,49 @@
 
 Needs one NVIDIA card with CUDA and nvcc; exits non-zero, printing no
 result, anywhere else. It drives the port only (no JAX, nothing of
-emqx_tpu), in phases, each of which either passes or ends the run:
+emqx_tpu), in phases, each of which either passes or ends the run. Each
+phase prints one JSON line.
 
-1. card and toolchain: card name and power limit, versions, kernel build;
-2. tables at full size: the `mixed_1m` configuration (BASELINE config 3:
-   filters device/{i}/+/{j}/# for i, j < 1000 plus device/{i}/# for
-   i < 100; SubscriberTable(max_subscribers=256), slot = filter index mod
-   256) built with the port's own RouteIndex.bulk_add and uploaded;
-3. each kernel against its plain PyTorch twin on the card, at the main
-   path's shapes (B = 8192 Zipf topics, MAX_BYTES 64, max_levels 8,
-   kslot 64) on the real tables: outputs must be EQUAL (all integers);
-   warm times are medians of >= 20 CUDA-event samples;
-4. routing: DeviceRouter.route over 3 batches of 8192 topics plus edge
-   topics, every row's recipient set held against a host oracle, then
-   subscribe/unsubscribe churn that pushes rows past kslot onto the
-   dense-row path; the launch counters are zeroed before this phase and
-   every kernel must have launched in it;
-5. one JSON line {"kernels": [...]}: per kernel its launches in phase 4,
-   kernel and plain-twin times, and the least time the card could take
-   (bytes moved over 3.35 TB/s, or integer operations over the 67 T/s
-   scalar rate, whichever is larger);
-6. last line: {"ok": true, "device": {...}}.
+The `mixed_1m` path (the shape-only step):
+1. `toolchain`: card name and power limit, versions, kernel build;
+2. `tables`: the `mixed_1m` configuration (BASELINE config 3: filters
+   device/{i}/+/{j}/# for i, j < 1000 plus device/{i}/# for i < 100;
+   SubscriberTable(max_subscribers=256), slot = filter index mod 256)
+   built with the port's own RouteIndex.bulk_add and uploaded;
+3. `kernel` x4: tokenize, shape_match, fanout_bitmaps and
+   compact_fanout_slots against their plain PyTorch twins on the card at
+   the path's shapes (B = 8192 Zipf topics, MAX_BYTES 64, max_levels 8,
+   kslot 64): outputs must be EQUAL (all integers);
+4. `route`: DeviceRouter.route over 3 batches plus edge topics, every
+   row's recipient set held against a host oracle, then churn that pushes
+   rows past kslot onto the dense-row path; launch counters are zeroed
+   before and read after, and every kernel of the path must have launched;
+5. `route_breakdown`: where one routed batch's time goes.
+
+The `mixed_10m` path (the residual NFA lane and the O(delta) mirror), the
+configuration `bench.py` builds in `_build_mixed_10m`, unchanged: 10M
+filters in 66 wildcard shapes (2 dense overlays, 64 sparse families of
+`+`/`#` masks over 8 levels), of which the last two families overflow the
+64-shape table into the residual NFA; 2 subscribers per filter;
+`frontier` 16, `max_matches` 16, `probes` 8:
+6. `tables_10m`: vectorised build, m_active, residual_count, device bytes
+   per mirror, and the cuts (`reduced`: none);
+7. `route_10m` then `churn_10m`, with the launch counters zeroed before
+   the first and read after the last: 3 Zipf batches plus edge topics and
+   one batch built from residual filters, every unflagged row against the
+   host oracle; then an NFA epoch bump (op-log cap) that must cost one
+   full resync of that mirror alone, a subscribe wave and an unsubscribe
+   wave that must reach the card as scatters (mirrors copied back and
+   compared bit for bit with the host tables), routing checked after
+   each; delta sync timed against a full upload;
+8. `kernel` x7 at mixed_10m shapes (the scatter on the subscribe wave's
+   own deltas), each against its twin, with its times and its bound;
+9. `route_breakdown_10m`;
+10. one JSON line {"kernels": [...]}: per kernel its launches on the
+    mixed_10m path, its wrapper-call, device, plain-twin and library-call
+    times and the least time the card could take (bytes moved over
+    3.35 TB/s, or integer operations over the 67 T/s scalar rate, the
+    larger); then the card line; then, last, {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -44,13 +66,23 @@ MAX_LEVELS = 8
 MAX_SUBSCRIBERS = 256
 KSLOT = 64
 ROUTE_BATCHES = 3
-TIMING_REPS = 25  # >= 20 samples per median
-TIMING_INNER = 10  # launches per sample (the mean of a back-to-back run)
+TIMING_REPS = 21  # >= 20 samples per median
+TIMING_INNER = 5  # launches per sample (the mean of a back-to-back run)
+PLAIN_INNER = 1
+
+# mixed_10m, as bench.py defines it (CFG and _build_mixed_10m)
+NFA_CFG = dict(frontier=16, max_matches=16, probes=8)
+MIXED_10M_IDS = (10_000, 500, 100, 400, 300, 200, 100)  # levels 1..7
+MIXED_10M_TOTAL = 10_000_000
+RESIDUAL_CAP = 50_000  # the last two families' size cap
+SUBS_PER_FILTER = 2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 EDGE_TOPICS = ["", "$SYS/broker/x", "a/b/c/d/e/f/g/h/i/j", "device/3/mid/5/"]
+EDGE_TOPICS_10M = ["", "$SYS/broker/x", "$v/1/2/3/4/5/6/7",
+                   "v/1/2/3/4/5/6/7/8/9", "v/1//", "v"]
 
 
 def phase(name: str, **fields) -> None:
@@ -74,17 +106,143 @@ def nvcc_version() -> str:
 
 
 def zipf_ids(rng, n, k):
-    """n Zipf(1.3) ids in [0, k), as bench.py's mixed_1m draws them."""
+    """n Zipf(1.3) ids in [0, k), as bench.py draws them."""
     return np.minimum(rng.zipf(1.3, size=n) - 1, k - 1)
 
 
-def topic_batch(rng, n):
-    ids = zipf_ids(rng, n, 1000)
-    nums = rng.integers(0, 1000, size=n)
-    return [f"device/{i}/mid/{j}/leaf" for i, j in zip(ids, nums)]
+# -- workloads ---------------------------------------------------------------
 
 
-def build_tables():
+def format_rows(parts, n: int) -> list:
+    """n strings, row i the concatenation of each part's row i: a part is a
+    str (the same for every row) or (ids int array [n], id space). One
+    numpy pass: each id is looked up in a table of its decimal bytes,
+    NUL-padded; the rows are joined into one buffer, the padding dropped,
+    and the buffer split."""
+    mats = []
+    for p in parts:
+        if isinstance(p, str):
+            b = np.frombuffer(p.encode(), np.uint8)
+            mats.append(np.broadcast_to(b, (n, len(b))))
+        else:
+            ids, space = p
+            tab = np.array([str(i).encode() for i in range(space)])
+            mats.append(tab.view(np.uint8).reshape(space, -1)[ids])
+    mats.append(np.full((n, 1), ord("\n"), np.uint8))
+    text = np.concatenate(mats, axis=1).tobytes().decode("ascii")
+    return text.replace("\0", "").split("\n")[:-1]
+
+
+def mixed_10m_masks():
+    """The 64 sparse families of bench.py `_build_mixed_10m`: ((plus
+    levels), depth), in its order."""
+    cands = []
+    for plus_pos in (1, 2, 3, 4, 5, 6):
+        for depth in (4, 5, 6, 7, 8):
+            cands.append(((plus_pos,), depth))
+    for combo in ((1, 3), (2, 4), (1, 4), (2, 5), (3, 5), (1, 5), (3, 6),
+                  (4, 6), (2, 6), (1, 6)):
+        for depth in (6, 7, 8):
+            cands.append((combo, depth))
+    for combo in ((1, 3, 5), (2, 4, 6), (1, 2, 4), (3, 4, 6), (1, 4, 6),
+                  (2, 3, 5), (1, 3, 6), (2, 4, 5), (1, 2, 5), (2, 3, 6)):
+        for depth in (7, 8):
+            cands.append((combo, depth))
+    seen = {(frozenset((2,)), 4)}  # dense overlay 2's shape
+    masks = []
+    for plus, depth in cands:
+        key = (frozenset(plus), depth)
+        if max(plus) < depth and key not in seen:
+            seen.add(key)
+            masks.append((tuple(plus), depth))
+    return masks[:64]
+
+
+def family_parts(plus, depth, cols, ids):
+    """format_rows parts of one family: v/<lvl 1>/.../<lvl depth-1>[/#]."""
+    parts = ["v"]
+    for lvl in range(1, depth):
+        parts += ["/+"] if lvl in plus else ["/", (cols[lvl], ids[lvl - 1])]
+    if depth < 8:
+        parts.append("/#")
+    return parts
+
+
+def mixed_10m_filters(rng, ids=MIXED_10M_IDS, total=MIXED_10M_TOTAL,
+                      residual_cap=RESIDUAL_CAP, min_family=1000):
+    """bench.py's mixed_10m filter set, built with numpy instead of a
+    per-filter loop -> (filters, families): families[i] = (plus, depth, lo,
+    hi), the family's filters being filters[lo:hi]. The first 64 shapes to
+    appear (overlays 1 and 2, then families 0..61) fill the device table;
+    families 62 and 63 go to the residual NFA. Smaller `ids` and `total`
+    give the same 66 shapes at a test's size."""
+    A, C = ids[0], ids[2]
+    a = np.arange(A)
+    filters = format_rows(["v/", (a, A), "/#"], A)  # dense overlay 1
+    filters += format_rows(  # dense overlay 2
+        ["v/", (np.repeat(a, C), A), "/+/", (np.tile(np.arange(C), A), C), "/#"],
+        A * C,
+    )
+    masks = mixed_10m_masks()
+    budget = total - len(filters)
+    per_family = budget // 64
+    spaces = []
+    for plus, depth in masks:
+        sp = 1
+        for lvl in range(1, depth):
+            if lvl not in plus:
+                sp *= ids[lvl - 1]
+        spaces.append(sp)
+    sizes = [min(per_family, max(min_family, sp // 2)) for sp in spaces]
+    shortfall = budget - sum(sizes)
+    roomy = [i for i, sp in enumerate(spaces) if sp > 20 * per_family]
+    for i in roomy:
+        sizes[i] += shortfall // len(roomy)
+    sizes[62] = min(sizes[62], residual_cap)
+    sizes[63] = min(sizes[63], residual_cap)
+    families = []
+    for (plus, depth), sz in zip(masks, sizes):
+        cols = {lvl: rng.integers(0, ids[lvl - 1], size=sz)
+                for lvl in range(1, depth) if lvl not in plus}
+        lo = len(filters)
+        filters += format_rows(family_parts(plus, depth, cols, ids), sz)
+        families.append((plus, depth, lo, len(filters)))
+    return filters, families
+
+
+def mixed_10m_topics(rng, n, ids=MIXED_10M_IDS):
+    """v/{zipf a}/{b}/{c}/{d}/{e}/{f}/{g}, as bench.py draws them."""
+    parts = ["v/", (zipf_ids(rng, n, ids[0]), ids[0])]
+    for space in ids[1:]:
+        parts += ["/", (rng.integers(0, space, size=n), space)]
+    return format_rows(parts, n)
+
+
+def topics_from_filters(rng, filters, ids=MIXED_10M_IDS):
+    """One topic per filter that the filter matches: each `+` filled with
+    an id of its level's space, `#` with one or two levels."""
+    out = []
+    for f in filters:
+        ws = f.split("/")
+        for lvl, w in enumerate(ws):
+            if w == "+":
+                ws[lvl] = str(rng.integers(0, ids[min(lvl, 7) - 1]))
+        if ws[-1] == "#":
+            ws[-1:] = [str(rng.integers(0, 100)) for _ in range(int(rng.integers(1, 3)))]
+        out.append("/".join(ws))
+    return out
+
+
+def shape_of(filter_: str):
+    """(literal-level mask, prefix length, trailing #) of a filter."""
+    ws = filter_.split("/")
+    hh = ws[-1] == "#"
+    if hh:
+        ws = ws[:-1]
+    return sum(1 << l for l, w in enumerate(ws) if w != "+"), len(ws), hh
+
+
+def build_mixed_1m():
     from emqx_tpu_torch.models.router_model import SubscriberTable
     from emqx_tpu_torch.ops.route_index import RouteIndex
 
@@ -97,26 +255,53 @@ def build_tables():
     return index, subtab
 
 
+def build_mixed_10m(rng, **kw):
+    """-> (index, subtab, families, seconds per build stage)."""
+    from emqx_tpu_torch.models.router_model import SubscriberTable
+    from emqx_tpu_torch.ops.route_index import RouteIndex
+
+    t0 = time.perf_counter()
+    filters, families = mixed_10m_filters(rng, **kw)
+    t1 = time.perf_counter()
+    index = RouteIndex()
+    fids = np.asarray(index.bulk_add(filters), np.int64)
+    t2 = time.perf_counter()
+    subtab = SubscriberTable(max_subscribers=MAX_SUBSCRIBERS)
+    # bench.py: SUBS_PER_FILTER slots per filter, slot = i mod (spf * 32)
+    spf = SUBS_PER_FILTER
+    subtab.bulk_add(np.repeat(fids, spf), np.arange(len(fids) * spf) % (spf * 32))
+    t3 = time.perf_counter()
+    secs = {"filter_strings": t1 - t0, "route_index": t2 - t1,
+            "subscriber_table": t3 - t2}
+    return index, subtab, filters, families, secs
+
+
+# -- the host oracle ---------------------------------------------------------
+
+
 def slot_set(row: np.ndarray) -> set:
     bits = np.unpackbits(np.ascontiguousarray(row).view(np.uint8), bitorder="little")
     return set(np.nonzero(bits)[0].tolist())
 
 
 class Oracle:
-    """Host reference: invert each live shape against the topic, look the
-    resulting filter up in the RouteIndex (as bench.py `_expected_matches`
-    does), and union the SubscriberTable rows of the filters found."""
+    """Host reference: invert every shape the table holds against the
+    topic (the device shapes, and the residual filters' shapes parsed from
+    their strings), look each resulting filter up in the RouteIndex
+    registry (as bench.py `_expected_matches` does, without a 10M-entry
+    trie), and union the SubscriberTable rows of the filters found."""
 
-    def __init__(self, index, subtab):
+    def __init__(self, index, subtab, extra_shapes=()):
         self.index = index
         self.subtab = subtab
+        self.shapes = sorted(set(index.shapes._shape_ids) | set(extra_shapes))
 
-    def fids(self, topic: str) -> set:
+    def candidates(self, topic: str) -> list:
         ws = topic.split("/")
         nw = len(ws)
         dollar = topic.startswith("$")
-        out = set()
-        for (mask, plen, hh), _sid in self.index.shapes._shape_ids.items():
+        out = []
+        for mask, plen, hh in self.shapes:
             if (nw < plen) if hh else (nw != plen):
                 continue
             rootwild = (plen == 0 and hh) or (plen > 0 and not (mask & 1))
@@ -125,9 +310,24 @@ class Oracle:
             parts = [ws[l] if (mask >> l) & 1 else "+" for l in range(plen)]
             if hh:
                 parts.append("#")
-            fid = self.index.filter_id("/".join(parts))
-            if fid is not None:
-                out.add(fid)
+            out.append("/".join(parts))
+        return out
+
+    def fids(self, topics) -> list:
+        """Per topic, the set of matching live filter ids: every candidate
+        of the batch resolved in one vectorised registry probe, each hit
+        confirmed by exact name."""
+        cands = [self.candidates(t) for t in topics]
+        flat = [c for cs in cands for c in cs]
+        got = self.index._hash_lookup_batch(flat)[0] if flat else []
+        out, o = [], 0
+        for cs in cands:
+            found = set()
+            for name, fid in zip(cs, got[o : o + len(cs)]):
+                if fid >= 0 and self.index.filter_name(int(fid)) == name:
+                    found.add(int(fid))
+            o += len(cs)
+            out.append(found)
         return out
 
     def slots(self, fids) -> set:
@@ -137,19 +337,25 @@ class Oracle:
         return out
 
 
-def check_batch(res, topics, oracle) -> dict:
-    """Every non-flagged row's matched fids and recipient slots equal the
-    oracle's; flagged rows are exactly the topics deeper than MAX_LEVELS
-    (the host routes those)."""
-    n_ovf = n_flag = n_bits = 0
+def check_batch(res, topics, oracle, exact_flags=True) -> dict:
+    """Every unflagged row's matched fids and recipient slots equal the
+    oracle's. Topics deeper than MAX_LEVELS must be flagged; with
+    `exact_flags` no other row may be, else other flagged rows (NFA
+    frontier or match overflow, which the host routes) are counted."""
+    n_ovf = n_flag = n_bits = n_other_flag = 0
+    want_fids = oracle.fids(topics)
     for i, t in enumerate(topics):
         deep = len(t.split("/")) > MAX_LEVELS
-        if bool(res.flags[i]) != deep:
-            raise AssertionError(f"row {i} {t!r}: flag {res.flags[i]} != deep {deep}")
-        if deep:
+        if deep and not res.flags[i]:
+            raise AssertionError(f"row {i} {t!r}: too deep but not flagged")
+        if res.flags[i]:
             n_flag += 1
+            if not deep:
+                if exact_flags:
+                    raise AssertionError(f"row {i} {t!r}: flagged")
+                n_other_flag += 1
             continue
-        want_f = oracle.fids(t)
+        want_f = want_fids[i]
         got_f = set(res.matched[i][res.matched[i] >= 0].tolist())
         if got_f != want_f or int(res.mcount[i]) != len(want_f):
             raise AssertionError(f"row {i} {t!r}: fids {got_f} != {want_f}")
@@ -162,12 +368,15 @@ def check_batch(res, topics, oracle) -> dict:
         if got != want or int(res.slot_count[i]) != len(want):
             raise AssertionError(f"row {i} {t!r}: slots {sorted(got)} != {sorted(want)}")
         n_bits += len(want)
-    return {"rows": len(topics), "flagged": n_flag, "overflow_rows": n_ovf,
-            "recipients": n_bits}
+    return {"rows": len(topics), "flagged": n_flag, "flagged_not_deep": n_other_flag,
+            "overflow_rows": n_ovf, "recipients": n_bits}
 
 
-def time_ms(fn, torch) -> float:
-    """Median over TIMING_REPS samples of the mean time of TIMING_INNER
+# -- measurement -------------------------------------------------------------
+
+
+def time_ms(fn, torch, inner=TIMING_INNER) -> float:
+    """Median over TIMING_REPS samples of the mean time of `inner`
     back-to-back calls, between CUDA events (after two warm calls)."""
     fn()
     fn()
@@ -177,11 +386,23 @@ def time_ms(fn, torch) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(TIMING_INNER):
+        for _ in range(inner):
             fn()
         b.record()
         b.synchronize()
-        samples.append(a.elapsed_time(b) / TIMING_INNER)
+        samples.append(a.elapsed_time(b) / inner)
+    return float(np.median(samples))
+
+
+def host_ms(fn, torch, reps=5) -> float:
+    """Median host-clock time of fn() ending in a synchronize."""
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(samples))
 
 
@@ -190,6 +411,26 @@ KERNEL_SYMBOLS = {  # CUDA kernel name inside each launcher
     "shape_match": "shape_match_kernel",
     "fanout_bitmaps": "fanout_kernel",
     "compact_fanout_slots": "compact_kernel",
+    "vocab_lookup": "vocab_lookup_kernel",
+    "nfa_walk": "nfa_walk_kernel",
+    "segment_scatter": "segment_scatter_kernel",
+}
+
+SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
+    "tokenize": ("emqx_tpu_torch/kernels/csrc/tokenize.cu",
+                 "emqx_tpu/ops/tokenizer.py:147"),
+    "shape_match": ("emqx_tpu_torch/kernels/csrc/shape_match.cu",
+                    "emqx_tpu/ops/shape_index.py:1108"),
+    "fanout_bitmaps": ("emqx_tpu_torch/kernels/csrc/fanout.cu",
+                       "emqx_tpu/models/router_model.py:52"),
+    "compact_fanout_slots": ("emqx_tpu_torch/kernels/csrc/compact.cu",
+                             "emqx_tpu/models/router_model.py:77"),
+    "vocab_lookup": ("emqx_tpu_torch/kernels/csrc/vocab_lookup.cu",
+                     "emqx_tpu/ops/tokenizer.py:294"),
+    "nfa_walk": ("emqx_tpu_torch/kernels/csrc/nfa_walk.cu",
+                 "emqx_tpu/ops/matcher.py:139"),
+    "segment_scatter": ("emqx_tpu_torch/kernels/csrc/segment_scatter.cu",
+                        "emqx_tpu/ops/segments.py:73"),
 }
 
 
@@ -210,15 +451,23 @@ def profiled(torch, fn, reps: int):
 
 def device_ms(torch, name: str, fn):
     """Mean device time of one launch of kernel `name`, from the CUPTI
-    trace of 20 launches; None when the trace holds no device time."""
-    events, _ = profiled(torch, fn, 20)
-    hits = [e for e in events if KERNEL_SYMBOLS[name] in e.key and e.count]
-    total = sum(e.self_device_time_total for e in hits)
-    count = sum(e.count for e in hits)
-    return total / count / 1e3 if total > 0 else None
+    trace of 20 launches; a trace that lost the kernel's events is taken
+    once more; None when neither holds device time for it."""
+    for _ in range(2):
+        events, _ = profiled(torch, fn, 20)
+        hits = [e for e in events if KERNEL_SYMBOLS[name] in e.key and e.count]
+        total = sum(e.self_device_time_total for e in hits)
+        count = sum(e.count for e in hits)
+        if total > 0:
+            return total / count / 1e3
+    return None
 
 
 def max_abs_err(got, want, torch) -> int:
+    if isinstance(got, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"keys {sorted(got)} != {sorted(want)}")
+        return max([max_abs_err(got[k], want[k], torch) for k in got] or [0])
     if isinstance(got, (tuple, list)):
         return max(max_abs_err(g, w, torch) for g, w in zip(got, want))
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -234,25 +483,119 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernels_vs_plain(torch, args, rng):
-    """Phase 3: each kernel against its twin on the card, on the real tables."""
+def nfa_work(torch, tables, syms, nwords, dollar, F):
+    """Live (row, level, state) visits of the NFA walk on these inputs, and
+    the states alive at the end of the rows that finish: the walk's
+    data-dependent work, for its bound. Runs the plain twin's scan with a
+    tally."""
+    from emqx_tpu_torch.ops import matcher as Mt
+
+    B, L = syms.shape
+    fr = torch.full((B, F), -1, dtype=torch.int32, device=syms.device)
+    fr[:, 0] = 0
+    visits = 0
+    for lvl in range(L):
+        active = lvl < nwords
+        act = (fr >= 0) & active[:, None]
+        visits += int(act.sum())
+        wild = act & ~(dollar & (lvl == 0))[:, None]
+        lit = Mt._probe_edges(tables, torch.where(act, fr, -1),
+                              syms[:, lvl : lvl + 1].expand(B, F), NFA_CFG["probes"])
+        plus = torch.where(wild, tables["plus_child"][fr.clamp(min=0)], -1)
+        newf, _ = Mt._compact(torch.cat([lit, plus], dim=1), F)
+        fr = torch.where(active[:, None], newf, fr)
+    final = int(((fr >= 0) & (nwords <= L)[:, None]).sum())
+    return visits, final
+
+
+def kernel_report(torch, kinds) -> dict:
+    """Each kernel against its twin (must be equal), then its times."""
+    report = {}
+    for name, k in kinds.items():
+        want = k["plain"]()
+        torch.cuda.synchronize()
+        err = max_abs_err(k["out"], want, torch)
+        if err:
+            raise AssertionError(f"{name}: kernel != plain twin (max |diff| {err})")
+        ms = time_ms(k["kernel"], torch)
+        plain_ms = time_ms(k["plain"], torch, inner=PLAIN_INNER)
+        lib_ms = time_ms(k["library"], torch) if k.get("library") else None
+        dev_ms = device_ms(torch, name, k["kernel"])
+        bound_ms, bound_by = bound(k["bytes"], k["ops"])
+        src, replaces = SOURCES[name]
+        report[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            # the kernel alone on the device (CUPTI), without the launch
+            # path that `ms` includes
+            "device_ms": dev_ms,
+        }
+        phase("kernel", kernel=name, equal=True, ms=ms, device_ms=dev_ms,
+              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+              bytes=k["bytes"], ops=k["ops"])
+    return report
+
+
+def serving_kinds(torch, args, topics, nfa_cfg=None):
+    """The six serving kernels on one batch: inputs, outputs and work."""
     from emqx_tpu_torch.models import router_model as R
+    from emqx_tpu_torch.ops import matcher as Mt
     from emqx_tpu_torch.ops import shape_index as S
     from emqx_tpu_torch.ops import tokenizer as T
 
-    tables, salt, m_active, kslot = args
+    tables, nfa_tables, salt, m_active, kslot = args
     dev = tables["shape_tab"].device
-    mat, lens, _ = T.encode_topics(topic_batch(rng, BATCH), MAX_BYTES)
+    mat, lens, _ = T.encode_topics(topics, MAX_BYTES)
     bm = torch.from_numpy(mat).to(dev)
     ln = torch.from_numpy(lens).to(dev)
-    B, MB, L, M = BATCH, MAX_BYTES, MAX_LEVELS, m_active
+    B, MB, L, M = len(topics), MAX_BYTES, MAX_LEVELS, m_active
 
     tok = T.tokenize(bm, ln, salt, L)
     h1, h2, nw, dl = tok
     matched = S.shape_match(tables, M, h1, h2, nw, dl)
-    bits, pop = R.fanout_bitmaps(tables["sub_bitmaps"], matched)
+    kinds = {}
+    inputs = {"batch": B, "max_bytes": MB, "max_levels": L, "m_active": M, "kslot": kslot}
+    if nfa_tables is not None:
+        P = nfa_cfg["probes"]
+        F, K = nfa_cfg["frontier"], nfa_cfg["max_matches"]
+        syms = T.vocab_lookup(nfa_tables, h1, h2, P)
+        nfa_out = Mt.batch_match_syms(nfa_tables, syms, nw, dl, frontier=F,
+                                      max_matches=K, probes=P)
+        matched_all = torch.cat([matched, nfa_out[0]], dim=1)
+        in_vocab = int((syms >= 0).sum())
+        visits, final = nfa_work(torch, nfa_tables, syms, nw, dl, F)
+        nfa_hits = int((nfa_out[0] >= 0).sum())
+        inputs.update(frontier=F, max_matches=K, probes=P, in_vocab_lanes=in_vocab,
+                      nfa_state_visits=visits, nfa_final_states=final, nfa_hits=nfa_hits)
+        kinds["vocab_lookup"] = dict(
+            kernel=lambda: T.vocab_lookup(nfa_tables, h1, h2, P),
+            plain=lambda: T.vocab_lookup_plain(nfa_tables, h1, h2, P),
+            out=syms,
+            # the hash pairs in, the symbols out, one 12-byte vocab slot per
+            # lane found and one 4-byte symbol word per lane not found
+            bytes=3 * 4 * B * L + 12 * in_vocab + 4 * (B * L - in_vocab),
+            ops=B * L * (6 + 8 * P),
+        )
+        kinds["nfa_walk"] = dict(
+            kernel=lambda: Mt.batch_match_syms(nfa_tables, syms, nw, dl, frontier=F,
+                                               max_matches=K, probes=P),
+            plain=lambda: Mt.batch_match_syms_plain(nfa_tables, syms, nw, dl, frontier=F,
+                                                    max_matches=K, probes=P),
+            out=nfa_out,
+            # symbols, depth and `$` in; matched, count and four flags out;
+            # per live state and level its `#` and `+` words and one 12-byte
+            # edge slot; per final state its terminal and `#` words
+            bytes=4 * B * L + 5 * B + 4 * B * K + 4 * B + 4 * B
+            + 20 * visits + 8 * final,
+            ops=visits * (16 + 8 * P) + B * (L * 8 + K),
+        )
+    else:
+        matched_all = matched
+    bits, pop = R.fanout_bitmaps(tables["sub_bitmaps"], matched_all)
     W = bits.shape[1]
-    comp = R.compact_fanout_slots(bits, KSLOT)
+    Mall = matched_all.shape[1]
+    comp = R.compact_fanout_slots(bits, kslot)
     torch.cuda.synchronize()
 
     # least bytes each function must move at these inputs; ops are a
@@ -264,15 +607,15 @@ def kernels_vs_plain(torch, args, rng):
     valid = ok_len & (plen >= 0)[None, :] & ~(dl[:, None] & (flags & 2 != 0)[None, :])
     n_valid = int(valid.sum())
     n_hit = int((matched >= 0).sum())
-    fids = matched[matched >= 0].unique().numel()
+    fids = matched_all[matched_all >= 0].unique().numel()
     nbytes = int(ln.clamp(0, MB).sum())
-    kinds = {
+    inputs.update(width_words=W, valid_lanes=n_valid, shape_hits=n_hit,
+                  distinct_fids=fids, fanout_bits=int(pop.sum()))
+    kinds.update({
         "tokenize": dict(
             kernel=lambda: T.tokenize(bm, ln, salt, L),
             plain=lambda: T.tokenize_plain(bm, ln, salt, L),
             out=tok,
-            source="emqx_tpu_torch/kernels/csrc/tokenize.cu",
-            replaces="emqx_tpu/ops/tokenizer.py:147",
             bytes=B * MB + 4 * B + 2 * 4 * B * L + 4 * B + B,
             ops=6 * nbytes + 12 * B * L,
         ),
@@ -280,8 +623,6 @@ def kernels_vs_plain(torch, args, rng):
             kernel=lambda: S.shape_match(tables, M, h1, h2, nw, dl),
             plain=lambda: S.shape_match_plain(tables, M, h1, h2, nw, dl),
             out=matched,
-            source="emqx_tpu_torch/kernels/csrc/shape_match.cu",
-            replaces="emqx_tpu/ops/shape_index.py:1108",
             # inputs + one packed row and tombstone word per hit, one
             # packed and one hot row per valid lane that misses, output
             bytes=2 * 4 * B * L + 5 * B + 3 * 4 * M
@@ -289,67 +630,83 @@ def kernels_vs_plain(torch, args, rng):
             ops=B * M * 12 + n_valid * (6 * L + 30),
         ),
         "fanout_bitmaps": dict(
-            kernel=lambda: R.fanout_bitmaps(tables["sub_bitmaps"], matched),
-            plain=lambda: R.fanout_bitmaps_plain(tables["sub_bitmaps"], matched),
+            kernel=lambda: R.fanout_bitmaps(tables["sub_bitmaps"], matched_all),
+            plain=lambda: R.fanout_bitmaps_plain(tables["sub_bitmaps"], matched_all),
             out=(bits, pop),
-            source="emqx_tpu_torch/kernels/csrc/fanout.cu",
-            replaces="emqx_tpu/models/router_model.py:52",
-            bytes=4 * B * M + 4 * W * fids + 4 * B * W + 4 * B,
-            ops=B * W * (3 * M + 2),
+            bytes=4 * B * Mall + 4 * W * fids + 4 * B * W + 4 * B,
+            ops=B * W * (3 * Mall + 2),
         ),
         "compact_fanout_slots": dict(
-            kernel=lambda: R.compact_fanout_slots(bits, KSLOT),
-            plain=lambda: R.compact_fanout_slots_plain(bits, KSLOT),
+            kernel=lambda: R.compact_fanout_slots(bits, kslot),
+            plain=lambda: R.compact_fanout_slots_plain(bits, kslot),
             out=comp,
-            source="emqx_tpu_torch/kernels/csrc/compact.cu",
-            replaces="emqx_tpu/models/router_model.py:77",
-            bytes=4 * B * W + 4 * B * KSLOT + 4 * B + B,
+            bytes=4 * B * W + 4 * B * kslot + 4 * B + B,
             ops=B * W * 12 + int(pop.sum()) * 4,
         ),
-    }
-    report = {}
-    for name, k in kinds.items():
-        want = k["plain"]()
-        torch.cuda.synchronize()
-        err = max_abs_err(k["out"], want, torch)
-        if err:
-            raise AssertionError(f"{name}: kernel != plain twin (max |diff| {err})")
-        ms = time_ms(k["kernel"], torch)
-        plain_ms = time_ms(k["plain"], torch)
-        dev_ms = device_ms(torch, name, k["kernel"])
-        bound_ms, bound_by = bound(k["bytes"], k["ops"])
-        report[name] = {
-            "name": name, "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
-            # the kernel alone on the device (CUPTI), without the launch
-            # path that `ms` includes
-            "device_ms": dev_ms,
-        }
-        phase("kernel", kernel=name, equal=True, ms=ms, device_ms=dev_ms,
-              plain_ms=plain_ms, bound_ms=bound_ms, bytes=k["bytes"], ops=k["ops"])
-    phase("kernel_inputs", batch=B, max_bytes=MB, max_levels=L, m_active=M,
-          width_words=W, kslot=KSLOT, valid_lanes=n_valid, hits=n_hit,
-          distinct_fids=fids, fanout_bits=int(pop.sum()))
-    return report
+    })
+    return kinds, inputs
 
 
-def route_breakdown(torch, router, rng, n_batches: int = 5) -> dict:
-    """Where one routed batch's time goes, medians over n_batches (host
+def scatter_kind(torch, call):
+    """The segment_scatter kernel on one recorded main-path call (flats,
+    idxs, vals): against its twin, and index_put_ on the clones as the
+    library yardstick."""
+    from emqx_tpu_torch.ops import segments as G
+
+    flats, idxs, vals = call
+    dev = next(iter(flats.values())).device
+    out = G.segment_scatter(flats, idxs, vals)
+    dvec = {}
+    for k in flats:
+        ix, vv = G._last_writes(idxs[k], vals[k])
+        dvec[k] = (torch.from_numpy(ix).to(dev), torch.from_numpy(vv).to(dev))
+
+    def library():
+        res = {}
+        for k, flat in flats.items():
+            res[k] = flat.clone()
+            res[k].view(-1).index_put_((dvec[k][0],), dvec[k][1])
+        return res
+
+    n = sum(len(v[0]) for v in dvec.values())
+    table_bytes = sum(t.numel() * 4 for t in flats.values())
+    info = {"arrays": {k: [int(t.numel()), len(dvec[k][0])] for k, t in flats.items()},
+            "entries": n, "cloned_bytes": table_bytes}
+    return dict(
+        kernel=lambda: G.segment_scatter(flats, idxs, vals),
+        plain=lambda: G.segment_scatter_plain(flats, idxs, vals),
+        library=library,
+        out=out,
+        # fresh outputs: every touched array read once and written once,
+        # plus a 4-byte index and value read and a word written per entry
+        bytes=2 * table_bytes + 12 * n,
+        ops=4 * n,
+    ), info
+
+
+# -- the mixed_1m path -------------------------------------------------------
+
+
+def topic_batch_1m(rng, n):
+    ids = zipf_ids(rng, n, 1000)
+    nums = rng.integers(0, 1000, size=n)
+    return [f"device/{i}/mid/{j}/leaf" for i, j in zip(ids, nums)]
+
+
+def route_breakdown(torch, router, batches, nfa_cfg=None) -> dict:
+    """Where one routed batch's time goes, medians over the batches (host
     clock, each stage ending in a synchronize): host encode, host->device
-    copy of the topic bytes, the four launches up to their completion,
-    and the readback; then a whole route() of the same batch. Plus the
-    device's busy share of n_batches profiled route() calls."""
+    copy of the topic bytes, the launches up to their completion, and the
+    readback; then a whole route() of the same batch. Plus the device's
+    busy share of profiled route() calls."""
     from emqx_tpu_torch.models.router_model import shape_route_step
     from emqx_tpu_torch.ops.tokenizer import encode_topics
 
-    tables, salt, m_active, kslot = router.prepare()
+    args = router.prepare()
+    cfg = router.config
     dev = router.device
     names = ("encode", "h2d", "kernels", "readback", "route")
     samples = {k: [] for k in names}
-    batches = [topic_batch(rng, BATCH) for _ in range(n_batches)]
     for topics in batches:
         torch.cuda.synchronize()
         t = [time.perf_counter()]
@@ -359,11 +716,15 @@ def route_breakdown(torch, router, rng, n_batches: int = 5) -> dict:
         ln = torch.from_numpy(lens).to(dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        out = shape_route_step(tables, bm, ln, m_active=m_active, salt=salt,
-                               max_levels=MAX_LEVELS, kslot=kslot, device=dev)
+        out = shape_route_step(
+            args.tables, bm, ln, m_active=args.m_active, salt=args.salt,
+            nfa_tables=args.nfa_tables, with_nfa=args.nfa_tables is not None,
+            max_levels=cfg.max_levels, frontier=cfg.frontier,
+            max_matches=cfg.max_matches, probes=cfg.probes, kslot=args.kslot,
+            device=dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        router._readback(out, len(topics), too_long, kslot)
+        router._readback(out, len(topics), too_long, args.kslot)
         t.append(time.perf_counter())
         router.route(topics)
         t.append(time.perf_counter())
@@ -371,25 +732,49 @@ def route_breakdown(torch, router, rng, n_batches: int = 5) -> dict:
             samples[k].append(1e3 * (b - a))
     med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
     it = iter(batches * 2)
-    events, wall = profiled(torch, lambda: router.route(next(it)), n_batches)
+    events, wall = profiled(torch, lambda: router.route(next(it)), len(batches))
     busy = sum(e.self_device_time_total for e in events) / 1e6
     med["device_busy_share"] = busy / wall if busy > 0 else None
     med["topics_per_s"] = BATCH / (med["route_ms"] / 1e3)
     return med
 
 
-def route_phase(torch, index, subtab, router, rng):
-    """Phase 4: the main path through DeviceRouter.route, checked row by row."""
+def mixed_1m_path(torch, rng):
+    """Phases 2-5: the shape-only path at mixed_1m."""
     from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+
+    t0 = time.perf_counter()
+    index, subtab = build_mixed_1m()
+    host_s = time.perf_counter() - t0
+    router = DeviceRouter(
+        index, subtab, MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
+        device="cuda",
+    )
+    t0 = time.perf_counter()
+    args = router.prepare()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if index.residual_count != 0 or args.kslot != KSLOT:
+        raise AssertionError(f"residual {index.residual_count}, kslot {args.kslot}")
+    phase("tables", filters=len(index), residual_count=index.residual_count,
+          m_active=args.m_active, kslot=args.kslot, host_build_seconds=host_s,
+          upload_seconds=upload_s,
+          device_bytes={k: t.numel() * t.element_size() for k, t in args.tables.items()})
+
+    kinds, inputs = serving_kinds(torch, args, topic_batch_1m(rng, BATCH))
+    report = kernel_report(torch, kinds)
+    phase("kernel_inputs", **inputs)
 
     oracle = Oracle(index, subtab)
     batches = []
     for _ in range(ROUTE_BATCHES):
-        topics = topic_batch(rng, BATCH)
+        topics = topic_batch_1m(rng, BATCH)
         topics[: len(EDGE_TOPICS)] = EDGE_TOPICS
         batches.append(topics)
-    churn_topics = topic_batch(rng, BATCH)
-    churn_topics[: 64] = [f"device/7/mid/{j}/leaf" for j in range(64)]
+    churn_topics = topic_batch_1m(rng, BATCH)
+    churn_topics[:64] = [f"device/7/mid/{j}/leaf" for j in range(64)]
 
     kernels.reset_launches()
     summary = []
@@ -416,11 +801,282 @@ def route_phase(torch, index, subtab, router, rng):
     if after_unsub["overflow_rows"] != 0:
         raise AssertionError("overflow rows remain after unsubscribe")
     launches = dict(kernels.LAUNCHES)
-    if not all(launches.values()):
+    path = ("tokenize", "shape_match", "fanout_bitmaps", "compact_fanout_slots")
+    if not all(launches[k] for k in path):
         raise AssertionError(f"a kernel never launched on the main path: {launches}")
     phase("route", batches=summary, churn_subscribe=after_sub,
-          churn_unsubscribe=after_unsub, launches=launches)
-    return launches
+          churn_unsubscribe=after_unsub, launches=launches,
+          segment_status=router.segment_status())
+    brk = [topic_batch_1m(rng, BATCH) for _ in range(3)]
+    phase("route_breakdown", **route_breakdown(torch, router, brk))
+    return report
+
+
+# -- the mixed_10m path ------------------------------------------------------
+
+
+def mirror_bytes(tensors) -> dict:
+    return {k: t.numel() * t.element_size() for k, t in tensors.items()}
+
+
+def check_mirrors(torch, router) -> dict:
+    """Copy every mirror back and compare it bit for bit with the host
+    table it mirrors."""
+    args = router.prepare()
+    pairs = (
+        ("shapes", {k: v for k, v in args.tables.items() if k != "sub_bitmaps"},
+         router.index.shapes),
+        ("nfa", args.nfa_tables, router.index.nfa),
+        ("bitmaps", {"sub_bitmaps": args.tables["sub_bitmaps"]}, router.subtab),
+    )
+    checked = {}
+    for name, dev_tabs, src in pairs:
+        snap = src.device_snapshot()
+        if set(snap) != set(dev_tabs):
+            raise AssertionError(f"{name}: arrays {sorted(dev_tabs)} != {sorted(snap)}")
+        for k, host in snap.items():
+            got = dev_tabs[k].cpu().numpy()
+            if got.shape != host.shape or not np.array_equal(got.view(host.dtype), host):
+                raise AssertionError(f"mirror {name}/{k} differs from the host table")
+        checked[name] = sorted(snap)
+    return checked
+
+
+def mirror_counts(router):
+    return {k: dict(v) for k, v in router.segment_status().items()}
+
+
+def moved(before, after, key):
+    return {m: after[m][key] - before[m][key] for m in after}
+
+
+def route_checked(router, batches, oracle):
+    out = []
+    for topics in batches:
+        t0 = time.perf_counter()
+        res = router.route(topics)
+        wall = time.perf_counter() - t0
+        m = res.matched.shape[1] - router.config.max_matches
+        nfa_hits = int((res.matched[:, m:] >= 0).sum())
+        out.append({"route_ms": wall * 1e3, "nfa_hits": nfa_hits,
+                    "readback_bytes": res.readback_bytes,
+                    **check_batch(res, topics, oracle, exact_flags=False)})
+    return out
+
+
+def mixed_10m_path(torch, rng):
+    """Phases 6-9: the residual NFA lane and the O(delta) mirror at
+    mixed_10m. -> (kernel report, launches on the path)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.convert import upload
+    from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops import segments as G
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+
+    t0 = time.perf_counter()
+    index, subtab, filters, families, secs = build_mixed_10m(rng)
+    build_s = time.perf_counter() - t0
+    if index.shapes.m_active() != 64 or index.residual_count <= 0:
+        raise AssertionError(f"m_active {index.shapes.m_active()}, "
+                             f"residual {index.residual_count}")
+    residual_families = families[62:]
+    residual_shapes = {shape_of(filters[lo]) for _p, _d, lo, _hi in residual_families}
+    router = DeviceRouter(
+        index, subtab,
+        MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES, **NFA_CFG),
+        device="cuda",
+    )
+    t0 = time.perf_counter()
+    args = router.prepare()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    shape_b = mirror_bytes({k: v for k, v in args.tables.items() if k != "sub_bitmaps"})
+    nfa_b = mirror_bytes(args.nfa_tables)
+    bits_b = mirror_bytes({"sub_bitmaps": args.tables["sub_bitmaps"]})
+    phase("tables_10m", filters=len(index), subscriptions=subtab.live,
+          m_active=args.m_active, residual_count=index.residual_count,
+          residual_families=[[list(p), d, hi - lo] for p, d, lo, hi in residual_families],
+          kslot=args.kslot, build_seconds=build_s, build_stage_seconds=secs,
+          upload_seconds=upload_s,
+          device_bytes={"shapes": shape_b, "nfa": nfa_b, "bitmaps": bits_b,
+                        "total": sum(shape_b.values()) + sum(nfa_b.values())
+                        + sum(bits_b.values())},
+          reduced=[])
+    oracle = Oracle(index, subtab, residual_shapes)
+
+    def zipf_batch():
+        return mixed_10m_topics(rng, BATCH)
+
+    def residual_batch(extra=()):
+        picks = []
+        for _p, _d, lo, hi in residual_families:
+            picks += [filters[i] for i in rng.integers(lo, hi, size=BATCH // 2)]
+        topics = topics_from_filters(rng, picks)
+        topics[: len(extra)] = list(extra)
+        return topics
+
+    batches = [zipf_batch() for _ in range(ROUTE_BATCHES)]
+    for b in batches:
+        b[: len(EDGE_TOPICS_10M)] = EDGE_TOPICS_10M
+    batches.append(residual_batch(EDGE_TOPICS_10M))
+
+    # -- route_10m: the counters are zeroed here and read after churn_10m
+    kernels.reset_launches()
+    routed = route_checked(router, batches, oracle)
+    after_route = dict(kernels.LAUNCHES)
+    for k in ("vocab_lookup", "nfa_walk", "tokenize", "shape_match"):
+        if after_route[k] != len(batches):
+            raise AssertionError(f"{k}: {after_route[k]} launches for {len(batches)} batches")
+    if routed[-1]["nfa_hits"] == 0:
+        raise AssertionError("the residual batch found no NFA hits")
+    phase("route_10m", batches=routed, launches=after_route)
+
+    # -- churn_10m
+    scatter_calls = []
+    real_scatter = G.segment_scatter
+
+    def recording_scatter(flats, idxs, vals):
+        scatter_calls.append((dict(flats), dict(idxs), dict(vals)))
+        return real_scatter(flats, idxs, vals)
+
+    churn = {}
+    # (a) the NFA's op-log cap: churn one residual filter until its epoch
+    # bumps; that mirror alone must re-upload, in full
+    c0 = mirror_counts(router)
+    e0 = index.nfa.epoch
+    f = "v/+/600/+/1/1/+/1"
+    for cycles in range(1, 100_000):
+        index.add(f)
+        index.remove(f)
+        if index.nfa.epoch != e0:
+            break
+    else:
+        raise AssertionError("the NFA epoch never moved")
+    t0 = time.perf_counter()
+    router.prepare()
+    torch.cuda.synchronize()
+    churn["epoch_bump"] = {"cycles": cycles, "prepare_ms": 1e3 * (time.perf_counter() - t0)}
+    c1 = mirror_counts(router)
+    full = moved(c0, c1, "full_resyncs")
+    if full != {"shapes": 0, "nfa": 1, "bitmaps": 0}:
+        raise AssertionError(f"epoch bump: full resyncs {full}")
+    churn["epoch_bump"]["full_resyncs"] = full
+
+    def epochs_now():
+        return {"shapes": index.shapes.epoch, "nfa": index.nfa.epoch,
+                "bitmaps": subtab.epoch}
+
+    def check_wave(what, before, after, e0, e1):
+        """A wave reaches each mirror as scatters (or, for a rebuilt small
+        array such as the shape index's hot segment, a re-upload of that
+        array alone): a full resync only where the host table itself had a
+        structural event (its epoch moved: growth, rehash)."""
+        full = moved(before, after, "full_resyncs")
+        deltas = moved(before, after, "delta_launches")
+        arrays = moved(before, after, "array_resyncs")
+        grown = {m: e1[m] != e0[m] for m in e0}
+        for m in full:
+            if full[m] != int(grown[m]) or (not grown[m] and deltas[m] + arrays[m] < 1):
+                raise AssertionError(f"{what}: {m} full {full[m]}, delta {deltas[m]}, "
+                                     f"arrays {arrays[m]}, epoch moved {grown[m]}")
+        if not any(deltas.values()):
+            raise AssertionError(f"{what}: no scatter launched")
+        return deltas, grown
+
+    # (b) a subscribe wave: new residual and shape-family filters (ids past
+    # the generator's spaces, so every one is new), their subscribers, and
+    # extra subscribers on popular overlays that push rows past kslot
+    n_new = 300
+    k = np.arange(n_new)
+    new_res = format_rows(["v/+/", (500 + k, 500 + n_new), "/+/", (k % 400, 400), "/",
+                           (k % 300, 300), "/+/", (k % 100, 100)], n_new)
+    new_shape = format_rows(["v/+/", (500 + k, 500 + n_new), "/", (k % 100, 100), "/#"],
+                            n_new)
+    if shape_of(new_res[0]) not in residual_shapes:
+        raise AssertionError("the new residual filters have a device shape")
+    epochs = epochs_now()
+    added = []
+    for i, name in enumerate(new_res + new_shape):
+        fid = index.add(name)
+        for s in (i % 64, 64 + i % 192):
+            subtab.add(fid, s)
+            added.append((fid, s))
+    hot = [index.filter_id(f"v/{a}/#") for a in range(4)]
+    for fid in hot:
+        for s in range(64, 164):
+            if not (subtab.arr[fid, s // 32] >> np.uint32(s % 32)) & 1:
+                subtab.add(fid, s)
+                added.append((fid, s))
+    G.segment_scatter = recording_scatter
+    try:
+        c1 = mirror_counts(router)
+        t0 = time.perf_counter()
+        router.prepare()
+        torch.cuda.synchronize()
+        delta_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        G.segment_scatter = real_scatter
+    c2 = mirror_counts(router)
+    deltas, grown = check_wave("subscribe wave", c1, c2, epochs, epochs_now())
+    mirrors = check_mirrors(torch, router)
+    churn_topics = [zipf_batch(), residual_batch(
+        topics_from_filters(rng, new_res + new_shape)
+        + [f"v/{a}/1/2/3/4/5/6" for a in range(4) for _ in range(16)])]
+    after_sub = route_checked(router, churn_topics, oracle)
+    if not any(b["overflow_rows"] for b in after_sub):
+        raise AssertionError("the subscribe wave produced no rows past kslot")
+    churn["subscribe"] = {"filters": 2 * n_new, "bits": len(added), "prepare_ms": delta_ms,
+                          "delta_launches": deltas, "epoch_moved": grown,
+                          "array_resyncs": moved(c1, c2, "array_resyncs"),
+                          "mirrors_equal": mirrors, "routed": after_sub}
+
+    # (c) the unsubscribe wave undoes all of it
+    epochs = epochs_now()
+    for fid, s in added:
+        subtab.remove(fid, s)
+    for name in new_res + new_shape:
+        index.remove(name)
+    t0 = time.perf_counter()
+    router.prepare()
+    torch.cuda.synchronize()
+    unsub_ms = 1e3 * (time.perf_counter() - t0)
+    c3 = mirror_counts(router)
+    unsub_deltas, grown = check_wave("unsubscribe wave", c2, c3, epochs, epochs_now())
+    mirrors = check_mirrors(torch, router)
+    after_unsub = route_checked(router, churn_topics, oracle)
+    if any(b["overflow_rows"] for b in after_unsub):
+        raise AssertionError("rows past kslot remain after the unsubscribe wave")
+    churn["unsubscribe"] = {"prepare_ms": unsub_ms, "delta_launches": unsub_deltas,
+                            "epoch_moved": grown,
+                            "mirrors_equal": mirrors, "routed": after_unsub}
+    launches = dict(kernels.LAUNCHES)
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the mixed_10m path: {launches}")
+
+    # delta sync against the full re-upload of every mirror
+    def full_upload():
+        upload(index.shapes.device_snapshot(), "cuda")
+        upload(index.nfa.device_snapshot(), "cuda")
+        upload(subtab.device_snapshot(), "cuda")
+
+    churn["full_upload_ms"] = host_ms(full_upload, torch, reps=3)
+    churn["delta_sync_ms"] = delta_ms
+    phase("churn_10m", **churn, launches=launches, segment_status=mirror_counts(router))
+
+    # -- kernels at mixed_10m shapes
+    args = router.prepare()
+    kinds, inputs = serving_kinds(torch, args, batches[-1], NFA_CFG)
+    bits_call = next(c for c in scatter_calls if "sub_bitmaps" in c[0])
+    kinds["segment_scatter"], scatter_info = scatter_kind(torch, bits_call)
+    inputs["segment_scatter"] = scatter_info
+    inputs["segment_scatter_calls"] = [
+        {k: len(v) for k, v in c[1].items()} for c in scatter_calls]
+    report = kernel_report(torch, kinds)
+    phase("kernel_inputs_10m", **inputs)
+
+    brk = [zipf_batch() for _ in range(3)] + [residual_batch()]
+    phase("route_breakdown_10m", **route_breakdown(torch, router, brk))
+    return report, launches
 
 
 def main() -> int:
@@ -430,8 +1086,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from emqx_tpu_torch.kernels import build
-    from emqx_tpu_torch.models.router_model import DeviceRouter
-    from emqx_tpu_torch.ops.matcher import MatcherConfig
 
     card = card_line()
     print(card, flush=True)
@@ -442,29 +1096,12 @@ def main() -> int:
           build_seconds=time.perf_counter() - t0)
 
     rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    index, subtab = build_tables()
-    host_s = time.perf_counter() - t0
-    router = DeviceRouter(
-        index, subtab, MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
-        device="cuda",
-    )
-    t0 = time.perf_counter()
-    args = router.prepare()
-    torch.cuda.synchronize()
-    upload_s = time.perf_counter() - t0
-    if index.residual_count != 0 or args[3] != KSLOT:
-        raise AssertionError(f"residual {index.residual_count}, kslot {args[3]}")
-    phase("tables", filters=len(index), residual_count=index.residual_count,
-          m_active=args[2], kslot=args[3], host_build_seconds=host_s,
-          upload_seconds=upload_s,
-          device_bytes={k: t.numel() * t.element_size() for k, t in args[0].items()})
-
-    report = kernels_vs_plain(torch, args, rng)
-    launches = route_phase(torch, index, subtab, router, rng)
-    phase("route_breakdown", **route_breakdown(torch, router, rng))
-    for name, n in launches.items():
-        report[name]["launches"] = n
+    report_1m = mixed_1m_path(torch, rng)
+    phase("kernels_1m", kernels=list(report_1m.values()))
+    torch.cuda.empty_cache()
+    report, launches = mixed_10m_path(torch, rng)
+    for name in report:
+        report[name]["launches"] = launches[name]
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

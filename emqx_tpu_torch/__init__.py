@@ -1,31 +1,39 @@
 """emqx_tpu_torch: the PyTorch/CUDA port of emqx_tpu's device engine.
 
-This slice carries the single-device, shape-index publish-routing path:
-host tables (`ops.route_index.RouteIndex`, `models.router_model.
-SubscriberTable`) -> upload (`convert.tables_to_device`) -> four
-hand-written CUDA kernels (tokenize, shape match, fan-out OR, slot
-compaction) -> one coalesced readback (`models.router_model.DeviceRouter`).
+This package carries the single-device publish-routing path: host tables
+(`ops.route_index.RouteIndex` with its shape index and residual NFA,
+`models.router_model.SubscriberTable`) -> device mirrors
+(`ops.segments.DeviceSegmentManager`: full upload on an epoch change,
+O(delta) `segment_scatter` otherwise) -> hand-written CUDA kernels
+(tokenize, shape match, vocab lookup + NFA walk for residual filters,
+fan-out OR, slot compaction) -> one coalesced readback
+(`models.router_model.DeviceRouter`).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs each kernel's plain PyTorch twin instead.
 """
 
-from emqx_tpu_torch.convert import resolve_device, tables_to_device
+from emqx_tpu_torch.convert import resolve_device, tables_to_device, upload
 from emqx_tpu_torch.models.router_model import (
     DeviceRouter,
+    Prepared,
     RouteResult,
     SubscriberTable,
     shape_route_step,
 )
 from emqx_tpu_torch.ops.route_index import RouteIndex
+from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 
 __all__ = [
     "DeviceRouter",
+    "DeviceSegmentManager",
+    "Prepared",
     "RouteIndex",
     "RouteResult",
     "SubscriberTable",
     "resolve_device",
     "shape_route_step",
     "tables_to_device",
+    "upload",
 ]

@@ -1,11 +1,14 @@
 """Host tables -> the port's device tensors.
 
-`tables_to_device` is the port's counterpart of "weights carried across":
-it takes the numpy arrays the host builders hand out —
-`ShapeIndex.device_snapshot()` and `SubscriberTable.pack()`, of either
-package, which agree byte for byte — and uploads them as the tensors the
+`upload` is the port's counterpart of "weights carried across": it takes
+any snapshot dict the host builders hand out — `ShapeIndex`,
+`NfaBuilder` or `SubscriberTable` `.device_snapshot()`, of either package,
+which agree byte for byte — and uploads each array as the tensor the
 kernels read. uint32 arrays are reinterpreted bit for bit as int32 (the
-kernels read them back as uint32_t); no value is converted.
+kernels read them back as uint32_t); no value is converted. Every full
+resync of `ops.segments.DeviceSegmentManager` goes through it;
+`tables_to_device` gathers the shape tables and the subscriber bitmaps
+into the one dict `models.router_model.shape_route_step` reads.
 
 `resolve_device` is the one place an entry point turns its `device`
 argument into a torch device: CUDA unless the caller asks for the CPU, and
@@ -54,6 +57,13 @@ def _to_device(arr: np.ndarray, name: str, device) -> torch.Tensor:
     return torch.from_numpy(_as_int32(arr, name)).to(device, copy=True)
 
 
+def upload(snapshot: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """{name: int32 or uint32 host array} -> {name: fresh int32 tensor on
+    `device`} of the same shapes and bits."""
+    dev = resolve_device(device)
+    return {k: _to_device(v, k, dev) for k, v in snapshot.items()}
+
+
 def tables_to_device(
     shape_snapshot: Dict[str, np.ndarray],
     sub_bitmaps: np.ndarray,
@@ -64,9 +74,8 @@ def tables_to_device(
 
     shape_snapshot: `ShapeIndex.device_snapshot()`; sub_bitmaps: uint32
     [Fcap, W] from `SubscriberTable.pack(index.num_filters_capacity)`."""
-    dev = resolve_device(device)
-    out = {k: _to_device(shape_snapshot[k], k, dev) for k in SHAPE_TABLE_KEYS}
     if sub_bitmaps.ndim != 2:
         raise ValueError(f"sub_bitmaps: expected [Fcap, W], got {sub_bitmaps.shape}")
-    out["sub_bitmaps"] = _to_device(sub_bitmaps, "sub_bitmaps", dev)
-    return out
+    snap = {k: shape_snapshot[k] for k in SHAPE_TABLE_KEYS}
+    snap["sub_bitmaps"] = sub_bitmaps
+    return upload(snap, device)

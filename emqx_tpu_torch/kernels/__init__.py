@@ -2,10 +2,11 @@
 checks every wrapper shares.
 
 Each kernel lives beside its plain PyTorch twin in the module of its JAX
-counterpart (`ops/tokenizer.py`, `ops/shape_index.py`,
-`models/router_model.py`). A wrapper given CPU tensors runs the twin; given
-CUDA tensors it launches the kernel (built at first use by `build.load`)
-and raises on any failure — there is no fallback from one to the other.
+counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
+`ops/segments.py`, `models/router_model.py`). A wrapper given CPU tensors
+runs the twin; given CUDA tensors it launches the kernel (built at first
+use by `build.load`) and raises on any failure — there is no fallback from
+one to the other.
 
 `LAUNCHES` counts kernel launches per wrapper: the wrapper adds one right
 after its kernel launched, and nowhere else, so a run can show that its
@@ -21,6 +22,9 @@ LAUNCHES = {
     "shape_match": 0,
     "fanout_bitmaps": 0,
     "compact_fanout_slots": 0,
+    "vocab_lookup": 0,
+    "nfa_walk": 0,
+    "segment_scatter": 0,
 }
 
 

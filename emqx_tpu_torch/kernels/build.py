@@ -54,6 +54,16 @@ _SIGNATURES = {
     "emqx_fanout_bitmaps": (_P, _L, _P, _P, _P, _I, _I, _I, _P),
     # bitmaps, slots, count, overflow, B, W, kslot, stream
     "emqx_compact_fanout_slots": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # h1, h2, vocab_h1, vocab_h2, vocab_sym, V, sym, n, probes, stream
+    "emqx_vocab_lookup": (_P, _P, _P, _P, _P, _L, _P, _L, _I, _P),
+    # syms, nwords, dollar, plus_child, hash_filter, term_filter, edge_node,
+    # edge_sym, edge_child, E, matched, mcount, flags, B, L, F, K, probes,
+    # stream
+    "emqx_nfa_walk": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    ),
+    # buf (A pointers + ids, indices, values), A, n, stream
+    "emqx_segment_scatter": (_P, _I, _L, _P),
 }
 
 _lib = None  # the loaded library (the port's one extension handle)

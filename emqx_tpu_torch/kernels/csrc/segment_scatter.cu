@@ -1,0 +1,45 @@
+// Kernel 7: O(delta) replay of a table's op-log suffix onto its device
+// mirror, every touched array in one launch.
+//
+// Replaces `segment_scatter_impl` (emqx_tpu/ops/segments.py:73):
+// flats[a][idx] = val for every (array a, flat index, value) entry of the
+// suffix. The wrapper hands over ONE int64 buffer [A + 3n]: the A arrays'
+// base pointers, then n array ids, n flat indices and n values (the int32
+// bits of each value, sign-extended). Every mirrored array holds 4-byte
+// words (int32, or uint32 bits in an int32 tensor). The host has already
+// kept the last write per slot, so no two entries touch one word and the
+// writes need no atomics; the wrapper scatters into fresh clones, so a
+// snapshot a caller still holds never changes under it (the JAX
+// function's outputs are fresh buffers too). Unlike the JAX version,
+// nothing is padded to a power of two: there is no compiled program whose
+// shape the delta would have to match.
+//
+// Bound: bytes. Each entry reads 24 bytes and writes one 4-byte word at a
+// random address; no arithmetic. Design: one thread per entry.
+#include "common.cuh"
+
+namespace {
+
+__global__ void segment_scatter_kernel(const long long* __restrict__ buf,
+                                       int A, long long n) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (t >= n) return;
+  const long long* ent = buf + A;
+  int32_t* base = reinterpret_cast<int32_t*>(buf[ent[t]]);
+  base[ent[n + t]] = static_cast<int32_t>(ent[2 * n + t]);
+}
+
+}  // namespace
+
+EMQX_EXPORT int emqx_segment_scatter(const void* buf, int A, long long n,
+                                     void* stream) {
+  if (n > 0) {
+    constexpr int kThreads = 256;
+    segment_scatter_kernel<<<static_cast<unsigned>((n + kThreads - 1) /
+                                                   kThreads),
+                             kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(buf), A, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,37 +1,43 @@
 """The serving step: topics -> matched filters -> subscriber slots, on one
 device. The port's counterpart of `emqx_tpu/models/router_model.py`,
-restricted to the shape-index path with dense subscriber bitmaps.
+restricted to the shape-index path (with the residual-NFA lane) and dense
+subscriber bitmaps.
 
-One routed batch runs four hand-written CUDA kernels, in order:
+One routed batch runs these hand-written CUDA kernels, in order:
 
   tokenize (ops/tokenizer.py)  ->  shape_match (ops/shape_index.py)
+  [->  vocab_lookup (ops/tokenizer.py)  ->  nfa_walk (ops/matcher.py),
+       when the table holds residual filters]
   ->  fanout_bitmaps  ->  compact_fanout_slots   (this module)
 
 then `DeviceRouter._readback` brings the trimmed outputs to the host in
 one copy. Subscriber state is the dense bitmap matrix
 ``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor): row = filter
 id, bit = subscriber slot. Each kernel has its plain PyTorch twin in the
-same module; a wrapper runs the twin only for CPU tensors.
+same module; a wrapper runs the twin only for CPU tensors. The device
+copies of the shape index, the NFA and the bitmaps are kept current by
+three `ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
 
-Not in this slice, and refused rather than routed elsewhere: residual-NFA
-filters (`DeviceRouter.prepare` raises), the sparse CSR subscriber table
-(`SubscriberTable.set_mode` raises), `$share` picks, the semantic and rule
-stages, retained and session fusion, and the mesh.
+Not in this slice, and refused rather than routed elsewhere: the sparse
+CSR subscriber table (`SubscriberTable.set_mode` raises), `$share` picks,
+the semantic and rule stages, retained and session fusion, and the mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from emqx_tpu_torch import kernels
-from emqx_tpu_torch.convert import resolve_device, tables_to_device
-from emqx_tpu_torch.ops.matcher import MatcherConfig
-from emqx_tpu_torch.ops.nfa import _next_pow2
+from emqx_tpu_torch.convert import resolve_device
+from emqx_tpu_torch.ops.matcher import MatcherConfig, batch_match_syms
+from emqx_tpu_torch.ops.nfa import MAX_PROBES, _next_pow2
+from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 from emqx_tpu_torch.ops.shape_index import shape_match
-from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize
+from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize, vocab_lookup
 from emqx_tpu_torch.ops.u32 import u32
 
 
@@ -150,25 +156,38 @@ def shape_route_step(
     *,
     m_active: int,
     salt: int,
+    nfa_tables: Optional[Dict[str, torch.Tensor]] = None,
+    with_nfa: bool = False,
     max_levels: int = 16,
+    frontier: int = 32,
+    max_matches: int = 64,
+    probes: int = MAX_PROBES,
     kslot: int = 0,
     device="cuda",
 ):
-    """The serving step: tokenize -> shape match -> fan-out (-> compact).
+    """The serving step: tokenize -> shape match (-> residual NFA) ->
+    fan-out (-> compact).
 
     The counterpart of `shape_route_step_impl`
-    (emqx_tpu/models/router_model.py:225) with ``with_nfa=False``, dense
-    ``sub_bitmaps`` and no groups, semantic or rule stage. `tables` come
-    from `convert.tables_to_device` on `device`; bytes_mat uint8 [B, MB]
-    and lengths int32 [B] (numpy or tensors) as `encode_topics` makes them.
+    (emqx_tpu/models/router_model.py:225) with dense ``sub_bitmaps`` and no
+    groups, semantic or rule stage. `tables` holds the shape tables and
+    ``sub_bitmaps`` on `device` (`convert.tables_to_device`, or the
+    `DeviceRouter` mirrors); bytes_mat uint8 [B, MB] and lengths int32 [B]
+    (numpy or tensors) as `encode_topics` makes them. ``with_nfa`` runs
+    the residual lane over `nfa_tables` (`NfaBuilder.device_snapshot()`
+    uploaded): the topics' word hashes become symbols (`vocab_lookup`) and
+    walk the NFA (`batch_match_syms`), whose K = `max_matches` columns join
+    the shape lane's M and whose flags join the row flags.
 
-    Returns {matched [B, M] (sparse, -1 holes), mcount [B], flags [B]
-    (too deep: the host must route the row), bitmaps [B, W], stats
-    {routed, matches, fanout_bits}} and, with ``kslot > 0``, slots
-    [B, kslot], slot_count [B] and overflow [B].
+    Returns {matched [B, M (+ K)] (sparse, -1 holes), mcount [B], flags [B]
+    (too deep or NFA overflow: the host must route the row), bitmaps
+    [B, W], stats {routed, matches, fanout_bits}} and, with ``kslot > 0``,
+    slots [B, kslot], slot_count [B] and overflow [B].
     """
     dev = resolve_device(device)
-    for k, t in tables.items():
+    if with_nfa and nfa_tables is None:
+        raise ValueError("with_nfa needs nfa_tables")
+    for k, t in list(tables.items()) + list((nfa_tables or {}).items()):
         if t.device != dev:
             raise ValueError(f"table {k} lies on {t.device}, not {dev}")
     bytes_mat = torch.as_tensor(bytes_mat, dtype=torch.uint8, device=dev)
@@ -176,6 +195,14 @@ def shape_route_step(
     h1, h2, nwords, dollar = tokenize(bytes_mat, lengths, salt, max_levels)
     matched = shape_match(tables, m_active, h1, h2, nwords, dollar)
     flags = nwords > max_levels
+    if with_nfa:
+        syms = vocab_lookup(nfa_tables, h1, h2, probes)
+        m2, _c2, f2, _causes2 = batch_match_syms(
+            nfa_tables, syms, nwords, dollar, frontier=frontier,
+            max_matches=max_matches, probes=probes,
+        )
+        matched = torch.cat([matched, m2], dim=1)
+        flags = flags | f2
     mcount = (matched >= 0).sum(dim=1, dtype=torch.int32)
     bitmaps, popcount = fanout_bitmaps(tables["sub_bitmaps"], matched)
     out = {
@@ -214,8 +241,8 @@ class SubscriberTable:
     dense mode of `SubscriberTable` (emqx_tpu/models/router_model.py:998).
 
     Every scalar write is op-logged (flat index) and growth bumps `epoch`,
-    as in the JAX package; the port's device mirror re-uploads on a
-    version change until the O(delta) scatter is ported.
+    as in the JAX package, so the router's `DeviceSegmentManager` mirror
+    replays churn as O(delta) scatters and re-uploads only on growth.
     """
 
     OPLOG_MAX = 65536
@@ -323,7 +350,7 @@ class RouteResult(NamedTuple):
     ``readback_bytes`` is the device->host transfer this batch paid.
     """
 
-    matched: np.ndarray  # [B, M] sparse fids, -1 holes
+    matched: np.ndarray  # [B, M (+ K)] sparse fids, -1 holes
     mcount: np.ndarray  # [B]
     flags: np.ndarray  # [B] host-must-fallback rows
     bitmaps: Optional[np.ndarray]  # [B, W] uint32 (None on compact path)
@@ -341,18 +368,29 @@ class RouteResult(NamedTuple):
 KSLOT_MIN = 64
 
 
+class Prepared(NamedTuple):
+    """Immutable device state of one `DeviceRouter.prepare()`: the tensors
+    hold one generation of the mirrors, which a later sync never writes."""
+
+    tables: Dict[str, torch.Tensor]  # shape tables + "sub_bitmaps"
+    nfa_tables: Optional[Dict[str, torch.Tensor]]  # None: no residual filters
+    salt: int
+    m_active: int
+    kslot: int
+
+
 class DeviceRouter:
-    """Serving-path engine on one device: owns the device copies of the
-    shape index and the subscriber bitmaps and runs `shape_route_step`
-    over host batches. The counterpart of `DeviceRouter`
+    """Serving-path engine on one device: owns the device mirrors of the
+    shape index, the residual NFA and the subscriber bitmaps and runs
+    `shape_route_step` over host batches. The counterpart of `DeviceRouter`
     (emqx_tpu/models/router_model.py:1413), single device, dense.
 
-    Device mirror in this slice: `prepare` uploads the whole table set
-    (`tables_to_device`) whenever `_version_key()` moves and reuses the
-    cached tensors otherwise. That is right under subscribe/unsubscribe
-    churn but costs O(table) per change; the O(delta) op-log scatter
-    (`segment_scatter_impl`, `DeviceSegmentManager` in
-    emqx_tpu/ops/segments.py) is the next slice's kernel.
+    Each host table is mirrored by its own `DeviceSegmentManager`
+    (`_shape_sync`, `_nfa_sync`, `_bits_sync`): a full upload on an epoch
+    change, otherwise one `segment_scatter` launch over the op-log suffix.
+    A prepare whose tables are all clean (`_version_key()` unchanged)
+    touches no mirror at all. The residual lane runs exactly when the
+    index holds residual filters.
     """
 
     # clean-table prepares re-check the auto-sized kslot only every this
@@ -366,9 +404,17 @@ class DeviceRouter:
         self.subtab = subtab
         # duck-typed: metrics.histogram(name) -> object with count, p99
         self.metrics = metrics
-        self.config = config or MatcherConfig()
+        config = config or MatcherConfig()
+        if config.probes < MAX_PROBES:
+            # the probe loops must cover the host placement bound, or
+            # entries at the end of a probe window become invisible
+            config = dataclasses.replace(config, probes=MAX_PROBES)
+        self.config = config
+        self._shape_sync = DeviceSegmentManager(self.device, name="shapes")
+        self._nfa_sync = DeviceSegmentManager(self.device, name="nfa")
+        self._bits_sync = DeviceSegmentManager(self.device, name="bitmaps")
         self._kslot = 0  # auto-sized compact-slot cap (grow-only)
-        # O(dirty) prepare: (version key, args) of the last upload
+        # O(dirty) prepare: (version key, args) of the last clean sync
         self._prep_key = None
         self._prep_args = None
         self._clean_streak = 0
@@ -393,74 +439,83 @@ class DeviceRouter:
         return k
 
     def _version_key(self):
-        """Generation counters of every host table the upload is built
+        """Generation counters of every host table the mirrors are built
         from — equal keys mean the device copies are current."""
         return (self.index.version, self.subtab.version)
 
-    def _device_args(self):
+    def _device_args(self) -> Prepared:
         # grow the bitmap matrix to cover every live filter id BEFORE the
-        # version key (the growth itself bumps the subtab version)
+        # version key: the growth bumps the subtab's epoch and version, and
+        # a bump inside the sync would read as a torn snapshot
         self.subtab.pack(self.index.num_filters_capacity)
         key = self._version_key()
         if self._prep_key == key:
             self._clean_streak += 1
             if self._clean_streak % self.KSLOT_RECHECK == 0:
                 kslot = self._fanout_kslot(self.subtab.width_words)
-                if kslot != self._prep_args[3]:
-                    self._prep_args = self._prep_args[:3] + (kslot,)
+                if kslot != self._prep_args.kslot:
+                    self._prep_args = self._prep_args._replace(kslot=kslot)
             return self._prep_args
         self._clean_streak = 0
         idx = self.index
-        if idx.residual_count > 0:
-            raise NotImplementedError(
-                f"{idx.residual_count} residual filters need the NFA walk "
-                "(vocab_lookup_device + batch_match_syms), which is not "
-                "ported yet (ROADMAP.md, Queue 1, slice 2)"
-            )
-        tables = tables_to_device(
-            idx.shapes.device_snapshot(),
-            self.subtab.pack(idx.num_filters_capacity),
-            self.device,
-        )
-        args = (
+        bits = self._bits_sync.sync(self.subtab)["sub_bitmaps"]
+        tables = self._shape_sync.sync(idx.shapes)
+        tables["sub_bitmaps"] = bits
+        nfa_tables = self._nfa_sync.sync(idx.nfa) if idx.residual_count > 0 else None
+        args = Prepared(
             tables,
+            nfa_tables,
             idx.salt,
             idx.shapes.m_active(),
             self._fanout_kslot(self.subtab.width_words),
         )
-        self._prep_key = key
-        self._prep_args = args
+        if self._version_key() == key:
+            # a sync that raced a mutation is used once, never cached
+            self._prep_key = key
+            self._prep_args = args
         return args
 
-    def prepare(self):
-        """Snapshot + upload the current tables. MUST run on the thread
-        that mutates the index/subtab. The returned tuple is immutable
-        device state for `route_prepared`."""
+    def prepare(self) -> Prepared:
+        """Sync the device mirrors with the current tables. MUST run on the
+        thread that mutates the index/subtab. The returned tuple is
+        immutable device state for `route_prepared`."""
         return self._device_args()
+
+    def segment_status(self) -> Dict[str, Dict[str, int]]:
+        """Per mirror (`shapes`, `nfa`, `bitmaps`): full_resyncs,
+        delta_launches and array_resyncs since the router was made."""
+        return {
+            m.name: m.counters()
+            for m in (self._shape_sync, self._nfa_sync, self._bits_sync)
+        }
 
     def route(self, topics) -> RouteResult:
         """Batch route: returns a host-side `RouteResult` (all numpy)."""
         return self.route_prepared(self._device_args(), topics)
 
-    def route_prepared(self, args, topics) -> RouteResult:
+    def route_prepared(self, args: Prepared, topics) -> RouteResult:
         """Kernel launches + readback against a `prepare()` snapshot.
 
         Unlike the JAX router, the batch is not padded to a power of two:
         there is no compiled program whose shape it would have to match."""
-        tables, salt, m_active, kslot = args
         cfg = self.config
         mat, lens, too_long = encode_topics(list(topics), cfg.max_bytes)
         out = shape_route_step(
-            tables,
+            args.tables,
             torch.from_numpy(mat).to(self.device),
             torch.from_numpy(lens).to(self.device),
-            m_active=m_active,
-            salt=salt,
+            m_active=args.m_active,
+            salt=args.salt,
+            nfa_tables=args.nfa_tables,
+            with_nfa=args.nfa_tables is not None,
             max_levels=cfg.max_levels,
-            kslot=kslot,
+            frontier=cfg.frontier,
+            max_matches=cfg.max_matches,
+            probes=cfg.probes,
+            kslot=args.kslot,
             device=self.device,
         )
-        return self._readback(out, len(topics), too_long, kslot)
+        return self._readback(out, len(topics), too_long, args.kslot)
 
     def _readback(self, out, B: int, too_long, kslot: int) -> RouteResult:
         """Pull one batch's outputs to the host -> `RouteResult`.

@@ -3,11 +3,11 @@ maintained): the port's copy of `emqx_tpu/ops/nfa.py`.
 
 The route index keeps the filters the shape index rejects (more than
 MAX_SHAPES shapes, or a 2^-64 combined-hash collision) in this automaton.
-Its device walk (`batch_match_syms` and `vocab_lookup_device` in the JAX
-package) is not ported yet, so `DeviceRouter.prepare` refuses a table that
-holds residual filters; the host builder is here because `RouteIndex`
-places them, and because `word_hash_pair` and the hashing constants below
-are the single definition the tokenizer kernel must reproduce bit for bit.
+Its device walk is `tokenizer.vocab_lookup` (word hashes -> symbols) and
+`matcher.batch_match_syms` (the level scan), kernels `vocab_lookup.cu`
+and `nfa_walk.cu`; `word_hash_pair` and the hashing constants below are
+the single definition those kernels and the tokenizer kernel reproduce
+bit for bit.
 
 Flat tables (`plus_child`, `hash_filter`, `term_filter`, the literal-edge
 and vocab open-addressing tables) are the PRIMARY storage, mutated in place

@@ -1,18 +1,234 @@
-"""Op-log plumbing shared by the host tables: the port's copy of the two
-names `emqx_tpu/ops/segments.py:56-63` defines for them.
+"""Device mirrors of the host tables: the port's copy of
+`emqx_tpu/ops/segments.py:56-330` (`RESYNC`, `segment_scatter_impl`,
+`DeviceSegmentManager`).
 
-The device mirror itself (`DeviceSegmentManager` and its O(delta) scatter
-kernel `segment_scatter_impl`) is not ported yet: `DeviceRouter.prepare`
-re-uploads the whole table set when a table's version moves.
+Every host table the serving step reads (the shape index, the residual
+NFA, the subscriber bitmaps) keeps its arrays as numpy, mutates them in
+place, and op-logs each scalar write as ``(array_name, flat_index,
+value)``; a structural event (growth, rehash, salt change, a full op-log)
+bumps its `epoch` and clears the log. `DeviceSegmentManager.sync(src)`
+keeps one torch tensor per array equal to ``src.device_snapshot()``:
+
+- a full upload (`convert.upload`) when the epoch moved;
+- otherwise the op-log suffix since the last sync, replayed by ONE
+  `segment_scatter` launch over every touched array (kernel
+  `kernels/csrc/segment_scatter.cu`), which first reduces each array's
+  writes on the host to the last write per slot;
+- a ``(RESYNC, name, 0)`` marker re-uploads only that array from the live
+  host table (which already holds every logged write to it).
+
+Op-log protocol (sources: `NfaBuilder`, `ShapeIndex`, `SubscriberTable`):
+`epoch` int, `version` int (total mutation counter), `oplog` list and
+`device_snapshot() -> {name: np.ndarray}`.
 """
 
 from __future__ import annotations
 
+import threading
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from emqx_tpu_torch import kernels
+from emqx_tpu_torch.convert import resolve_device, upload
+
 RESYNC = "!resync"  # op-log marker: (RESYNC, array_name, 0)
 
 
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
+# -- kernel 7: the O(delta) scatter ----------------------------------------
+
+
+def _last_writes(idx, val):
+    """Ascending flat indices and the int32 bits of their values, one
+    entry per slot: the last write in program order wins. Values may be
+    given as int32, uint32 or Python ints of either range."""
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    val = np.asarray(val, dtype=np.int64).reshape(-1).astype(np.uint32).view(np.int32)
+    if idx.shape != val.shape:
+        raise ValueError(f"{idx.shape[0]} indices but {val.shape[0]} values")
+    uniq, last = np.unique(idx[::-1], return_index=True)
+    return uniq, val[::-1][last]
+
+
+def segment_scatter_plain(flats, idxs, vals):
+    """Plain PyTorch twin of the `segment_scatter` kernel (any device):
+    `out[k] = flats[k].clone()` with ``out[k].view(-1)[idx] = val``."""
+    out = {}
+    for k, flat in flats.items():
+        ix, vv = _last_writes(idxs[k], vals[k])
+        new = flat.clone()
+        new.view(-1)[torch.from_numpy(ix).to(flat.device)] = torch.from_numpy(vv).to(
+            flat.device
+        )
+        out[k] = new
+    return out
+
+
+def segment_scatter(
+    flats: Mapping[str, torch.Tensor],
+    idxs: Mapping[str, Sequence[int]],
+    vals: Mapping[str, Sequence[int]],
+) -> Dict[str, torch.Tensor]:
+    """The O(delta) update (kernel `segment_scatter`): for every array k,
+    a FRESH tensor equal to flats[k] with ``flat[idxs[k]] = vals[k]``, every
+    array in one launch. The counterpart of `segment_scatter_impl`
+    (emqx_tpu/ops/segments.py:73).
+
+    flats: contiguous int32 tensors of any shape (uint32 tables hold their
+    bits), all on one device; idxs/vals: host arrays or lists of flat
+    indices and values in program order. A repeated index keeps its last
+    value: the host reduces each array to one write per slot before the
+    launch, so no two threads of the kernel touch one word. The inputs are
+    never written: a snapshot a caller still holds stays as it was.
+    """
+    names = list(flats)
+    for k in names:
+        if not isinstance(flats[k], torch.Tensor) or flats[k].dtype != torch.int32:
+            raise TypeError(f"{k}: expected an int32 tensor")
+        if not flats[k].is_contiguous():
+            raise ValueError(f"{k}: must be contiguous")
+    writes = {k: _last_writes(idxs[k], vals[k]) for k in names}
+    for k, (ix, _) in writes.items():
+        if len(ix) and (ix.min() < 0 or ix.max() >= flats[k].numel()):
+            raise IndexError(f"{k}: index outside [0, {flats[k].numel()})")
+    if not names or not kernels.on_cuda(*(flats[k] for k in names)):
+        return segment_scatter_plain(
+            flats, {k: w[0] for k, w in writes.items()},
+            {k: w[1] for k, w in writes.items()},
+        )
+    dev = flats[names[0]].device
+    out = {k: flats[k].clone() for k in names}
+    n = sum(len(ix) for ix, _ in writes.values())
+    if n == 0:
+        return out
+    A = len(names)
+    # one host buffer, one copy: [A base pointers | ids | indices | values]
+    buf = np.empty(A + 3 * n, dtype=np.int64)
+    buf[:A] = [out[k].data_ptr() for k in names]
+    o = A
+    for a, k in enumerate(names):
+        ix, vv = writes[k]
+        m = len(ix)
+        buf[o : o + m] = a
+        buf[o + n : o + n + m] = ix
+        buf[o + 2 * n : o + 2 * n + m] = vv
+        o += m
+    dbuf = torch.from_numpy(buf).to(dev)
+    kernels.launch("segment_scatter", "emqx_segment_scatter", dev,
+                   dbuf.data_ptr(), A, n)
+    return out
+
+
+# -- the mirror ------------------------------------------------------------
+
+
+class DeviceSegmentManager:
+    """Device-resident mirror of one incrementally mutated host source.
+
+    `sync(src)` returns ``{name: tensor}`` equal to ``src.device_snapshot()``
+    (int32 tensors; uint32 arrays keep their bits). All internal state
+    changes under `_lock`, and callers receive a fresh shallow-copied dict,
+    so a snapshot held across a later sync never tears.
+
+    Generations: a full resync or a scatter makes new tensors and never
+    writes the old ones, so a `prepare()` tuple a caller still holds keeps
+    its generation alive by reference count and frees it when dropped. The
+    JAX manager's `free_retired` grace (an explicit `.delete()` one epoch
+    later) has no counterpart here. Neither do `offer`/`adopt`/`peek_delta`,
+    whose callers (background compaction, the session rider) are later
+    slices of the port.
+
+    Counters: `full_resyncs` (epoch changes and torn syncs), `delta_launches`
+    (scatter launches), `array_resyncs` (single arrays re-uploaded).
+    """
+
+    def __init__(self, device="cuda", name: str = "") -> None:
+        self.device = resolve_device(device)
+        self.name = name
+        self._lock = threading.Lock()
+        self._arrays = None  # guarded-by: _lock
+        self._epoch = -1  # guarded-by: _lock
+        self._pos = 0  # guarded-by: _lock
+        self._torn = False  # guarded-by: _lock
+        self.full_resyncs = 0  # guarded-by: _lock
+        self.delta_launches = 0  # guarded-by: _lock
+        self.array_resyncs = 0  # guarded-by: _lock
+
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return {
+                "full_resyncs": self.full_resyncs,
+                "delta_launches": self.delta_launches,
+                "array_resyncs": self.array_resyncs,
+            }
+
+    def sync(self, src) -> Dict[str, torch.Tensor]:
+        with self._lock:
+            v0 = src.version
+            out = self._sync_locked(src)
+            if src.version != v0:
+                # torn read: the source moved during the sync. The result
+                # is this call's to use, but it must never be cached as
+                # clean: the next sync uploads in full.
+                self._torn = True
+            return out
+
+    def _sync_locked(self, src):  # holds-lock: _lock
+        if self._arrays is None or self._epoch != src.epoch or self._torn:
+            self._torn = False
+            return self._full_resync(src)
+        return self._delta_sync(src)
+
+    def _full_resync(self, src):  # holds-lock: _lock
+        self._arrays = upload(src.device_snapshot(), self.device)
+        self._epoch = src.epoch
+        self._pos = len(src.oplog)
+        self.full_resyncs += 1
+        return dict(self._arrays)
+
+    def _put(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        return upload({name: arr}, self.device)[name]
+
+    def _delta_sync(self, src):  # holds-lock: _lock
+        ops = src.oplog[self._pos :]
+        if not ops:
+            return dict(self._arrays)
+        resync_names = {a for name, a, _v in ops if name == RESYNC}
+        # per array, its writes in program order; `segment_scatter` keeps
+        # the last write per slot
+        per: Dict[str, Tuple[List[int], List[int]]] = {}
+        for name, idx, val in ops:
+            if name == RESYNC or name in resync_names:
+                continue  # the live re-upload supersedes these writes
+            ix, vv = per.setdefault(name, ([], []))
+            ix.append(idx)
+            vv.append(val)
+        snap = None
+        if resync_names:
+            snap = src.device_snapshot()
+            for name in resync_names:
+                if name in snap:
+                    self._arrays[name] = self._put(name, snap[name])
+                else:
+                    self._arrays.pop(name, None)
+                self.array_resyncs += 1
+        # arrays that appeared without a marker (a source growing its
+        # snapshot dict) upload in full too
+        for name in list(per):
+            if name not in self._arrays:
+                if snap is None:
+                    snap = src.device_snapshot()
+                self._arrays[name] = self._put(name, snap[name])
+                self.array_resyncs += 1
+                del per[name]
+        if per:
+            out = segment_scatter(
+                {k: self._arrays[k] for k in per},
+                {k: w[0] for k, w in per.items()},
+                {k: w[1] for k, w in per.items()},
+            )
+            self.delta_launches += 1
+            self._arrays.update(out)
+        self._pos = len(src.oplog)
+        return dict(self._arrays)

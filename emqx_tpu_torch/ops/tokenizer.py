@@ -11,7 +11,9 @@ on a CPU tensor it runs `tokenize_plain`, the straightforward PyTorch
 version of the same function. The JAX package computes the word hashes
 from prefix sums with inverse powers (a TPU has no cheap per-byte
 recurrence); both versions here use the equal per-word Horner form of
-`nfa._poly_raw` instead.
+`nfa._poly_raw` instead. `vocab_lookup` turns the word-hash pairs into the
+residual NFA's symbol ids (kernel `kernels/csrc/vocab_lookup.cu`, twin
+`vocab_lookup_plain`).
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import numpy as np
 import torch
 
 from emqx_tpu_torch import kernels
-from emqx_tpu_torch.ops.nfa import P1, P2, _SALT1, _SALT2
-from emqx_tpu_torch.ops.u32 import M32, mix32, mul32, to_i32
+from emqx_tpu_torch.ops.nfa import P1, P2, VOCAB_H_MUL, VOCAB_H_SHIFT, _SALT1, _SALT2
+from emqx_tpu_torch.ops.u32 import M32, mix32, mul32, to_i32, u32
 
 SLASH = np.uint8(ord("/"))
 DOLLAR = np.uint8(ord("$"))
@@ -224,6 +226,69 @@ def tokenize(bytes_mat, lengths, salt: int, max_levels: int):
         seed2,
     )
     return h1, h2, nwords, is_dollar
+
+
+def vocab_lookup_plain(tables, h1, h2, probes: int):
+    """Plain PyTorch twin of the `vocab_lookup` kernel (any device): the
+    probe loop of `vocab_lookup_device` (emqx_tpu/ops/tokenizer.py:294),
+    first live hit wins (tombstones, vocab_sym -3, never hit)."""
+    V = tables["vocab_sym"].shape[0]
+    a1, a2 = u32(h1), u32(h2)
+    h = mul32(a1, VOCAB_H_MUL)
+    h = h ^ (h >> VOCAB_H_SHIFT)
+    th1, th2 = u32(tables["vocab_h1"]), u32(tables["vocab_h2"])
+    tsym = tables["vocab_sym"]
+    sym = torch.full(h1.shape, -1, dtype=torch.int32, device=h1.device)
+    found = torch.zeros(h1.shape, dtype=torch.bool, device=h1.device)
+    for p in range(probes):
+        idx = (h + p) & (V - 1)
+        hit = (th1[idx] == a1) & (th2[idx] == a2) & (tsym[idx] >= 0) & ~found
+        sym = torch.where(hit, tsym[idx], sym)
+        found |= hit
+    return sym
+
+
+def vocab_lookup(tables, h1, h2, probes: int):
+    """Word-hash pairs -> residual-NFA symbol ids (kernel `vocab_lookup`).
+
+    tables: the NFA device dict (`vocab_h1`, `vocab_h2` int32 [V] holding
+    uint32 bits, `vocab_sym` int32 [V], V a power of two); h1, h2 int32
+    [B, L] from `tokenize` -> sym int32 [B, L] (-1 = out of vocabulary).
+    Every lane is looked up, those past a row's depth included, as in the
+    counterpart `vocab_lookup_device` (emqx_tpu/ops/tokenizer.py:294).
+    """
+    for k in ("vocab_h1", "vocab_h2", "vocab_sym"):
+        kernels.check_tensor(tables[k], k, torch.int32, 1)
+    kernels.check_tensor(h1, "h1", torch.int32, 2)
+    kernels.check_tensor(h2, "h2", torch.int32, 2)
+    V = tables["vocab_sym"].shape[0]
+    if V < 1 or V & (V - 1):
+        raise ValueError(f"vocab_sym: length must be a power of two, got {V}")
+    if tables["vocab_h1"].shape[0] != V or tables["vocab_h2"].shape[0] != V:
+        raise ValueError("vocab_h1, vocab_h2 and vocab_sym disagree in length")
+    if h2.shape != h1.shape:
+        raise ValueError("h1 and h2 disagree in shape")
+    if probes < 1:
+        raise ValueError(f"probes must be >= 1, got {probes}")
+    args = [tables["vocab_h1"], tables["vocab_h2"], tables["vocab_sym"], h1, h2]
+    if not kernels.on_cuda(*args):
+        return vocab_lookup_plain(tables, h1, h2, probes)
+    sym = torch.empty(h1.shape, dtype=torch.int32, device=h1.device)
+    kernels.launch(
+        "vocab_lookup",
+        "emqx_vocab_lookup",
+        h1.device,
+        h1.data_ptr(),
+        h2.data_ptr(),
+        tables["vocab_h1"].data_ptr(),
+        tables["vocab_h2"].data_ptr(),
+        tables["vocab_sym"].data_ptr(),
+        V,
+        sym.data_ptr(),
+        h1.numel(),
+        probes,
+    )
+    return sym
 
 
 def tokenize_host_np(bytes_mat, lengths, salt: int, max_levels: int):

@@ -230,4 +230,5 @@ def test_kernels_match_twins_on_card(cuda_device):
                         P_router.compact_fanout_slots_plain(fan[0], kslot)):
             assert torch.equal(a, b)
     assert kernels.LAUNCHES == {"tokenize": 1, "shape_match": 1,
-                                "fanout_bitmaps": 1, "compact_fanout_slots": 3}
+                                "fanout_bitmaps": 1, "compact_fanout_slots": 3,
+                                "vocab_lookup": 0, "nfa_walk": 0, "segment_scatter": 0}

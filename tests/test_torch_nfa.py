@@ -1,0 +1,254 @@
+"""The residual-NFA lane of the port against the JAX package.
+
+`vocab_lookup` (port) against `vocab_lookup_device`, and `batch_match_syms`
+(port) against `emqx_tpu.ops.matcher.batch_match_syms`, on the same NFA
+tables (an `emqx_tpu` `NfaBuilder`'s `device_snapshot()`, uploaded with
+`convert.upload`) and the same topic bytes. The cases are those of
+`tests/test_matcher.py`. The port runs on the CPU (the kernels' plain
+twins); the `cuda`-marked test at the end holds the kernels against the
+twins on a card. Tolerance: EXACT equality of every output, the order of
+`matched` included — all are integers.
+"""
+
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from emqx_tpu.ops import matcher as J_matcher
+from emqx_tpu.ops import tokenizer as J_tok
+from emqx_tpu.ops import topics as J_topics
+from emqx_tpu.ops.nfa import NfaBuilder
+from emqx_tpu_torch import kernels
+from emqx_tpu_torch.convert import upload
+from emqx_tpu_torch.ops import matcher as P_matcher
+from emqx_tpu_torch.ops import tokenizer as P_tok
+
+j_tokenize = jax.jit(J_tok.tokenize_device, static_argnums=(2, 3))
+j_vocab = jax.jit(J_tok.vocab_lookup_device, static_argnums=(3,))
+
+
+def cpu(a):
+    return torch.from_numpy(np.array(a))
+
+
+def builder_for(filters, removes=(), readds=()):
+    b = NfaBuilder()
+    for f in filters:
+        b.add(f)
+    for f in removes:
+        b.remove(f)
+    for f in readds:
+        b.add(f)
+    return b
+
+
+def tokenized(builder, topics, max_levels, max_bytes=64):
+    mat, lens, _ = J_tok.encode_topics(topics, max_bytes)
+    return j_tokenize(jnp.asarray(mat), jnp.asarray(lens), builder.salt, max_levels)
+
+
+def assert_match_equal(got, want):
+    for g, w, name in zip(got[:3], want[:3], ("matched", "mcount", "flags")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.int32
+    assert got[2].dtype == torch.bool
+    assert set(got[3]) == set(want[3])
+    for k in want[3]:
+        np.testing.assert_array_equal(got[3][k].numpy(), np.asarray(want[3][k]), err_msg=k)
+
+
+def run_both(builder, topics, max_levels=16, frontier=32, max_matches=64, probes=8):
+    """JAX: tokenize -> vocab_lookup_device -> batch_match_syms; port: the
+    same syms (checked equal) -> vocab_lookup -> batch_match_syms."""
+    snap = builder.device_snapshot()
+    h1, h2, nw, dl = tokenized(builder, topics, max_levels)
+    j_tables = {k: jnp.asarray(v) for k, v in snap.items()}
+    j_syms = j_vocab(j_tables, h1, h2, probes)
+    want = J_matcher.batch_match_syms(
+        j_tables, j_syms, nw, dl, frontier=frontier, max_matches=max_matches, probes=probes
+    )
+    tables = upload(snap, device="cpu")
+    p_h1 = cpu(np.asarray(h1).view(np.int32))
+    p_h2 = cpu(np.asarray(h2).view(np.int32))
+    syms = P_tok.vocab_lookup(tables, p_h1, p_h2, probes)
+    np.testing.assert_array_equal(syms.numpy(), np.asarray(j_syms))
+    got = P_matcher.batch_match_syms(
+        tables, syms, cpu(np.asarray(nw)), cpu(np.asarray(dl)),
+        frontier=frontier, max_matches=max_matches, probes=probes,
+    )
+    assert_match_equal(got, want)
+    return got
+
+
+def random_case(seed):
+    rng = random.Random(seed)
+    words = ["a", "b", "c", "d", "sensor", "dev", "", "long-word-x"]
+    filters = set()
+    for _ in range(400):
+        ws = ["+" if rng.random() < 0.15 else rng.choice(words)
+              for _ in range(rng.randint(1, 7))]
+        if rng.random() < 0.2:
+            ws.append("#")
+        f = "/".join(ws)
+        try:
+            J_topics.validate(f)
+            filters.add(f)
+        except J_topics.TopicValidationError:
+            pass
+    filters = sorted(filters)
+    topics = []
+    for _ in range(500):
+        ws = [rng.choice(words) for _ in range(rng.randint(1, 8))]
+        if rng.random() < 0.1:
+            ws[0] = "$" + ws[0]
+        topics.append("/".join(ws))
+    removes = [f for f in filters if rng.random() < 0.5]
+    return filters, removes, topics
+
+
+def grid_filters():
+    return [f"{a}/{b}/{c}" for a in "+ab" for b in "+ab" for c in "+ab"]
+
+
+# (filters, removes, re-adds, topics, config): tests/test_matcher.py's cases
+CASES = {
+    "basic": (
+        ["a/b/c", "a/+/c", "a/#", "#", "+/b/c", "a/b/+", "x/y"], [], [],
+        ["a/b/c", "a/b", "a", "x/y", "x/z", "q", "a/q/c", "a/b/q"], {},
+    ),
+    "hash_parent": (["a/#", "a", "a/b/#"], [], [], ["a", "a/b", "a/b/c", "b"], {}),
+    "dollar": (
+        ["#", "+/x", "$SYS/#", "$SYS/+", "$share-ish/x"], [], [],
+        ["$SYS/x", "$SYS", "n/x", "$share-ish/x", "$other/x", "$SYS/a/b"], {},
+    ),
+    "empty_levels_oov": (
+        ["a/+/c", "a//c", "+/+", "//#"], [], [],
+        ["a//c", "a/zz/c", "/", "//", "a/", "/a", "never/seen", ""], {},
+    ),
+    "plus_only_root_hash": (
+        ["+", "#", "+/+"], [], [], ["a", "a/b", "a/b/c", "$sys", "$sys/b"], {},
+    ),
+    "delete": (
+        ["a/+", "a/b", "b/#"], ["a/+", "b/#"], ["a/+"],
+        ["a/b", "a/x", "b/q", "b"], {},
+    ),
+    "too_deep": (
+        ["a/#", "a/+/+/+"], [], [], ["a/" + "/".join("x" * 10), "a/b", "a/b/c/d/e"],
+        {"max_levels": 4},
+    ),
+    "frontier_overflow": (
+        grid_filters(), [], [], ["a/b/a", "b/b/b", "a/a/a", "c/c/c"], {"frontier": 2},
+    ),
+    "match_overflow": (
+        ["a/#", "a/+", "a/b", "#", "+/b"], [], [], ["a/b", "c/d"], {"max_matches": 2},
+    ),
+    "literal_plus_in_topic": (["a/+", "a/#"], [], [], ["a/+", "a/#", "a/b"], {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["random-1", "random-2", "random-3"])
+def test_batch_match_syms_matches_jax(case):
+    if case.startswith("random-"):
+        seed = int(case.split("-")[1])
+        filters, removes, topics = random_case(seed)
+        # seed 2 with narrow caps (overflow rows), seed 3 with a frontier
+        # wider than one warp (the kernel's chunk loop)
+        cfg = {1: {}, 2: {"frontier": 4, "max_matches": 6},
+               3: {"frontier": 40, "max_matches": 40}}[seed]
+        builder = builder_for(filters)
+        run_both(builder, topics, max_levels=8, **cfg)
+        for f in removes:
+            builder.remove(f)
+        got = run_both(builder, topics, max_levels=8, **cfg)
+    else:
+        filters, removes, readds, topics, cfg = CASES[case]
+        got = run_both(builder_for(filters, removes, readds), topics, **cfg)
+    flags, causes = got[2], got[3]
+    if case == "too_deep":
+        assert bool(causes["too_deep"][0]) and not bool(flags[1])
+    elif case == "frontier_overflow":
+        assert bool(causes["frontier_overflow"].any())
+    elif case == "match_overflow":
+        assert bool(causes["match_overflow"][0])
+    elif case in ("basic", "random-1"):
+        assert int(got[1].sum()) > 0 and not bool(flags.any())
+
+
+def test_vocab_lookup_matches_jax_with_tombstones_and_oov():
+    rng = np.random.default_rng(4)
+    words = [f"w{i}" for i in range(300)]
+    filters = [f"{rng.choice(words)}/+/{rng.choice(words)}/#" for _ in range(400)]
+    builder = builder_for(filters, removes=filters[::3])
+    assert (builder.arr_vocab_sym == -3).any()  # tombstoned vocab slots
+    topics = [f"{rng.choice(words)}/x/{rng.choice(words)}" for _ in range(300)]
+    topics += ["never/seen/words", "", "w1", "$w2/w3"]
+    h1, h2, _, _ = tokenized(builder, topics, 8)
+    snap = builder.device_snapshot()
+    for probes in (8, 3):
+        want = np.asarray(j_vocab({k: jnp.asarray(v) for k, v in snap.items()}, h1, h2, probes))
+        got = P_tok.vocab_lookup(
+            upload(snap, device="cpu"), cpu(np.asarray(h1).view(np.int32)),
+            cpu(np.asarray(h2).view(np.int32)), probes,
+        )
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert (want >= 0).any() and (want == -1).any()
+
+
+def test_nfa_wrappers_check_their_inputs_and_count_no_cpu_launch():
+    builder = builder_for(["a/+", "b/#"])
+    tables = upload(builder.device_snapshot(), device="cpu")
+    syms = torch.zeros((2, 4), dtype=torch.int32)
+    nw = torch.ones(2, dtype=torch.int32)
+    dl = torch.zeros(2, dtype=torch.bool)
+    kernels.reset_launches()
+    P_matcher.batch_match_syms(tables, syms, nw, dl, frontier=4, max_matches=4)
+    P_tok.vocab_lookup(tables, syms, syms, 8)
+    assert kernels.LAUNCHES["nfa_walk"] == 0 and kernels.LAUNCHES["vocab_lookup"] == 0
+    with pytest.raises(ValueError, match="frontier"):
+        P_matcher.batch_match_syms(tables, syms, nw, dl, frontier=0)
+    with pytest.raises(TypeError, match="int32"):
+        P_matcher.batch_match_syms(tables, syms.to(torch.int64), nw, dl)
+    bad = dict(tables, edge_node=tables["edge_node"][:3].contiguous())
+    with pytest.raises(ValueError, match="power of two"):
+        P_matcher.batch_match_syms(bad, syms, nw, dl)
+    with pytest.raises(ValueError, match="batch"):
+        P_matcher.batch_match_syms(tables, syms, nw[:1].contiguous(), dl)
+
+
+# -- on the card: each kernel against its twin (skips without CUDA) -------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_nfa_kernels_match_twins_on_card(cuda_device):
+    dev = cuda_device
+    filters, removes, topics = random_case(5)
+    builder = builder_for(filters, removes)
+    tables = upload(builder.device_snapshot(), device=dev)
+    h1, h2, nw, dl = (cpu(np.asarray(a)) for a in tokenized(builder, topics, 8))
+    h1, h2 = h1.view(torch.int32).to(dev), h2.view(torch.int32).to(dev)
+    nw, dl = nw.to(dev), dl.to(dev)
+    kernels.reset_launches()
+    syms = P_tok.vocab_lookup(tables, h1, h2, 8)
+    assert torch.equal(syms, P_tok.vocab_lookup_plain(tables, h1, h2, 8))
+    for frontier, k in ((32, 64), (4, 6), (40, 40), (2, 2)):
+        got = P_matcher.batch_match_syms(tables, syms, nw, dl, frontier=frontier,
+                                         max_matches=k, probes=8)
+        want = P_matcher.batch_match_syms_plain(tables, syms, nw, dl, frontier=frontier,
+                                                max_matches=k, probes=8)
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        for name in want[3]:
+            assert torch.equal(got[3][name], want[3][name])
+    assert kernels.LAUNCHES["vocab_lookup"] == 1 and kernels.LAUNCHES["nfa_walk"] == 4

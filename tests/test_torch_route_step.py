@@ -7,8 +7,11 @@ unsubscribe churn, overflow rows included. The port runs with
 ``device="cpu"`` (the kernels' plain twins). Tolerance: EXACT equality for
 every output — all are integers.
 
-Also the guard rails: residual filters raise instead of routing elsewhere,
-and entry points refuse to run without CUDA unless asked for the CPU.
+The residual-NFA lane rides the same comparisons on a scaled-down
+`mixed_10m` (its 66 shapes, a few hundred filters each): the step with
+``with_nfa=True`` and the router across churn, with the mirrors' counters
+held against the JAX router's. Also the guard rail: entry points refuse to
+run without CUDA unless asked for the CPU.
 """
 
 import jax
@@ -239,17 +242,167 @@ def test_tables_to_device_copies_bits_exactly():
 
 
 def test_prepare_raises_on_residual_filters():
-    index = P_ri.RouteIndex()
-    subs = P_router.SubscriberTable()
-    for a in range(10):
-        for b in range(10):  # 100 shapes: 36 past MAX_SHAPES are residual
-            subs.add(index.add("/".join(["+"] * a + ["x"] + ["y"] * b)), a)
-    assert index.residual_count == 36
-    router = P_router.DeviceRouter(index, subs, device="cpu")
-    with pytest.raises(NotImplementedError, match="batch_match_syms"):
-        router.prepare()
-    with pytest.raises(NotImplementedError, match="residual"):
-        router.route(["x/y"])
+    """Kept under its first name: `prepare` used to raise on residual
+    filters. It now mirrors the NFA and routes them, as the JAX router
+    does, on the same 100-shape table (36 shapes past MAX_SHAPES)."""
+    tabs = []
+    for ri, st in ((P_ri.RouteIndex, P_router.SubscriberTable),
+                   (J_ri.RouteIndex, J_router.SubscriberTable)):
+        index, subs = ri(), st()
+        for a in range(10):
+            for b in range(10):
+                subs.add(index.add("/".join(["+"] * a + ["x"] + ["y"] * b)), a)
+        tabs.append((index, subs))
+    (p_idx, p_subs), (j_idx, j_subs) = tabs
+    assert p_idx.residual_count == j_idx.residual_count == 36
+    p_router = P_router.DeviceRouter(p_idx, p_subs, PConfig(max_levels=16), device="cpu")
+    args = p_router.prepare()
+    assert args.nfa_tables is not None
+    j_router = J_router.DeviceRouter(j_idx, j_subs, JConfig(max_levels=16))
+    topics = ["/".join(["q"] * a + ["x"] + ["y"] * b) for a in range(10) for b in range(0, 10, 3)]
+    topics += ["x/y", "$x/y", "x"]
+    res = p_router.route(topics)
+    assert_route_equal(res, j_router.route(topics))
+    assert int((res.matched[:, p_idx.shapes.m_active():] >= 0).sum()) > 0
+
+
+# -- the residual NFA lane: a scaled-down mixed_10m -------------------------
+
+# the 66 shapes of chip_smoke's mixed_10m (bench.py `_build_mixed_10m`),
+# at a few hundred filters per family; the last two families are residual
+SMALL_IDS = (20, 50, 5, 40, 30, 20, 10)
+# root wildcards, which only the residual lane holds here ($ topics skip them)
+ROOT_WILD = ["#", "+/1/#", "+/+/+/+/+/+/+/+", "$SYS/#"]
+
+
+def scaled_mixed_10m(seed):
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    filters, families = chip_smoke.mixed_10m_filters(
+        rng, ids=SMALL_IDS, total=20 + 100 + 64 * 150, residual_cap=150, min_family=10
+    )
+    residual = [filters[i] for _p, _d, lo, hi in families[62:] for i in range(lo, hi)]
+    topics = chip_smoke.mixed_10m_topics(rng, 300, ids=SMALL_IDS)
+    picks = [residual[i] for i in rng.integers(0, len(residual), size=200)]
+    topics += chip_smoke.topics_from_filters(rng, picks, ids=SMALL_IDS)
+    topics += ["", "$SYS/x", "$SYS/1/2", "$v/1/2/3", "v/1/2/3/4/5/6/7/8/9", "v/1//", "1/1/1"]
+    return filters + ROOT_WILD, residual, topics
+
+
+def mixed_twins(filters, max_subscribers=256):
+    out = []
+    for ri, st in ((P_ri.RouteIndex, P_router.SubscriberTable),
+                   (J_ri.RouteIndex, J_router.SubscriberTable)):
+        index, subs = ri(), st(max_subscribers=max_subscribers)
+        fids = np.asarray(index.bulk_add(filters), np.int64)
+        subs.bulk_add(np.repeat(fids, 2), np.arange(2 * len(fids)) % 64)
+        assert index.shapes.m_active() == 64 and index.residual_count > 0
+        out.append((index, subs))
+    return out
+
+
+@pytest.mark.parametrize("seed,kslot,frontier,max_matches", [(0, 64, 16, 16), (1, 8, 2, 2)])
+def test_step_with_nfa_matches_jax(seed, kslot, frontier, max_matches):
+    filters, _residual, topics = scaled_mixed_10m(seed)
+    (_p, _ps), (j, subs) = mixed_twins(filters)
+    bm, ln, _ = encode_topics(topics, 64)
+    snap = j.shapes.device_snapshot()
+    bits = subs.pack(j.num_filters_capacity)
+    nfa = j.nfa.device_snapshot()
+    m = j.shapes.m_active()
+    cfg = dict(max_levels=8, frontier=frontier, max_matches=max_matches, probes=8, kslot=kslot)
+    got = P_router.shape_route_step(
+        convert.tables_to_device(snap, bits, device="cpu"), bm, ln, m_active=m,
+        salt=j.salt, nfa_tables=convert.upload(nfa, device="cpu"), with_nfa=True,
+        device="cpu", **cfg,
+    )
+    want = jax.jit(
+        lambda st, nt, sb, bm, ln: J_router.shape_route_step_impl(
+            st, nt, sb, bm, ln, m_active=m, with_nfa=True, salt=j.salt, **cfg
+        )
+    )(snap, nfa, bits, bm, ln)
+    assert_step_equal(got, want, kslot)
+    nfa_hits = got["matched"][:, m:] >= 0
+    assert int(nfa_hits.sum()) > 50  # the residual lane really matches
+    flags = got["flags"].numpy()
+    assert flags[topics.index("v/1/2/3/4/5/6/7/8/9")]
+    if frontier == 2:  # narrow caps: the NFA lane flags rows of its own
+        assert flags.sum() > 10
+
+
+def test_device_router_with_nfa_matches_jax_across_churn():
+    filters, residual, topics = scaled_mixed_10m(2)
+    (p_idx, p_subs), (j_idx, j_subs) = mixed_twins(filters)
+    cfg = dict(max_levels=8, max_bytes=64, frontier=16, max_matches=16, probes=4)
+    p_router = P_router.DeviceRouter(p_idx, p_subs, PConfig(**cfg), device="cpu")
+    j_router = J_router.DeviceRouter(j_idx, j_subs, JConfig(**cfg))
+    assert p_router.config.probes == 8  # clamped up to MAX_PROBES
+
+    def both(fn):
+        fn(p_idx, p_subs)
+        fn(j_idx, j_subs)
+
+    def route_both(extra=()):
+        ts = topics + list(extra)
+        p_res = p_router.route(ts)
+        assert_route_equal(p_res, j_router.route(ts))
+        j_status = {m.name: (m.full_resyncs, m.delta_launches, m.array_resyncs)
+                    for m in (j_router._shape_sync, j_router._nfa_sync, j_router._bits_sync)}
+        p_status = {k: (v["full_resyncs"], v["delta_launches"], v["array_resyncs"])
+                    for k, v in p_router.segment_status().items()}
+        assert p_status == j_status
+        return p_res, p_status
+
+    _, s0 = route_both()
+    new = [f"v/+/{60 + k}/+/{k % 40}/{k % 30}/+/{k % 10}" for k in range(40)]
+    new += [f"v/+/{60 + k}/{k % 5}/#" for k in range(40)]
+    new_topics = [f"v/1/{60 + k}/2/{k % 40}/{k % 30}/3/{k % 10}" for k in range(40)]
+    new_topics += [f"v/1/{60 + k}/{k % 5}/9" for k in range(40)]
+    new_topics += [f"v/{a}/1/2/3/4/5/6" for a in range(3)]
+
+    def subscribe(index, subs):
+        for i, f in enumerate(new):
+            subs.add(index.add(f), 64 + i)
+        for a in range(3):
+            fid = index.filter_id(f"v/{a}/#")
+            for s in range(64, 164):
+                subs.add(fid, s)
+
+    both(subscribe)
+    res, s1 = route_both(new_topics)
+    assert s1["nfa"][0] == s0["nfa"][0] and s1["nfa"][1] > s0["nfa"][1]
+    assert s1["bitmaps"][0] == s0["bitmaps"][0] and s1["bitmaps"][1] > s0["bitmaps"][1]
+    assert res.overflow.any()
+
+    def unsubscribe(index, subs):
+        for i, f in enumerate(new):
+            subs.remove(index.filter_id(f), 64 + i)
+            index.remove(f)
+        for a in range(3):
+            fid = index.filter_id(f"v/{a}/#")
+            for s in range(64, 164):
+                subs.remove(fid, s)
+        for f in residual[::3]:
+            index.remove(f)
+
+    both(unsubscribe)
+    res, s2 = route_both(new_topics)
+    assert not res.overflow.any()
+    assert s2["nfa"][0] == s1["nfa"][0] and s2["nfa"][1] > s1["nfa"][1]
+
+    def bump_nfa_epoch(index, subs):  # churn one filter past the op-log cap
+        e0 = index.nfa.epoch
+        while index.nfa.epoch == e0:
+            index.add("v/+/99/+/1/1/+/1")
+            index.remove("v/+/99/+/1/1/+/1")
+
+    for idx in (p_idx, j_idx):
+        idx.nfa.OPLOG_MAX = 512  # reach the cap in a few dozen cycles
+    both(bump_nfa_epoch)
+    _, s3 = route_both()
+    assert s3["nfa"][0] == s2["nfa"][0] + 1 and s3["shapes"][0] == s2["shapes"][0]
+    assert p_router.prepare() is p_router.prepare()  # clean: the cached args
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):

@@ -1,0 +1,303 @@
+"""The port's device mirror against the JAX package and the host tables.
+
+`segment_scatter` (port) against `segment_scatter_impl` on the same arrays
+and deltas, and the port's `DeviceSegmentManager` against the host
+`device_snapshot()` of each source it mirrors (`ShapeIndex`, `NfaBuilder`,
+`SubscriberTable`, the port's own copies) after seeded churn, with its
+counters held against the `emqx_tpu` manager driven through the same
+churn on the `emqx_tpu` sources. The port runs on the CPU (the kernel's
+plain twin); the `cuda`-marked test at the end holds the kernel against
+the twin on a card. Tolerance: EXACT equality (all integers).
+"""
+
+import random
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from emqx_tpu.models import router_model as J_router
+from emqx_tpu.ops import nfa as J_nfa
+from emqx_tpu.ops import segments as J_seg
+from emqx_tpu.ops import shape_index as J_shape
+from emqx_tpu.ops import topics as J_topics
+from emqx_tpu_torch import kernels
+from emqx_tpu_torch.models import router_model as P_router
+from emqx_tpu_torch.ops import nfa as P_nfa
+from emqx_tpu_torch.ops import segments as P_seg
+from emqx_tpu_torch.ops import shape_index as P_shape
+
+
+def assert_mirror(out, src):
+    snap = src.device_snapshot()
+    assert set(out) == set(snap)
+    for k, v in snap.items():
+        assert out[k].dtype == torch.int32 and tuple(out[k].shape) == v.shape, k
+        np.testing.assert_array_equal(out[k].numpy().view(v.dtype), v, err_msg=k)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_segment_scatter_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    flats = {
+        "a": rng.integers(-(1 << 31), 1 << 31, size=4096, dtype=np.int64).astype(np.int32),
+        "b": rng.integers(0, 1 << 32, size=1000, dtype=np.uint64).astype(np.uint32),
+        "c": np.full(64, -1, np.int32),
+    }
+    idxs = {k: rng.choice(v.size, size=n, replace=False)
+            for (k, v), n in zip(flats.items(), (700, 1000, 1))}
+    vals = {
+        "a": rng.integers(-(1 << 31), 1 << 31, size=700, dtype=np.int64).astype(np.int32),
+        "b": rng.integers(0, 1 << 32, size=1000, dtype=np.uint64).astype(np.uint32),
+        "c": np.array([7], np.int32),
+    }
+    want = jax.jit(J_seg.segment_scatter_impl)(
+        {k: jnp.asarray(v) for k, v in flats.items()},
+        {k: jnp.asarray(v.astype(np.int32)) for k, v in idxs.items()},
+        {k: jnp.asarray(v) for k, v in vals.items()},
+    )
+    inputs = {k: torch.from_numpy(v.view(np.int32).copy()) for k, v in flats.items()}
+    before = {k: t.clone() for k, t in inputs.items()}
+    got = P_seg.segment_scatter(inputs, idxs, vals)
+    for k in flats:
+        np.testing.assert_array_equal(got[k].numpy().view(flats[k].dtype),
+                                      np.asarray(want[k]), err_msg=k)
+        assert torch.equal(inputs[k], before[k])  # fresh buffers, inputs untouched
+
+
+def test_segment_scatter_keeps_the_last_write_per_slot():
+    flat = {"x": torch.zeros((4, 2), dtype=torch.int32)}
+    # one slot written three times and another twice, in program order
+    idx = {"x": np.array([5, 1, 5, 3, 1, 5])}
+    val = {"x": np.array([10, 11, 12, 13, 0xFFFFFFFF, -4])}
+    got = P_seg.segment_scatter(flat, idx, val)["x"]
+    assert got.shape == (4, 2)
+    np.testing.assert_array_equal(got.reshape(-1).numpy(), [0, -1, 0, 13, 0, -4, 0, 0])
+    with pytest.raises(IndexError, match="outside"):
+        P_seg.segment_scatter(flat, {"x": np.array([8])}, {"x": np.array([1])})
+    with pytest.raises(TypeError, match="int32"):
+        P_seg.segment_scatter({"x": torch.zeros(4)}, {"x": [0]}, {"x": [1]})
+
+
+class ScatterSpy:
+    """Records each delta replay's touched arrays (both packages)."""
+
+    def __init__(self, monkeypatch):
+        self.port, self.jax = [], []
+        real_p, real_j = P_seg.segment_scatter, J_seg._segment_scatter
+
+        def spy_p(flats, idxs, vals):
+            self.port.append(sorted(flats))
+            return real_p(flats, idxs, vals)
+
+        def spy_j(flats, idxs, vals):
+            self.jax.append(sorted(flats))
+            return real_j(flats, idxs, vals)
+
+        monkeypatch.setattr(P_seg, "segment_scatter", spy_p)
+        monkeypatch.setattr(J_seg, "_segment_scatter", spy_j)
+
+
+def counters(man):
+    return (man.full_resyncs, man.delta_launches, man.array_resyncs)
+
+
+def nfa_churn(rng, builders, live, n_add, n_del):
+    words = [f"w{i}" for i in range(30)] + ["+", "#"]
+    for _ in range(n_add):
+        f = "/".join(rng.choice(words) for _ in range(rng.randint(1, 5)))
+        try:
+            J_topics.validate(f)
+        except J_topics.TopicValidationError:
+            continue
+        for b in builders:
+            b.add(f)
+        live.append(f)
+    for _ in range(n_del):
+        if live:
+            f = live.pop(rng.randrange(len(live)))
+            for b in builders:
+                b.remove(f)
+
+
+@pytest.mark.parametrize("seed", [3, 8])
+def test_nfa_mirror_tracks_churn_like_jax(seed, monkeypatch):
+    spy = ScatterSpy(monkeypatch)
+    rng = random.Random(seed)
+    pb, jb = P_nfa.NfaBuilder(), J_nfa.NfaBuilder()
+    pm = P_seg.DeviceSegmentManager(device="cpu", name="nfa")
+    jm = J_seg.DeviceSegmentManager(name="nfa")
+    live = []
+    for step in range(25):
+        # step 12 grows past the first node/edge/vocab capacity (epoch bump)
+        nfa_churn(rng, (pb, jb), live, 400 if step == 12 else rng.randint(1, 9),
+                  rng.randint(0, 6))
+        out = pm.sync(pb)
+        jm.sync(jb)
+        assert_mirror(out, pb)
+        assert counters(pm) == counters(jm), step
+    assert spy.port == spy.jax  # the same arrays in the same launches
+    assert pm.full_resyncs >= 2 and pm.delta_launches >= 10
+    # every delta replay is ONE launch, whatever mix of arrays it touched
+    assert max(len(names) for names in spy.port) >= 3
+
+
+def shape_pair():
+    return P_shape.ShapeIndex(), J_shape.ShapeIndex()
+
+
+def test_shape_mirror_multi_array_suffix_is_one_launch(monkeypatch):
+    spy = ScatterSpy(monkeypatch)
+    srcs = shape_pair()
+    mans = (P_seg.DeviceSegmentManager(device="cpu"), J_seg.DeviceSegmentManager())
+    for s in srcs:
+        s.add("a/+/c", 0)
+    for m, s in zip(mans, srcs):
+        m.sync(s)
+    assert spy.port == []
+    for s in srcs:
+        s.add("x/y/#", 1)
+        s.add("q/+", 2)
+        s.remove("a/+/c")
+    out = mans[0].sync(srcs[0])
+    mans[1].sync(srcs[1])
+    assert len(spy.port) == 1 and len(spy.port[0]) >= 2
+    assert spy.port == spy.jax
+    assert_mirror(out, srcs[0])
+    # a clean sync launches nothing and hands back the same tensors
+    again = mans[0].sync(srcs[0])
+    assert len(spy.port) == 1 and all(again[k] is out[k] for k in out)
+
+
+def test_shape_resync_marker_reuploads_only_that_array():
+    si = P_shape.ShapeIndex()
+    man = P_seg.DeviceSegmentManager(device="cpu")
+    for i in range(4):
+        si.add(f"s/{i}/+", i)
+    out0 = man.sync(si)
+    si._rebuild_hot(min_cap=si._Hcap * 2)  # "!resync shape_hot" marker
+    assert si.epoch == 0 and si.oplog[-1][0] == P_seg.RESYNC
+    # a new shape after the marker: its hot row rides the re-upload, its
+    # shape meta rides one scatter
+    si.add("n/+/+/z", 9)
+    out1 = man.sync(si)
+    assert man.array_resyncs == 1 and man.delta_launches == 1
+    assert out1["shape_tab"] is out0["shape_tab"]  # the packed mirror stays
+    assert out1["shape_hot"].shape[0] == si._Hcap * 4
+    assert_mirror(out1, si)
+
+
+def test_array_without_marker_uploads_in_full():
+    class Src:
+        epoch, version = 0, 0
+
+        def __init__(self):
+            self.arrays = {"a": np.zeros(8, np.int32)}
+            self.oplog = []
+
+        def device_snapshot(self):
+            return self.arrays
+
+    src = Src()
+    man = P_seg.DeviceSegmentManager(device="cpu")
+    man.sync(src)
+    src.arrays["b"] = np.arange(4, dtype=np.uint32)
+    src.arrays["a"][2] = 5
+    src.oplog += [("b", 1, 1), ("a", 2, 5)]
+    out = man.sync(src)
+    assert man.array_resyncs == 1 and man.delta_launches == 1
+    assert_mirror(out, src)
+
+
+def test_oplog_cap_forces_an_epoch_resync():
+    b = P_nfa.NfaBuilder()
+    b.OPLOG_MAX = 64  # tiny, to reach the cap fast
+    man = P_seg.DeviceSegmentManager(device="cpu")
+    man.sync(b)
+    epoch0 = b.epoch
+    for i in range(60):
+        b.add(f"c/{i}/#")
+    assert b.epoch > epoch0
+    out = man.sync(b)
+    assert counters(man) == (2, 0, 0)
+    assert_mirror(out, b)
+
+
+def test_torn_sync_is_never_cached_clean():
+    si = P_shape.ShapeIndex()
+    si.add("a/+", 0)
+    man = P_seg.DeviceSegmentManager(device="cpu")
+    real = si.device_snapshot
+
+    def torn_snapshot():
+        out = real()
+        si.add("raced/+", 99)  # a mutation lands mid-upload
+        return out
+
+    si.device_snapshot = torn_snapshot
+    man.sync(si)
+    si.device_snapshot = real
+    assert man._torn
+    out = man.sync(si)  # the next sync uploads in full again
+    assert man.full_resyncs == 2 and not man._torn
+    assert_mirror(out, si)
+
+
+def test_subscriber_mirror_tracks_churn_and_growth():
+    rng = np.random.default_rng(2)
+    tabs = (P_router.SubscriberTable(max_subscribers=64),
+            J_router.SubscriberTable(max_subscribers=64))
+    mans = (P_seg.DeviceSegmentManager(device="cpu"), J_seg.DeviceSegmentManager())
+    for step in range(12):
+        ops = [(int(rng.integers(0, 48 if step < 6 else 300)), int(rng.integers(0, 64)),
+                bool(rng.random() < 0.3)) for _ in range(int(rng.integers(1, 30)))]
+        for t in tabs:
+            for fid, slot, rm in ops:
+                (t.remove if rm else t.add)(fid, slot)
+        out = mans[0].sync(tabs[0])
+        mans[1].sync(tabs[1])
+        assert_mirror(out, tabs[0])
+        assert counters(mans[0]) == counters(mans[1]), step
+    assert mans[0].full_resyncs >= 2 and mans[0].delta_launches >= 5
+
+
+def test_manager_needs_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P_seg.DeviceSegmentManager()
+    kernels.reset_launches()
+    man = P_seg.DeviceSegmentManager(device="cpu")
+    t = P_router.SubscriberTable()
+    man.sync(t)
+    t.add(3, 5)
+    man.sync(t)
+    assert man.delta_launches == 1 and kernels.LAUNCHES["segment_scatter"] == 0
+
+
+# -- on the card: the kernel against its twin (skips without CUDA) --------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_segment_scatter_kernel_matches_twin_on_card(cuda_device):
+    dev = cuda_device
+    rng = np.random.default_rng(9)
+    flats = {"a": torch.from_numpy(rng.integers(-9, 9, size=(1000, 8)).astype(np.int32)).to(dev),
+             "b": torch.zeros(1 << 16, dtype=torch.int32, device=dev)}
+    idxs = {"a": rng.integers(0, 8000, size=3000), "b": rng.integers(0, 1 << 16, size=5000)}
+    vals = {k: rng.integers(-(1 << 31), 1 << 32, size=len(v)) for k, v in idxs.items()}
+    before = {k: t.clone() for k, t in flats.items()}
+    kernels.reset_launches()
+    got = P_seg.segment_scatter(flats, idxs, vals)
+    want = P_seg.segment_scatter_plain(flats, idxs, vals)
+    for k in flats:
+        assert torch.equal(got[k], want[k]) and torch.equal(flats[k], before[k])
+    assert kernels.LAUNCHES["segment_scatter"] == 1
