@@ -22,7 +22,11 @@ The `mixed_1m` path (the shape-only step):
    row's recipient set held against a host oracle, then churn that pushes
    rows past kslot onto the dense-row path; launch counters are zeroed
    before and read after, and every kernel of the path must have launched;
-5. `route_breakdown`: where one routed batch's time goes.
+5. `route_breakdown`: where one routed batch's time goes;
+5b. `flip_1m`: the same table flipped to the CSR representation: the
+   bitmaps mirror must swap to a fresh manager whose only work is one
+   full upload, and the same batches must reach the same recipients
+   through `sparse_fanout_slots`.
 
 The `mixed_10m` path (the residual NFA lane and the O(delta) mirror), the
 configuration `bench.py` builds in `_build_mixed_10m`, unchanged: 10M
@@ -42,16 +46,49 @@ filters in 66 wildcard shapes (2 dense overlays, 64 sparse families of
    each; delta sync timed against a full upload;
 8. `kernel` x7 at mixed_10m shapes (the scatter on the subscribe wave's
    own deltas), each against its twin, with its times and its bound;
-9. `route_breakdown_10m`;
-10. one JSON line {"kernels": [...]}: per kernel its launches on the
-    mixed_10m path, its wrapper-call, device, plain-twin and library-call
-    times and the least time the card could take (bytes moved over
-    3.35 TB/s, or integer operations over the 67 T/s scalar rate, the
-    larger); then the card line; then, last, {"ok": true, "device": ...}.
+9. `route_breakdown_10m`.
+
+The `share_10m_csr` path (the sparse CSR subscriber table and $share
+picks): BASELINE config 4 as bench.py builds it (`share_10m`: device/{i}/
++/{j}/# for i < 10,000 and j < 1,000, 8 subscribers each) over a 2^20-slot
+client universe (subscription n -> slot n mod 2^20) in
+`SubscriberTable(mode="sparse")`, plus device/{i}/# as the real filters of
+11,000 groups ($share/ingest/device/{i}/# with 16 members for every i,
+$share/audit/device/{i}/# with 4 for i < 1,000), round_robin:
+10. `tables_share`: build seconds per stage, device bytes per mirror,
+    m_active, residual_count (0), `reduced` (none);
+11. `route_share` then `churn_share`, counters zeroed before the first
+    and read after the last: 3 Zipf batches plus edge topics and one
+    hash_clientid batch with seeded client hashes; every unflagged
+    recipient set against the host oracle (the union of
+    `CsrTable.slots_of` over the host-matched fids, counts by the
+    kernel's rules) and every pick against a numpy round-robin oracle
+    over the host `GroupTable`, the bases advanced after each batch as
+    the broker does; then a hot subscribe wave (one scatter), an
+    unsubscribe wave (packed tombstones), a storm past `HOT_SERVE_MAX`
+    that the prepare folds into a full rebuild (rows past the gather
+    window, built on the host) and group changes (`set_len`, an empty
+    group, `drop_group`, a recycled gid), mirrors compared after each;
+    `sparse_fanout_slots`, `share_pick` and `occurrence_index` must have
+    launched and `fanout_bitmaps` / `compact_fanout_slots` not;
+12. `kernel` for tokenize, shape_match, `sparse_fanout_slots`,
+    `occurrence_index` and `share_pick` under each of the five strategies
+    at this path's shapes, each against its twin;
+13. `route_breakdown_share`;
+14. `composite_bounds`: the serving composite's bound per batch (the sum
+    of its kernels' bounds) on the mixed_10m and share_10m_csr paths;
+15. one JSON line {"kernels": [...]}: the ten kernels, each with its
+    launches on its path (the seven of mixed_10m there; the CSR gather,
+    the picks (round_robin) and the occurrence index on share_10m_csr),
+    its wrapper-call, device, plain-twin and library-call times and the
+    least time the card could take (bytes moved over 3.35 TB/s, or
+    integer operations over the 67 T/s scalar rate, the larger); then
+    the card line; then, last, {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -83,6 +120,21 @@ SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 EDGE_TOPICS = ["", "$SYS/broker/x", "a/b/c/d/e/f/g/h/i/j", "device/3/mid/5/"]
 EDGE_TOPICS_10M = ["", "$SYS/broker/x", "$v/1/2/3/4/5/6/7",
                    "v/1/2/3/4/5/6/7/8/9", "v/1//", "v"]
+
+# the kernels of the mixed_10m path (dense table, residual NFA lane, mirror)
+MIXED_10M_KERNELS = ("tokenize", "shape_match", "vocab_lookup", "nfa_walk",
+                     "fanout_bitmaps", "compact_fanout_slots", "segment_scatter")
+
+# share_10m_csr: BASELINE config 4 as bench.py builds it (share_10m: 10M
+# device/{i}/+/{j}/# filters, 8 subscriber slots each) over a 2^20-slot
+# universe, plus the $share groups on device/{i}/#
+SHARE_IDS = 10_000
+SHARE_NUMS = 1000
+SHARE_SPF = 8
+SHARE_SLOTS = 1 << 20
+SHARE_GPF = 4
+SHARE_GROUPS = (("ingest", 16, SHARE_IDS), ("audit", 4, 1000))  # name, members, ids
+EDGE_TOPICS_SHARE = ["device/5", "$SYS/x", "device/1/2/3/4/5/6/7/8/9", ""]
 
 
 def phase(name: str, **fields) -> None:
@@ -330,10 +382,22 @@ class Oracle:
             out.append(found)
         return out
 
+    def region_total(self, fids) -> int:
+        """Allocated packed-region length over the fids of a CSR table."""
+        ln = self.subtab.csr.csr_len[0]
+        return sum(int(ln[f]) for f in fids if f < len(ln))
+
+    def slot_count(self, fids) -> int:
+        """Live (fid, slot) pairs over the fids of a CSR table."""
+        return sum(len(self.subtab.csr.slots_of(f)) for f in fids)
+
     def slots(self, fids) -> set:
         out = set()
         for f in fids:
-            out |= slot_set(self.subtab.arr[f])
+            if self.subtab.sparse:
+                out |= set(self.subtab.csr.slots_of(f).tolist())
+            else:
+                out |= slot_set(self.subtab.arr[f])
         return out
 
 
@@ -341,8 +405,12 @@ def check_batch(res, topics, oracle, exact_flags=True) -> dict:
     """Every unflagged row's matched fids and recipient slots equal the
     oracle's. Topics deeper than MAX_LEVELS must be flagged; with
     `exact_flags` no other row may be, else other flagged rows (NFA
-    frontier or match overflow, which the host routes) are counted."""
-    n_ovf = n_flag = n_bits = n_other_flag = 0
+    frontier or match overflow, which the host routes) are counted. The
+    recipient count must equal the oracle's too (on a CSR table, with the
+    kernel's count rules below; the router's gather window is the default
+    2 * kslot)."""
+    n_ovf = n_flag = n_bits = n_other_flag = n_window = 0
+    kslot = res.slots.shape[1] if res.slots is not None else 0
     want_fids = oracle.fids(topics)
     for i, t in enumerate(topics):
         deep = len(t.split("/")) > MAX_LEVELS
@@ -365,11 +433,26 @@ def check_batch(res, topics, oracle, exact_flags=True) -> dict:
         else:
             got = set(res.slots[i][res.slots[i] >= 0].tolist())
         want = oracle.slots(want_f)
-        if got != want or int(res.slot_count[i]) != len(want):
+        count = int(res.slot_count[i])
+        # a CSR row counts every matched fid's slots, a slot that two of
+        # its filters share twice; the bitmap OR counts it once. A row whose
+        # packed regions pass the gather window (2 * kslot) has its count
+        # forced to max(their allocated length, kslot + 1)
+        window = False
+        want_count = len(want)
+        if oracle.subtab.sparse:
+            total = oracle.region_total(want_f)
+            window = total > 2 * kslot
+            want_count = max(total, kslot + 1) if window else oracle.slot_count(want_f)
+        if got != want or count != want_count:
             raise AssertionError(f"row {i} {t!r}: slots {sorted(got)} != {sorted(want)}")
+        n_window += int(window)
         n_bits += len(want)
-    return {"rows": len(topics), "flagged": n_flag, "flagged_not_deep": n_other_flag,
-            "overflow_rows": n_ovf, "recipients": n_bits}
+    out = {"rows": len(topics), "flagged": n_flag, "flagged_not_deep": n_other_flag,
+           "overflow_rows": n_ovf, "recipients": n_bits}
+    if oracle.subtab.sparse:
+        out["gather_window_rows"] = n_window
+    return out
 
 
 # -- measurement -------------------------------------------------------------
@@ -406,7 +489,7 @@ def host_ms(fn, torch, reps=5) -> float:
     return float(np.median(samples))
 
 
-KERNEL_SYMBOLS = {  # CUDA kernel name inside each launcher
+KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "tokenize": "tokenize_kernel",
     "shape_match": "shape_match_kernel",
     "fanout_bitmaps": "fanout_kernel",
@@ -414,6 +497,9 @@ KERNEL_SYMBOLS = {  # CUDA kernel name inside each launcher
     "vocab_lookup": "vocab_lookup_kernel",
     "nfa_walk": "nfa_walk_kernel",
     "segment_scatter": "segment_scatter_kernel",
+    "sparse_fanout_slots": "sparse_fanout_kernel",
+    "share_pick": "share_pick_kernel",
+    "occurrence_index": ("occ_tile_sort", "occ_merge", "occ_finalize"),
 }
 
 SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
@@ -431,6 +517,12 @@ SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
                  "emqx_tpu/ops/matcher.py:139"),
     "segment_scatter": ("emqx_tpu_torch/kernels/csrc/segment_scatter.cu",
                         "emqx_tpu/ops/segments.py:73"),
+    "sparse_fanout_slots": ("emqx_tpu_torch/kernels/csrc/sparse_fanout.cu",
+                            "emqx_tpu/ops/csr_table.py:84"),
+    "share_pick": ("emqx_tpu_torch/kernels/csrc/share_pick.cu",
+                   "emqx_tpu/models/router_model.py:904"),
+    "occurrence_index": ("emqx_tpu_torch/kernels/csrc/occurrence_index.cu",
+                         "emqx_tpu/models/router_model.py:885"),
 }
 
 
@@ -449,17 +541,27 @@ def profiled(torch, fn, reps: int):
     return prof.key_averages(), wall
 
 
-def device_ms(torch, name: str, fn):
-    """Mean device time of one launch of kernel `name`, from the CUPTI
-    trace of 20 launches; a trace that lost the kernel's events is taken
-    once more; None when neither holds device time for it."""
+def device_ms(torch, name: str, fn, per_call=None):
+    """Device time of one call of kernel `name`, from the CUPTI trace of 20
+    calls: per CUDA kernel of the launcher (`KERNEL_SYMBOLS`), its mean
+    time per launch times its launches per call (`per_call`, 1 where not
+    given), summed. A trace that lost every event of one of them is taken
+    once more; None when neither holds device time for all."""
+    syms = KERNEL_SYMBOLS[name]
+    syms = (syms,) if isinstance(syms, str) else syms
+    per_call = per_call or {}
     for _ in range(2):
         events, _ = profiled(torch, fn, 20)
-        hits = [e for e in events if KERNEL_SYMBOLS[name] in e.key and e.count]
-        total = sum(e.self_device_time_total for e in hits)
-        count = sum(e.count for e in hits)
-        if total > 0:
-            return total / count / 1e3
+        ms = 0.0
+        for sym in syms:
+            hits = [e for e in events if sym in e.key and e.count]
+            total = sum(e.self_device_time_total for e in hits)
+            count = sum(e.count for e in hits)
+            if total <= 0:
+                break
+            ms += total / count / 1e3 * per_call.get(sym, 1)
+        else:
+            return ms
     return None
 
 
@@ -512,6 +614,7 @@ def kernel_report(torch, kinds) -> dict:
     """Each kernel against its twin (must be equal), then its times."""
     report = {}
     for name, k in kinds.items():
+        kname = k.get("name", name)  # several kinds may time one kernel
         want = k["plain"]()
         torch.cuda.synchronize()
         err = max_abs_err(k["out"], want, torch)
@@ -520,18 +623,18 @@ def kernel_report(torch, kinds) -> dict:
         ms = time_ms(k["kernel"], torch)
         plain_ms = time_ms(k["plain"], torch, inner=PLAIN_INNER)
         lib_ms = time_ms(k["library"], torch) if k.get("library") else None
-        dev_ms = device_ms(torch, name, k["kernel"])
+        dev_ms = device_ms(torch, kname, k["kernel"], k.get("per_call"))
         bound_ms, bound_by = bound(k["bytes"], k["ops"])
-        src, replaces = SOURCES[name]
+        src, replaces = SOURCES[kname]
         report[name] = {
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
             # the kernel alone on the device (CUPTI), without the launch
             # path that `ms` includes
             "device_ms": dev_ms,
         }
-        phase("kernel", kernel=name, equal=True, ms=ms, device_ms=dev_ms,
+        phase("kernel", kernel=kname, case=name, equal=True, ms=ms, device_ms=dev_ms,
               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
               bytes=k["bytes"], ops=k["ops"])
     return report
@@ -544,7 +647,7 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
     from emqx_tpu_torch.ops import shape_index as S
     from emqx_tpu_torch.ops import tokenizer as T
 
-    tables, nfa_tables, salt, m_active, kslot = args
+    tables, nfa_tables, salt, m_active, kslot = args[:5]
     dev = tables["shape_tab"].device
     mat, lens, _ = T.encode_topics(topics, MAX_BYTES)
     bm = torch.from_numpy(mat).to(dev)
@@ -592,10 +695,12 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
         )
     else:
         matched_all = matched
-    bits, pop = R.fanout_bitmaps(tables["sub_bitmaps"], matched_all)
-    W = bits.shape[1]
-    Mall = matched_all.shape[1]
-    comp = R.compact_fanout_slots(bits, kslot)
+    dense = "sub_bitmaps" in tables  # else a CSR table: see share_kinds
+    if dense:
+        bits, pop = R.fanout_bitmaps(tables["sub_bitmaps"], matched_all)
+        W = bits.shape[1]
+        Mall = matched_all.shape[1]
+        comp = R.compact_fanout_slots(bits, kslot)
     torch.cuda.synchronize()
 
     # least bytes each function must move at these inputs; ops are a
@@ -609,8 +714,7 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
     n_hit = int((matched >= 0).sum())
     fids = matched_all[matched_all >= 0].unique().numel()
     nbytes = int(ln.clamp(0, MB).sum())
-    inputs.update(width_words=W, valid_lanes=n_valid, shape_hits=n_hit,
-                  distinct_fids=fids, fanout_bits=int(pop.sum()))
+    inputs.update(valid_lanes=n_valid, shape_hits=n_hit, distinct_fids=fids)
     kinds.update({
         "tokenize": dict(
             kernel=lambda: T.tokenize(bm, ln, salt, L),
@@ -629,6 +733,11 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
             + 20 * n_hit + 36 * (n_valid - n_hit) + 4 * B * M,
             ops=B * M * 12 + n_valid * (6 * L + 30),
         ),
+    })
+    if not dense:
+        return kinds, inputs
+    inputs.update(width_words=W, fanout_bits=int(pop.sum()))
+    kinds.update({
         "fanout_bitmaps": dict(
             kernel=lambda: R.fanout_bitmaps(tables["sub_bitmaps"], matched_all),
             plain=lambda: R.fanout_bitmaps_plain(tables["sub_bitmaps"], matched_all),
@@ -696,9 +805,10 @@ def topic_batch_1m(rng, n):
 def route_breakdown(torch, router, batches, nfa_cfg=None) -> dict:
     """Where one routed batch's time goes, medians over the batches (host
     clock, each stage ending in a synchronize): host encode, host->device
-    copy of the topic bytes, the launches up to their completion, and the
-    readback; then a whole route() of the same batch. Plus the device's
-    busy share of profiled route() calls."""
+    copy of the topic bytes, the launches up to their completion (the pick
+    inputs' host draw and copy included, when the router has groups), and
+    the readback; then a whole route() of the same batch. Plus the
+    device's busy share of profiled route() calls."""
     from emqx_tpu_torch.models.router_model import shape_route_step
     from emqx_tpu_torch.ops.tokenizer import encode_topics
 
@@ -716,12 +826,18 @@ def route_breakdown(torch, router, batches, nfa_cfg=None) -> dict:
         ln = torch.from_numpy(lens).to(dev)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
+        picks = {}
+        if args.group_tables is not None:
+            ch, th, rand = router._pick_inputs(topics, None)
+            picks = dict(group_tables=args.group_tables, client_hash=ch,
+                         topic_hash=th, rand=rand, with_groups=True,
+                         share_strategy=router.share_strategy)
         out = shape_route_step(
             args.tables, bm, ln, m_active=args.m_active, salt=args.salt,
             nfa_tables=args.nfa_tables, with_nfa=args.nfa_tables is not None,
             max_levels=cfg.max_levels, frontier=cfg.frontier,
             max_matches=cfg.max_matches, probes=cfg.probes, kslot=args.kslot,
-            device=dev)
+            device=dev, **picks)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         router._readback(out, len(topics), too_long, args.kslot)
@@ -809,7 +925,59 @@ def mixed_1m_path(torch, rng):
           segment_status=router.segment_status())
     brk = [topic_batch_1m(rng, BATCH) for _ in range(3)]
     phase("route_breakdown", **route_breakdown(torch, router, brk))
+    flip_1m(torch, router, oracle, batches[:2])
     return report
+
+
+def recipient_sets(res) -> list:
+    out = []
+    for i in range(len(res.mcount)):
+        if res.overflow[i]:
+            out.append(slot_set(res.dense_rows[res.dense_index[i]]))
+        else:
+            out.append(set(res.slots[i][res.slots[i] >= 0].tolist()))
+    return out
+
+
+def flip_1m(torch, router, oracle, batches):
+    """Phase 5b: the mixed_1m table flipped to the CSR representation. The
+    bitmaps mirror must swap to a fresh manager whose only work is one full
+    upload, and the same batches must reach the same recipients."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS
+
+    subtab = router.subtab
+    before = [router.route(t) for t in batches]
+    old_sync = router._bits_sync
+    t0 = time.perf_counter()
+    subtab.set_mode("sparse")
+    flip_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    args = router.prepare()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    counters = router._bits_sync.counters()
+    if router._bits_sync is old_sync or counters != {
+            "full_resyncs": 1, "delta_launches": 0, "array_resyncs": 0}:
+        raise AssertionError(f"flip: the bitmaps mirror did not swap ({counters})")
+    if "sub_bitmaps" in args.tables or not set(CSR_KEYS) <= set(args.tables):
+        raise AssertionError(f"flip: tables {sorted(args.tables)}")
+    kernels.reset_launches()
+    checked = []
+    for topics, res0 in zip(batches, before):
+        res = router.route(topics)
+        if recipient_sets(res) != recipient_sets(res0) or not np.array_equal(
+                res.flags, res0.flags):
+            raise AssertionError("flip: recipient sets differ from the dense table's")
+        checked.append(check_batch(res, topics, oracle))
+    launches = dict(kernels.LAUNCHES)
+    if launches["sparse_fanout_slots"] != len(batches) or launches["fanout_bitmaps"] \
+            or launches["compact_fanout_slots"]:
+        raise AssertionError(f"flip: launches {launches}")
+    phase("flip_1m", flip_seconds=flip_s, first_sync_seconds=upload_s,
+          bits_mirror=counters, csr_bytes=mirror_bytes({k: args.tables[k] for k in CSR_KEYS}),
+          subscriptions=subtab.live, kslot=args.kslot, routed=checked,
+          launches=launches)
 
 
 # -- the mixed_10m path ------------------------------------------------------
@@ -821,14 +989,19 @@ def mirror_bytes(tensors) -> dict:
 
 def check_mirrors(torch, router) -> dict:
     """Copy every mirror back and compare it bit for bit with the host
-    table it mirrors."""
+    table it mirrors (the subscriber table in its active representation;
+    the NFA and the group table where the router mirrors them)."""
     args = router.prepare()
-    pairs = (
-        ("shapes", {k: v for k, v in args.tables.items() if k != "sub_bitmaps"},
+    sub_keys = set(router.subtab.device_snapshot())
+    pairs = [
+        ("shapes", {k: v for k, v in args.tables.items() if k not in sub_keys},
          router.index.shapes),
-        ("nfa", args.nfa_tables, router.index.nfa),
-        ("bitmaps", {"sub_bitmaps": args.tables["sub_bitmaps"]}, router.subtab),
-    )
+        ("bitmaps", {k: args.tables[k] for k in sub_keys}, router.subtab),
+    ]
+    if args.nfa_tables is not None:
+        pairs.append(("nfa", args.nfa_tables, router.index.nfa))
+    if args.group_tables is not None:
+        pairs.append(("groups", args.group_tables, router.grouptab))
     checked = {}
     for name, dev_tabs, src in pairs:
         snap = src.device_snapshot()
@@ -966,22 +1139,11 @@ def mixed_10m_path(torch, rng):
         return {"shapes": index.shapes.epoch, "nfa": index.nfa.epoch,
                 "bitmaps": subtab.epoch}
 
-    def check_wave(what, before, after, e0, e1):
-        """A wave reaches each mirror as scatters (or, for a rebuilt small
-        array such as the shape index's hot segment, a re-upload of that
-        array alone): a full resync only where the host table itself had a
-        structural event (its epoch moved: growth, rehash)."""
-        full = moved(before, after, "full_resyncs")
-        deltas = moved(before, after, "delta_launches")
-        arrays = moved(before, after, "array_resyncs")
-        grown = {m: e1[m] != e0[m] for m in e0}
-        for m in full:
-            if full[m] != int(grown[m]) or (not grown[m] and deltas[m] + arrays[m] < 1):
-                raise AssertionError(f"{what}: {m} full {full[m]}, delta {deltas[m]}, "
-                                     f"arrays {arrays[m]}, epoch moved {grown[m]}")
-        if not any(deltas.values()):
+    def check_scatter_wave(what, before, after, e0, e1):
+        wave = check_wave(what, before, after, e0, e1)
+        if not any(wave["delta_launches"].values()):
             raise AssertionError(f"{what}: no scatter launched")
-        return deltas, grown
+        return wave
 
     # (b) a subscribe wave: new residual and shape-family filters (ids past
     # the generator's spaces, so every one is new), their subscribers, and
@@ -1017,7 +1179,7 @@ def mixed_10m_path(torch, rng):
     finally:
         G.segment_scatter = real_scatter
     c2 = mirror_counts(router)
-    deltas, grown = check_wave("subscribe wave", c1, c2, epochs, epochs_now())
+    wave = check_scatter_wave("subscribe wave", c1, c2, epochs, epochs_now())
     mirrors = check_mirrors(torch, router)
     churn_topics = [zipf_batch(), residual_batch(
         topics_from_filters(rng, new_res + new_shape)
@@ -1026,9 +1188,7 @@ def mixed_10m_path(torch, rng):
     if not any(b["overflow_rows"] for b in after_sub):
         raise AssertionError("the subscribe wave produced no rows past kslot")
     churn["subscribe"] = {"filters": 2 * n_new, "bits": len(added), "prepare_ms": delta_ms,
-                          "delta_launches": deltas, "epoch_moved": grown,
-                          "array_resyncs": moved(c1, c2, "array_resyncs"),
-                          "mirrors_equal": mirrors, "routed": after_sub}
+                          **wave, "mirrors_equal": mirrors, "routed": after_sub}
 
     # (c) the unsubscribe wave undoes all of it
     epochs = epochs_now()
@@ -1041,16 +1201,15 @@ def mixed_10m_path(torch, rng):
     torch.cuda.synchronize()
     unsub_ms = 1e3 * (time.perf_counter() - t0)
     c3 = mirror_counts(router)
-    unsub_deltas, grown = check_wave("unsubscribe wave", c2, c3, epochs, epochs_now())
+    wave = check_scatter_wave("unsubscribe wave", c2, c3, epochs, epochs_now())
     mirrors = check_mirrors(torch, router)
     after_unsub = route_checked(router, churn_topics, oracle)
     if any(b["overflow_rows"] for b in after_unsub):
         raise AssertionError("rows past kslot remain after the unsubscribe wave")
-    churn["unsubscribe"] = {"prepare_ms": unsub_ms, "delta_launches": unsub_deltas,
-                            "epoch_moved": grown,
+    churn["unsubscribe"] = {"prepare_ms": unsub_ms, **wave,
                             "mirrors_equal": mirrors, "routed": after_unsub}
     launches = dict(kernels.LAUNCHES)
-    if not all(launches.values()):
+    if not all(launches[k] for k in MIXED_10M_KERNELS):
         raise AssertionError(f"a kernel never launched on the mixed_10m path: {launches}")
 
     # delta sync against the full re-upload of every mirror
@@ -1079,6 +1238,390 @@ def mixed_10m_path(torch, rng):
     return report, launches
 
 
+# -- the share_10m_csr path -------------------------------------------------
+
+
+def share_filters(n_ids, n_nums) -> list:
+    """bench.py's share_10m filters, device/{i}/+/{j}/#, then the groups'
+    real filters device/{i}/#."""
+    i = np.repeat(np.arange(n_ids), n_nums)
+    j = np.tile(np.arange(n_nums), n_ids)
+    filters = format_rows(["device/", (i, n_ids), "/+/", (j, n_nums), "/#"], n_ids * n_nums)
+    filters += format_rows(["device/", (np.arange(n_ids), n_ids), "/#"], n_ids)
+    return filters
+
+
+def build_share():
+    """-> (index, subtab, grouptab, seconds per build stage). Subscription
+    n of the SHARE_SPF per device/{i}/+/{j}/# filter goes to slot n mod
+    SHARE_SLOTS; each (name, members, ids) of SHARE_GROUPS is a
+    `$share/name/device/{i}/#` subscription group for every i < ids."""
+    from emqx_tpu_torch.models.router_model import GroupTable, SubscriberTable
+    from emqx_tpu_torch.ops.route_index import RouteIndex
+
+    n_ids, n_nums, n_slots = SHARE_IDS, SHARE_NUMS, SHARE_SLOTS
+    t = [time.perf_counter()]
+    filters = share_filters(n_ids, n_nums)
+    t.append(time.perf_counter())
+    index = RouteIndex()
+    fids = np.asarray(index.bulk_add(filters), np.int64)
+    del filters
+    t.append(time.perf_counter())
+    n = n_ids * n_nums
+    subtab = SubscriberTable(max_subscribers=n_slots, mode="sparse")
+    subtab.bulk_add(np.repeat(fids[:n], SHARE_SPF),
+                    np.arange(n * SHARE_SPF, dtype=np.int64) % n_slots)
+    t.append(time.perf_counter())
+    grouptab = GroupTable(gpf=SHARE_GPF)
+    for gname, members, ids in SHARE_GROUPS:
+        for i in range(min(ids, n_ids)):
+            gid = grouptab.ensure_group(int(fids[n + i]), f"device/{i}/#", gname)
+            grouptab.set_len(gid, members)
+    t.append(time.perf_counter())
+    names = ("filter_strings", "route_index", "csr_table", "group_table")
+    return index, subtab, grouptab, {k: b - a for k, a, b in zip(names, t, t[1:])}
+
+
+def topic_batch_share(rng, n) -> list:
+    """device/{zipf(1.3) i}/mid/{j}/leaf, as bench.py draws share_10m's."""
+    n_ids, n_nums = SHARE_IDS, SHARE_NUMS
+    return format_rows(["device/", (zipf_ids(rng, n, n_ids), n_ids), "/mid/",
+                        (rng.integers(0, n_nums, size=n), n_nums), "/leaf"], n)
+
+
+def pick_oracle(grouptab, matched, strategy, client_hashes=None):
+    """The $share picks the host table gives for these matched rows: each
+    live group lane of (row, column, slot) in flat order; round_robin picks
+    (group_rr + the lane's rank among its group's earlier lanes) mod the
+    member count, hash_clientid the client hash mod the member count; -1
+    where the lane has no group or the group no member."""
+    fg = grouptab.filter_groups
+    B, M = matched.shape
+    lanes = np.where((matched >= 0)[:, :, None], fg[np.maximum(matched, 0)], -1)
+    lanes = lanes.reshape(B, M * fg.shape[1]).astype(np.int64)
+    lens = grouptab.group_len[np.maximum(lanes, 0)].astype(np.int64)
+    ok = (lanes >= 0) & (lens > 0)
+    if strategy == "round_robin":
+        occ = np.zeros(lanes.size, np.int64)
+        seen = {}
+        for i, g in enumerate(lanes.reshape(-1).tolist()):
+            if g >= 0:
+                occ[i] = seen.get(g, 0)
+                seen[g] = occ[i] + 1
+        base = grouptab.group_rr[np.maximum(lanes, 0)].astype(np.int64)
+        idx = (base + occ.reshape(B, -1)) % np.maximum(lens, 1)
+    elif strategy == "hash_clientid":
+        idx = np.asarray(client_hashes, np.int64)[:, None] % np.maximum(lens, 1)
+    else:
+        raise ValueError(strategy)
+    return np.where(ok, lanes, -1), np.where(ok, idx, -1)
+
+
+def advance_rr(grouptab, picks) -> None:
+    """What the broker does once per batch after delivering the picks
+    (`SharedSub.dispatch_picked` advances a group's rr_index per delivered
+    pick, `Broker._sync_group_counters` writes it back)."""
+    gid = picks[0][picks[0] >= 0]
+    for g, c in zip(*np.unique(gid, return_counts=True)):
+        grouptab.set_rr(int(g), int(grouptab.group_rr[g]) + int(c))
+
+
+def route_share_checked(router, batches, oracle, strategy="round_robin",
+                        client_hashes=None) -> list:
+    """Route each batch; every unflagged recipient set against the host
+    oracle and every pick against `pick_oracle`; then advance the
+    round-robin bases as the broker would."""
+    out = []
+    for topics in batches:
+        t0 = time.perf_counter()
+        res = router.route(topics, client_hashes=client_hashes)
+        wall = time.perf_counter() - t0
+        rec = check_batch(res, topics, oracle)
+        want = pick_oracle(router.grouptab, res.matched, strategy, client_hashes)
+        for got, w, what in zip(res.picks, want, ("pick_gid", "pick_idx")):
+            if got.shape != w.shape or not np.array_equal(got, w):
+                bad = np.argwhere(got != w)[:3].tolist()
+                raise AssertionError(f"{strategy}: {what} differs from the oracle at {bad}")
+        picked = res.picks[0][res.picks[0] >= 0]
+        runs = np.unique(picked, return_counts=True)[1]
+        if strategy == "round_robin":
+            advance_rr(router.grouptab, res.picks)
+        out.append({"strategy": strategy, "route_ms": wall * 1e3,
+                    "readback_bytes": res.readback_bytes, **rec,
+                    "picks": int(picked.size), "groups_picked": int(runs.size),
+                    "longest_group_run": int(runs.max()) if runs.size else 0})
+    return out
+
+
+def check_wave(what, before, after, e0, e1, touched=None) -> dict:
+    """A wave reaches each mirror whose host table moved (`touched`, by
+    mirror; every mirror when not given) as scatters, or, for a rebuilt
+    small array such as a hot segment, a re-upload of that array alone: a
+    full resync exactly where the table's epoch moved (growth, rehash, an
+    absorb). A mirror whose table did not move is not touched at all."""
+    full = moved(before, after, "full_resyncs")
+    deltas = moved(before, after, "delta_launches")
+    arrays = moved(before, after, "array_resyncs")
+    grown = {m: e1[m] != e0[m] for m in e0}
+    for m in full:
+        t = touched is None or touched[m]
+        if full[m] != int(grown[m]) or (t and not grown[m] and deltas[m] + arrays[m] < 1) \
+                or (not t and full[m] + deltas[m] + arrays[m]):
+            raise AssertionError(f"{what}: {m} full {full[m]}, delta {deltas[m]}, "
+                                 f"arrays {arrays[m]}, epoch moved {grown[m]}, "
+                                 f"table moved {t}")
+    return {"full_resyncs": full, "delta_launches": deltas, "array_resyncs": arrays,
+            "epoch_moved": grown}
+
+
+def sparse_work(torch, csr, matched, kslot, kg):
+    """Per batch, the packed slot words the window gathers, the matched
+    fids, the hot entries and the live candidates: the CSR gather's
+    data-dependent work, for its bound."""
+    ln = csr["csr_len"][0].to(torch.int64)
+    has = matched >= 0
+    fl = torch.where(has, ln[matched.clamp(min=0)], torch.zeros_like(matched, dtype=torch.int64))
+    total = fl.sum(dim=1)
+    return {"window_words": int(total.clamp(max=kg).sum()), "fids": int(has.sum()),
+            "hot_entries": int(csr["hot_fid"].shape[1]),
+            "rows_past_window": int((total > kg).sum())}
+
+
+def share_kinds(torch, router, args, topics):
+    """The share path's kernels on one batch: tokenize and shape_match (for
+    the composite's bound), sparse_fanout_slots, occurrence_index, and
+    share_pick under each of the five strategies."""
+    from emqx_tpu_torch.models import router_model as R
+    from emqx_tpu_torch.ops import csr_table as C
+    from emqx_tpu_torch.ops import shape_index as S
+    from emqx_tpu_torch.ops import tokenizer as T
+
+    kinds, inputs = serving_kinds(torch, args, topics)
+    dev = router.device
+    kslot = args.kslot
+    kg = 2 * kslot  # the router's gather window
+    mat, lens, _ = T.encode_topics(topics, MAX_BYTES)
+    h1, h2, nw, dl = T.tokenize(torch.from_numpy(mat).to(dev),
+                                torch.from_numpy(lens).to(dev), args.salt, MAX_LEVELS)
+    matched = S.shape_match(args.tables, args.m_active, h1, h2, nw, dl)
+    csr = {k: args.tables[k] for k in C.CSR_KEYS}
+    B, K = matched.shape
+    sp = C.sparse_fanout_slots(csr, matched, kslot, kg)
+    work = sparse_work(torch, csr, matched, kslot, kg)
+    live = int(sp[3].sum())
+    H = work["hot_entries"]
+    kinds["sparse_fanout_slots"] = dict(
+        kernel=lambda: C.sparse_fanout_slots(csr, matched, kslot, kg),
+        plain=lambda: C.sparse_fanout_slots_plain(csr, matched, kslot, kg),
+        out=sp,
+        # fids in, two region words per live fid, the gathered slot words,
+        # the hot pairs once, slots + count + overflow + live out
+        bytes=4 * B * K + 8 * work["fids"] + 4 * work["window_words"] + 8 * H
+        + 4 * B * kslot + 9 * B,
+        # K start compares per window position and per hot entry, and the
+        # kslot-wide bitonic sort
+        ops=B * (kg + H) * (K + 2) + B * kslot * int(np.log2(kslot)) ** 2,
+    )
+    gt = args.group_tables
+    gpf = gt["filter_groups"].shape[1]
+    n = B * K * gpf
+    lanes, _ = R._group_lanes(gt, matched)
+    flat = lanes.reshape(-1).contiguous()
+    live_lanes = int((lanes >= 0).sum())
+    occ = R.occurrence_index(flat)
+    merges = len(R.occurrence_merge_runs(n))
+    kinds["occurrence_index"] = dict(
+        per_call={"occ_tile_sort": 1, "occ_merge": merges, "occ_finalize": 1},
+        kernel=lambda: R.occurrence_index(flat),
+        plain=lambda: R.occurrence_index_plain(flat),
+        out=occ,
+        bytes=8 * n,  # a gid in and a rank out per lane
+        ops=n * int(np.ceil(np.log2(max(n, 2)))),  # one compare per level
+    )
+    rng = np.random.default_rng(SEED + 1)
+    pick_in = [torch.from_numpy(rng.integers(0, 1 << 32, B, dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(dev)
+               for _ in range(3)]
+    fids_live = int((matched >= 0).sum())
+    for sname, sid in R.STRATEGY_IDS.items():
+        out = R.share_pick(gt, matched, *pick_in, strategy=sid)
+        kinds[f"share_pick/{sname}"] = dict(
+            name="share_pick",
+            # round_robin launches the kernel for the group lanes first
+            per_call={"share_pick_kernel": 2 if sid == 1 else 1},
+            kernel=lambda sid=sid: R.share_pick(gt, matched, *pick_in, strategy=sid),
+            plain=lambda sid=sid: R.share_pick_plain(gt, matched, *pick_in, strategy=sid),
+            out=out,
+            # fids and the three per-row inputs in, one filter_groups row
+            # per live fid, two group words per live lane (three for
+            # round_robin: its rank), both outputs
+            bytes=4 * B * K + 12 * B + 4 * gpf * fids_live
+            + (12 if sid == 1 else 8) * live_lanes + 8 * n,
+            ops=12 * n,
+        )
+    torch.cuda.synchronize()
+    inputs.update(kg=kg, group_lanes=n, live_group_lanes=live_lanes,
+                  live_candidates=live, **work)
+    return kinds, inputs
+
+
+def share_path(torch, rng):
+    """Phases 10-13: the CSR subscriber table and the $share picks at
+    share_10m_csr. -> (kernel report, launches on the path)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import STRATEGY_IDS, DeviceRouter
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+
+    t0 = time.perf_counter()
+    index, subtab, grouptab, secs = build_share()
+    build_s = time.perf_counter() - t0
+    router = DeviceRouter(
+        index, subtab, MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
+        grouptab=grouptab, share_strategy="round_robin", device="cuda",
+    )
+    t0 = time.perf_counter()
+    args = router.prepare()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if (index.residual_count != 0 or index.shapes.num_active_shapes() != 2
+            or args.kslot != KSLOT or args.group_tables is None
+            or not set(CSR_KEYS) <= set(args.tables)):
+        raise AssertionError(f"share_10m_csr: residual {index.residual_count}, "
+                             f"shapes {index.shapes.num_active_shapes()}, kslot {args.kslot}")
+    shape_b = mirror_bytes({k: v for k, v in args.tables.items() if k not in CSR_KEYS})
+    csr_b = mirror_bytes({k: args.tables[k] for k in CSR_KEYS})
+    group_b = mirror_bytes(args.group_tables)
+    phase("tables_share", filters=len(index), subscriptions=subtab.live,
+          slot_universe=SHARE_SLOTS, groups=len(grouptab), gpf=grouptab.gpf,
+          m_active=args.m_active, residual_count=index.residual_count, kslot=args.kslot,
+          kg=2 * args.kslot, build_seconds=build_s, build_stage_seconds=secs,
+          upload_seconds=upload_s,
+          device_bytes={"shapes": shape_b, "csr": csr_b, "groups": group_b,
+                        "total": sum(shape_b.values()) + sum(csr_b.values())
+                        + sum(group_b.values())},
+          reduced=[])
+    oracle = Oracle(index, subtab)
+    batches = [topic_batch_share(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+    for b in batches:
+        b[: len(EDGE_TOPICS_SHARE)] = EDGE_TOPICS_SHARE
+
+    # -- route_share: the counters are zeroed here and read after churn_share
+    kernels.reset_launches()
+    routed = route_share_checked(router, batches, oracle)
+    router.share_strategy = STRATEGY_IDS["hash_clientid"]
+    client_hashes = rng.integers(0, 1 << 32, BATCH, dtype=np.uint64).astype(np.uint32)
+    routed += route_share_checked(router, batches[:1], oracle, "hash_clientid", client_hashes)
+    router.share_strategy = STRATEGY_IDS["round_robin"]
+    phase("route_share", batches=routed, launches=dict(kernels.LAUNCHES))
+
+    # -- churn_share
+    def state():
+        return (mirror_counts(router),
+                {"shapes": index.shapes.version, "nfa": index.nfa.version,
+                 "bitmaps": subtab.version, "groups": grouptab.version},
+                {"shapes": index.shapes.epoch, "nfa": index.nfa.epoch,
+                 "bitmaps": subtab.epoch, "groups": grouptab.epoch})
+
+    def wave(what, mutate, topics_extra):
+        router.prepare()  # the last batch's round-robin bases reach the card
+        c0, v0, e0 = state()
+        mutate()
+        t0 = time.perf_counter()
+        router.prepare()
+        torch.cuda.synchronize()
+        sync_ms = 1e3 * (time.perf_counter() - t0)
+        c1, v1, e1 = state()
+        moves = check_wave(what, c0, c1, e0, e1, {m: v1[m] != v0[m] for m in v0})
+        mirrors = check_mirrors(torch, router)
+        topics = topic_batch_share(rng, BATCH)
+        topics[: len(topics_extra)] = topics_extra
+        routed = route_share_checked(router, [topics], oracle)
+        return {"prepare_ms": sync_ms, **moves, "mirrors_equal": mirrors,
+                "routed": routed, "hot_fill": subtab.csr.hot_fill,
+                "packed_tombstones": subtab.csr.packed_tombs}
+
+    def fid_of(i, j=None):
+        return index.filter_id(f"device/{i}/#" if j is None else f"device/{i}/+/{j}/#")
+
+    churn = {}
+    hot_i = 7
+    # 100 subscribers on one group filter (its rows pass kslot) and 120 on
+    # bench filters: 220 pairs, inside the hot segment's 256, so the wave
+    # reaches the card as one scatter
+    hot_adds = [(fid_of(hot_i), 500_000 + s) for s in range(100)]
+    ij = rng.integers(0, [50, SHARE_NUMS], size=(120, 2))
+    hot_adds += [(fid_of(int(i), int(j)), int(s)) for (i, j), s in
+                 zip(ij, rng.integers(0, SHARE_SLOTS, 120))]
+
+    def subscribe():
+        for f, s in hot_adds:
+            subtab.add(f, s)
+
+    row_topics = [f"device/{hot_i}/mid/{j}/leaf" for j in range(64)]
+    row_topics += [f"device/{i}/mid/{j}/leaf" for i, j in ij]
+    churn["subscribe"] = wave("subscribe wave", subscribe, row_topics)
+    if not churn["subscribe"]["routed"][0]["overflow_rows"]:
+        raise AssertionError("the subscribe wave produced no rows past kslot")
+
+    n_subs = SHARE_IDS * SHARE_NUMS * SHARE_SPF
+    gone = rng.choice(n_subs, size=1000, replace=False)
+    gone_pairs = [(int(n // SHARE_SPF), int(n % SHARE_SLOTS)) for n in gone]
+
+    def unsubscribe():
+        for f, s in gone_pairs:
+            subtab.remove(f, s)
+        for f, s in hot_adds[::2]:
+            subtab.remove(f, s)
+
+    gone_topics = []
+    for f, _s in gone_pairs[:300]:
+        i, _plus, j = index.filter_name(f).split("/")[1:4]
+        gone_topics.append(f"device/{i}/mid/{j}/leaf")
+    churn["unsubscribe"] = wave("unsubscribe wave", unsubscribe, gone_topics + row_topics)
+    if churn["unsubscribe"]["packed_tombstones"] < len(gone_pairs):
+        raise AssertionError("the unsubscribe wave left no packed tombstones")
+
+    storm_i = 9
+    storm = [(fid_of(storm_i), 600_000 + s) for s in range(CsrTable.HOT_SERVE_MAX + 104)]
+
+    def storm_subscribe():  # past the serve-time hot bound: the prepare absorbs
+        for f, s in storm:
+            subtab.add(f, s)
+
+    storm_topics = [f"device/{storm_i}/mid/{j}/leaf" for j in range(64)] + row_topics
+    churn["absorb"] = wave("subscribe storm", storm_subscribe, storm_topics)
+    if not churn["absorb"]["epoch_moved"]["bitmaps"] or \
+            not churn["absorb"]["routed"][0]["gather_window_rows"]:
+        raise AssertionError("the storm did not take rows past the gather window")
+
+    def regroup():
+        for i in range(50):
+            grouptab.set_len(grouptab.gid_of(f"device/{i}/#", "ingest"), 8)
+        grouptab.set_len(grouptab.gid_of("device/1/#", "ingest"), 0)  # empty group
+        grouptab.drop_group(fid_of(3), "device/3/#", "audit")
+        late = grouptab.ensure_group(fid_of(11), "device/11/#", "late")  # a recycled gid
+        grouptab.set_len(late, 2)
+
+    churn["groups"] = wave("group changes", regroup,
+                           [f"device/{i}/mid/{j}/leaf" for i in (0, 1, 3, 11) for j in range(16)])
+    launches = dict(kernels.LAUNCHES)
+    path = ("tokenize", "shape_match", "sparse_fanout_slots", "share_pick", "occurrence_index")
+    if not all(launches[k] for k in path) or launches["fanout_bitmaps"] \
+            or launches["compact_fanout_slots"]:
+        raise AssertionError(f"share_10m_csr launches: {launches}")
+    phase("churn_share", **churn, launches=launches, segment_status=mirror_counts(router))
+
+    # -- kernels at share_10m_csr shapes
+    args = router.prepare()
+    kinds, inputs = share_kinds(torch, router, args, batches[0])
+    report = kernel_report(torch, kinds)
+    phase("kernel_inputs_share", **inputs)
+    brk = [topic_batch_share(rng, BATCH) for _ in range(3)]
+    phase("route_breakdown_share", **route_breakdown(torch, router, brk))
+    return report, launches
+
+
 def main() -> int:
     import torch
 
@@ -1102,6 +1645,22 @@ def main() -> int:
     report, launches = mixed_10m_path(torch, rng)
     for name in report:
         report[name]["launches"] = launches[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    share_report, share_launches = share_path(torch, rng)
+    for case in share_report.values():
+        case["launches"] = share_launches[case["name"]]
+    # row 7, the serving composite: per batch, the sum of its kernels' bounds
+    phase("composite_bounds", mixed_10m_ms=sum(
+        report[k]["bound_ms"] for k in ("tokenize", "shape_match", "vocab_lookup",
+                                        "nfa_walk", "fanout_bitmaps", "compact_fanout_slots")),
+          share_10m_csr_ms=sum(share_report[k]["bound_ms"] for k in (
+              "tokenize", "shape_match", "sparse_fanout_slots", "occurrence_index",
+              "share_pick/round_robin")))
+    # the kernels line: the mixed_10m path's seven, and this path's three
+    # (share_pick as the path runs it, round_robin)
+    for k in ("sparse_fanout_slots", "share_pick/round_robin", "occurrence_index"):
+        report[share_report[k]["name"]] = share_report[k]
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,12 +2,14 @@
 
 This package carries the single-device publish-routing path: host tables
 (`ops.route_index.RouteIndex` with its shape index and residual NFA,
-`models.router_model.SubscriberTable`) -> device mirrors
-(`ops.segments.DeviceSegmentManager`: full upload on an epoch change,
-O(delta) `segment_scatter` otherwise) -> hand-written CUDA kernels
-(tokenize, shape match, vocab lookup + NFA walk for residual filters,
-fan-out OR, slot compaction) -> one coalesced readback
-(`models.router_model.DeviceRouter`).
+`models.router_model.SubscriberTable` as dense bitmaps or the CSR slot
+lists of `ops.csr_table`, `models.router_model.GroupTable` for $share
+groups) -> device mirrors (`ops.segments.DeviceSegmentManager`: full
+upload on an epoch change, O(delta) `segment_scatter` otherwise) ->
+hand-written CUDA kernels (tokenize, shape match, vocab lookup + NFA walk
+for residual filters, fan-out OR + slot compaction or the CSR
+gather-union, $share picks with their occurrence index) -> one coalesced
+readback (`models.router_model.DeviceRouter`).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
@@ -17,6 +19,7 @@ runs each kernel's plain PyTorch twin instead.
 from emqx_tpu_torch.convert import resolve_device, tables_to_device, upload
 from emqx_tpu_torch.models.router_model import (
     DeviceRouter,
+    GroupTable,
     Prepared,
     RouteResult,
     SubscriberTable,
@@ -28,6 +31,7 @@ from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 __all__ = [
     "DeviceRouter",
     "DeviceSegmentManager",
+    "GroupTable",
     "Prepared",
     "RouteIndex",
     "RouteResult",

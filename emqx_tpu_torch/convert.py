@@ -2,9 +2,10 @@
 
 `upload` is the port's counterpart of "weights carried across": it takes
 any snapshot dict the host builders hand out — `ShapeIndex`,
-`NfaBuilder` or `SubscriberTable` `.device_snapshot()`, of either package,
-which agree byte for byte — and uploads each array as the tensor the
-kernels read. uint32 arrays are reinterpreted bit for bit as int32 (the
+`NfaBuilder`, `SubscriberTable` (dense ``sub_bitmaps`` or the five
+``[S, F]`` / ``[S, P]`` / ``[S, H]`` CSR arrays) or `GroupTable`
+`.device_snapshot()`, of either package, which agree byte for byte — and
+uploads each array, of any shape, as the tensor the kernels read. uint32 arrays are reinterpreted bit for bit as int32 (the
 kernels read them back as uint32_t); no value is converted. Every full
 resync of `ops.segments.DeviceSegmentManager` goes through it;
 `tables_to_device` gathers the shape tables and the subscriber bitmaps

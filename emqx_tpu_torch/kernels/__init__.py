@@ -3,14 +3,15 @@ checks every wrapper shares.
 
 Each kernel lives beside its plain PyTorch twin in the module of its JAX
 counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
-`ops/segments.py`, `models/router_model.py`). A wrapper given CPU tensors
-runs the twin; given CUDA tensors it launches the kernel (built at first
-use by `build.load`) and raises on any failure — there is no fallback from
-one to the other.
+`ops/segments.py`, `ops/csr_table.py`, `models/router_model.py`). A
+wrapper given CPU tensors runs the twin; given CUDA tensors it launches
+the kernel (built at first use by `build.load`) and raises on any failure
+— there is no fallback from one to the other.
 
-`LAUNCHES` counts kernel launches per wrapper: the wrapper adds one right
-after its kernel launched, and nowhere else, so a run can show that its
-path went through the kernels.
+`LAUNCHES` counts kernel launches per wrapper: `launch` adds one right
+after each CUDA kernel launched, and nowhere else, so a run can show that
+its path went through the kernels. A wrapper call may launch several
+(`share_pick` under round_robin two, `occurrence_index` one per sort pass).
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ LAUNCHES = {
     "vocab_lookup": 0,
     "nfa_walk": 0,
     "segment_scatter": 0,
+    "sparse_fanout_slots": 0,
+    "share_pick": 0,
+    "occurrence_index": 0,
 }
 
 
@@ -61,7 +65,7 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 def launch(name: str, c_launcher: str, device: torch.device, *args) -> None:
     """Call one C launcher of the kernel library on the current stream of
-    `device` and count the launch.
+    `device` and count its one kernel launch under `name`.
 
     The launcher returns the `cudaGetLastError()` code read right after
     its launch; anything but 0 raises, with the CUDA runtime's message."""

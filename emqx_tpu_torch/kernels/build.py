@@ -64,6 +64,23 @@ _SIGNATURES = {
     ),
     # buf (A pointers + ids, indices, values), A, n, stream
     "emqx_segment_scatter": (_P, _I, _L, _P),
+    # csr_off, csr_len, F, csr_slots, P, hot_fid, hot_slot, H, matched,
+    # slots, count, overflow, live, B, K, kslot, kg, stream
+    "emqx_sparse_fanout_slots": (
+        _P, _P, _L, _P, _L, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ),
+    # filter_groups, Fcap, GPF, group_len, group_rr, group_sticky, Gcap,
+    # matched, occ, client_hash, topic_hash, rand, pick_gid, pick_idx, B,
+    # K, strategy, phase, stream
+    "emqx_share_pick": (
+        _P, _L, _I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+    ),
+    # gids, keys (n uint64), n, stream
+    "emqx_occ_tile_sort": (_P, _P, _L, _P),
+    # keys in, keys out, n, run, stream
+    "emqx_occ_merge": (_P, _P, _L, _L, _P),
+    # keys, occ, n, stream
+    "emqx_occ_finalize": (_P, _P, _L, _P),
 }
 
 _lib = None  # the loaded library (the port's one extension handle)

@@ -1,44 +1,54 @@
-"""The serving step: topics -> matched filters -> subscriber slots, on one
-device. The port's counterpart of `emqx_tpu/models/router_model.py`,
-restricted to the shape-index path (with the residual-NFA lane) and dense
-subscriber bitmaps.
+"""The serving step: topics -> matched filters -> subscriber slots and
+$share picks, on one device. The port's counterpart of
+`emqx_tpu/models/router_model.py`, single device: the shape-index path
+with the residual-NFA lane, dense bitmaps or the sparse CSR subscriber
+table, and on-device $share picks.
 
 One routed batch runs these hand-written CUDA kernels, in order:
 
   tokenize (ops/tokenizer.py)  ->  shape_match (ops/shape_index.py)
   [->  vocab_lookup (ops/tokenizer.py)  ->  nfa_walk (ops/matcher.py),
        when the table holds residual filters]
-  ->  fanout_bitmaps  ->  compact_fanout_slots   (this module)
+  ->  dense table: fanout_bitmaps  ->  compact_fanout_slots  (this module)
+      CSR table:   sparse_fanout_slots                     (ops/csr_table.py)
+  [->  occurrence_index (round_robin only)  ->  share_pick   (this module),
+       when a group table is given]
 
 then `DeviceRouter._readback` brings the trimmed outputs to the host in
-one copy. Subscriber state is the dense bitmap matrix
-``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor): row = filter
-id, bit = subscriber slot. Each kernel has its plain PyTorch twin in the
-same module; a wrapper runs the twin only for CPU tensors. The device
-copies of the shape index, the NFA and the bitmaps are kept current by
-three `ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
+one copy. Subscriber state is either the dense bitmap matrix
+``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor: row = filter
+id, bit = subscriber slot) or the five CSR arrays of `ops/csr_table.py`;
+`SubscriberTable` switches between them (`set_mode`, or the `auto`
+policy). $share groups are `GroupTable`'s lanes. Each kernel has its plain
+PyTorch twin in the same module as its wrapper; a wrapper runs the twin
+only for CPU tensors. The device copies of the shape index, the NFA, the
+subscriber table and the group table are kept current by four
+`ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
 
-Not in this slice, and refused rather than routed elsewhere: the sparse
-CSR subscriber table (`SubscriberTable.set_mode` raises), `$share` picks,
-the semantic and rule stages, retained and session fusion, and the mesh.
+Not in the port yet: the semantic and rule stages, retained and session
+fusion, background CSR compaction (`CsrSegmentOwner`) and the mesh
+(`SubscriberTable.set_shards` refuses more than one shard).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+import itertools
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from emqx_tpu_torch import kernels
+from emqx_tpu_torch.broker.shared_sub import stable_hash
 from emqx_tpu_torch.convert import resolve_device
+from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable, sparse_fanout_slots
 from emqx_tpu_torch.ops.matcher import MatcherConfig, batch_match_syms
 from emqx_tpu_torch.ops.nfa import MAX_PROBES, _next_pow2
-from emqx_tpu_torch.ops.segments import DeviceSegmentManager
+from emqx_tpu_torch.ops.segments import RESYNC, DeviceSegmentManager
 from emqx_tpu_torch.ops.shape_index import shape_match
 from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize, vocab_lookup
-from emqx_tpu_torch.ops.u32 import u32
+from emqx_tpu_torch.ops.u32 import mul32, u32
 
 
 # -- kernel 3: fan-out OR + popcount ---------------------------------------
@@ -146,6 +156,187 @@ def compact_fanout_slots(bitmaps, kslot: int):
     return slots, count, overflow
 
 
+# -- kernel 10: per-group occurrence rank ------------------------------------
+
+
+def occurrence_index_plain(flat_gids):
+    """Plain PyTorch twin of the `occurrence_index` kernel (any device),
+    written after `_occurrence_index` (emqx_tpu/models/router_model.py:885):
+    stable argsort, run starts by a cummax, scatter back."""
+    n = flat_gids.shape[0]
+    dev = flat_gids.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int32, device=dev)
+    order = torch.sort(flat_gids, stable=True).indices
+    sg = flat_gids[order]
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    new_seg = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), sg[1:] != sg[:-1]])
+    seg_start = torch.cummax(torch.where(new_seg, idx, torch.zeros_like(idx)), 0).values
+    out = torch.zeros(n, dtype=torch.int32, device=dev)
+    out[order] = (idx - seg_start).to(torch.int32)
+    return out
+
+
+OCC_TILE = 2048  # keys per tile of occurrence_index.cu's first kernel
+
+
+def occurrence_merge_runs(n: int):
+    """Sorted-run lengths that the merge passes of `occurrence_index`
+    double, one launch each: 2048, 4096, ... below n."""
+    runs, run = [], OCC_TILE
+    while run < n:
+        runs.append(run)
+        run *= 2
+    return runs
+
+
+def occurrence_index(flat_gids):
+    """occ[i] = #{j < i : g[j] == g[i]} in flat order (kernel 10).
+
+    flat_gids int32 [n] -> int32 [n]. The counterpart of `_occurrence_index`
+    (emqx_tpu/models/router_model.py:885): round-robin's per-batch offset
+    of each pick from its group's synced base. On CUDA it launches
+    `2 + len(occurrence_merge_runs(n))` kernels: a tile sort, the merge
+    passes and the rank scatter (`kernels/csrc/occurrence_index.cu`)."""
+    kernels.check_tensor(flat_gids, "flat_gids", torch.int32, 1)
+    n = flat_gids.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"occurrence_index: {n} lanes, at most 2^31 - 1")
+    if not kernels.on_cuda(flat_gids):
+        return occurrence_index_plain(flat_gids)
+    dev = flat_gids.device
+    occ = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return occ
+    keys, spare = torch.empty((2, n), dtype=torch.int64, device=dev).unbind(0)
+    kernels.launch("occurrence_index", "emqx_occ_tile_sort", dev,
+                   flat_gids.data_ptr(), keys.data_ptr(), n)
+    for run in occurrence_merge_runs(n):
+        kernels.launch("occurrence_index", "emqx_occ_merge", dev,
+                       keys.data_ptr(), spare.data_ptr(), n, run)
+        keys, spare = spare, keys
+    kernels.launch("occurrence_index", "emqx_occ_finalize", dev,
+                   keys.data_ptr(), occ.data_ptr(), n)
+    return occ
+
+
+# -- kernel 9: $share picks ----------------------------------------------------
+
+STRATEGY_IDS = {
+    "random": 0,
+    "round_robin": 1,
+    "sticky": 2,
+    "hash_clientid": 3,
+    "hash_topic": 4,
+}
+
+GROUP_KEYS = ("filter_groups", "group_len", "group_rr", "group_sticky")
+
+
+def _group_lanes(group_tables, matched):
+    """-> (gids [B, K * GPF] with -1 for dead lanes, g = max(gids, 0))."""
+    fg = group_tables["filter_groups"]
+    B, K = matched.shape
+    gpf = fg.shape[1]
+    safe = matched.clamp(0, fg.shape[0] - 1).to(torch.int64)
+    gids = fg[safe]  # [B, K, GPF]
+    valid = (matched >= 0)[:, :, None] & (gids >= 0)
+    gids = torch.where(valid, gids, torch.full_like(gids, -1)).reshape(B, K * gpf)
+    return gids, gids.clamp(min=0)
+
+
+def share_pick_plain(group_tables, matched, client_hash, topic_hash, rand, *,
+                     strategy: int):
+    """Plain PyTorch twin of the `share_pick` kernel (any device), written
+    after `share_pick_device` (emqx_tpu/models/router_model.py:904, the
+    single-device branch). uint32 arithmetic runs in int64 lanes masked to
+    32 bits (`ops/u32.py`); round-robin's int32 sum wraps and its modulo is
+    floored, as jnp's ``%``."""
+    glen = group_tables["group_len"]
+    gids, gsafe = _group_lanes(group_tables, matched)
+    gi = gsafe.clamp(max=glen.shape[0] - 1).to(torch.int64)
+    lens = glen[gi]
+    denom = lens.clamp(min=1).to(torch.int64)
+    g32 = gsafe.to(torch.int64)
+    if strategy == 1:  # round_robin: per-batch occurrence + synced base
+        occ = occurrence_index_plain(gids.reshape(-1)).reshape(gids.shape)
+        a = group_tables["group_rr"][gi].to(torch.int64) + occ.to(torch.int64)
+        a = ((a + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)  # int32 wrap-around
+        idx = torch.remainder(a, denom)
+    elif strategy == 2:  # sticky: stored index, random fallback
+        st = group_tables["group_sticky"][gi]
+        fallback = (u32(rand)[:, None] ^ g32) % denom
+        idx = torch.where((st >= 0) & (st < lens), st.to(torch.int64), fallback)
+    elif strategy == 3:  # hash_clientid
+        idx = u32(client_hash)[:, None] % denom
+    elif strategy == 4:  # hash_topic
+        idx = u32(topic_hash)[:, None] % denom
+    else:  # random: per-message entropy decorrelated across groups
+        mixed = mul32(u32(rand), 2654435761)[:, None] ^ g32
+        idx = mixed % denom
+    ok = (gids >= 0) & (lens > 0)
+    minus = torch.full_like(gids, -1)
+    return torch.where(ok, gids, minus), torch.where(ok, idx.to(torch.int32), minus)
+
+
+def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
+               strategy: int):
+    """Resolve $share picks (kernel 9; round_robin also runs kernel 10).
+
+    group_tables: the four `GROUP_KEYS` int32 tensors (`GroupTable`'s
+    snapshot, uploaded); matched int32 [B, K] fids; client_hash, topic_hash
+    and rand int32 [B] (uint32 bits), read only by the strategies that use
+    them. Returns (pick_gid [B, K * GPF], pick_idx [B, K * GPF]) int32, -1
+    holes: per live group lane, the member index the strategy picks. The
+    counterpart of `share_pick_device` (emqx_tpu/models/router_model.py:904)
+    with `dp_axis=None`.
+
+    On CUDA, round_robin launches the pick kernel twice: first for the raw
+    group lanes, whose per-group ranks `occurrence_index` computes, then
+    for the picks."""
+    for k in GROUP_KEYS:
+        kernels.check_tensor(group_tables[k], k, torch.int32,
+                             2 if k == "filter_groups" else 1)
+    kernels.check_tensor(matched, "matched", torch.int32, 2)
+    gcap = group_tables["group_len"].shape[0]
+    if any(group_tables[k].shape[0] != gcap for k in ("group_rr", "group_sticky")):
+        raise ValueError("group_len, group_rr and group_sticky must be one length")
+    B, K = matched.shape
+    for name, t in (("client_hash", client_hash), ("topic_hash", topic_hash),
+                    ("rand", rand)):
+        kernels.check_tensor(t, name, torch.int32, 1)
+        if t.shape[0] != B:
+            raise ValueError(f"{name}: expected [{B}], got {tuple(t.shape)}")
+    if not kernels.on_cuda(matched, client_hash, topic_hash, rand,
+                           *(group_tables[k] for k in GROUP_KEYS)):
+        return share_pick_plain(group_tables, matched, client_hash, topic_hash,
+                                rand, strategy=strategy)
+    fg = group_tables["filter_groups"]
+    glen = group_tables["group_len"]
+    gpf = fg.shape[1]
+    dev = matched.device
+    pick_gid = torch.empty((B, K * gpf), dtype=torch.int32, device=dev)
+    pick_idx = torch.empty((B, K * gpf), dtype=torch.int32, device=dev)
+
+    def run(occ_ptr, phase):
+        kernels.launch(
+            "share_pick", "emqx_share_pick", dev,
+            fg.data_ptr(), fg.shape[0], gpf, glen.data_ptr(),
+            group_tables["group_rr"].data_ptr(),
+            group_tables["group_sticky"].data_ptr(), glen.shape[0],
+            matched.data_ptr(), occ_ptr, client_hash.data_ptr(),
+            topic_hash.data_ptr(), rand.data_ptr(), pick_gid.data_ptr(),
+            pick_idx.data_ptr(), B, K, strategy, phase,
+        )
+
+    occ = None
+    if strategy == 1:
+        run(None, 0)  # the raw group lanes, into pick_gid
+        occ = occurrence_index(pick_gid.reshape(-1))
+    run(occ.data_ptr() if occ is not None else None, 1)
+    return pick_gid, pick_idx
+
+
 # -- the composite ---------------------------------------------------------
 
 
@@ -158,38 +349,62 @@ def shape_route_step(
     salt: int,
     nfa_tables: Optional[Dict[str, torch.Tensor]] = None,
     with_nfa: bool = False,
+    group_tables: Optional[Dict[str, torch.Tensor]] = None,
+    client_hash=None,
+    topic_hash=None,
+    rand=None,
+    with_groups: bool = False,
+    share_strategy: int = 0,
     max_levels: int = 16,
     frontier: int = 32,
     max_matches: int = 64,
     probes: int = MAX_PROBES,
     kslot: int = 0,
+    kg: int = 0,
     device="cuda",
 ):
     """The serving step: tokenize -> shape match (-> residual NFA) ->
-    fan-out (-> compact).
+    fan-out (-> compact) (-> $share picks).
 
     The counterpart of `shape_route_step_impl`
-    (emqx_tpu/models/router_model.py:225) with dense ``sub_bitmaps`` and no
-    groups, semantic or rule stage. `tables` holds the shape tables and
-    ``sub_bitmaps`` on `device` (`convert.tables_to_device`, or the
-    `DeviceRouter` mirrors); bytes_mat uint8 [B, MB] and lengths int32 [B]
-    (numpy or tensors) as `encode_topics` makes them. ``with_nfa`` runs
-    the residual lane over `nfa_tables` (`NfaBuilder.device_snapshot()`
-    uploaded): the topics' word hashes become symbols (`vocab_lookup`) and
-    walk the NFA (`batch_match_syms`), whose K = `max_matches` columns join
-    the shape lane's M and whose flags join the row flags.
+    (emqx_tpu/models/router_model.py:225) without the semantic and rule
+    stages. `tables` holds the shape tables on `device` plus the subscriber
+    table: ``sub_bitmaps`` (dense; `convert.tables_to_device`) or the five
+    `CSR_KEYS` arrays (sparse), as the `DeviceRouter` mirrors hold them.
+    bytes_mat uint8 [B, MB] and lengths int32 [B] (numpy or tensors) as
+    `encode_topics` makes them. ``with_nfa`` runs the residual lane over
+    `nfa_tables` (`NfaBuilder.device_snapshot()` uploaded): the topics'
+    word hashes become symbols (`vocab_lookup`) and walk the NFA
+    (`batch_match_syms`), whose K = `max_matches` columns join the shape
+    lane's M and whose flags join the row flags.
+
+    Dense: `fanout_bitmaps` ORs the rows, and with ``kslot > 0``
+    `compact_fanout_slots` lists them. CSR: `sparse_fanout_slots` (kslot
+    must be > 0; ``kg`` is its gather window, 0 = 2 * kslot) emits the same
+    compact outputs directly and ``bitmaps`` is None. ``with_groups`` runs
+    `share_pick` over `group_tables` (`GroupTable`'s snapshot uploaded)
+    with strategy ``share_strategy`` (`STRATEGY_IDS`) and the per-row
+    client_hash / topic_hash / rand (uint32 bits, [B]).
 
     Returns {matched [B, M (+ K)] (sparse, -1 holes), mcount [B], flags [B]
     (too deep or NFA overflow: the host must route the row), bitmaps
-    [B, W], stats {routed, matches, fanout_bits}} and, with ``kslot > 0``,
-    slots [B, kslot], slot_count [B] and overflow [B].
+    [B, W] or None, stats {routed, matches, fanout_bits}}; with
+    ``kslot > 0`` (always, for CSR) also slots [B, kslot], slot_count [B]
+    and overflow [B]; with ``with_groups`` also pick_gid / pick_idx
+    [B, (M (+ K)) * GPF].
     """
     dev = resolve_device(device)
     if with_nfa and nfa_tables is None:
         raise ValueError("with_nfa needs nfa_tables")
-    for k, t in list(tables.items()) + list((nfa_tables or {}).items()):
+    if with_groups and group_tables is None:
+        raise ValueError("with_groups needs group_tables")
+    extra = list((nfa_tables or {}).items()) + list((group_tables or {}).items())
+    for k, t in list(tables.items()) + extra:
         if t.device != dev:
             raise ValueError(f"table {k} lies on {t.device}, not {dev}")
+    sparse = "csr_slots" in tables
+    if sparse and "sub_bitmaps" in tables:
+        raise ValueError("tables hold both a dense and a CSR subscriber table")
     bytes_mat = torch.as_tensor(bytes_mat, dtype=torch.uint8, device=dev)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     h1, h2, nwords, dollar = tokenize(bytes_mat, lengths, salt, max_levels)
@@ -204,7 +419,17 @@ def shape_route_step(
         matched = torch.cat([matched, m2], dim=1)
         flags = flags | f2
     mcount = (matched >= 0).sum(dim=1, dtype=torch.int32)
-    bitmaps, popcount = fanout_bitmaps(tables["sub_bitmaps"], matched)
+    compact = None
+    if sparse:
+        bitmaps = None
+        s_slots, s_count, s_ovf, s_live = sparse_fanout_slots(
+            {k: tables[k] for k in CSR_KEYS}, matched, kslot=kslot, kg=kg
+        )
+        compact = (s_slots, s_count, s_ovf)
+        fanout_bits = s_live.sum()
+    else:
+        bitmaps, popcount = fanout_bitmaps(tables["sub_bitmaps"], matched)
+        fanout_bits = popcount.sum()
     out = {
         "matched": matched,
         "mcount": mcount,
@@ -213,20 +438,212 @@ def shape_route_step(
         "stats": {
             "routed": (mcount > 0).sum(),
             "matches": mcount.sum(),
-            "fanout_bits": popcount.sum(),
+            "fanout_bits": fanout_bits,
         },
     }
-    if kslot > 0:
+    if compact is not None:
+        out["slots"], out["slot_count"], out["overflow"] = compact
+    elif kslot > 0:
         out["slots"], out["slot_count"], out["overflow"] = compact_fanout_slots(
             bitmaps, kslot
+        )
+    if with_groups:
+        B = matched.shape[0]
+        out["pick_gid"], out["pick_idx"] = share_pick(
+            group_tables, matched,
+            *(_u32_rows(v, B, dev) for v in (client_hash, topic_hash, rand)),
+            strategy=share_strategy,
         )
     return out
 
 
-# -- host-side subscriber registry (dense) ---------------------------------
+def _u32_rows(v, B: int, dev) -> torch.Tensor:
+    """A per-row uint32 pick input (numpy, tensor or None = zeros) -> its
+    int32 bits on `dev`."""
+    if v is None:
+        return torch.zeros(B, dtype=torch.int32, device=dev)
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.ascontiguousarray(np.asarray(v, np.uint32)).view(np.int32))
+    return v.to(device=dev, dtype=torch.int32).contiguous()
+
+
+# -- host tables: $share groups and subscribers -------------------------------
+
+
+class GroupTable:
+    """$share groups as device lane segments: the port's copy of
+    `GroupTable` (emqx_tpu/models/router_model.py:715).
+
+    Host registry mapping (real filter, group name) -> gid, mirrored on
+    device as:
+      ``filter_groups [Fcap, GPF]`` int32 — group ids per filter (-1 pad)
+      ``group_len     [Gcap]``      int32 — member count per group
+      ``group_rr      [Gcap]``      int32 — round-robin base (synced once
+                                            per batch, not per message)
+      ``group_sticky  [Gcap]``      int32 — sticky member index (-1 unset)
+
+    The kernel picks a member INDEX per (topic, group); the host resolves
+    index -> member and keeps only ack/retry failover. Same epoch / op-log /
+    `device_snapshot` contract as `SubscriberTable`.
+    """
+
+    def __init__(self, gpf: int = 4):
+        self.gpf = gpf
+        self._fcap = 64
+        self._gcap = 64
+        self.filter_groups = np.full((self._fcap, self.gpf), -1, np.int32)
+        self.group_len = np.zeros(self._gcap, np.int32)
+        self.group_rr = np.zeros(self._gcap, np.int32)
+        self.group_sticky = np.full(self._gcap, -1, np.int32)
+        self._gids: Dict = {}  # (real, gname) -> gid
+        self._info: Dict[int, tuple] = {}  # gid -> (real, gname)
+        self._free: List[int] = []
+        self._next_gid = 0
+        self.epoch = 0
+        self.oplog: list = []
+        self.version = 0
+        self.OPLOG_MAX = 65536
+
+    def _bump(self) -> None:
+        self.epoch += 1
+        self.oplog.clear()
+        self.version += 1
+
+    def _log(self, name: str, flat_idx: int, val: int) -> None:
+        self.version += 1
+        if len(self.oplog) >= self.OPLOG_MAX:
+            self._bump()
+            return
+        self.oplog.append((name, flat_idx, val))
+
+    def _grow_fcap(self, need: int) -> None:
+        nf = max(self._fcap, _next_pow2(need))
+        if nf != self._fcap:
+            new = np.full((nf, self.gpf), -1, np.int32)
+            new[: self._fcap] = self.filter_groups
+            self.filter_groups = new
+            self._fcap = nf
+            self._bump()
+
+    def _grow_gpf(self) -> None:
+        new = np.full((self._fcap, self.gpf * 2), -1, np.int32)
+        new[:, : self.gpf] = self.filter_groups
+        self.filter_groups = new
+        self.gpf *= 2
+        self._bump()
+
+    def _grow_gcap(self) -> None:
+        ng = self._gcap * 2
+        for name in ("group_len", "group_rr", "group_sticky"):
+            arr = getattr(self, name)
+            fill = -1 if name == "group_sticky" else 0
+            new = np.full(ng, fill, arr.dtype)
+            new[: self._gcap] = arr
+            setattr(self, name, new)
+        self._gcap = ng
+        self._bump()
+
+    # -- membership ---------------------------------------------------------
+    def ensure_group(self, fid: int, real: str, gname: str) -> int:
+        key = (real, gname)
+        gid = self._gids.get(key)
+        if gid is not None:
+            return gid
+        if self._free:
+            gid = self._free.pop()
+        else:
+            gid = self._next_gid
+            self._next_gid += 1
+        while gid >= self._gcap:
+            self._grow_gcap()
+        self._gids[key] = gid
+        self._info[gid] = key
+        # reset through the log so a recycled gid's device row resets too
+        for name, val in (
+            ("group_len", 0),
+            ("group_rr", 0),
+            ("group_sticky", -1),
+        ):
+            getattr(self, name)[gid] = val
+            self._log(name, gid, val)
+        self._grow_fcap(fid + 1)
+        row = self.filter_groups[fid]
+        slot = int(np.argmax(row < 0)) if (row < 0).any() else -1
+        if slot < 0 or row[slot] >= 0:
+            self._grow_gpf()
+            row = self.filter_groups[fid]
+            slot = int(np.argmax(row < 0))
+        self.filter_groups[fid, slot] = gid
+        self._log("filter_groups", fid * self.gpf + slot, gid)
+        return gid
+
+    def set_len(self, gid: int, n: int) -> None:
+        if self.group_len[gid] != n:
+            self.group_len[gid] = n
+            self._log("group_len", gid, n)
+
+    def set_rr(self, gid: int, v: int) -> None:
+        v &= 0x7FFFFFFF
+        if self.group_rr[gid] != v:
+            self.group_rr[gid] = v
+            self._log("group_rr", gid, v)
+
+    def set_sticky(self, gid: int, idx: int) -> None:
+        if self.group_sticky[gid] != idx:
+            self.group_sticky[gid] = idx
+            self._log("group_sticky", gid, idx)
+
+    def repin(self, gid: int, member_sids, sticky_sid) -> None:
+        """Recompute the device sticky index from the pinned sid (the ONE
+        place the sid->index mapping convention lives; membership changes
+        shift indices, so a raw index cannot be kept)."""
+        sids = list(member_sids)
+        if sticky_sid in sids:
+            self.set_sticky(gid, sids.index(sticky_sid))
+        else:
+            self.set_sticky(gid, -1)
+
+    def drop_group(self, fid: int, real: str, gname: str) -> None:
+        gid = self._gids.pop((real, gname), None)
+        if gid is None:
+            return
+        self._info.pop(gid, None)
+        self._free.append(gid)
+        self.group_len[gid] = 0
+        self._log("group_len", gid, 0)
+        if fid < self._fcap:
+            row = self.filter_groups[fid]
+            for slot in np.nonzero(row == gid)[0]:
+                self.filter_groups[fid, slot] = -1
+                self._log("filter_groups", fid * self.gpf + int(slot), -1)
+
+    def gid_of(self, real: str, gname: str):
+        return self._gids.get((real, gname))
+
+    def info(self, gid: int):
+        return self._info.get(gid)
+
+    def pack_fcap(self, filter_capacity: int) -> None:
+        if filter_capacity > self._fcap:
+            self._grow_fcap(filter_capacity)
+
+    def device_snapshot(self):
+        return {
+            "filter_groups": self.filter_groups,
+            "group_len": self.group_len,
+            "group_rr": self.group_rr,
+            "group_sticky": self.group_sticky,
+        }
+
+    def __len__(self) -> int:
+        return len(self._gids)
 
 
 def _popcount_u32(arr: np.ndarray) -> int:
+    """Total set bits of a uint32 array (chunked: no 8x byte blowup)."""
+    bc = getattr(np, "bitwise_count", None)
+    if bc is not None:
+        return int(bc(arr).sum())
     total = 0
     flat = arr.reshape(-1).view(np.uint8)
     step = 1 << 22
@@ -236,49 +653,175 @@ def _popcount_u32(arr: np.ndarray) -> int:
 
 
 class SubscriberTable:
-    """Host-side registry: (filter id, subscriber slot) -> fan-out bits, as a
-    dense ``sub_bitmaps [Fcap, W]`` uint32 matrix. The port's copy of the
-    dense mode of `SubscriberTable` (emqx_tpu/models/router_model.py:998).
+    """Host-side registry: (filter id, subscriber slot) -> fan-out state, in
+    one of TWO device representations behind one mutation interface. The
+    port's copy of `SubscriberTable` (emqx_tpu/models/router_model.py:998),
+    single device:
 
-    Every scalar write is op-logged (flat index) and growth bumps `epoch`,
-    as in the JAX package, so the router's `DeviceSegmentManager` mirror
-    replays churn as O(delta) scatters and re-uploads only on growth.
+    - **dense**: a ``sub_bitmaps [Fcap, W]`` uint32 matrix — O(Fcap * W)
+      memory, one gather+OR per batch row;
+    - **sparse** (`ops/csr_table.py`): per-fid CSR slot lists — O(total
+      subscriptions) memory.
+
+    ``mode`` is the representation policy: ``dense`` pins the matrix,
+    ``sparse`` converts at once, and ``auto`` starts dense and flips ONCE
+    (checked at growth events) when the matrix passes
+    `AUTO_MIN_DENSE_BYTES` and exceeds `AUTO_RATIO` x the estimated CSR
+    footprint. A flip is an ordinary epoch bump on the SAME object: the
+    router's mirror sees a full resync with the other representation's
+    arrays. Both representations op-log their scalar writes (flat index)
+    so `DeviceSegmentManager` replays churn as O(delta) scatters.
     """
 
-    OPLOG_MAX = 65536
+    AUTO_MIN_DENSE_BYTES = 8 << 20  # don't bother below 8MB dense
+    AUTO_RATIO = 2.0  # flip when dense > ratio x estimated CSR bytes
 
-    def __init__(self, max_subscribers: int = 1024, mode: str = "dense"):
+    def __init__(self, max_subscribers: int = 1024, mode: str = "dense",
+                 shards: int = 1):
         self.width_words = max(2, _next_pow2((max_subscribers + 31) // 32))
         self._fcap = 64
         self.arr = np.zeros((self._fcap, self.width_words), dtype=np.uint32)
         self.epoch = 0
         self.oplog: list = []  # (name, flat_idx, value)
         self.version = 0
-        self.live = 0  # live subscriptions
-        self.set_mode(mode)
-
-    def set_mode(self, mode: str) -> None:
-        if mode not in ("auto", "dense", "sparse"):
-            raise ValueError(f"sub_table mode {mode!r}")
+        self.OPLOG_MAX = 65536
+        self.mode = "dense"
+        self.shards = 1
+        self.set_shards(shards)
+        self._sp: Optional[CsrTable] = None  # the sparse rep when active
+        self.live = 0  # live subscriptions (both reps; drives the policy)
+        self.flips = 0
         if mode != "dense":
-            raise NotImplementedError(
-                f"sub_table mode {mode!r}: the sparse CSR subscriber table "
-                "(ops/csr_table.py sparse_fanout_slots) is a later slice of "
-                "the port (ROADMAP.md, Queue 1)"
-            )
+            self.set_mode(mode)
 
+    # -- op-log plumbing (shared by both representations) ------------------
     def _bump_epoch(self) -> None:
         self.epoch += 1
         self.oplog.clear()
         self.version += 1
 
-    def _log(self, fid: int, w: int, val: int) -> None:
+    def _log_any(self, name: str, flat_idx: int, val: int) -> None:
         self.version += 1
         if len(self.oplog) >= self.OPLOG_MAX:
             self._bump_epoch()
             return
-        self.oplog.append(("sub_bitmaps", fid * self.width_words + w, int(val)))
+        self.oplog.append((name, int(flat_idx), int(val)))
 
+    def _log_resync(self, name: str) -> None:
+        self.version += 1
+        if len(self.oplog) >= self.OPLOG_MAX:
+            self._bump_epoch()
+            return
+        self.oplog.append((RESYNC, name, 0))
+
+    def _log(self, fid: int, w: int, val: int) -> None:
+        self._log_any("sub_bitmaps", fid * self.width_words + w, val)
+
+    # -- representation policy ---------------------------------------------
+    @property
+    def sparse(self) -> bool:
+        return self._sp is not None
+
+    @property
+    def csr(self) -> Optional[CsrTable]:
+        return self._sp
+
+    def set_mode(self, mode: str) -> None:
+        """Pin the representation policy; converts immediately when the
+        pinned representation differs from the live one."""
+        if mode not in ("auto", "dense", "sparse"):
+            raise ValueError(f"sub_table mode {mode!r}")
+        self.mode = mode
+        if mode == "sparse" and self._sp is None:
+            self._flip_sparse()
+        elif mode == "dense" and self._sp is not None:
+            self._flip_dense()
+
+    def set_shards(self, shards: int) -> None:
+        """Partition count of the mesh placement. The port serves one
+        device, so only 1 is accepted."""
+        shards = max(1, int(shards))
+        if shards != 1:
+            raise NotImplementedError(
+                f"{shards} subscriber-table shards: the sharded CSR table "
+                "belongs to the multi-GPU mesh, a later slice of the port "
+                "(ROADMAP.md, Queue 1)"
+            )
+
+    def _csr_estimate(self) -> int:
+        """Estimated CSR footprint: 4B slot column + 2 x 4B region lanes
+        per fid + the hot segment floor."""
+        return 16 * max(self.live, 1) + 8 * self._fcap + 8192
+
+    def _maybe_flip(self) -> None:
+        """Auto policy, checked only at dense growth events (the only times
+        the answer can change): flip when occupancy x width says the matrix
+        is mostly zeros AND it is big enough to matter."""
+        if self.mode != "auto" or self._sp is not None:
+            return
+        dense_bytes = self.arr.nbytes
+        if dense_bytes < self.AUTO_MIN_DENSE_BYTES:
+            return
+        if dense_bytes > self.AUTO_RATIO * self._csr_estimate():
+            self._flip_sparse()
+
+    def _mk_csr(self) -> CsrTable:
+        return CsrTable(
+            shards=self.shards,
+            log=self._log_any,
+            log_resync=self._log_resync,
+            bump=self._bump_epoch,
+        )
+
+    def _flip_sparse(self) -> None:
+        """dense -> CSR: expand the live bits (vectorized), build the
+        exact-size CSR + registry, drop the matrix. One epoch bump."""
+        rows, words = np.nonzero(self.arr)
+        if len(rows):
+            vals = self.arr[rows, words]
+            bits = (
+                (vals[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+            ).astype(bool)
+            e_idx, e_bit = np.nonzero(bits)
+            fids = rows[e_idx].astype(np.int64)
+            slots = words[e_idx].astype(np.int64) * 32 + e_bit
+        else:
+            fids = slots = np.empty(0, np.int64)
+        sp = self._mk_csr()
+        built = CsrTable._build(fids, slots, sp.shards, self._fcap)
+        sp._install(built)
+        sp.max_slot = max(
+            sp.max_slot, self.width_words * 32 - 1 if len(rows) else -1
+        )
+        self._sp = sp
+        self.arr = None  # the matrix is gone — that is the point
+        self.live = built["n"]
+        self.flips += 1
+        self._bump_epoch()
+
+    def _flip_dense(self) -> None:
+        """CSR -> dense (the degrade fallback / explicit pin)."""
+        sp = self._sp
+        fids, slots = sp.live_pairs()
+        self._sp = None
+        nf = max(64, _next_pow2(int(fids.max()) + 1 if len(fids) else 1))
+        nw = max(
+            self.width_words,
+            _next_pow2((int(slots.max()) // 32 + 1) if len(slots) else 2),
+        )
+        self._fcap, self.width_words = nf, nw
+        self.arr = np.zeros((nf, nw), np.uint32)
+        if len(fids):
+            w = slots // 32
+            bits = (np.uint32(1) << (slots % 32).astype(np.uint32)).astype(
+                np.uint32
+            )
+            np.bitwise_or.at(self.arr, (fids, w), bits)
+        self.live = len(fids)
+        self.flips += 1
+        self._bump_epoch()
+
+    # -- mutation (mode-dispatched) ----------------------------------------
     def _ensure(self, fid: int, slot: int) -> None:
         need_w = _next_pow2(slot // 32 + 1)
         need_f = _next_pow2(fid + 1)
@@ -291,9 +834,25 @@ class SubscriberTable:
             self.width_words = nw
             self._fcap = nf
             self._bump_epoch()
+            self._maybe_flip()
+
+    def _track_width(self, slot: int) -> None:
+        # readers size dense fallback rows from width_words; keep it
+        # covering the slot universe in sparse mode too
+        need_w = _next_pow2(slot // 32 + 1)
+        if need_w > self.width_words:
+            self.width_words = need_w
 
     def add(self, filter_id: int, slot: int) -> None:
+        if self._sp is not None:
+            if self._sp.add(filter_id, slot):
+                self.live += 1
+            self._fcap = max(self._fcap, self._sp._fcap)
+            self._track_width(slot)
+            return
         self._ensure(filter_id, slot)
+        if self._sp is not None:  # _ensure's growth flipped the rep
+            return self.add(filter_id, slot)
         w = slot // 32
         bit = np.uint32(1 << (slot % 32))
         if not self.arr[filter_id, w] & bit:
@@ -307,14 +866,29 @@ class SubscriberTable:
         slots = np.asarray(slots, dtype=np.int64)
         if not len(fids):
             return
+        if self._sp is not None:
+            self._sp.bulk_add(fids, slots)
+            self.live = self._sp.live
+            self._fcap = max(self._fcap, self._sp._fcap)
+            self._track_width(int(slots.max()))
+            return
         self._ensure(int(fids.max()), int(slots.max()))
+        if self._sp is not None:
+            return self.bulk_add(fids, slots)
         w = slots // 32
-        bits = (np.uint32(1) << (slots % 32).astype(np.uint32)).astype(np.uint32)
+        bits = (np.uint32(1) << (slots % 32).astype(np.uint32)).astype(
+            np.uint32
+        )
         np.bitwise_or.at(self.arr, (fids, w), bits)
         self.live = _popcount_u32(self.arr)
         self._bump_epoch()
+        self._maybe_flip()
 
     def remove(self, filter_id: int, slot: int) -> None:
+        if self._sp is not None:
+            if self._sp.remove(filter_id, slot):
+                self.live -= 1
+            return
         if filter_id >= self._fcap or slot // 32 >= self.width_words:
             return
         w = slot // 32
@@ -324,16 +898,55 @@ class SubscriberTable:
         self.arr[filter_id, w] &= np.uint32(~bit & 0xFFFFFFFF)
         self._log(filter_id, w, int(self.arr[filter_id, w]))
 
-    def pack(self, filter_capacity: int) -> np.ndarray:
-        """Grow to cover `filter_capacity` filter rows; returns the live
-        matrix (a view — valid until the next mutation)."""
+    def pack(self, filter_capacity: int):
+        """Grow to cover `filter_capacity` filter rows. Dense mode returns
+        the live matrix (a view — valid until the next mutation); sparse
+        mode returns None (there is no matrix)."""
+        if self._sp is not None:
+            # serve-time hot bound: a storm of adds with no background
+            # compactor must not hand the kernel a giant hot scan
+            self._sp.maybe_absorb()
+            self._sp.pack(filter_capacity)
+            self._fcap = max(self._fcap, self._sp._fcap)
+            return None
         if filter_capacity > self._fcap:
             self._ensure(filter_capacity - 1, 0)
+            if self._sp is not None:
+                self._sp.pack(filter_capacity)
+                return None
         return self.arr
 
     def device_snapshot(self):
+        if self._sp is not None:
+            return self._sp.device_snapshot()
         return {"sub_bitmaps": self.arr}
 
+    # -- introspection -------------------------------------------------------
+    def fill_row_bits(self, fid: int, row: np.ndarray) -> None:
+        """OR one fid's subscriber bits into a uint32 bitmap row — the
+        host-built dense fallback for sparse overflow rows, read from the
+        LIVE table."""
+        if self._sp is not None:
+            slots = self._sp.slots_of(fid)
+            slots = slots[slots < len(row) * 32]
+            if len(slots):
+                np.bitwise_or.at(
+                    row,
+                    slots // 32,
+                    (np.uint32(1) << (slots % 32).astype(np.uint32)).astype(
+                        np.uint32
+                    ),
+                )
+            return
+        if fid < self._fcap:
+            n = min(len(row), self.width_words)
+            row[:n] |= self.arr[fid, :n]
+
+    def table_bytes(self) -> int:
+        """Device-table footprint of the ACTIVE representation."""
+        if self._sp is not None:
+            return self._sp.nbytes
+        return int(self.arr.nbytes)
 
 
 class RouteResult(NamedTuple):
@@ -342,24 +955,56 @@ class RouteResult(NamedTuple):
     Exactly ONE of the fan-out encodings is populated per row:
 
     - compact path (``slots is not None`` and not ``overflow[i]``):
-      ``slots[i]`` holds the row's subscriber slot ids, ascending, -1 pad;
+      ``slots[i]`` holds the row's subscriber slot ids (-1 holes allowed
+      anywhere: the CSR path sets duplicates to -1 where they stand);
     - dense path: ``bitmaps[i]`` (compaction off) or
       ``dense_rows[dense_index[i]]`` (compaction on, row overflowed the
-      kslot cap — the masked second copy of the fallback contract).
+      kslot cap — the masked second copy of the dense table, or, for a
+      CSR table, a row built from the host table on access, for which
+      nothing crossed the link).
 
-    ``readback_bytes`` is the device->host transfer this batch paid.
+    ``picks`` is (pick_gid, pick_idx) [B, P] when the router has a group
+    table. ``readback_bytes`` is the device->host transfer this batch paid.
     """
 
     matched: np.ndarray  # [B, M (+ K)] sparse fids, -1 holes
     mcount: np.ndarray  # [B]
     flags: np.ndarray  # [B] host-must-fallback rows
     bitmaps: Optional[np.ndarray]  # [B, W] uint32 (None on compact path)
+    picks: Optional[tuple] = None  # (pick_gid [B, P], pick_idx [B, P])
     slots: Optional[np.ndarray] = None  # [B, kslot] int32, -1 pad
     slot_count: Optional[np.ndarray] = None  # [B] total set bits (uncapped)
     overflow: Optional[np.ndarray] = None  # [B] bool: fanout > kslot
-    dense_rows: Optional[np.ndarray] = None  # [n_overflow, W] uint32
+    dense_rows: Optional[object] = None  # [n_overflow, W] uint32 rows
     dense_index: Optional[Dict[int, int]] = None  # batch row -> dense_rows row
     readback_bytes: int = 0
+
+
+class _LazyDenseRows:
+    """Dense fallback rows for SPARSE overflow rows, built on demand: the
+    port's copy of `_LazyDenseRows` (emqx_tpu/models/router_model.py:1371).
+
+    The CSR path has no device bitmap matrix to gather overflow rows from,
+    so the fallback unions the row's matched fids' slot lists from the
+    HOST table instead. Construction stores only the fid lists; the union
+    runs at `__getitem__` time, on the thread that owns the table.
+    Duck-types the `dense_rows[j]` indexing of the device-gathered
+    overflow contract; nothing crossed the link for these rows."""
+
+    __slots__ = ("subtab", "fid_lists")
+
+    def __init__(self, subtab, fid_lists):
+        self.subtab = subtab
+        self.fid_lists = fid_lists
+
+    def __len__(self) -> int:
+        return len(self.fid_lists)
+
+    def __getitem__(self, j: int) -> np.ndarray:
+        row = np.zeros(self.subtab.width_words, np.uint32)
+        for fid in self.fid_lists[j]:
+            self.subtab.fill_row_bits(int(fid), row)
+        return row
 
 
 # floor for the auto-sized compact-slot cap: below this the slot list is
@@ -372,25 +1017,32 @@ class Prepared(NamedTuple):
     """Immutable device state of one `DeviceRouter.prepare()`: the tensors
     hold one generation of the mirrors, which a later sync never writes."""
 
-    tables: Dict[str, torch.Tensor]  # shape tables + "sub_bitmaps"
+    # shape tables + the subscriber table ("sub_bitmaps", or CSR_KEYS)
+    tables: Dict[str, torch.Tensor]
     nfa_tables: Optional[Dict[str, torch.Tensor]]  # None: no residual filters
     salt: int
     m_active: int
     kslot: int
+    group_tables: Optional[Dict[str, torch.Tensor]] = None  # None: no groups
 
 
 class DeviceRouter:
     """Serving-path engine on one device: owns the device mirrors of the
-    shape index, the residual NFA and the subscriber bitmaps and runs
-    `shape_route_step` over host batches. The counterpart of `DeviceRouter`
-    (emqx_tpu/models/router_model.py:1413), single device, dense.
+    shape index, the residual NFA, the subscriber table and the $share
+    group table and runs `shape_route_step` over host batches. The
+    counterpart of `DeviceRouter` (emqx_tpu/models/router_model.py:1413),
+    single device.
 
     Each host table is mirrored by its own `DeviceSegmentManager`
-    (`_shape_sync`, `_nfa_sync`, `_bits_sync`): a full upload on an epoch
-    change, otherwise one `segment_scatter` launch over the op-log suffix.
-    A prepare whose tables are all clean (`_version_key()` unchanged)
-    touches no mirror at all. The residual lane runs exactly when the
-    index holds residual filters.
+    (`_shape_sync`, `_nfa_sync`, `_bits_sync`, `_group_sync`): a full
+    upload on an epoch change, otherwise one `segment_scatter` launch over
+    the op-log suffix. The subscriber mirror follows the table's ACTIVE
+    representation: a dense <-> CSR flip swaps in a fresh manager, whose
+    first sync is a full upload of the other representation's arrays. A
+    prepare whose tables are all clean (`_version_key()` unchanged) touches
+    no mirror at all. The residual lane runs exactly when the index holds
+    residual filters; the pick stage exactly when the group table holds a
+    group (strategy `share_strategy`, one of `STRATEGY_IDS`).
     """
 
     # clean-table prepares re-check the auto-sized kslot only every this
@@ -398,10 +1050,14 @@ class DeviceRouter:
     KSLOT_RECHECK = 64
 
     def __init__(self, index, subtab: SubscriberTable, config=None,
-                 metrics=None, device="cuda"):
+                 grouptab: Optional[GroupTable] = None,
+                 share_strategy: str = "round_robin", metrics=None,
+                 device="cuda"):
         self.device = resolve_device(device)
         self.index = index
         self.subtab = subtab
+        self.grouptab = grouptab  # None: no $share picks on the device
+        self.share_strategy = STRATEGY_IDS.get(share_strategy, 1)
         # duck-typed: metrics.histogram(name) -> object with count, p99
         self.metrics = metrics
         config = config or MatcherConfig()
@@ -412,20 +1068,30 @@ class DeviceRouter:
         self.config = config
         self._shape_sync = DeviceSegmentManager(self.device, name="shapes")
         self._nfa_sync = DeviceSegmentManager(self.device, name="nfa")
-        self._bits_sync = DeviceSegmentManager(self.device, name="bitmaps")
+        self._group_sync = DeviceSegmentManager(self.device, name="groups")
+        self._bits_sparse = subtab.sparse
+        self._bits_sync = self._mk_bits_sync()
+        # per-batch pick entropy: batch n draws from default_rng(0xEC0 + n),
+        # the JAX router's sequence
+        self._rand_seq = itertools.count(0xEC0)
         self._kslot = 0  # auto-sized compact-slot cap (grow-only)
         # O(dirty) prepare: (version key, args) of the last clean sync
         self._prep_key = None
         self._prep_args = None
         self._clean_streak = 0
 
-    def _fanout_kslot(self, width_words: int) -> int:
+    def _mk_bits_sync(self) -> DeviceSegmentManager:
+        return DeviceSegmentManager(self.device, name="bitmaps")
+
+    def _fanout_kslot(self, width_words: int, sparse: bool = False) -> int:
         """kslot for the next batch; 0 = compaction off.
 
         Sized from the `dispatch.fanout` histogram p99 with 2x headroom,
         pow2-padded and GROW-ONLY; KSLOT_MIN when no metrics object is
-        given. Compaction is off while the slot universe (W*32) is no
-        wider than the compact output would be."""
+        given. On a dense table compaction is off while the slot universe
+        (W*32) is no wider than the compact output would be. A CSR table
+        has no dense rows to read back, so there the cap is mandatory:
+        never 0."""
         want = KSLOT_MIN
         if self.metrics is not None:
             h = self.metrics.histogram("dispatch.fanout")
@@ -434,6 +1100,8 @@ class DeviceRouter:
                 want = max(want, 2 * max(1, int(h.p99)))
         k = max(self._kslot, _next_pow2(want))
         self._kslot = k
+        if sparse:
+            return k
         if k >= width_words * 32:
             return 0  # dense rows are already the smaller readback
         return k
@@ -441,33 +1109,52 @@ class DeviceRouter:
     def _version_key(self):
         """Generation counters of every host table the mirrors are built
         from — equal keys mean the device copies are current."""
-        return (self.index.version, self.subtab.version)
+        return (
+            self.index.version,
+            self.subtab.version,
+            self.grouptab.version if self.grouptab is not None else -1,
+        )
 
     def _device_args(self) -> Prepared:
-        # grow the bitmap matrix to cover every live filter id BEFORE the
-        # version key: the growth bumps the subtab's epoch and version, and
-        # a bump inside the sync would read as a torn snapshot
+        # grow the subscriber and group tables to cover every live filter id
+        # BEFORE the version key: the growth bumps their epoch and version,
+        # and a bump inside the sync would read as a torn snapshot (on a CSR
+        # table `pack` also folds an oversized hot segment into the packed
+        # regions, `CsrTable.maybe_absorb`)
         self.subtab.pack(self.index.num_filters_capacity)
+        if self.grouptab is not None and len(self.grouptab):
+            self.grouptab.pack_fcap(self.index.num_filters_capacity)
         key = self._version_key()
         if self._prep_key == key:
             self._clean_streak += 1
             if self._clean_streak % self.KSLOT_RECHECK == 0:
-                kslot = self._fanout_kslot(self.subtab.width_words)
+                kslot = self._fanout_kslot(self.subtab.width_words,
+                                           sparse=self.subtab.sparse)
                 if kslot != self._prep_args.kslot:
                     self._prep_args = self._prep_args._replace(kslot=kslot)
             return self._prep_args
         self._clean_streak = 0
         idx = self.index
-        bits = self._bits_sync.sync(self.subtab)["sub_bitmaps"]
+        sparse = self.subtab.sparse
+        if sparse != self._bits_sparse:
+            # representation flip: a fresh mirror, whose first sync is a
+            # full upload of the other representation's arrays
+            self._bits_sync = self._mk_bits_sync()
+            self._bits_sparse = sparse
+        bits = self._bits_sync.sync(self.subtab)
         tables = self._shape_sync.sync(idx.shapes)
-        tables["sub_bitmaps"] = bits
+        tables.update(bits)
         nfa_tables = self._nfa_sync.sync(idx.nfa) if idx.residual_count > 0 else None
+        group_tables = None
+        if self.grouptab is not None and len(self.grouptab):
+            group_tables = self._group_sync.sync(self.grouptab)
         args = Prepared(
             tables,
             nfa_tables,
             idx.salt,
             idx.shapes.m_active(),
-            self._fanout_kslot(self.subtab.width_words),
+            self._fanout_kslot(self.subtab.width_words, sparse=sparse),
+            group_tables,
         )
         if self._version_key() == key:
             # a sync that raced a mutation is used once, never cached
@@ -477,29 +1164,69 @@ class DeviceRouter:
 
     def prepare(self) -> Prepared:
         """Sync the device mirrors with the current tables. MUST run on the
-        thread that mutates the index/subtab. The returned tuple is
-        immutable device state for `route_prepared`."""
+        thread that mutates the tables. The returned tuple is immutable
+        device state for `route_prepared`."""
         return self._device_args()
 
     def segment_status(self) -> Dict[str, Dict[str, int]]:
-        """Per mirror (`shapes`, `nfa`, `bitmaps`): full_resyncs,
-        delta_launches and array_resyncs since the router was made."""
-        return {
-            m.name: m.counters()
-            for m in (self._shape_sync, self._nfa_sync, self._bits_sync)
-        }
+        """Per mirror (`shapes`, `nfa`, `bitmaps`, and `groups` when the
+        router has a group table): full_resyncs, delta_launches and
+        array_resyncs since the mirror was made (the bitmaps mirror is
+        remade by a representation flip)."""
+        mirrors = [self._shape_sync, self._nfa_sync, self._bits_sync]
+        if self.grouptab is not None:
+            mirrors.append(self._group_sync)
+        return {m.name: m.counters() for m in mirrors}
 
-    def route(self, topics) -> RouteResult:
-        """Batch route: returns a host-side `RouteResult` (all numpy)."""
-        return self.route_prepared(self._device_args(), topics)
+    def route(self, topics, client_hashes=None) -> RouteResult:
+        """Batch route: returns a host-side `RouteResult` (all numpy).
+        `client_hashes` (uint32 per topic) feed the hash_clientid pick."""
+        return self.route_prepared(self._device_args(), topics, client_hashes)
 
-    def route_prepared(self, args: Prepared, topics) -> RouteResult:
+    def _pick_inputs(self, topics, client_hashes):
+        """The per-row pick inputs (client hash, topic hash, entropy), uint32
+        [B]; only those the strategy reads are filled, the rest are zeros.
+
+        The JAX router pads each batch to Bp = max(64, next_pow2(B)) rows
+        and draws Bp entropy words per batch; this router does not pad, but
+        draws the same Bp words from the same sequence and keeps the first
+        B, so its random and sticky picks equal the JAX router's."""
+        B = len(topics)
+        Bp = max(64, _next_pow2(B))
+        ch = np.zeros(B, np.uint32)
+        if client_hashes is not None:
+            ch[:] = np.asarray(client_hashes, np.uint32)
+        if self.share_strategy == 4:  # hash_topic
+            th = np.fromiter(
+                (stable_hash(t if isinstance(t, str) else str(t)) for t in topics),
+                np.uint32,
+                count=B,
+            )
+        else:
+            th = np.zeros(B, np.uint32)
+        if self.share_strategy in (0, 2):  # random / sticky fallback
+            rand = np.random.default_rng(next(self._rand_seq)).integers(
+                0, 1 << 32, size=Bp, dtype=np.uint32
+            )[:B]
+        else:
+            rand = np.zeros(B, np.uint32)
+        return ch, th, rand
+
+    def route_prepared(self, args: Prepared, topics, client_hashes=None) -> RouteResult:
         """Kernel launches + readback against a `prepare()` snapshot.
 
         Unlike the JAX router, the batch is not padded to a power of two:
         there is no compiled program whose shape it would have to match."""
         cfg = self.config
-        mat, lens, too_long = encode_topics(list(topics), cfg.max_bytes)
+        topics = list(topics)
+        mat, lens, too_long = encode_topics(topics, cfg.max_bytes)
+        with_groups = args.group_tables is not None
+        ch = th = rand = None
+        if with_groups:
+            ch, th, rand = (
+                torch.from_numpy(v.view(np.int32)).to(self.device)
+                for v in self._pick_inputs(topics, client_hashes)
+            )
         out = shape_route_step(
             args.tables,
             torch.from_numpy(mat).to(self.device),
@@ -508,6 +1235,12 @@ class DeviceRouter:
             salt=args.salt,
             nfa_tables=args.nfa_tables,
             with_nfa=args.nfa_tables is not None,
+            group_tables=args.group_tables,
+            client_hash=ch,
+            topic_hash=th,
+            rand=rand,
+            with_groups=with_groups,
+            share_strategy=self.share_strategy,
             max_levels=cfg.max_levels,
             frontier=cfg.frontier,
             max_matches=cfg.max_matches,
@@ -520,16 +1253,24 @@ class DeviceRouter:
     def _readback(self, out, B: int, too_long, kslot: int) -> RouteResult:
         """Pull one batch's outputs to the host -> `RouteResult`.
 
-        Every output the batch needs crosses in ONE device->host copy of a
-        packed int32 buffer. Only the overflow rows' dense bitmaps are a
-        second (masked) copy, because which rows need it is decided by
-        `slot_count`, which must be on the host first."""
+        Every output the batch needs, the picks included, crosses in ONE
+        device->host copy of a packed int32 buffer. Only a dense table's
+        overflow rows are a second (masked) copy, because which rows need
+        it is decided by `slot_count`, which must be on the host first. A
+        CSR table has no dense rows on the device: its overflow rows are
+        `_LazyDenseRows`, built from the host table when read, and nothing
+        more crosses the link for them."""
         M = out["matched"].shape[1]
+        with_groups = "pick_gid" in out
+        sparse = out["bitmaps"] is None
         parts = [
             out["matched"].reshape(-1),
             out["mcount"],
             out["flags"].to(torch.int32),
         ]
+        if with_groups:
+            P = out["pick_gid"].shape[1]
+            parts += [out["pick_gid"].reshape(-1), out["pick_idx"].reshape(-1)]
         if kslot:
             parts += [out["slots"].reshape(-1), out["slot_count"]]
         else:
@@ -546,23 +1287,34 @@ class DeviceRouter:
         matched = take(B * M).reshape(B, M)
         mcount = take(B)
         flags = take(B).astype(bool) | too_long
+        picks = None
+        if with_groups:
+            picks = (take(B * P).reshape(B, P), take(B * P).reshape(B, P))
         if not kslot:
             W = out["bitmaps"].shape[1]
             bitmaps = take(B * W).reshape(B, W).view(np.uint32)
-            return RouteResult(matched, mcount, flags, bitmaps,
+            return RouteResult(matched, mcount, flags, bitmaps, picks,
                                readback_bytes=readback)
         slots = take(B * kslot).reshape(B, kslot)
         slot_count = take(B)
+        # holds on the CSR path too: the kernel forces count past kslot for
+        # gather-window overflow rows
         overflow = slot_count > kslot
         dense_rows = dense_index = None
         ovf_idx = np.nonzero(overflow)[0]
         if ovf_idx.size:
             dense_index = {int(r): j for j, r in enumerate(ovf_idx)}
-            sel = torch.from_numpy(ovf_idx).to(out["bitmaps"].device)
-            dense_rows = out["bitmaps"][sel].cpu().numpy().view(np.uint32)
-            readback += dense_rows.nbytes
+            if sparse:
+                dense_rows = _LazyDenseRows(
+                    self.subtab,
+                    [matched[r][matched[r] >= 0].tolist() for r in ovf_idx],
+                )
+            else:
+                sel = torch.from_numpy(ovf_idx).to(out["bitmaps"].device)
+                dense_rows = out["bitmaps"][sel].cpu().numpy().view(np.uint32)
+                readback += dense_rows.nbytes
         return RouteResult(
-            matched, mcount, flags, None,
+            matched, mcount, flags, None, picks,
             slots=slots, slot_count=slot_count, overflow=overflow,
             dense_rows=dense_rows, dense_index=dense_index,
             readback_bytes=readback,

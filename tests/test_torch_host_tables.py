@@ -151,9 +151,28 @@ def test_subscriber_table_matches():
 
 
 def test_subscriber_table_refuses_sparse_modes():
+    """The sparse and auto modes are refused across more than one shard:
+    the sharded CSR table belongs to the mesh, which the port does not
+    serve yet (on one shard they build, `test_subscriber_table_sparse_modes_match_jax`)."""
     for mode in ("sparse", "auto"):
-        with pytest.raises(NotImplementedError, match="CSR"):
-            P_router.SubscriberTable(mode=mode)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            P_router.SubscriberTable(mode=mode, shards=2)
+        t = P_router.SubscriberTable(mode=mode)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            t.set_shards(4)
+
+
+def test_subscriber_table_sparse_modes_match_jax():
+    for mode in ("sparse", "auto"):
+        p = P_router.SubscriberTable(mode=mode)
+        j = J_router.SubscriberTable(mode=mode)
+        for t in (p, j):
+            t.add(3, 700)
+            t.add(9, 5)
+        assert (p.sparse, p.mode, p.version, p.epoch, p.oplog) == (
+            j.sparse, j.mode, j.version, j.epoch, j.oplog)
+        for k, v in j.device_snapshot().items():
+            np.testing.assert_array_equal(p.device_snapshot()[k], v)
 
 
 TOPICS = ["", "/", "a", "a/b", "/a//b/", "$SYS/x/y", "x/" * 40, "ünï/ok",
@@ -197,6 +216,8 @@ def port_modules():
 
 
 def test_importing_the_port_loads_no_jax():
+    assert {"emqx_tpu_torch.ops.csr_table", "emqx_tpu_torch.broker.shared_sub",
+            "emqx_tpu_torch.models.router_model"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"

@@ -418,3 +418,200 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     bm, ln, _ = encode_topics(["device/1/x/t1/y"], 64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         P_router.shape_route_step(tables, bm, ln, m_active=4, salt=0)
+
+
+# -- the CSR subscriber table and $share picks ------------------------------
+#
+# `share_10m_csr` of chip_smoke.py at a test's size: device/{i}/+/{j}/#
+# filters with 8 subscribers each over a wide slot universe, device/{i}/#
+# as the real filters of an `ingest` group per id and an `audit` group on
+# the first ids.
+
+N_IDS, N_NUMS, SPF = 30, 20, 8
+
+
+def share_twins(mode="sparse"):
+    filters = [f"device/{i}/+/{j}/#" for i in range(N_IDS) for j in range(N_NUMS)]
+    filters += [f"device/{i}/#" for i in range(N_IDS)]
+    out = []
+    for ri, st, gt in ((P_ri.RouteIndex, P_router.SubscriberTable, P_router.GroupTable),
+                       (J_ri.RouteIndex, J_router.SubscriberTable, J_router.GroupTable)):
+        index = ri()
+        subs = st(max_subscribers=1 << 12, mode=mode)
+        groups = gt(gpf=4)
+        fids = np.asarray(index.bulk_add(filters), np.int64)
+        n = N_IDS * N_NUMS
+        subs.bulk_add(np.repeat(fids[:n], SPF), np.arange(n * SPF) % 4096)
+        for i in range(N_IDS):
+            fid = index.filter_id(f"device/{i}/#")
+            groups.set_len(groups.ensure_group(fid, f"device/{i}/#", "ingest"), 16)
+            if i < 5:
+                groups.set_len(groups.ensure_group(fid, f"device/{i}/#", "audit"), 4)
+        out.append((index, subs, groups))
+    return out
+
+
+def share_topics(seed, n=300):
+    rng = np.random.default_rng(seed)
+    ids = np.minimum(rng.zipf(1.3, size=n) - 1, N_IDS - 1)
+    nums = rng.integers(0, N_NUMS + 2, size=n)
+    return EDGE_TOPICS + ["device/5", "device/0/x"] + [
+        f"device/{i}/mid/{k}/leaf" for i, k in zip(ids, nums)]
+
+
+@pytest.mark.parametrize("strategy", sorted(J_router.STRATEGY_IDS.values()))
+@pytest.mark.parametrize("kslot,kg", [(64, 0), (4, 6)])
+def test_step_with_csr_and_groups_matches_jax(strategy, kslot, kg):
+    _, (j, subs, groups) = share_twins()
+    topics = share_topics(strategy)
+    bm, ln, _ = encode_topics(topics, 64)
+    rng = np.random.default_rng(kslot)
+    B = len(topics)
+    ch, th, rand = (rng.integers(0, 1 << 32, B, dtype=np.uint64).astype(np.uint32)
+                    for _ in range(3))
+    subs.pack(j.num_filters_capacity)
+    groups.pack_fcap(j.num_filters_capacity)
+    snap = j.shapes.device_snapshot()
+    csr = subs.device_snapshot()
+    gsnap = groups.device_snapshot()
+    m = j.shapes.m_active()
+    cfg = dict(max_levels=8, kslot=kslot, kg=kg)
+    tables = convert.upload({**snap, **csr}, device="cpu")
+    got = P_router.shape_route_step(
+        tables, bm, ln, m_active=m, salt=j.salt,
+        group_tables=convert.upload(gsnap, device="cpu"), client_hash=ch,
+        topic_hash=th, rand=rand, with_groups=True, share_strategy=strategy,
+        device="cpu", **cfg,
+    )
+    want = jax.jit(
+        lambda st, sb, gt, bm, ln, ch, th, rd: J_router.shape_route_step_impl(
+            st, None, sb, bm, ln, gt, ch, th, rd, m_active=m, with_nfa=False,
+            salt=j.salt, with_groups=True, share_strategy=strategy, **cfg,
+        )
+    )(snap, csr, gsnap, bm, ln, ch, th, rand)
+    assert got["bitmaps"] is None and want["bitmaps"] is None
+    for k in KEYS + ("pick_gid", "pick_idx"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    for k, v in want["stats"].items():
+        assert int(got["stats"][k]) == int(v), k
+    assert (got["pick_gid"] >= 0).sum() > 200
+    if kslot == 4:  # 8 subscribers per row: every matched row overflows
+        assert bool(got["overflow"].any())
+
+
+def assert_picks_equal(p_res, j_res):
+    assert (p_res.picks is None) == (j_res.picks is None)
+    if j_res.picks is not None:
+        for a, b in zip(p_res.picks, j_res.picks):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("strategy", ["round_robin", "random", "sticky"])
+def test_device_router_with_csr_and_groups_matches_jax_across_churn(strategy):
+    import chip_smoke  # advance_rr: the broker's round-robin base update
+
+    (p_idx, p_subs, p_grp), (j_idx, j_subs, j_grp) = share_twins()
+    cfg = dict(max_levels=8, max_bytes=64)
+    p_router = P_router.DeviceRouter(p_idx, p_subs, PConfig(**cfg), grouptab=p_grp,
+                                     share_strategy=strategy, device="cpu")
+    j_router = J_router.DeviceRouter(j_idx, j_subs, JConfig(**cfg), grouptab=j_grp,
+                                     share_strategy=strategy)
+    tabs = ((p_idx, p_subs, p_grp), (j_idx, j_subs, j_grp))
+    topics = share_topics(7)
+
+    def both(fn):
+        for t in tabs:
+            fn(*t)
+
+    def route_both(extra=()):
+        ts = topics + list(extra)
+        p_res, j_res = p_router.route(ts), j_router.route(ts)
+        assert_route_equal(p_res, j_res)
+        assert_picks_equal(p_res, j_res)
+        if strategy == "round_robin":
+            chip_smoke.advance_rr(p_grp, p_res.picks)
+            chip_smoke.advance_rr(j_grp, j_res.picks)
+        return p_res
+
+    res = route_both()
+    assert p_router.prepare().kslot == 64 and "csr_slots" in p_router.prepare().tables
+    assert (res.picks[0] >= 0).sum() > 200
+    route_both()  # the advanced round-robin bases reach the device
+
+    def hot_subscribe(index, subs, groups):  # the hot segment; rows pass kslot
+        fid = index.filter_id("device/3/#")
+        for s in range(100):
+            subs.add(fid, 1000 + s)
+        for k in range(5):
+            subs.add(index.add(f"device/{k}/mid/+/leaf"), 2000 + k)
+
+    both(hot_subscribe)
+    res = route_both(["device/3/mid/1/leaf"] * 5)
+    assert res.overflow.any() and isinstance(res.dense_rows, P_router._LazyDenseRows)
+
+    def unsubscribe(index, subs, groups):  # tombstones in packed and hot
+        for i in range(0, N_IDS * N_NUMS, 3):
+            for s in range(2):
+                subs.remove(i, (i * SPF + s) % 4096)
+        fid = index.filter_id("device/3/#")
+        for s in range(0, 100, 2):
+            subs.remove(fid, 1000 + s)
+
+    both(unsubscribe)
+    route_both()
+
+    def gather_overflow(index, subs, groups):  # a packed region past kg
+        subs.csr.HOT_SERVE_MAX = 40
+        fid = index.filter_id("device/4/#")
+        for s in range(200):
+            subs.add(fid, 3000 + s)
+
+    both(gather_overflow)
+    res = route_both(["device/4/mid/1/leaf"] * 3)
+    assert p_subs.csr.max_region >= 200  # absorbed at prepare
+    ovf = [i for i in res.dense_index if int(res.slot_count[i]) > 128]
+    assert ovf
+
+    def group_churn(index, subs, groups):
+        groups.set_len(groups.gid_of("device/0/#", "ingest"), 3)
+        groups.set_len(groups.gid_of("device/1/#", "ingest"), 0)  # empty
+        groups.drop_group(index.filter_id("device/2/#"), "device/2/#", "audit")
+        groups.set_sticky(groups.gid_of("device/0/#", "audit"), 2)
+        groups.set_sticky(groups.gid_of("device/3/#", "ingest"), 40)  # out of range
+
+    both(group_churn)
+    route_both()
+    status = p_router.segment_status()
+    assert set(status) == {"shapes", "nfa", "bitmaps", "groups"}
+    assert status["groups"]["delta_launches"] > 0
+    assert p_router.prepare() is p_router.prepare()
+
+
+def test_device_router_follows_a_flip_like_jax():
+    (p_idx, p_subs, p_grp), (j_idx, j_subs, j_grp) = share_twins(mode="dense")
+    cfg = dict(max_levels=8, max_bytes=64)
+    p_router = P_router.DeviceRouter(p_idx, p_subs, PConfig(**cfg), grouptab=p_grp,
+                                     device="cpu")
+    j_router = J_router.DeviceRouter(j_idx, j_subs, JConfig(**cfg), grouptab=j_grp)
+    topics = share_topics(3)
+
+    def route_both():
+        p_res, j_res = p_router.route(topics), j_router.route(topics)
+        assert_route_equal(p_res, j_res)
+        assert_picks_equal(p_res, j_res)
+        return p_res
+
+    dense = route_both()
+    assert "sub_bitmaps" in p_router.prepare().tables
+    bits0 = p_router._bits_sync
+    for subs in (p_subs, j_subs):
+        subs.set_mode("sparse")
+    sparse = route_both()
+    assert p_router._bits_sync is not bits0
+    assert p_router.segment_status()["bitmaps"] == {
+        "full_resyncs": 1, "delta_launches": 0, "array_resyncs": 0}
+    assert set(p_router.prepare().tables) >= set(P_router.CSR_KEYS)
+    assert recipients(dense) == recipients(sparse)
+    for subs in (p_subs, j_subs):
+        subs.set_mode("dense")
+    assert recipients(route_both()) == recipients(dense)
