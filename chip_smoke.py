@@ -77,9 +77,36 @@ $share/audit/device/{i}/# with 4 for i < 1,000), round_robin:
 13. `route_breakdown_share`;
 14. `composite_bounds`: the serving composite's bound per batch (the sum
     of its kernels' bounds) on the mixed_10m and share_10m_csr paths;
-15. one JSON line {"kernels": [...]}: the ten kernels, each with its
+The `retained_5m` path (the retained replay storm): BASELINE config 5 as
+bench.py builds it (`bench_retained`): 5,000,000 topics site/{i % 2048}/
+dev/{i % 100003}/ch/{i} in DeviceRetainedIndex(max_bytes=64,
+max_levels=8), 5 chunks of 2^20 rows x 32 bytes on the card; the storm
+site/+/dev/{d}/ch/# for d < 8,192 (filter d matches 50 rows):
+15. `tables_retained`: build seconds per stage, chunks, bucket, bytes on
+    the card, `reduced` (none);
+16. `storm_retained`, `churn_retained` and `fused_retained`, counters
+    zeroed before the first and read after the last: `match_many` of the
+    storm, every filter's rows equal to the numpy oracle (409,600 pairs),
+    timed by stage; a second storm of 68 shapes (the 64 `+`-masks of one
+    stored topic and four `#` shapes) that runs the residual lane, against
+    its oracle from the ids; churn (1,000 adds with three `$` topics and
+    1,000 removes as one byte scatter; a 300,000-topic bulk load that
+    re-uploads chunks 4 and 5 alone; a topic past the 32-byte bucket that
+    costs exactly one full resync), after each step the chunk mirrors
+    compared bit for bit with the host chunks and the storm (plus `#`)
+    against the oracle; then the storm fused into one B = 8192 batch of
+    the mixed_1m router: the route half equal to the unfused route, the
+    storm equal to `match_many`, one device->host copy (profiler), and
+    its times beside the unfused route and the standalone storm;
+17. `kernel` for row_lengths and narrow_i16, tokenize and shape_match at
+    the chunk's shape (2^20 rows) and the byte scatter on the churn's own
+    deltas, each against its twin (plain twins from RET_PLAIN_REPS
+    samples);
+18. `retained_seconds`: the path's time;
+19. one JSON line {"kernels": [...]}: the twelve kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
-    the picks (round_robin) and the occurrence index on share_10m_csr),
+    the picks (round_robin) and the occurrence index on share_10m_csr;
+    row_lengths and narrow_i16 on retained_5m),
     its wrapper-call, device, plain-twin and library-call times and the
     least time the card could take (bytes moved over 3.35 TB/s, or
     integer operations over the 67 T/s scalar rate, the larger); then
@@ -89,6 +116,7 @@ $share/audit/device/{i}/# with 4 for i < 1,000), round_robin:
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -135,6 +163,18 @@ SHARE_SLOTS = 1 << 20
 SHARE_GPF = 4
 SHARE_GROUPS = (("ingest", 16, SHARE_IDS), ("audit", 4, 1000))  # name, members, ids
 EDGE_TOPICS_SHARE = ["device/5", "$SYS/x", "device/1/2/3/4/5/6/7/8/9", ""]
+
+# retained_5m: BASELINE config 5 as bench.py builds it (`bench_retained`,
+# bench.py:1192-1243): N topics site/{i % 2048}/dev/{i % 100003}/ch/{i} in
+# DeviceRetainedIndex(max_bytes=64, max_levels=8), a storm of
+# site/+/dev/{d}/ch/# for d < 8,192
+RET_N = 5_000_000
+RET_STORM = 8192
+RET_SITES = 2048
+RET_DEVIDS = 100003
+RET_MAX_BYTES = 64
+RET_BULK = 300_000  # churn: a bulk load that fills chunk 4 and starts chunk 5
+RET_PLAIN_REPS = 5  # samples of a plain twin at a million rows
 
 
 def phase(name: str, **fields) -> None:
@@ -458,14 +498,14 @@ def check_batch(res, topics, oracle, exact_flags=True) -> dict:
 # -- measurement -------------------------------------------------------------
 
 
-def time_ms(fn, torch, inner=TIMING_INNER) -> float:
-    """Median over TIMING_REPS samples of the mean time of `inner`
-    back-to-back calls, between CUDA events (after two warm calls)."""
+def time_ms(fn, torch, inner=TIMING_INNER, reps=TIMING_REPS) -> float:
+    """Median over `reps` samples of the mean time of `inner` back-to-back
+    calls, between CUDA events (after two warm calls)."""
     fn()
     fn()
     torch.cuda.synchronize()
     samples = []
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -500,6 +540,8 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "sparse_fanout_slots": "sparse_fanout_kernel",
     "share_pick": "share_pick_kernel",
     "occurrence_index": ("occ_tile_sort", "occ_merge", "occ_finalize"),
+    "row_lengths": "row_lengths_kernel",
+    "narrow_i16": "narrow_i16_kernel",
 }
 
 SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
@@ -523,6 +565,10 @@ SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
                    "emqx_tpu/models/router_model.py:904"),
     "occurrence_index": ("emqx_tpu_torch/kernels/csrc/occurrence_index.cu",
                          "emqx_tpu/models/router_model.py:885"),
+    "row_lengths": ("emqx_tpu_torch/kernels/csrc/retained.cu",
+                    "emqx_tpu/models/retained_index.py:69"),
+    "narrow_i16": ("emqx_tpu_torch/kernels/csrc/retained.cu",
+                   "emqx_tpu/models/retained_index.py:82"),
 }
 
 
@@ -610,8 +656,9 @@ def nfa_work(torch, tables, syms, nwords, dollar, F):
     return visits, final
 
 
-def kernel_report(torch, kinds) -> dict:
-    """Each kernel against its twin (must be equal), then its times."""
+def kernel_report(torch, kinds, plain_reps=TIMING_REPS) -> dict:
+    """Each kernel against its twin (must be equal), then its times; the
+    twin's from `plain_reps` samples."""
     report = {}
     for name, k in kinds.items():
         kname = k.get("name", name)  # several kinds may time one kernel
@@ -621,7 +668,7 @@ def kernel_report(torch, kinds) -> dict:
         if err:
             raise AssertionError(f"{name}: kernel != plain twin (max |diff| {err})")
         ms = time_ms(k["kernel"], torch)
-        plain_ms = time_ms(k["plain"], torch, inner=PLAIN_INNER)
+        plain_ms = time_ms(k["plain"], torch, inner=PLAIN_INNER, reps=plain_reps)
         lib_ms = time_ms(k["library"], torch) if k.get("library") else None
         dev_ms = device_ms(torch, kname, k["kernel"], k.get("per_call"))
         bound_ms, bound_by = bound(k["bytes"], k["ops"])
@@ -635,16 +682,60 @@ def kernel_report(torch, kinds) -> dict:
             "device_ms": dev_ms,
         }
         phase("kernel", kernel=kname, case=name, equal=True, ms=ms, device_ms=dev_ms,
-              plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-              bytes=k["bytes"], ops=k["ops"])
+              plain_ms=plain_ms, plain_samples=plain_reps, library_ms=lib_ms,
+              bound_ms=bound_ms, bytes=k["bytes"], ops=k["ops"])
     return report
+
+
+def match_kinds(torch, tables, m_active, bm, ln, salt, L=MAX_LEVELS):
+    """tokenize and shape_match on one batch of topic bytes (uint8 [B, MB]
+    and lengths on the card): their kinds, outputs, and the lane counts
+    their bounds need."""
+    from emqx_tpu_torch.ops import shape_index as S
+    from emqx_tpu_torch.ops import tokenizer as T
+
+    B, MB = bm.shape
+    M = m_active
+    tok = T.tokenize(bm, ln, salt, L)
+    h1, h2, nw, dl = tok
+    matched = S.shape_match(tables, M, h1, h2, nw, dl)
+    torch.cuda.synchronize()
+    # least bytes each function must move at these inputs; ops are a
+    # per-element count of its integer instructions
+    plen = tables["shape_len"][:M]
+    flags = tables["shape_flags"][:M]
+    nwl = nw.to(torch.int64)[:, None]
+    ok_len = torch.where((flags & 1 != 0)[None, :], nwl >= plen[None, :], nwl == plen[None, :])
+    valid = ok_len & (plen >= 0)[None, :] & ~(dl[:, None] & (flags & 2 != 0)[None, :])
+    n_valid = int(valid.sum())
+    n_hit = int((matched >= 0).sum())
+    nbytes = int(ln.clamp(0, MB).sum())
+    kinds = {
+        "tokenize": dict(
+            kernel=lambda: T.tokenize(bm, ln, salt, L),
+            plain=lambda: T.tokenize_plain(bm, ln, salt, L),
+            out=tok,
+            bytes=B * MB + 4 * B + 2 * 4 * B * L + 4 * B + B,
+            ops=6 * nbytes + 12 * B * L,
+        ),
+        "shape_match": dict(
+            kernel=lambda: S.shape_match(tables, M, h1, h2, nw, dl),
+            plain=lambda: S.shape_match_plain(tables, M, h1, h2, nw, dl),
+            out=matched,
+            # inputs + one packed row and tombstone word per hit, one
+            # packed and one hot row per valid lane that misses, output
+            bytes=2 * 4 * B * L + 5 * B + 3 * 4 * M
+            + 20 * n_hit + 36 * (n_valid - n_hit) + 4 * B * M,
+            ops=B * M * 12 + n_valid * (6 * L + 30),
+        ),
+    }
+    return kinds, tok, matched, {"valid_lanes": n_valid, "shape_hits": n_hit}
 
 
 def serving_kinds(torch, args, topics, nfa_cfg=None):
     """The six serving kernels on one batch: inputs, outputs and work."""
     from emqx_tpu_torch.models import router_model as R
     from emqx_tpu_torch.ops import matcher as Mt
-    from emqx_tpu_torch.ops import shape_index as S
     from emqx_tpu_torch.ops import tokenizer as T
 
     tables, nfa_tables, salt, m_active, kslot = args[:5]
@@ -654,9 +745,8 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
     ln = torch.from_numpy(lens).to(dev)
     B, MB, L, M = len(topics), MAX_BYTES, MAX_LEVELS, m_active
 
-    tok = T.tokenize(bm, ln, salt, L)
+    match, tok, matched, counts = match_kinds(torch, tables, M, bm, ln, salt, L)
     h1, h2, nw, dl = tok
-    matched = S.shape_match(tables, M, h1, h2, nw, dl)
     kinds = {}
     inputs = {"batch": B, "max_bytes": MB, "max_levels": L, "m_active": M, "kslot": kslot}
     if nfa_tables is not None:
@@ -703,37 +793,9 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
         comp = R.compact_fanout_slots(bits, kslot)
     torch.cuda.synchronize()
 
-    # least bytes each function must move at these inputs; ops are a
-    # per-element count of its integer instructions
-    plen = tables["shape_len"][:M]
-    flags = tables["shape_flags"][:M]
-    nwl = nw.to(torch.int64)[:, None]
-    ok_len = torch.where((flags & 1 != 0)[None, :], nwl >= plen[None, :], nwl == plen[None, :])
-    valid = ok_len & (plen >= 0)[None, :] & ~(dl[:, None] & (flags & 2 != 0)[None, :])
-    n_valid = int(valid.sum())
-    n_hit = int((matched >= 0).sum())
     fids = matched_all[matched_all >= 0].unique().numel()
-    nbytes = int(ln.clamp(0, MB).sum())
-    inputs.update(valid_lanes=n_valid, shape_hits=n_hit, distinct_fids=fids)
-    kinds.update({
-        "tokenize": dict(
-            kernel=lambda: T.tokenize(bm, ln, salt, L),
-            plain=lambda: T.tokenize_plain(bm, ln, salt, L),
-            out=tok,
-            bytes=B * MB + 4 * B + 2 * 4 * B * L + 4 * B + B,
-            ops=6 * nbytes + 12 * B * L,
-        ),
-        "shape_match": dict(
-            kernel=lambda: S.shape_match(tables, M, h1, h2, nw, dl),
-            plain=lambda: S.shape_match_plain(tables, M, h1, h2, nw, dl),
-            out=matched,
-            # inputs + one packed row and tombstone word per hit, one
-            # packed and one hot row per valid lane that misses, output
-            bytes=2 * 4 * B * L + 5 * B + 3 * 4 * M
-            + 20 * n_hit + 36 * (n_valid - n_hit) + 4 * B * M,
-            ops=B * M * 12 + n_valid * (6 * L + 30),
-        ),
-    })
+    inputs.update(**counts, distinct_fids=fids)
+    kinds.update(match)
     if not dense:
         return kinds, inputs
     inputs.update(width_words=W, fanout_bits=int(pop.sum()))
@@ -758,8 +820,8 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
 
 def scatter_kind(torch, call):
     """The segment_scatter kernel on one recorded main-path call (flats,
-    idxs, vals): against its twin, and index_put_ on the clones as the
-    library yardstick."""
+    idxs, vals; int32 or uint8 arrays): against its twin, and index_put_ on
+    the clones as the library yardstick."""
     from emqx_tpu_torch.ops import segments as G
 
     flats, idxs, vals = call
@@ -768,7 +830,8 @@ def scatter_kind(torch, call):
     dvec = {}
     for k in flats:
         ix, vv = G._last_writes(idxs[k], vals[k])
-        dvec[k] = (torch.from_numpy(ix).to(dev), torch.from_numpy(vv).to(dev))
+        dvec[k] = (torch.from_numpy(ix).to(dev),
+                   torch.from_numpy(vv).to(device=dev, dtype=flats[k].dtype))
 
     def library():
         res = {}
@@ -778,8 +841,11 @@ def scatter_kind(torch, call):
         return res
 
     n = sum(len(v[0]) for v in dvec.values())
-    table_bytes = sum(t.numel() * 4 for t in flats.values())
-    info = {"arrays": {k: [int(t.numel()), len(dvec[k][0])] for k, t in flats.items()},
+    table_bytes = sum(t.numel() * t.element_size() for t in flats.values())
+    # a 4-byte index, a value and its store per entry, at the array's width
+    entry_bytes = sum((4 + 2 * t.element_size()) * len(dvec[k][0]) for k, t in flats.items())
+    info = {"arrays": {k: [int(t.numel()), len(dvec[k][0]), str(t.dtype)]
+                       for k, t in flats.items()},
             "entries": n, "cloned_bytes": table_bytes}
     return dict(
         kernel=lambda: G.segment_scatter(flats, idxs, vals),
@@ -787,8 +853,8 @@ def scatter_kind(torch, call):
         library=library,
         out=out,
         # fresh outputs: every touched array read once and written once,
-        # plus a 4-byte index and value read and a word written per entry
-        bytes=2 * table_bytes + 12 * n,
+        # plus each entry's index and value read and its element written
+        bytes=2 * table_bytes + entry_bytes,
         ops=4 * n,
     ), info
 
@@ -1622,6 +1688,439 @@ def share_path(torch, rng):
     return report, launches
 
 
+# -- the retained_5m path ----------------------------------------------------
+
+
+def retained_topics(ids) -> list:
+    """bench.py `bench_retained`'s topic of each stored id."""
+    return [f"site/{i % RET_SITES}/dev/{i % RET_DEVIDS}/ch/{i}" for i in ids]
+
+
+def mask_storm(i0: int) -> list:
+    """The >64-shape storm over the store: the 64 `+`-masks of stored topic
+    i0's six levels (mask 0b111111 is +/+/+/+/+/+), then four `#` shapes
+    that overflow the 64-shape table into the residual NFA."""
+    words = retained_topics([i0])[0].split("/")
+    masks = ["/".join("+" if m >> k & 1 else w for k, w in enumerate(words))
+             for m in range(64)]
+    return masks + ["#", "site/#", f"site/{i0 % RET_SITES}/#", "site/+/dev/+/#"]
+
+
+def mask_oracle(i0: int, n: int) -> dict:
+    """Each filter of `mask_storm(i0)` -> the ids of the first n stored
+    topics it matches, from the ids alone (site = i % 2048, dev = i %
+    100003, ch = i; the `site`, `dev` and `ch` levels match every topic)."""
+    ids = np.arange(n)
+    lit = {1: ids % RET_SITES == i0 % RET_SITES, 3: ids % RET_DEVIDS == i0 % RET_DEVIDS,
+           5: ids == i0}
+    out = {}
+    for m, f in enumerate(mask_storm(i0)[:64]):
+        keep = np.ones(n, bool)
+        for level, ok in lit.items():
+            if not m >> level & 1:
+                keep &= ok
+        out[f] = np.nonzero(keep)[0]
+    out.update({"#": ids, "site/#": ids, "site/+/dev/+/#": ids,
+                f"site/{i0 % RET_SITES}/#": np.nonzero(lit[1])[0]})
+    return out
+
+
+class RetainedOracle:
+    """The live store, kept apart from the index: the bulk-loaded ids (a
+    removed mask) and the topics added later, by device id."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.removed = np.zeros(n, bool)
+        self.extra = {}  # device id -> topics added after the bulk load
+        self.n_extra = 0
+        self.dollar = []  # `$` topics, which no wildcard at the root matches
+
+    def add(self, topic: str) -> None:
+        if topic.startswith("$"):
+            self.dollar.append(topic)
+            return
+        self.extra.setdefault(int(topic.split("/")[3]), []).append(topic)
+        self.n_extra += 1
+
+    def live_plain(self) -> int:
+        return self.n - int(self.removed.sum()) + self.n_extra
+
+    def check(self, index, res, storm) -> int:
+        """Every `site/+/dev/{d}/ch/#` of the storm holds exactly the live
+        topics with device id d, and `#` (when asked) every live topic but
+        the `$` ones: compared as topic sets through the index's rows, so a
+        padding, removed or reused row cannot pass. -> matched pairs."""
+        pairs = 0
+        for f in storm:
+            rows = res[f]
+            got = [index.topic_at(int(r)) for r in rows]
+            if f == "#":
+                if (len(rows) != self.live_plain() or None in got
+                        or any(t.startswith("$") for t in got)
+                        or len(np.unique(rows)) != len(rows)):
+                    raise AssertionError(f"#: {len(rows)} rows for {self.live_plain()} topics")
+            else:
+                d = int(f.split("/")[3])
+                base = np.arange(d, self.n, RET_DEVIDS)
+                want = set(retained_topics(base[~self.removed[base]]))
+                want.update(self.extra.get(d, ()))
+                if len(got) != len(want) or set(got) != want:
+                    raise AssertionError(f"{f}: {len(got)} rows, not the oracle's {len(want)}")
+            pairs += len(rows)
+        return pairs
+
+
+def check_chunk_mirrors(torch, index) -> int:
+    """Copy every chunk mirror back and compare it bit for bit with the
+    host chunk. -> bytes compared."""
+    chunks = index._ensure_chunks()
+    if len(chunks) != len(index._host_b):
+        raise AssertionError(f"{len(chunks)} chunk mirrors for {len(index._host_b)} chunks")
+    for c, (dev, host) in enumerate(zip(chunks, index._host_b)):
+        got = dev.cpu().numpy()
+        if got.dtype != np.uint8 or not np.array_equal(got, host):
+            raise AssertionError(f"chunk mirror {c} differs from the host chunk")
+    return sum(h.nbytes for h in index._host_b)
+
+
+def storm_stages(torch, index, filters):
+    """One `match_many`, call by call, each stage ending in a synchronize
+    (host clock): the storm's table build and upload, the chunk sync, the
+    launches to completion, the readback and the host decode. -> (result,
+    {stage: ms}, shape tables, launch kwargs)."""
+    from emqx_tpu_torch.models.retained_index import retained_step
+
+    t = [time.perf_counter()]
+    _idx, fids, tables, nfa_tables, kw = index._build_tables(filters, floor=1)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    chunks = index._ensure_chunks()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    outs = [retained_step(tables, nfa_tables, d, **kw) for d in chunks]
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    mats = [m.cpu().numpy() for m in outs]
+    t.append(time.perf_counter())
+    res = index._decode_storm(fids, filters, mats, len(index._by_row))
+    t.append(time.perf_counter())
+    names = ("table_build", "chunk_sync", "launches", "readback", "decode")
+    return res, {f"{k}_ms": 1e3 * (b - a) for k, a, b in zip(names, t, t[1:])}, tables, kw
+
+
+def storms_equal(a: dict, b: dict) -> bool:
+    return list(a) == list(b) and all(np.array_equal(a[f], b[f]) for f in a)
+
+
+def retained_kinds(torch, chunks, tables, kw, scatter_call):
+    """The storm's kernels on the store's chunks (uint8 [CHUNK, 32]) and its
+    8,192-filter table, and the byte scatter on a churn's deltas.
+    row_lengths is timed over the chunks in turn, as a storm reads them:
+    each read once, cold in the 50 MB L2 (the other kernels on chunk 0)."""
+    from emqx_tpu_torch.models import retained_index as RI
+
+    bm = chunks[0]
+    N, MB = bm.shape
+    ln = RI.row_lengths(bm)
+    turn = itertools.cycle(chunks)
+    match, _tok, matched, counts = match_kinds(torch, tables, kw["m_active"], bm, ln,
+                                               kw["salt"], kw["max_levels"])
+    narrow = RI.narrow_i16(matched)
+    n = matched.numel()
+    kinds = {
+        "row_lengths": dict(
+            kernel=lambda: RI.row_lengths(next(turn)),
+            plain=lambda: RI.row_lengths_plain(bm),
+            library=lambda: torch.count_nonzero(next(turn), dim=1),
+            out=ln,
+            bytes=N * MB + 4 * N,
+            ops=N * MB,
+        ),
+        "tokenize/chunk": {**match["tokenize"], "name": "tokenize"},
+        "shape_match/chunk": {**match["shape_match"], "name": "shape_match"},
+        "narrow_i16": dict(
+            kernel=lambda: RI.narrow_i16(matched),
+            plain=lambda: RI.narrow_i16_plain(matched),
+            library=lambda: matched.to(torch.int16),
+            out=narrow,
+            bytes=6 * n,
+            ops=n,
+        ),
+    }
+    kinds["segment_scatter/uint8"], scatter_info = scatter_kind(torch, scatter_call)
+    kinds["segment_scatter/uint8"]["name"] = "segment_scatter"
+    inputs = {"rows": N, "bucket": MB, "row_lengths_chunks": len(chunks),
+              "m_active": kw["m_active"], "narrow": kw["narrow"],
+              "topic_bytes": int(ln.sum()), **counts, "segment_scatter": scatter_info}
+    return kinds, inputs
+
+
+def retained_path(torch, rng):
+    """Phases 15-20: the retained replay storm at BASELINE config 5.
+    -> (kernel report, launches on the path)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.retained_index import (
+        CHUNK,
+        DeviceRetainedIndex,
+        retained_step,
+        retained_step_plain,
+    )
+    from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops import segments as G
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+
+    n = RET_N
+    t = [time.perf_counter()]
+    topics = retained_topics(range(n))
+    t.append(time.perf_counter())
+    index = DeviceRetainedIndex(max_bytes=RET_MAX_BYTES, max_levels=MAX_LEVELS,
+                                device="cuda")
+    if index.bulk_add(topics) != n:
+        raise AssertionError("bulk_add refused topics")
+    t.append(time.perf_counter())
+    chunks = index._ensure_chunks()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    del topics
+    first_chunks = chunks  # this generation stays [CHUNK, 32] for the kernel phases
+    dev_bytes = sum(c.numel() * c.element_size() for c in chunks)
+    # the longest topic has 31 bytes: a 32-byte bucket, 5 x 2^20 x 32 bytes
+    n_chunks = -(-n // CHUNK)
+    if (index.bucket, len(chunks), dev_bytes) != (32, n_chunks, n_chunks * CHUNK * 32):
+        raise AssertionError(f"bucket {index.bucket}, {len(chunks)} chunks, {dev_bytes} B")
+    phase("tables_retained", topics=len(index), chunks=len(chunks), chunk_rows=CHUNK,
+          bucket=index.bucket, device_bytes=dev_bytes,
+          build_stage_seconds={k: b - a for k, a, b in zip(
+              ("topic_strings", "bulk_add", "first_sync"), t, t[1:])},
+          segment_status=index._seg.counters(), reduced=[])
+
+    # -- storm_retained: the counters are zeroed here and read after
+    # fused_retained
+    storm = [f"site/+/dev/{d}/ch/#" for d in range(RET_STORM)]
+    oracle = RetainedOracle(n)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = index.match_many(storm)
+    storm_ms = 1e3 * (time.perf_counter() - t0)
+    for d, f in enumerate(storm):
+        if not np.array_equal(res[f], np.arange(d, n, RET_DEVIDS)):
+            raise AssertionError(f"{f}: rows differ from the oracle's")
+    pairs = sum(len(v) for v in res.values())
+    # 50 rows for each d < 8,192: 409,600 pairs
+    if pairs != sum(len(range(d, n, RET_DEVIDS)) for d in range(RET_STORM)) \
+            or oracle.check(index, res, storm) != pairs:
+        raise AssertionError(f"{pairs} matched pairs")
+    res2, stages, storm_tables, storm_kw = storm_stages(torch, index, storm)
+    if not storms_equal(res2, res) or not storm_kw["narrow"]:
+        raise AssertionError("the staged storm differs from match_many's")
+    i0 = 12345
+    wide = mask_storm(i0)
+    _idx, _f, wide_tables, wide_nfa, wide_kw = index._build_tables(wide, floor=1)
+    if wide_nfa is None or _idx.residual_count != 4 or not wide_kw["with_nfa"]:
+        raise AssertionError(f"the wide storm has no residual lane: {wide_kw}")
+    t0 = time.perf_counter()
+    wres = index.match_many(wide)
+    wide_ms = 1e3 * (time.perf_counter() - t0)
+    want = mask_oracle(i0, n)
+    for f in wide:
+        if not np.array_equal(wres[f], want[f]):
+            raise AssertionError(f"wide storm {f}: {len(wres[f])} rows, oracle {len(want[f])}")
+    phase("storm_retained", filters=RET_STORM, pairs=pairs, match_many_ms=storm_ms,
+          stages=stages, m_active=storm_kw["m_active"], narrow=storm_kw["narrow"],
+          wide_storm={"filters": len(wide), "shapes": 68, "residual": _idx.residual_count,
+                      "lanes": wide_kw["m_active"] + 64, "pairs": sum(map(len, wres.values())),
+                      "match_many_ms": wide_ms},
+          launches=dict(kernels.LAUNCHES))
+    del wres, want, res2, _idx
+
+    # -- churn_retained: after each step the store answers the storm (plus
+    # `#`) as the oracle says, and every chunk mirror equals its host chunk
+    recheck = storm + ["#"]
+    churn = {}
+    scatter_calls = []
+    real_scatter = G.segment_scatter
+
+    def recording_scatter(flats, idxs, vals):
+        scatter_calls.append((dict(flats), dict(idxs), dict(vals)))
+        return real_scatter(flats, idxs, vals)
+
+    def churn_step(what, mutate, want_moves, record=False):
+        c0 = index._seg.counters()
+        s0 = kernels.LAUNCHES["segment_scatter"]
+        before = index._ensure_chunks()
+        t0 = time.perf_counter()
+        mutate()
+        mutate_ms = 1e3 * (time.perf_counter() - t0)
+        if record:
+            G.segment_scatter = recording_scatter
+        try:
+            t0 = time.perf_counter()
+            after = index._ensure_chunks()
+            torch.cuda.synchronize()
+            sync_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            G.segment_scatter = real_scatter
+        c1 = index._seg.counters()
+        moves = {k: c1[k] - c0[k] for k in c0}
+        moves["segment_scatter_launches"] = kernels.LAUNCHES["segment_scatter"] - s0
+        if moves != want_moves:
+            raise AssertionError(f"{what}: {moves}, expected {want_moves}")
+        kept = [c for c, (a, b) in enumerate(zip(before, after)) if a is b]
+        checked = check_chunk_mirrors(torch, index)
+        t0 = time.perf_counter()
+        res = index.match_many(recheck)
+        recheck_ms = 1e3 * (time.perf_counter() - t0)
+        step_pairs = oracle.check(index, res, recheck)
+        churn[what] = {"mutate_ms": mutate_ms, "sync_ms": sync_ms, **moves,
+                       "chunks_kept": kept, "chunks": len(after), "bucket": index.bucket,
+                       "mirror_bytes_compared": checked, "recheck_ms": recheck_ms,
+                       "pairs": step_pairs}
+        return res
+
+    # (a) 1,000 adds (three `$` topics) and 1,000 removes: row deltas, one
+    # byte scatter over the touched chunks
+    adds = [f"site/{k % RET_SITES}/dev/{k % RET_STORM}/ch/n{k}" for k in range(997)]
+    adds += ["$SYS/broker/retained", "$SYS/site/1/dev/1/ch/1", "$x/1/dev/1/ch/1"]
+    laps = (n - RET_STORM) // RET_DEVIDS
+    gone = rng.permutation(np.unique(rng.integers(0, RET_STORM, size=4000)
+                                     + RET_DEVIDS * rng.integers(0, laps, size=4000)))[:1000]
+    if len(gone) != 1000:
+        raise AssertionError("fewer than 1,000 distinct topics to remove")
+
+    def add_and_remove():
+        for tp in adds:
+            if not index.add(tp):
+                raise AssertionError(f"add refused {tp!r}")
+            oracle.add(tp)
+        for tp in retained_topics(gone):
+            index.remove(tp)
+        oracle.removed[gone] = True
+
+    churn_step("add_remove_1000", add_and_remove,
+               {"full_resyncs": 0, "delta_launches": 1, "array_resyncs": 0,
+                "segment_scatter_launches": 1}, record=True)
+    if len(scatter_calls) != 1 \
+            or any(t.dtype != torch.uint8 for t in scatter_calls[0][0].values()):
+        raise AssertionError(f"the scatter touched {[sorted(c[0]) for c in scatter_calls]}")
+    churn["add_remove_1000"]["scatter_arrays"] = sorted(scatter_calls[0][0])
+
+    # (b) a bulk load that fills chunk 4 and starts chunk 5: those two
+    # chunks re-upload alone
+    bulk = [f"site/{k % RET_SITES}/dev/{k % RET_STORM}/ch/b{k}" for k in range(RET_BULK)]
+
+    def bulk_add():
+        index.bulk_add(bulk)
+        for tp in bulk:
+            oracle.add(tp)
+
+    first = len(index._by_row) // CHUNK  # chunk 4, which the load fills
+    last = (len(index._by_row) + RET_BULK - 1) // CHUNK  # chunk 5, which it starts
+    if last != first + 1:
+        raise AssertionError(f"the bulk load spans chunks {first}..{last}")
+    churn_step("bulk_add", bulk_add,
+               {"full_resyncs": 0, "delta_launches": 0, "array_resyncs": 2,
+                "segment_scatter_launches": 0})
+    if churn["bulk_add"]["chunks_kept"] != list(range(first)) or len(index._host_b) != last + 1:
+        raise AssertionError(f"bulk add: {churn['bulk_add']}")
+
+    # (c) one topic past the 32-byte bucket: the bucket doubles, and that
+    # costs exactly one full resync
+    long_topic = f"site/1/dev/{RET_STORM - 1}/ch/" + "x" * 24
+
+    def grow():
+        if not index.add(long_topic):
+            raise AssertionError("the long topic was refused")
+        oracle.add(long_topic)
+
+    res = churn_step("grow_bucket", grow,
+                     {"full_resyncs": 1, "delta_launches": 0, "array_resyncs": 0,
+                      "segment_scatter_launches": 0})
+    if index.bucket != 64:
+        raise AssertionError(f"bucket {index.bucket} after the long topic")
+    phase("churn_retained", **churn, topics=len(index),
+          device_bytes=sum(c.numel() for c in index._ensure_chunks()),
+          segment_status=index._seg.counters(), launches=dict(kernels.LAUNCHES))
+
+    # -- fused_retained: the storm rides one routed batch of the mixed_1m
+    # router (BASELINE config 3, as its path builds it)
+    t0 = time.perf_counter()
+    r_index, subtab = build_mixed_1m()
+    build_s = time.perf_counter() - t0
+    router = DeviceRouter(
+        r_index, subtab, MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
+        device="cuda",
+    )
+    args = router.prepare()
+    topics = topic_batch_1m(rng, BATCH)
+    topics[: len(EDGE_TOPICS)] = EDGE_TOPICS
+    job = index.prepare_storm(recheck)
+    torch.cuda.synchronize()
+    fused = []
+    events, _wall = profiled(
+        torch, lambda: fused.append(router.route_prepared(args, topics, None, job)), 1)
+    d2h = [(e.key, e.count) for e in events if "Memcpy DtoH" in e.key]
+    if sum(c for _k, c in d2h) != 1:
+        raise AssertionError(f"the fused call copied device->host {d2h}")
+    got = fused[0]
+    plain = router.route_prepared(args, topics)
+    for k in ("matched", "mcount", "flags", "bitmaps", "slots", "slot_count", "overflow"):
+        a, b = getattr(got, k), getattr(plain, k)
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+            raise AssertionError(f"fused route half: {k} differs from the unfused route")
+    if got.dense_index != plain.dense_index or plain.retained is not None:
+        raise AssertionError("fused route half: dense rows differ")
+    alone = index.match_many(recheck)
+    if not storms_equal(got.retained, alone) or not storms_equal(alone, res):
+        raise AssertionError("the fused storm differs from match_many's")
+    launches = dict(kernels.LAUNCHES)
+    path = ("row_lengths", "narrow_i16", "tokenize", "shape_match", "vocab_lookup",
+            "nfa_walk", "segment_scatter", "fanout_bitmaps", "compact_fanout_slots")
+    if not all(launches[k] for k in path):
+        raise AssertionError(f"a kernel never launched on the retained path: {launches}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # three calls of each, host clock, each ending in a synchronize
+    fused_ms = [timed(lambda: router.route_prepared(args, topics, None, job))[1]
+                for _ in range(3)]
+    route_ms = [timed(lambda: router.route_prepared(args, topics))[1] for _ in range(3)]
+    alone_ms = [timed(lambda: index.match_many(recheck))[1] for _ in range(3)]
+    _r, alone_stages, _t, _k = storm_stages(torch, index, recheck)
+    phase("fused_retained", batch=BATCH, chunks=len(job.chunks), storm_filters=len(recheck),
+          router_build_seconds=build_s, d2h_copies=d2h,
+          readback_bytes=got.readback_bytes, route_readback_bytes=plain.readback_bytes,
+          pairs=sum(map(len, got.retained.values())), fused_ms=fused_ms,
+          route_ms=route_ms, match_many_ms=alone_ms, match_many_stages=alone_stages,
+          launches=launches)
+    del router, r_index, subtab, args, job, alone, res, got, fused, _r
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- kernels on the store's first chunk, at its first generation's shape
+    kinds, inputs = retained_kinds(torch, first_chunks, storm_tables, storm_kw,
+                                   scatter_calls[0])
+    # and one whole storm launch against the plain twins' composition, for
+    # both storms (the wide one through the residual lane at 2^20 rows)
+    for what, tabs, nfa_tabs, kw in (("storm", storm_tables, None, storm_kw),
+                                     ("wide_storm", wide_tables, wide_nfa, wide_kw)):
+        got = retained_step(tabs, nfa_tabs, first_chunks[0], **kw)
+        want = retained_step_plain(tabs, nfa_tabs, first_chunks[0], **kw)
+        err = max_abs_err(got, want, torch)
+        if err:
+            raise AssertionError(f"{what}: retained_step != its plain composition ({err})")
+        inputs[f"{what}_step_equal_plain"] = {"lanes": got.shape[1], "dtype": str(got.dtype),
+                                              "hits": int((got >= 0).sum())}
+    report = kernel_report(torch, kinds, plain_reps=RET_PLAIN_REPS)
+    phase("kernel_inputs_retained", **inputs)
+    return report, launches
+
+
 def main() -> int:
     import torch
 
@@ -1661,6 +2160,15 @@ def main() -> int:
     # (share_pick as the path runs it, round_robin)
     for k in ("sparse_fanout_slots", "share_pick/round_robin", "occurrence_index"):
         report[share_report[k]["name"]] = share_report[k]
+    del share_report
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ret_report, ret_launches = retained_path(torch, rng)
+    phase("retained_seconds", seconds=time.perf_counter() - t0)
+    # and the retained path's two
+    for k in ("row_lengths", "narrow_i16"):
+        report[k] = {**ret_report[k], "launches": ret_launches[k]}
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ upload on an epoch change, O(delta) `segment_scatter` otherwise) ->
 hand-written CUDA kernels (tokenize, shape match, vocab lookup + NFA walk
 for residual filters, fan-out OR + slot compaction or the CSR
 gather-union, $share picks with their occurrence index) -> one coalesced
-readback (`models.router_model.DeviceRouter`).
+readback (`models.router_model.DeviceRouter`); and retained replay storms
+(`models.retained_index.DeviceRetainedIndex`: the stored topics as the
+batch, the storm's filters as a one-shot shape index, alone or riding a
+routed batch as a `StormJob`).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
@@ -17,6 +20,7 @@ runs each kernel's plain PyTorch twin instead.
 """
 
 from emqx_tpu_torch.convert import resolve_device, tables_to_device, upload
+from emqx_tpu_torch.models.retained_index import DeviceRetainedIndex, StormJob
 from emqx_tpu_torch.models.router_model import (
     DeviceRouter,
     GroupTable,
@@ -29,12 +33,14 @@ from emqx_tpu_torch.ops.route_index import RouteIndex
 from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 
 __all__ = [
+    "DeviceRetainedIndex",
     "DeviceRouter",
     "DeviceSegmentManager",
     "GroupTable",
     "Prepared",
     "RouteIndex",
     "RouteResult",
+    "StormJob",
     "SubscriberTable",
     "resolve_device",
     "shape_route_step",

@@ -4,10 +4,13 @@
 any snapshot dict the host builders hand out — `ShapeIndex`,
 `NfaBuilder`, `SubscriberTable` (dense ``sub_bitmaps`` or the five
 ``[S, F]`` / ``[S, P]`` / ``[S, H]`` CSR arrays) or `GroupTable`
-`.device_snapshot()`, of either package, which agree byte for byte — and
-uploads each array, of any shape, as the tensor the kernels read. uint32 arrays are reinterpreted bit for bit as int32 (the
-kernels read them back as uint32_t); no value is converted. Every full
-resync of `ops.segments.DeviceSegmentManager` goes through it;
+`.device_snapshot()`, of either package, which agree byte for byte, and
+`DeviceRetainedIndex`'s uint8 topic chunks — and uploads each array, of
+any shape, as the tensor the kernels read. uint32 arrays are
+reinterpreted bit for bit as int32 (the kernels read them back as
+uint32_t); int32 and uint8 arrays keep their type; no value is
+converted. Every full resync of `ops.segments.DeviceSegmentManager` goes
+through it;
 `tables_to_device` gathers the shape tables and the subscriber bitmaps
 into the one dict `models.router_model.shape_route_step` reads.
 
@@ -43,24 +46,25 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def _as_int32(arr: np.ndarray, name: str) -> np.ndarray:
+def _as_device_type(arr: np.ndarray, name: str) -> np.ndarray:
     arr = np.ascontiguousarray(arr)
     if arr.dtype == np.uint32:
         return arr.view(np.int32)
-    if arr.dtype != np.int32:
-        raise TypeError(f"{name}: expected int32 or uint32, got {arr.dtype}")
+    if arr.dtype not in (np.int32, np.uint8):
+        raise TypeError(f"{name}: expected int32 or uint32 (or uint8 bytes), got {arr.dtype}")
     return arr
 
 
 def _to_device(arr: np.ndarray, name: str, device) -> torch.Tensor:
-    """One host array -> a fresh int32 tensor on `device` (always a copy:
-    the host builders mutate their arrays in place)."""
-    return torch.from_numpy(_as_int32(arr, name)).to(device, copy=True)
+    """One host array -> a fresh int32 (or uint8) tensor on `device`
+    (always a copy: the host builders mutate their arrays in place)."""
+    return torch.from_numpy(_as_device_type(arr, name)).to(device, copy=True)
 
 
 def upload(snapshot: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
-    """{name: int32 or uint32 host array} -> {name: fresh int32 tensor on
-    `device`} of the same shapes and bits."""
+    """{name: int32, uint32 or uint8 host array} -> {name: fresh tensor on
+    `device`} of the same shapes and bits: int32 for the 4-byte arrays,
+    uint8 for byte arrays."""
     dev = resolve_device(device)
     return {k: _to_device(v, k, dev) for k, v in snapshot.items()}
 

@@ -3,7 +3,8 @@ checks every wrapper shares.
 
 Each kernel lives beside its plain PyTorch twin in the module of its JAX
 counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
-`ops/segments.py`, `ops/csr_table.py`, `models/router_model.py`). A
+`ops/segments.py`, `ops/csr_table.py`, `models/router_model.py`,
+`models/retained_index.py`). A
 wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (built at first use by `build.load`) and raises on any failure
 — there is no fallback from one to the other.
@@ -29,6 +30,8 @@ LAUNCHES = {
     "sparse_fanout_slots": 0,
     "share_pick": 0,
     "occurrence_index": 0,
+    "row_lengths": 0,
+    "narrow_i16": 0,
 }
 
 

@@ -81,6 +81,10 @@ _SIGNATURES = {
     "emqx_occ_merge": (_P, _P, _L, _L, _P),
     # keys, occ, n, stream
     "emqx_occ_finalize": (_P, _P, _L, _P),
+    # bytes, out, N, MB, stream
+    "emqx_row_lengths": (_P, _P, _L, _I, _P),
+    # in, out, n, stream
+    "emqx_narrow_i16": (_P, _P, _L, _P),
 }
 
 _lib = None  # the loaded library (the port's one extension handle)

@@ -3,19 +3,24 @@
 //
 // Replaces `segment_scatter_impl` (emqx_tpu/ops/segments.py:73):
 // flats[a][idx] = val for every (array a, flat index, value) entry of the
-// suffix. The wrapper hands over ONE int64 buffer [A + 3n]: the A arrays'
-// base pointers, then n array ids, n flat indices and n values (the int32
-// bits of each value, sign-extended). Every mirrored array holds 4-byte
-// words (int32, or uint32 bits in an int32 tensor). The host has already
-// kept the last write per slot, so no two entries touch one word and the
-// writes need no atomics; the wrapper scatters into fresh clones, so a
-// snapshot a caller still holds never changes under it (the JAX
-// function's outputs are fresh buffers too). Unlike the JAX version,
-// nothing is padded to a power of two: there is no compiled program whose
-// shape the delta would have to match.
+// suffix. The wrapper hands over ONE int64 buffer [2A + 3n]: the A arrays'
+// base pointers, their A element widths in bytes, then n array ids, n flat
+// indices and n values (the int32 bits of each value, sign-extended). A
+// mirrored array holds 4-byte words (int32, or uint32 bits in an int32
+// tensor) or bytes (the retained topic chunks, uint8); a width-1 array
+// takes the value's low byte. The host has already kept the last write per
+// slot, so no two entries touch one element and the writes need no
+// atomics: two threads may store distinct bytes of one 4-byte word, and
+// CUDA's byte stores never write the neighbouring bytes, so neither store
+// is lost. The wrapper scatters into fresh clones, so a snapshot a caller
+// still holds never changes under it (the JAX function's outputs are fresh
+// buffers too). Unlike the JAX version, nothing is padded to a power of
+// two: there is no compiled program whose shape the delta would have to
+// match.
 //
-// Bound: bytes. Each entry reads 24 bytes and writes one 4-byte word at a
-// random address; no arithmetic. Design: one thread per entry.
+// Bound: bytes. Each entry reads 24 bytes and writes one 4-byte word or
+// one byte at a random address; no arithmetic. Design: one thread per
+// entry.
 #include "common.cuh"
 
 namespace {
@@ -25,9 +30,15 @@ __global__ void segment_scatter_kernel(const long long* __restrict__ buf,
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (t >= n) return;
-  const long long* ent = buf + A;
-  int32_t* base = reinterpret_cast<int32_t*>(buf[ent[t]]);
-  base[ent[n + t]] = static_cast<int32_t>(ent[2 * n + t]);
+  const long long* ent = buf + 2 * A;
+  const long long a = ent[t];
+  const long long idx = ent[n + t];
+  const long long val = ent[2 * n + t];
+  if (buf[A + a] == 1) {
+    reinterpret_cast<uint8_t*>(buf[a])[idx] = static_cast<uint8_t>(val);
+  } else {
+    reinterpret_cast<int32_t*>(buf[a])[idx] = static_cast<int32_t>(val);
+  }
 }
 
 }  // namespace

@@ -15,18 +15,21 @@ One routed batch runs these hand-written CUDA kernels, in order:
        when a group table is given]
 
 then `DeviceRouter._readback` brings the trimmed outputs to the host in
-one copy. Subscriber state is either the dense bitmap matrix
-``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor: row = filter
-id, bit = subscriber slot) or the five CSR arrays of `ops/csr_table.py`;
-`SubscriberTable` switches between them (`set_mode`, or the `auto`
-policy). $share groups are `GroupTable`'s lanes. Each kernel has its plain
+one copy. A retained replay storm (`models/retained_index.py`) can ride a
+routed batch: `DeviceRouter.route_prepared(..., retained=job)` launches
+the storm's chunk matches after the route kernels and reads their match
+matrices back in the same copy. Subscriber state is either the dense
+bitmap matrix ``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor:
+row = filter id, bit = subscriber slot) or the five CSR arrays of
+`ops/csr_table.py`; `SubscriberTable` switches between them (`set_mode`,
+or the `auto` policy). $share groups are `GroupTable`'s lanes. Each kernel has its plain
 PyTorch twin in the same module as its wrapper; a wrapper runs the twin
 only for CPU tensors. The device copies of the shape index, the NFA, the
 subscriber table and the group table are kept current by four
 `ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
 
-Not in the port yet: the semantic and rule stages, retained and session
-fusion, background CSR compaction (`CsrSegmentOwner`) and the mesh
+Not in the port yet: the semantic and rule stages, session fusion,
+background CSR compaction (`CsrSegmentOwner`) and the mesh
 (`SubscriberTable.set_shards` refuses more than one shard).
 """
 
@@ -381,7 +384,10 @@ def shape_route_step(
     Dense: `fanout_bitmaps` ORs the rows, and with ``kslot > 0``
     `compact_fanout_slots` lists them. CSR: `sparse_fanout_slots` (kslot
     must be > 0; ``kg`` is its gather window, 0 = 2 * kslot) emits the same
-    compact outputs directly and ``bitmaps`` is None. ``with_groups`` runs
+    compact outputs directly and ``bitmaps`` is None. Match-only (`tables`
+    hold neither, as for a retained storm's filter table): no fan-out runs,
+    ``bitmaps`` is None and no slots are returned whatever ``kslot`` is,
+    as the JAX step does with ``sub_bitmaps=None``. ``with_groups`` runs
     `share_pick` over `group_tables` (`GroupTable`'s snapshot uploaded)
     with strategy ``share_strategy`` (`STRATEGY_IDS`) and the per-row
     client_hash / topic_hash / rand (uint32 bits, [B]).
@@ -403,7 +409,8 @@ def shape_route_step(
         if t.device != dev:
             raise ValueError(f"table {k} lies on {t.device}, not {dev}")
     sparse = "csr_slots" in tables
-    if sparse and "sub_bitmaps" in tables:
+    dense = "sub_bitmaps" in tables
+    if sparse and dense:
         raise ValueError("tables hold both a dense and a CSR subscriber table")
     bytes_mat = torch.as_tensor(bytes_mat, dtype=torch.uint8, device=dev)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
@@ -427,9 +434,12 @@ def shape_route_step(
         )
         compact = (s_slots, s_count, s_ovf)
         fanout_bits = s_live.sum()
-    else:
+    elif dense:
         bitmaps, popcount = fanout_bitmaps(tables["sub_bitmaps"], matched)
         fanout_bits = popcount.sum()
+    else:  # match-only: no subscriber table, no fan-out half
+        bitmaps = None
+        fanout_bits = torch.zeros((), dtype=torch.int32, device=dev)
     out = {
         "matched": matched,
         "mcount": mcount,
@@ -443,7 +453,7 @@ def shape_route_step(
     }
     if compact is not None:
         out["slots"], out["slot_count"], out["overflow"] = compact
-    elif kslot > 0:
+    elif kslot > 0 and bitmaps is not None:
         out["slots"], out["slot_count"], out["overflow"] = compact_fanout_slots(
             bitmaps, kslot
         )
@@ -965,6 +975,8 @@ class RouteResult(NamedTuple):
 
     ``picks`` is (pick_gid, pick_idx) [B, P] when the router has a group
     table. ``readback_bytes`` is the device->host transfer this batch paid.
+    ``retained`` is the decoded {filter: row-index array} of a retained
+    storm that rode the batch (`route_prepared(..., retained=job)`).
     """
 
     matched: np.ndarray  # [B, M (+ K)] sparse fids, -1 holes
@@ -978,6 +990,7 @@ class RouteResult(NamedTuple):
     dense_rows: Optional[object] = None  # [n_overflow, W] uint32 rows
     dense_index: Optional[Dict[int, int]] = None  # batch row -> dense_rows row
     readback_bytes: int = 0
+    retained: Optional[Dict[str, np.ndarray]] = None  # fused storm's rows
 
 
 class _LazyDenseRows:
@@ -1048,6 +1061,9 @@ class DeviceRouter:
     # clean-table prepares re-check the auto-sized kslot only every this
     # many batches: the fanout histogram drifts slowly
     KSLOT_RECHECK = 64
+    # a retained storm may ride `route_prepared` (one device: no mesh
+    # engine that would have to refuse it)
+    supports_retained_fusion = True
 
     def __init__(self, index, subtab: SubscriberTable, config=None,
                  grouptab: Optional[GroupTable] = None,
@@ -1212,11 +1228,20 @@ class DeviceRouter:
             rand = np.zeros(B, np.uint32)
         return ch, th, rand
 
-    def route_prepared(self, args: Prepared, topics, client_hashes=None) -> RouteResult:
+    def route_prepared(self, args: Prepared, topics, client_hashes=None,
+                       retained=None) -> RouteResult:
         """Kernel launches + readback against a `prepare()` snapshot.
 
         Unlike the JAX router, the batch is not padded to a power of two:
-        there is no compiled program whose shape it would have to match."""
+        there is no compiled program whose shape it would have to match.
+
+        `retained`: a prepared replay storm (`StormJob`, from
+        `DeviceRetainedIndex.prepare_storm`) to fuse into this call, as
+        `fused_route_retained_step` does (emqx_tpu/models/router_model.py
+        :573): chunk 0's storm match launches right after the route
+        kernels and every further chunk's before any readback; each match
+        matrix joins the batch's one device->host copy, and the decoded
+        {filter: row-index array} lands in `RouteResult.retained`."""
         cfg = self.config
         topics = list(topics)
         mat, lens, too_long = encode_topics(topics, cfg.max_bytes)
@@ -1248,9 +1273,20 @@ class DeviceRouter:
             kslot=args.kslot,
             device=self.device,
         )
-        return self._readback(out, len(topics), too_long, args.kslot)
+        storm = None
+        if retained is not None and retained.chunks:
+            from emqx_tpu_torch.models.retained_index import retained_step
 
-    def _readback(self, out, B: int, too_long, kslot: int) -> RouteResult:
+            storm = [
+                retained_step(retained.shape_tables, retained.nfa_tables, c,
+                              **retained.kwargs)
+                for c in retained.chunks
+            ]
+        return self._readback(out, len(topics), too_long, args.kslot,
+                              retained=retained, storm=storm)
+
+    def _readback(self, out, B: int, too_long, kslot: int, retained=None,
+                  storm=None) -> RouteResult:
         """Pull one batch's outputs to the host -> `RouteResult`.
 
         Every output the batch needs, the picks included, crosses in ONE
@@ -1259,7 +1295,10 @@ class DeviceRouter:
         it is decided by `slot_count`, which must be on the host first. A
         CSR table has no dense rows on the device: its overflow rows are
         `_LazyDenseRows`, built from the host table when read, and nothing
-        more crosses the link for them."""
+        more crosses the link for them. A fused storm's match matrices
+        (`storm`, one per chunk, int16 or int32) ride the same copy: an
+        int16 matrix joins the int32 buffer as its bytes, two entries a
+        word."""
         M = out["matched"].shape[1]
         with_groups = "pick_gid" in out
         sparse = out["bitmaps"] is None
@@ -1275,7 +1314,9 @@ class DeviceRouter:
             parts += [out["slots"].reshape(-1), out["slot_count"]]
         else:
             parts.append(out["bitmaps"].reshape(-1))
-        host = torch.cat(parts).cpu().numpy()
+        storm = storm or []
+        storm_words = [_as_words(m) for m in storm]
+        host = torch.cat(parts + storm_words).cpu().numpy()
         readback = host.nbytes
         o = 0
 
@@ -1290,13 +1331,24 @@ class DeviceRouter:
         picks = None
         if with_groups:
             picks = (take(B * P).reshape(B, P), take(B * P).reshape(B, P))
-        if not kslot:
+        bitmaps = slots = slot_count = None
+        if kslot:
+            slots = take(B * kslot).reshape(B, kslot)
+            slot_count = take(B)
+        else:
             W = out["bitmaps"].shape[1]
             bitmaps = take(B * W).reshape(B, W).view(np.uint32)
+        retained_res = None
+        if storm:
+            mats = []
+            for m, w in zip(storm, storm_words):
+                words = take(w.numel())
+                flat = words.view(np.int16) if m.dtype == torch.int16 else words
+                mats.append(flat[: m.numel()].reshape(tuple(m.shape)))
+            retained_res = retained.decode(mats)
+        if not kslot:
             return RouteResult(matched, mcount, flags, bitmaps, picks,
-                               readback_bytes=readback)
-        slots = take(B * kslot).reshape(B, kslot)
-        slot_count = take(B)
+                               readback_bytes=readback, retained=retained_res)
         # holds on the CSR path too: the kernel forces count past kslot for
         # gather-window overflow rows
         overflow = slot_count > kslot
@@ -1317,5 +1369,17 @@ class DeviceRouter:
             matched, mcount, flags, None, picks,
             slots=slots, slot_count=slot_count, overflow=overflow,
             dense_rows=dense_rows, dense_index=dense_index,
-            readback_bytes=readback,
+            readback_bytes=readback, retained=retained_res,
         )
+
+
+def _as_words(m: torch.Tensor) -> torch.Tensor:
+    """A match matrix as flat int32 words for the coalesced readback: int32
+    as it is, int16 as its bytes (zero padded to a whole word), no copy
+    where the length is even."""
+    flat = m.reshape(-1)
+    if m.dtype != torch.int16:
+        return flat
+    if flat.numel() % 2:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    return flat.view(torch.int32)

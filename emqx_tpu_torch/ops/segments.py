@@ -3,11 +3,12 @@
 `DeviceSegmentManager`).
 
 Every host table the serving step reads (the shape index, the residual
-NFA, the subscriber bitmaps) keeps its arrays as numpy, mutates them in
-place, and op-logs each scalar write as ``(array_name, flat_index,
-value)``; a structural event (growth, rehash, salt change, a full op-log)
-bumps its `epoch` and clears the log. `DeviceSegmentManager.sync(src)`
-keeps one torch tensor per array equal to ``src.device_snapshot()``:
+NFA, the subscriber bitmaps, the group table, the retained topic chunks)
+keeps its arrays as numpy, mutates them in place, and op-logs each scalar
+write as ``(array_name, flat_index, value)``; a structural event (growth,
+rehash, salt change, a full op-log) bumps its `epoch` and clears the log.
+`DeviceSegmentManager.sync(src)` keeps one torch tensor per array equal to
+``src.device_snapshot()``:
 
 - a full upload (`convert.upload`) when the epoch moved;
 - otherwise the op-log suffix since the last sync, replayed by ONE
@@ -17,7 +18,8 @@ keeps one torch tensor per array equal to ``src.device_snapshot()``:
 - a ``(RESYNC, name, 0)`` marker re-uploads only that array from the live
   host table (which already holds every logged write to it).
 
-Op-log protocol (sources: `NfaBuilder`, `ShapeIndex`, `SubscriberTable`):
+Op-log protocol (sources: `NfaBuilder`, `ShapeIndex`, `SubscriberTable`,
+`GroupTable`, `DeviceRetainedIndex`):
 `epoch` int, `version` int (total mutation counter), `oplog` list and
 `device_snapshot() -> {name: np.ndarray}`.
 """
@@ -53,16 +55,21 @@ def _last_writes(idx, val):
 
 def segment_scatter_plain(flats, idxs, vals):
     """Plain PyTorch twin of the `segment_scatter` kernel (any device):
-    `out[k] = flats[k].clone()` with ``out[k].view(-1)[idx] = val``."""
+    `out[k] = flats[k].clone()` with ``out[k].view(-1)[idx] = val``, the
+    values cast to the array's type (a uint8 array takes their low byte)."""
     out = {}
     for k, flat in flats.items():
         ix, vv = _last_writes(idxs[k], vals[k])
         new = flat.clone()
         new.view(-1)[torch.from_numpy(ix).to(flat.device)] = torch.from_numpy(vv).to(
-            flat.device
+            device=flat.device, dtype=flat.dtype
         )
         out[k] = new
     return out
+
+
+# element width in bytes of each array type the kernel writes
+_WIDTHS = {torch.int32: 4, torch.uint8: 1}
 
 
 def segment_scatter(
@@ -75,17 +82,18 @@ def segment_scatter(
     array in one launch. The counterpart of `segment_scatter_impl`
     (emqx_tpu/ops/segments.py:73).
 
-    flats: contiguous int32 tensors of any shape (uint32 tables hold their
-    bits), all on one device; idxs/vals: host arrays or lists of flat
-    indices and values in program order. A repeated index keeps its last
-    value: the host reduces each array to one write per slot before the
-    launch, so no two threads of the kernel touch one word. The inputs are
-    never written: a snapshot a caller still holds stays as it was.
+    flats: contiguous int32 tensors (uint32 tables hold their bits) or
+    uint8 tensors (byte tables) of any shape, all on one device; idxs/vals:
+    host arrays or lists of flat indices and values in program order. A
+    repeated index keeps its last value: the host reduces each array to
+    one write per slot before the launch, so no two threads of the kernel
+    touch one element. The inputs are never written: a snapshot a caller
+    still holds stays as it was.
     """
     names = list(flats)
     for k in names:
-        if not isinstance(flats[k], torch.Tensor) or flats[k].dtype != torch.int32:
-            raise TypeError(f"{k}: expected an int32 tensor")
+        if not isinstance(flats[k], torch.Tensor) or flats[k].dtype not in _WIDTHS:
+            raise TypeError(f"{k}: expected an int32 or uint8 tensor")
         if not flats[k].is_contiguous():
             raise ValueError(f"{k}: must be contiguous")
     writes = {k: _last_writes(idxs[k], vals[k]) for k in names}
@@ -103,10 +111,12 @@ def segment_scatter(
     if n == 0:
         return out
     A = len(names)
-    # one host buffer, one copy: [A base pointers | ids | indices | values]
-    buf = np.empty(A + 3 * n, dtype=np.int64)
+    # one host buffer, one copy:
+    # [A base pointers | A element widths | ids | indices | values]
+    buf = np.empty(2 * A + 3 * n, dtype=np.int64)
     buf[:A] = [out[k].data_ptr() for k in names]
-    o = A
+    buf[A : 2 * A] = [_WIDTHS[out[k].dtype] for k in names]
+    o = 2 * A
     for a, k in enumerate(names):
         ix, vv = writes[k]
         m = len(ix)
@@ -127,7 +137,8 @@ class DeviceSegmentManager:
     """Device-resident mirror of one incrementally mutated host source.
 
     `sync(src)` returns ``{name: tensor}`` equal to ``src.device_snapshot()``
-    (int32 tensors; uint32 arrays keep their bits). All internal state
+    (`convert.upload`'s types: int32 tensors, uint32 arrays keeping their
+    bits, and uint8 tensors for byte arrays). All internal state
     changes under `_lock`, and callers receive a fresh shallow-copied dict,
     so a snapshot held across a later sync never tears.
 

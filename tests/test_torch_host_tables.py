@@ -150,7 +150,7 @@ def test_subscriber_table_matches():
     assert p.oplog == j.oplog
 
 
-def test_subscriber_table_refuses_sparse_modes():
+def test_subscriber_table_refuses_sparse_modes_across_shards():
     """The sparse and auto modes are refused across more than one shard:
     the sharded CSR table belongs to the mesh, which the port does not
     serve yet (on one shard they build, `test_subscriber_table_sparse_modes_match_jax`)."""
@@ -217,7 +217,8 @@ def port_modules():
 
 def test_importing_the_port_loads_no_jax():
     assert {"emqx_tpu_torch.ops.csr_table", "emqx_tpu_torch.broker.shared_sub",
-            "emqx_tpu_torch.models.router_model"} <= set(port_modules())
+            "emqx_tpu_torch.models.router_model",
+            "emqx_tpu_torch.models.retained_index"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"

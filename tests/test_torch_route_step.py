@@ -241,10 +241,9 @@ def test_tables_to_device_copies_bits_exactly():
         convert.tables_to_device(snap, bits.astype(np.int64), device="cpu")
 
 
-def test_prepare_raises_on_residual_filters():
-    """Kept under its first name: `prepare` used to raise on residual
-    filters. It now mirrors the NFA and routes them, as the JAX router
-    does, on the same 100-shape table (36 shapes past MAX_SHAPES)."""
+def test_prepare_routes_residual_filters_like_jax():
+    """`prepare` mirrors the NFA and routes residual filters as the JAX
+    router does, on a 100-shape table (36 shapes past MAX_SHAPES)."""
     tabs = []
     for ri, st in ((P_ri.RouteIndex, P_router.SubscriberTable),
                    (J_ri.RouteIndex, J_router.SubscriberTable)):

@@ -1,7 +1,7 @@
 """The port's device mirror against the JAX package and the host tables.
 
 `segment_scatter` (port) against `segment_scatter_impl` on the same arrays
-and deltas, and the port's `DeviceSegmentManager` against the host
+and deltas (int32 words and uint8 bytes), and the port's `DeviceSegmentManager` against the host
 `device_snapshot()` of each source it mirrors (`ShapeIndex`, `NfaBuilder`,
 `SubscriberTable`, the port's own copies) after seeded churn, with its
 counters held against the `emqx_tpu` manager driven through the same
@@ -23,7 +23,7 @@ from emqx_tpu.ops import nfa as J_nfa
 from emqx_tpu.ops import segments as J_seg
 from emqx_tpu.ops import shape_index as J_shape
 from emqx_tpu.ops import topics as J_topics
-from emqx_tpu_torch import kernels
+from emqx_tpu_torch import convert, kernels
 from emqx_tpu_torch.models import router_model as P_router
 from emqx_tpu_torch.ops import nfa as P_nfa
 from emqx_tpu_torch.ops import segments as P_seg
@@ -65,6 +65,44 @@ def test_segment_scatter_matches_jax(seed):
         np.testing.assert_array_equal(got[k].numpy().view(flats[k].dtype),
                                       np.asarray(want[k]), err_msg=k)
         assert torch.equal(inputs[k], before[k])  # fresh buffers, inputs untouched
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_byte_scatter_matches_jax(seed):
+    """uint8 arrays (the retained topic chunks) beside an int32 one, in
+    one call: each keeps its type and takes its values' low byte."""
+    rng = np.random.default_rng(seed)
+    flats = {
+        "chunk_0": rng.integers(0, 256, size=(512, 32), dtype=np.uint8),
+        "chunk_1": np.zeros((64, 32), np.uint8),
+        "w": rng.integers(-(1 << 31), 1 << 31, size=300, dtype=np.int64).astype(np.int32),
+    }
+    idxs = {k: rng.choice(v.size, size=n, replace=False)
+            for (k, v), n in zip(flats.items(), (2000, 33, 40))}
+    vals = {k: rng.integers(0, 256, size=len(v)).astype(flats[k].dtype) for k, v in idxs.items()}
+    want = jax.jit(J_seg.segment_scatter_impl)(
+        {k: jnp.asarray(v.reshape(-1)) for k, v in flats.items()},
+        {k: jnp.asarray(v.astype(np.int32)) for k, v in idxs.items()},
+        {k: jnp.asarray(v) for k, v in vals.items()},
+    )
+    inputs = {k: torch.from_numpy(v.copy()) for k, v in flats.items()}
+    got = P_seg.segment_scatter(inputs, idxs, vals)
+    for k, v in flats.items():
+        assert got[k].dtype == inputs[k].dtype and tuple(got[k].shape) == v.shape
+        np.testing.assert_array_equal(got[k].numpy().reshape(-1), np.asarray(want[k]), err_msg=k)
+        np.testing.assert_array_equal(inputs[k].numpy(), v)  # inputs untouched
+
+
+def test_upload_keeps_bytes_as_bytes():
+    snap = {"chunk_0": np.arange(64, dtype=np.uint8).reshape(4, 16),
+            "bits": np.array([0xFFFFFFFF, 3], np.uint32)}
+    t = convert.upload(snap, device="cpu")
+    assert t["chunk_0"].dtype == torch.uint8 and t["bits"].dtype == torch.int32
+    np.testing.assert_array_equal(t["chunk_0"].numpy(), snap["chunk_0"])
+    snap["chunk_0"][0, 0] = 99  # a copy, not a view of the live host array
+    assert int(t["chunk_0"][0, 0]) == 0
+    with pytest.raises(TypeError, match="int32 or uint32"):
+        convert.upload({"x": np.zeros(4, np.int16)}, device="cpu")
 
 
 def test_segment_scatter_keeps_the_last_write_per_slot():
