@@ -103,10 +103,41 @@ site/+/dev/{d}/ch/# for d < 8,192 (filter d matches 50 rows):
     deltas, each against its twin (plain twins from RET_PLAIN_REPS
     samples);
 18. `retained_seconds`: the path's time;
-19. one JSON line {"kernels": [...]}: the twelve kernels, each with its
+The `session_1m` path (the device session store): bench.py's
+`session_storm` as `bench_session_storm` builds it: 1,000,000 sessions
+c{i}, each one QoS1 publish-phase row (pid i mod 65535 + 1, one shared
+message) bulk-loaded into SessionStore(capacity 2^21, sweep_slots 16,384,
+retry 1 s, a frozen clock; the bulk placement grows the table to 2^22
+rows), captured and installed into a fresh store,
+every slot bound to a batch resend sink, the clock 60 s on; each sweep
+rides a B = 64 batch of mixed_1m topics through the mixed_1m router (the
+retained path's):
+19. `tables_session`: build seconds per stage, the table's capacity and
+    bytes, `reduced`;
+20. `flood_session`, `churn_session` and `fused_session`, counters zeroed
+    before the first and read after the last: request_sweep -> take_rider
+    -> route_prepared(..., session=rider) -> commit until every session is
+    redelivered, each (slot, pid) exactly once, every rider's due list and
+    count equal to the host oracle taken before its launch, the route half
+    equal to the unfused route, no host sweep and no scatter of the
+    manager's own, and the full uploads the op-log's length limit implies
+    (`flood_plan`); churn: a resume of the drained store, then ride A
+    (20,000 clears, 10,000 rel phases, 5,000 incoming QoS2 rows; first an
+    aborted launch that must leave the mirror as it was) and ride B
+    (expiry armed on 100,000 sessions, growing the slot lane to 2^20: one
+    array resync, no full upload, no scatter; an expiry sweep past 16,384
+    and a second due overflow), the mirror equal to the host lanes after
+    every commit; then one rider-carrying call under the profiler (one
+    device->host copy);
+21. `kernel` for session_sweep at the flood's table (2^22 rows, 2^20
+    slots) against its twin, with `torch.nonzero` of the precomputed masks
+    as the nearest library call;
+22. `session_seconds`: the path's time;
+23. one JSON line {"kernels": [...]}: the thirteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
-    row_lengths and narrow_i16 on retained_5m),
+    row_lengths and narrow_i16 on retained_5m; session_sweep on
+    session_1m),
     its wrapper-call, device, plain-twin and library-call times and the
     least time the card could take (bytes moved over 3.35 TB/s, or
     integer operations over the 67 T/s scalar rate, the larger); then
@@ -175,6 +206,14 @@ RET_DEVIDS = 100003
 RET_MAX_BYTES = 64
 RET_BULK = 300_000  # churn: a bulk load that fills chunk 4 and starts chunk 5
 RET_PLAIN_REPS = 5  # samples of a plain twin at a million rows
+
+# session_1m: bench.py's session_storm (bench_session_storm)
+SESS_N = 1_000_000
+SESS_SWEEP = 16384
+SESS_RETRY = 1.0  # seconds
+SESS_BATCH = 64  # topics of the routed batch each sweep rides
+SESS_ACKS, SESS_RELS, SESS_AWAITS = 20000, 10000, 5000  # churn ride A
+SESS_EXPIRY = 100000  # churn ride B: sessions with an expiry deadline
 
 
 def phase(name: str, **fields) -> None:
@@ -542,6 +581,7 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "occurrence_index": ("occ_tile_sort", "occ_merge", "occ_finalize"),
     "row_lengths": "row_lengths_kernel",
     "narrow_i16": "narrow_i16_kernel",
+    "session_sweep": ("sweep_count", "sweep_scan", "sweep_write"),
 }
 
 SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
@@ -569,16 +609,21 @@ SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
                     "emqx_tpu/models/retained_index.py:69"),
     "narrow_i16": ("emqx_tpu_torch/kernels/csrc/retained.cu",
                    "emqx_tpu/models/retained_index.py:82"),
+    "session_sweep": ("emqx_tpu_torch/kernels/csrc/session_sweep.cu",
+                      "emqx_tpu/ops/session_table.py:76"),
 }
 
 
 def profiled(torch, fn, reps: int):
     """Run fn reps times under torch.profiler (CPU + CUDA activity) ->
-    (key_averages, wall seconds)."""
+    (key_averages, wall seconds). `acc_events=True` keeps the events of
+    every profiling cycle: without it the trace may report only the last
+    cycle's and lose a kernel's device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1857,8 +1902,8 @@ def retained_kinds(torch, chunks, tables, kw, scatter_call):
 
 
 def retained_path(torch, rng):
-    """Phases 15-20: the retained replay storm at BASELINE config 5.
-    -> (kernel report, launches on the path)."""
+    """Phases 15-18: the retained replay storm at BASELINE config 5.
+    -> (kernel report, launches on the path, the mixed_1m router it built)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.models.retained_index import (
         CHUNK,
@@ -2098,7 +2143,7 @@ def retained_path(torch, rng):
           pairs=sum(map(len, got.retained.values())), fused_ms=fused_ms,
           route_ms=route_ms, match_many_ms=alone_ms, match_many_stages=alone_stages,
           launches=launches)
-    del router, r_index, subtab, args, job, alone, res, got, fused, _r
+    del r_index, subtab, args, job, alone, res, got, fused, _r
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2118,6 +2163,429 @@ def retained_path(torch, rng):
                                               "hits": int((got >= 0).sum())}
     report = kernel_report(torch, kinds, plain_reps=RET_PLAIN_REPS)
     phase("kernel_inputs_retained", **inputs)
+    return report, launches, router
+
+
+# -- the session_1m path -----------------------------------------------------
+
+
+class Counters:
+    """The store's metrics sink (`inc`, `gauge_set`), read by the checks."""
+
+    def __init__(self):
+        self.values = {}
+
+    def inc(self, name, n=1):
+        self.values[name] = self.values.get(name, 0) + n
+
+    def gauge_set(self, name, v):
+        self.values[name] = v
+
+    def get(self, name):
+        return self.values.get(name, 0)
+
+
+class FloodSink:
+    """A channel-shaped resend sink: the store hands it every due row of its
+    sessions in one call (`_store_resend_batch`); it records the packet
+    ids and the time of its first call."""
+
+    def __init__(self):
+        self.pids = []
+        self.first = None
+
+    def resend(self, pid, st, msg):  # bound per slot; the batch path is taken
+        raise AssertionError("the store must take the batch path")
+
+    def _store_resend_batch(self, items):
+        if self.first is None:
+            self.first = time.perf_counter()
+        self.pids.extend(pid for pid, _st, _m in items)
+        return [True] * len(items)
+
+
+def flood_plan(n: int, k: int, oplog_max: int):
+    """-> (sweeps, full uploads, op-log length after the last commit) of a
+    redelivery flood of n due sessions, k a sweep, derived from the store's
+    code: the install's epoch bump makes the first rider upload in full;
+    each commit appends its sweep's touches to the op-log (`touch_many`),
+    unless that would pass oplog_max, when it bumps the epoch instead and
+    the next rider uploads in full."""
+    sweeps = -(-n // k)
+    uploads, log, bump = 0, 0, True
+    for s in range(sweeps):
+        if bump:
+            uploads, log, bump = uploads + 1, 0, False
+        touched = min(k, n - s * k)
+        if log + touched > oplog_max:
+            bump, log = True, 0
+        else:
+            log += touched
+    return sweeps, uploads, log
+
+
+def check_session_mirror(torch, store) -> dict:
+    """The sessions mirror against the host lanes, bit for bit, once the
+    op-log suffix it has not taken yet (the last commit's redelivery
+    stamps, which ride the next rider) is applied to a host copy of it."""
+    from emqx_tpu_torch.ops.session_table import RESYNC
+
+    torch.cuda.synchronize()
+    mirror = {k: v.cpu().numpy().copy() for k, v in store.manager._arrays.items()}
+    suffix = store.table.oplog[store.manager._pos :]
+    if any(name == RESYNC or name != "sess_ts" for name, _i, _v in suffix):
+        raise AssertionError("the pending suffix holds more than redelivery stamps")
+    if suffix:
+        idx = np.fromiter((i for _n, i, _v in suffix), np.int64, len(suffix))
+        mirror["sess_ts"][idx] = np.fromiter((v for _n, _i, v in suffix), np.int64,
+                                             len(suffix))
+    host = store.table.device_snapshot()
+    if sorted(mirror) != sorted(host):
+        raise AssertionError(f"mirror lanes {sorted(mirror)}")
+    for k, v in host.items():
+        if mirror[k].dtype != v.dtype or not np.array_equal(mirror[k], v):
+            raise AssertionError(f"the sessions mirror differs from the host lane {k}")
+    return {"lanes": len(host), "bytes": sum(v.nbytes for v in host.values()),
+            "pending_stamps": len(suffix)}
+
+
+def session_ride(torch, store, router, args, topics, profile=False) -> dict:
+    """One rider through `route_prepared(..., session=rider)`: the sweep
+    lists against the host oracle taken just before the launch, the route
+    half against the unfused route of the same batch, then the commit and
+    the mirror check. -> stage times and counts."""
+    t0 = time.perf_counter()
+    rider = store.take_rider()
+    t1 = time.perf_counter()
+    if rider is None:
+        raise AssertionError("no rider")
+    now, retry = int(rider.clock[0]), int(rider.clock[1])
+    due_want = store.table.due_rows(now, retry)
+    exp_want = store.table.expired_slots(now)
+    d2h = None
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if profile:
+        # late in this long run a CUPTI trace has come back without any
+        # device event: such a trace is taken again, the same call on the
+        # same rider, up to three times
+        for attempts in range(1, 4):
+            got = []
+            events, _wall = profiled(
+                torch, lambda: got.append(router.route_prepared(args, topics, session=rider)), 1)
+            device = [(e.key[:60], e.count) for e in events if e.self_device_time_total > 0]
+            if device:
+                break
+        res = got[0]
+        d2h = [(e.key, e.count) for e in events if "Memcpy DtoH" in e.key]
+        if sum(c for _k, c in d2h) != 1:
+            raise AssertionError(f"the rider-carrying call copied device->host {d2h}; "
+                                 f"trace {attempts}: device events {device}")
+    else:
+        res = router.route_prepared(args, topics, session=rider)
+    t3 = time.perf_counter()
+    plain = router.route_prepared(args, topics)
+    t4 = time.perf_counter()
+    for k in ("matched", "mcount", "flags", "bitmaps", "slots", "slot_count", "overflow"):
+        a, b = getattr(res, k), getattr(plain, k)
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+            raise AssertionError(f"fused route half: {k} differs from the unfused route")
+    if res.dense_index != plain.dense_index:
+        raise AssertionError("fused route half: dense rows differ")
+    out = res.session
+    K = rider.sweep_k
+    if K:
+        for what, got, count, want in (("due", out.due, out.due_count, due_want),
+                                       ("expired", out.expired, out.expired_count, exp_want)):
+            head = want[:K]
+            if got.dtype != np.int32 or got.shape != (K,) or count != len(want) \
+                    or not np.array_equal(got[: len(head)], head) \
+                    or (got[len(head):] != -1).any():
+                raise AssertionError(f"{what}: {count} listed against the oracle's {len(want)}")
+    elif out.due is not None:
+        raise AssertionError("a sweep-less rider returned sweep lists")
+    t5 = time.perf_counter()
+    store.commit(rider, out)
+    t6 = time.perf_counter()
+    return {
+        "rider": rider, "out": out, "due": out.due, "d2h": d2h,
+        "trace_attempts": attempts if profile else 0,
+        "writes": {k: int(len(v)) for k, v in rider.idxs.items()}, "rows": rider.rows,
+        "sweep_k": K, "due_count": out.due_count, "expired_count": out.expired_count,
+        "readback_bytes": res.readback_bytes, "route_readback_bytes": plain.readback_bytes,
+        "ms": {"take_rider": 1e3 * (t1 - t0), "fused": 1e3 * (t3 - t2),
+               "route": 1e3 * (t4 - t3), "commit": 1e3 * (t6 - t5)},
+    }
+
+
+def session_path(torch, rng, router=None):
+    """Phases 19-24: the device session store at bench.py's session_storm.
+    -> (kernel report, launches on the path)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.session_store import PID_SPACE, SessionStore
+    from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops import session_table as ST
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.ops.nfa import _next_pow2
+
+    n, K = SESS_N, SESS_SWEEP
+    mono = [0.0]
+    clock = lambda: mono[0]  # noqa: E731 — the frozen store clock
+    t = [time.perf_counter()]
+    cids = [f"c{i}" for i in range(n)]
+    t.append(time.perf_counter())
+    store1 = SessionStore(capacity=_next_pow2(2 * n), sweep_slots=K,
+                          retry_interval=SESS_RETRY, clock=clock, device="cuda")
+    # one shared message object; pids cycle the 16-bit space
+    pids = (np.arange(n) % 65535) + 1
+    rows = store1.bulk_load(cids, [object()] * n, pids=pids)
+    t.append(time.perf_counter())
+    lost = int((rows < 0).sum())
+    if lost:
+        raise AssertionError(f"{lost} rows lost in bulk placement")
+    state = store1.capture()  # the mass disconnect: the state IS the table
+    t.append(time.perf_counter())
+    metrics = Counters()
+    store = SessionStore(capacity=64, sweep_slots=K, retry_interval=SESS_RETRY,
+                         metrics=metrics, clock=clock, device="cuda")
+    expired_cids = []
+    store.on_expired = expired_cids.extend
+    sink = FloodSink()
+    t_install = time.perf_counter()
+    if store.install(state) != n:
+        raise AssertionError("install restored fewer sessions")
+    t.append(time.perf_counter())
+    for slot in range(len(store._slot_cid)):
+        store.bind(slot, sink.resend)
+    t.append(time.perf_counter())
+    del store1, state
+    table = store.table
+    cap = table._cap
+    host_bytes = sum(v.nbytes for v in table.device_snapshot().values())
+    # the bulk placement grows the table once when its 16 probe rounds leave
+    # keys unplaced (a 1M load into 2^21 rows does): cap 2^21 or 2^22
+    if cap not in (_next_pow2(2 * n), 2 * _next_pow2(2 * n)) \
+            or len(table.slot_expiry) != 256 or host_bytes != 5 * 4 * cap + 4 * 256:
+        raise AssertionError(f"table cap {cap}, {host_bytes} B")
+    if router is None:
+        r_index, subtab = build_mixed_1m()
+        router = DeviceRouter(
+            r_index, subtab, MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
+            device="cuda",
+        )
+    args = router.prepare()
+    t.append(time.perf_counter())
+    phase("tables_session", sessions=n, table_capacity=cap, row_lanes=5,
+          host_table_bytes=host_bytes, sweep_k=K, retry_ds=store.retry_ds,
+          oplog_max=table.OPLOG_MAX, batch=SESS_BATCH,
+          build_stage_seconds={k: b - a for k, a, b in zip(
+              ("client_ids", "bulk_load", "capture", "install", "bind", "router"), t, t[1:])},
+          reduced=["each sweep rides a B = 64 batch of mixed_1m topics through the mixed_1m "
+                   "DeviceRouter instead of a BatchIngest drive of 64 drive/{i} messages "
+                   "through a broker (the port has no broker yet)"])
+
+    # -- flood_session: the counters are zeroed here and read after
+    # fused_session
+    sweeps_want, uploads_want, log_left = flood_plan(n, K, table.OPLOG_MAX)
+    kernels.reset_launches()
+    mono[0] += 60.0  # every window is long past its retry interval
+    stages = {k: [] for k in ("take_rider", "fused", "route", "commit")}
+    swept = []
+    sweeps = 0
+    t0 = time.perf_counter()
+    while len(sink.pids) < n:
+        if sweeps > sweeps_want:
+            raise AssertionError(f"{sweeps} sweeps without draining the flood")
+        store.request_sweep()
+        r = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH))
+        for k, v in r["ms"].items():
+            stages[k].append(v)
+        swept.append(r["due"][r["due"] >= 0])
+        sweeps += 1
+        if sweeps == 1:
+            first_ride = r
+    wall = time.perf_counter() - t0
+    rows = np.concatenate(swept)
+    if len(rows) != n or len(np.unique(rows)) != n \
+            or not np.array_equal(np.sort(table.sess_slot[rows]), np.arange(n)) \
+            or not np.array_equal(np.sort(np.asarray(sink.pids)), np.sort(pids)):
+        raise AssertionError("the flood did not redeliver every (slot, pid) exactly once")
+    seg = store.manager.counters()
+    if sweeps != sweeps_want or seg != {"full_resyncs": uploads_want, "delta_launches": 0,
+                                        "array_resyncs": 0}:
+        raise AssertionError(f"{sweeps} sweeps, {seg}: expected {sweeps_want} sweeps, "
+                             f"{uploads_want} full uploads and no scatter")
+    if metrics.get("session.sweep.host") or metrics.get("session.sweep.device") != sweeps \
+            or metrics.get("session.redeliveries") != n:
+        raise AssertionError(f"store counters {metrics.values}")
+    if len(table.oplog) != log_left:
+        raise AssertionError(f"op-log {len(table.oplog)} after the flood, derived {log_left}")
+    drain_ms = sum(sum(stages[k]) for k in ("take_rider", "fused", "commit"))
+    mirror = check_session_mirror(torch, store)
+    phase("flood_session", sessions=n, sweeps=sweeps, redelivered=len(sink.pids),
+          redelivery_rps=n / (drain_ms / 1e3), loop_seconds=wall,
+          resume_visibility_ms=1e3 * (sink.first - t_install),
+          first_sweep_ms=first_ride["ms"],
+          stage_ms_median={k: float(np.median(v)) for k, v in stages.items()},
+          stage_ms_total={k: float(np.sum(v)) for k, v in stages.items()},
+          stage_ms_max={k: float(np.max(v)) for k, v in stages.items()},
+          readback_bytes=first_ride["readback_bytes"],
+          route_readback_bytes=first_ride["route_readback_bytes"],
+          full_resyncs_derived=uploads_want, segment_status=seg, oplog_after=log_left,
+          store_counters=dict(metrics.values), mirror=mirror,
+          device_bytes={k: v.numel() * v.element_size()
+                        for k, v in store.manager._arrays.items()},
+          launches=dict(kernels.LAUNCHES))
+    del swept, rows
+
+    # -- churn_session. The flood leaves log_left touch entries in the
+    # op-log (OPLOG_MAX counts the log since its epoch began); at
+    # session_storm ride A's wave on top would pass OPLOG_MAX and bump the
+    # epoch. So the drained store is checkpointed and resumed first
+    # (capture -> install: ride 0 is the one full upload), and each ride's
+    # wave starts on an empty log.
+    churn = {}
+    perm = rng.permutation(n)
+    a1, a2, a3 = SESS_ACKS, SESS_ACKS + SESS_RELS, SESS_ACKS + SESS_RELS + SESS_AWAITS
+    dels, rels, awaits = perm[:a1], perm[a1:a2], perm[a2:a3]
+    # a clear logs 3 writes, a rel phase 3, an insert 5
+    wave_a = 3 * len(dels) + 3 * len(rels) + 5 * len(awaits)
+    c0 = store.manager.counters()
+    store.install(store.capture())
+    store.request_sweep()
+    r0 = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH))
+    c1 = store.manager.counters()
+    if r0["due_count"] or c1["full_resyncs"] - c0["full_resyncs"] != 1 or r0["rows"]:
+        raise AssertionError(f"ride 0: {r0['due_count']} due, {c0} -> {c1}")
+    churn["resume_ride0"] = {"ms": r0["ms"], "segment_moves": {k: c1[k] - c0[k] for k in c1},
+                             "flood_oplog": log_left, "wave_a_oplog": wave_a,
+                             "past_oplog_max_without": log_left + wave_a > table.OPLOG_MAX,
+                             "mirror": check_session_mirror(torch, store)}
+
+    # ride A: 20,000 acks (clears), 10,000 PUBRECs (rel phase), 5,000
+    # incoming QoS2 rows awaiting PUBREL; an aborted launch first
+    t0 = time.perf_counter()
+    for i in dels:
+        store.inflight_delete(int(i), int(pids[i]))
+    for i in rels:
+        store.inflight_phase(int(i), int(pids[i]), "pubrel")
+    for i in awaits:
+        store.await_rel(int(i), 7)
+    mutate_ms = 1e3 * (time.perf_counter() - t0)
+    if len(table.oplog) != wave_a or table.OPLOG_MAX <= wave_a:
+        raise AssertionError(f"ride A's wave logged {len(table.oplog)}, derived {wave_a}")
+    c0 = store.manager.counters()
+    s0 = kernels.LAUNCHES["segment_scatter"]
+    before = dict(store.manager._arrays)
+    kept = {k: v.cpu().numpy().copy() for k, v in before.items()}
+    store.request_sweep()
+    rider = store.take_rider()
+    aborted = router.route_prepared(args, topic_batch_1m(rng, SESS_BATCH), session=rider)
+    store.abort(rider)
+    torch.cuda.synchronize()
+    if any(store.manager._arrays[k] is not v or not np.array_equal(v.cpu().numpy(), kept[k])
+           for k, v in before.items()) \
+            or not any(aborted.session.arrays[k] is not v for k, v in before.items()):
+        raise AssertionError("the aborted rider changed the mirror")
+    store.request_sweep()
+    ra = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH))
+    c1 = store.manager.counters()
+    if ra["writes"] != {k: len(v) for k, v in rider.idxs.items()} or ra["due_count"] \
+            or c1 != c0 or kernels.LAUNCHES["segment_scatter"] - s0 != 2:
+        raise AssertionError(f"ride A: {ra['writes']}, {ra['due_count']} due, {c0} -> {c1}")
+    mirror = check_session_mirror(torch, store)
+    st = table.sess_state
+    if mirror["pending_stamps"] or int(np.count_nonzero(st == ST.ST_AWAIT_REL)) != len(awaits) \
+            or int(np.count_nonzero(table.sess_pid >= PID_SPACE)) != len(awaits) \
+            or int(np.count_nonzero(st == ST.ST_PUBREL)) != len(rels) \
+            or table.live != n - len(dels) + len(awaits):
+        raise AssertionError(f"ride A left the table wrong: {mirror}, live {table.live}")
+    churn["ride_a"] = {"mutate_ms": mutate_ms, "oplog": wave_a, "rows": ra["rows"],
+                       "writes": ra["writes"], "ms": ra["ms"], "aborted_then_recarried": True,
+                       "segment_moves": {k: c1[k] - c0[k] for k in c1},
+                       "segment_scatter_launches": kernels.LAUNCHES["segment_scatter"] - s0,
+                       "mirror": mirror}
+
+    # ride B: session expiry armed on 100,000 sessions in random slot order,
+    # deadlines 1-100 s out; the slot lane grows to 2^20 through `!resync`,
+    # so the rider's sync re-uploads that lane alone. Then 50 s pass.
+    armed = rng.permutation(perm[a3:])[:SESS_EXPIRY]
+    deadlines = rng.uniform(1.0, 100.0, size=len(armed))
+    t0 = time.perf_counter()
+    for i, d in zip(armed, deadlines):
+        store.set_expiry(cids[i], float(d))
+    mutate_ms = 1e3 * (time.perf_counter() - t0)
+    mono[0] += 50.0
+    if len(table.slot_expiry) != _next_pow2(int(armed.max()) + 1) \
+            or len(table.oplog) >= table.OPLOG_MAX:
+        raise AssertionError(f"slot lane {len(table.slot_expiry)}, op-log {len(table.oplog)}")
+    c0 = store.manager.counters()
+    s0 = kernels.LAUNCHES["segment_scatter"]
+    if store.manager.peek_delta(table) is not None:
+        raise AssertionError("the grown slot lane must be synced before the ride")
+    store.request_sweep()
+    rb = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH))
+    c1 = store.manager.counters()
+    moves = {k: c1[k] - c0[k] for k in c1}
+    now = int(rb["rider"].clock[0])
+    exp_want = table.expired_slots(now)
+    if moves != {"full_resyncs": 0, "delta_launches": 0, "array_resyncs": 1} \
+            or kernels.LAUNCHES["segment_scatter"] != s0 or rb["rows"]:
+        raise AssertionError(f"ride B: {moves}, {rb['rows']} rows riding")
+    if rb["expired_count"] <= K or rb["due_count"] <= K or not store._want_sweep \
+            or expired_cids != [cids[s] for s in exp_want[:K]]:
+        raise AssertionError(f"ride B: {rb['expired_count']} expired, {rb['due_count']} due")
+    churn["ride_b"] = {"mutate_ms": mutate_ms, "armed": len(armed),
+                       "slot_lane": len(table.slot_expiry), "ms": rb["ms"],
+                       "expired_count": rb["expired_count"], "due_count": rb["due_count"],
+                       "on_expired": len(expired_cids), "rearmed": store._want_sweep,
+                       "segment_moves": moves, "mirror": check_session_mirror(torch, store)}
+    phase("churn_session", **churn, segment_status=store.manager.counters(),
+          launches=dict(kernels.LAUNCHES))
+
+    # -- fused_session: the next rider (ride B's redelivery stamps, and the
+    # re-armed sweep) under the profiler: one device->host copy
+    rf = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH),
+                      profile=True)
+    launches = dict(kernels.LAUNCHES)
+    path = ("tokenize", "shape_match", "fanout_bitmaps", "compact_fanout_slots",
+            "segment_scatter", "session_sweep")
+    if not all(launches[k] for k in path) or rf["writes"] != {"sess_ts": K}:
+        raise AssertionError(f"session path: launches {launches}, writes {rf['writes']}")
+    phase("fused_session", batch=SESS_BATCH, d2h_copies=rf["d2h"],
+          trace_attempts=rf["trace_attempts"], writes=rf["writes"],
+          due_count=rf["due_count"], expired_count=rf["expired_count"], ms=rf["ms"],
+          readback_bytes=rf["readback_bytes"], route_readback_bytes=rf["route_readback_bytes"],
+          mirror=check_session_mirror(torch, store), launches=launches)
+
+    # -- the kernel at the flood's table (its rows, the 2^20-slot lane)
+    lanes = store.manager._arrays
+    now, retry = int(rf["rider"].clock[0]), store.retry_ds
+    sweep_args = (lanes["sess_slot"], lanes["sess_state"], lanes["sess_ts"],
+                  lanes["slot_expiry"], now, retry, K)
+    got = ST.session_sweep(*sweep_args)
+    due_mask = ((lanes["sess_slot"] >= 0)
+                & ((lanes["sess_state"] == 1) | (lanes["sess_state"] == 2))
+                & (ST._wrap_i32(now - lanes["sess_ts"].to(torch.int64)) >= retry))
+    ex_mask = (lanes["slot_expiry"] > 0) & (lanes["slot_expiry"] <= now)
+    cap, scap = lanes["sess_slot"].numel(), lanes["slot_expiry"].numel()
+    kinds = {"session_sweep": dict(
+        kernel=lambda: ST.session_sweep(*sweep_args),
+        plain=lambda: ST.session_sweep_plain(*sweep_args),
+        # the nearest single PyTorch call: torch.nonzero of each mask,
+        # precomputed (no cap, no -1 padding, int64 out)
+        library=lambda: (torch.nonzero(due_mask), torch.nonzero(ex_mask)),
+        out=got,
+        # three row lanes and the slot lane read once, two lists and two
+        # counts written
+        bytes=12 * cap + 4 * scap + 2 * 4 * K + 8,
+        ops=10 * cap + 4 * scap,
+    )}
+    report = kernel_report(torch, kinds, plain_reps=RET_PLAIN_REPS)
+    phase("kernel_inputs_session", rows=cap, slots=scap, sweep_k=K,
+          due_count=int(got[1]), expired_count=int(got[3]), now_ds=now, retry_ds=retry,
+          library="torch.nonzero of the precomputed due and expiry masks (the nearest "
+                  "single call: no cap, no padding)")
     return report, launches
 
 
@@ -2164,11 +2632,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ret_report, ret_launches = retained_path(torch, rng)
+    ret_report, ret_launches, router_1m = retained_path(torch, rng)
     phase("retained_seconds", seconds=time.perf_counter() - t0)
     # and the retained path's two
     for k in ("row_lengths", "narrow_i16"):
         report[k] = {**ret_report[k], "launches": ret_launches[k]}
+    del ret_report
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sess_report, sess_launches = session_path(torch, rng, router_1m)
+    phase("session_seconds", seconds=time.perf_counter() - t0)
+    # and the session path's one
+    report["session_sweep"] = {**sess_report["session_sweep"],
+                               "launches": sess_launches["session_sweep"]}
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

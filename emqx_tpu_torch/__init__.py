@@ -12,13 +12,17 @@ gather-union, $share picks with their occurrence index) -> one coalesced
 readback (`models.router_model.DeviceRouter`); and retained replay storms
 (`models.retained_index.DeviceRetainedIndex`: the stored topics as the
 batch, the storm's filters as a one-shot shape index, alone or riding a
-routed batch as a `StormJob`).
+routed batch as a `StormJob`); and the device session store
+(`broker.session_store.SessionStore` over `ops.session_table.SessionTable`:
+QoS1/QoS2 inflight writes and the retransmit/expiry sweep riding a routed
+batch as a `SessionRider`, its outputs a `SessionStepOut`).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs each kernel's plain PyTorch twin instead.
 """
 
+from emqx_tpu_torch.broker.session_store import SessionRider, SessionStepOut, SessionStore
 from emqx_tpu_torch.convert import resolve_device, tables_to_device, upload
 from emqx_tpu_torch.models.retained_index import DeviceRetainedIndex, StormJob
 from emqx_tpu_torch.models.router_model import (
@@ -31,6 +35,7 @@ from emqx_tpu_torch.models.router_model import (
 )
 from emqx_tpu_torch.ops.route_index import RouteIndex
 from emqx_tpu_torch.ops.segments import DeviceSegmentManager
+from emqx_tpu_torch.ops.session_table import SessionTable
 
 __all__ = [
     "DeviceRetainedIndex",
@@ -40,6 +45,10 @@ __all__ = [
     "Prepared",
     "RouteIndex",
     "RouteResult",
+    "SessionRider",
+    "SessionStepOut",
+    "SessionStore",
+    "SessionTable",
     "StormJob",
     "SubscriberTable",
     "resolve_device",

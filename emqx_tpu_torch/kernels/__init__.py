@@ -3,8 +3,8 @@ checks every wrapper shares.
 
 Each kernel lives beside its plain PyTorch twin in the module of its JAX
 counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
-`ops/segments.py`, `ops/csr_table.py`, `models/router_model.py`,
-`models/retained_index.py`). A
+`ops/segments.py`, `ops/csr_table.py`, `ops/session_table.py`,
+`models/router_model.py`, `models/retained_index.py`). A
 wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (built at first use by `build.load`) and raises on any failure
 — there is no fallback from one to the other.
@@ -12,7 +12,8 @@ the kernel (built at first use by `build.load`) and raises on any failure
 `LAUNCHES` counts kernel launches per wrapper: `launch` adds one right
 after each CUDA kernel launched, and nowhere else, so a run can show that
 its path went through the kernels. A wrapper call may launch several
-(`share_pick` under round_robin two, `occurrence_index` one per sort pass).
+(`share_pick` under round_robin two, `occurrence_index` one per sort pass,
+`session_sweep` three).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ LAUNCHES = {
     "occurrence_index": 0,
     "row_lengths": 0,
     "narrow_i16": 0,
+    "session_sweep": 0,
 }
 
 

@@ -85,6 +85,13 @@ _SIGNATURES = {
     "emqx_row_lengths": (_P, _P, _L, _I, _P),
     # in, out, n, stream
     "emqx_narrow_i16": (_P, _P, _L, _P),
+    # slot, state, ts, cap, expiry, scap, now, retry, counts, stream
+    "emqx_sweep_count": (_P, _P, _P, _L, _P, _L, _I, _I, _P, _P),
+    # counts, offsets, cap, scap, totals, stream
+    "emqx_sweep_scan": (_P, _P, _L, _L, _P, _P),
+    # slot, state, ts, cap, expiry, scap, now, retry, counts, offsets,
+    # totals, due, expired, sweep_k, stream
+    "emqx_sweep_write": (_P, _P, _P, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
 }
 
 _lib = None  # the loaded library (the port's one extension handle)
@@ -171,6 +178,8 @@ def load():
         fn.restype = ctypes.c_int
     lib.emqx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.emqx_cuda_error_string.restype = ctypes.c_char_p
+    lib.emqx_sweep_block_span.argtypes = []
+    lib.emqx_sweep_block_span.restype = _L
     _lib = lib
     return lib
 

@@ -18,7 +18,12 @@ then `DeviceRouter._readback` brings the trimmed outputs to the host in
 one copy. A retained replay storm (`models/retained_index.py`) can ride a
 routed batch: `DeviceRouter.route_prepared(..., retained=job)` launches
 the storm's chunk matches after the route kernels and reads their match
-matrices back in the same copy. Subscriber state is either the dense
+matrices back in the same copy. So can the session store's rider
+(`broker/session_store.py`): `route_prepared(..., session=rider)` runs
+`ops.session_table.session_ack` after the route kernels (the rider's
+inflight writes as one `segment_scatter`, then the `session_sweep`
+retransmit/expiry sweep over the scattered lanes), and the sweep lists
+join the same copy. Subscriber state is either the dense
 bitmap matrix ``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor:
 row = filter id, bit = subscriber slot) or the five CSR arrays of
 `ops/csr_table.py`; `SubscriberTable` switches between them (`set_mode`,
@@ -28,9 +33,9 @@ only for CPU tensors. The device copies of the shape index, the NFA, the
 subscriber table and the group table are kept current by four
 `ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
 
-Not in the port yet: the semantic and rule stages, session fusion,
-background CSR compaction (`CsrSegmentOwner`) and the mesh
-(`SubscriberTable.set_shards` refuses more than one shard).
+Not in the port yet: the semantic and rule stages, background CSR
+compaction (`CsrSegmentOwner`) and the mesh (`SubscriberTable.set_shards`
+refuses more than one shard).
 """
 
 from __future__ import annotations
@@ -43,12 +48,14 @@ import numpy as np
 import torch
 
 from emqx_tpu_torch import kernels
+from emqx_tpu_torch.broker.session_store import SessionStepOut
 from emqx_tpu_torch.broker.shared_sub import stable_hash
 from emqx_tpu_torch.convert import resolve_device
 from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable, sparse_fanout_slots
 from emqx_tpu_torch.ops.matcher import MatcherConfig, batch_match_syms
 from emqx_tpu_torch.ops.nfa import MAX_PROBES, _next_pow2
 from emqx_tpu_torch.ops.segments import RESYNC, DeviceSegmentManager
+from emqx_tpu_torch.ops.session_table import session_ack
 from emqx_tpu_torch.ops.shape_index import shape_match
 from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize, vocab_lookup
 from emqx_tpu_torch.ops.u32 import mul32, u32
@@ -977,6 +984,9 @@ class RouteResult(NamedTuple):
     table. ``readback_bytes`` is the device->host transfer this batch paid.
     ``retained`` is the decoded {filter: row-index array} of a retained
     storm that rode the batch (`route_prepared(..., retained=job)`).
+    ``session`` holds the outputs of a session rider's stage
+    (`route_prepared(..., session=rider)`): the updated lanes, which stay
+    on the device, and the sweep lists and counts, read back with the rest.
     """
 
     matched: np.ndarray  # [B, M (+ K)] sparse fids, -1 holes
@@ -991,6 +1001,7 @@ class RouteResult(NamedTuple):
     dense_index: Optional[Dict[int, int]] = None  # batch row -> dense_rows row
     readback_bytes: int = 0
     retained: Optional[Dict[str, np.ndarray]] = None  # fused storm's rows
+    session: Optional[SessionStepOut] = None  # fused session stage
 
 
 class _LazyDenseRows:
@@ -1061,9 +1072,10 @@ class DeviceRouter:
     # clean-table prepares re-check the auto-sized kslot only every this
     # many batches: the fanout histogram drifts slowly
     KSLOT_RECHECK = 64
-    # a retained storm may ride `route_prepared` (one device: no mesh
-    # engine that would have to refuse it)
+    # a retained storm or a session rider may ride `route_prepared` (one
+    # device: no mesh engine that would have to refuse them)
     supports_retained_fusion = True
+    supports_session_fusion = True
 
     def __init__(self, index, subtab: SubscriberTable, config=None,
                  grouptab: Optional[GroupTable] = None,
@@ -1229,7 +1241,7 @@ class DeviceRouter:
         return ch, th, rand
 
     def route_prepared(self, args: Prepared, topics, client_hashes=None,
-                       retained=None) -> RouteResult:
+                       retained=None, session=None) -> RouteResult:
         """Kernel launches + readback against a `prepare()` snapshot.
 
         Unlike the JAX router, the batch is not padded to a power of two:
@@ -1241,7 +1253,17 @@ class DeviceRouter:
         :573): chunk 0's storm match launches right after the route
         kernels and every further chunk's before any readback; each match
         matrix joins the batch's one device->host copy, and the decoded
-        {filter: row-index array} lands in `RouteResult.retained`."""
+        {filter: row-index array} lands in `RouteResult.retained`.
+
+        `session`: a `SessionRider` (`SessionStore.take_rider`) to fuse
+        into this call, as `session_route_step_impl` does
+        (emqx_tpu/models/router_model.py:463): `session_ack` launches after
+        the route kernels, on the rider's mirror generation, which it never
+        writes; with a sweep, `due`, `due_count`, `expired` and
+        `expired_count` join the one device->host copy. `RouteResult.session`
+        is the `SessionStepOut` to `commit`. A rider takes precedence over a
+        storm, as in the JAX router (the broker never pairs them): given
+        both, the storm is not launched and `retained` is None."""
         cfg = self.config
         topics = list(topics)
         mat, lens, too_long = encode_topics(topics, cfg.max_bytes)
@@ -1273,6 +1295,11 @@ class DeviceRouter:
             kslot=args.kslot,
             device=self.device,
         )
+        if session is not None:
+            sess = session_ack(session.arrays, session.idxs, session.vals,
+                               session.clock, sweep_k=session.sweep_k)
+            return self._readback(out, len(topics), too_long, args.kslot,
+                                  session=sess)
         storm = None
         if retained is not None and retained.chunks:
             from emqx_tpu_torch.models.retained_index import retained_step
@@ -1286,7 +1313,7 @@ class DeviceRouter:
                               retained=retained, storm=storm)
 
     def _readback(self, out, B: int, too_long, kslot: int, retained=None,
-                  storm=None) -> RouteResult:
+                  storm=None, session=None) -> RouteResult:
         """Pull one batch's outputs to the host -> `RouteResult`.
 
         Every output the batch needs, the picks included, crosses in ONE
@@ -1298,7 +1325,9 @@ class DeviceRouter:
         more crosses the link for them. A fused storm's match matrices
         (`storm`, one per chunk, int16 or int32) ride the same copy: an
         int16 matrix joins the int32 buffer as its bytes, two entries a
-        word."""
+        word. So do a session stage's sweep lists and counts (`session`,
+        the dict `session_ack` returns); its updated lanes stay on the
+        device."""
         M = out["matched"].shape[1]
         with_groups = "pick_gid" in out
         sparse = out["bitmaps"] is None
@@ -1316,6 +1345,11 @@ class DeviceRouter:
             parts.append(out["bitmaps"].reshape(-1))
         storm = storm or []
         storm_words = [_as_words(m) for m in storm]
+        sweep = session is not None and "due" in session
+        if sweep:
+            K = session["due"].numel()
+            parts += [session["due"], session["due_count"].reshape(1),
+                      session["expired"], session["expired_count"].reshape(1)]
         host = torch.cat(parts + storm_words).cpu().numpy()
         readback = host.nbytes
         o = 0
@@ -1338,6 +1372,15 @@ class DeviceRouter:
         else:
             W = out["bitmaps"].shape[1]
             bitmaps = take(B * W).reshape(B, W).view(np.uint32)
+        sess_res = None
+        if session is not None:
+            if sweep:
+                due, due_count = take(K), int(take(1)[0])
+                expired, expired_count = take(K), int(take(1)[0])
+                sess_res = SessionStepOut(session["tables"], due, due_count,
+                                          expired, expired_count)
+            else:
+                sess_res = SessionStepOut(session["tables"], None, 0, None, 0)
         retained_res = None
         if storm:
             mats = []
@@ -1348,7 +1391,8 @@ class DeviceRouter:
             retained_res = retained.decode(mats)
         if not kslot:
             return RouteResult(matched, mcount, flags, bitmaps, picks,
-                               readback_bytes=readback, retained=retained_res)
+                               readback_bytes=readback, retained=retained_res,
+                               session=sess_res)
         # holds on the CSR path too: the kernel forces count past kslot for
         # gather-window overflow rows
         overflow = slot_count > kslot
@@ -1369,7 +1413,7 @@ class DeviceRouter:
             matched, mcount, flags, None, picks,
             slots=slots, slot_count=slot_count, overflow=overflow,
             dense_rows=dense_rows, dense_index=dense_index,
-            readback_bytes=readback, retained=retained_res,
+            readback_bytes=readback, retained=retained_res, session=sess_res,
         )
 
 

@@ -1,6 +1,6 @@
 """Device mirrors of the host tables: the port's copy of
 `emqx_tpu/ops/segments.py:56-330` (`RESYNC`, `segment_scatter_impl`,
-`DeviceSegmentManager`).
+`DeviceSegmentManager` with the rider handoff `peek_delta`/`adopt`).
 
 Every host table the serving step reads (the shape index, the residual
 NFA, the subscriber bitmaps, the group table, the retained topic chunks)
@@ -19,7 +19,7 @@ rehash, salt change, a full op-log) bumps its `epoch` and clears the log.
   host table (which already holds every logged write to it).
 
 Op-log protocol (sources: `NfaBuilder`, `ShapeIndex`, `SubscriberTable`,
-`GroupTable`, `DeviceRetainedIndex`):
+`GroupTable`, `DeviceRetainedIndex`, `SessionTable`):
 `epoch` int, `version` int (total mutation counter), `oplog` list and
 `device_snapshot() -> {name: np.ndarray}`.
 """
@@ -146,9 +146,10 @@ class DeviceSegmentManager:
     writes the old ones, so a `prepare()` tuple a caller still holds keeps
     its generation alive by reference count and frees it when dropped. The
     JAX manager's `free_retired` grace (an explicit `.delete()` one epoch
-    later) has no counterpart here. Neither do `offer`/`adopt`/`peek_delta`,
-    whose callers (background compaction, the session rider) are later
-    slices of the port.
+    later) has no counterpart here. `peek_delta`/`adopt` hand the op-log
+    suffix to the session rider (`broker/session_store.py`), which fuses
+    the scatter into a routed batch; `offer`, whose caller (background
+    compaction) is a later slice, is not ported.
 
     Counters: `full_resyncs` (epoch changes and torn syncs), `delta_launches`
     (scatter launches), `array_resyncs` (single arrays re-uploaded).
@@ -173,6 +174,49 @@ class DeviceSegmentManager:
                 "delta_launches": self.delta_launches,
                 "array_resyncs": self.array_resyncs,
             }
+
+    def has_mirror(self) -> bool:
+        with self._lock:
+            return self._arrays is not None
+
+    # -- fused-launch rider handoff ----------------------------------------
+    def peek_delta(self, src):
+        """The current mirror and the op-log suffix as per-array
+        last-write-wins dicts, WITHOUT applying anything: the caller fuses
+        the scatter into a routed batch (`session_ack`) and hands the
+        produced tensors back through `adopt`. Returns ``(arrays,
+        {name: {index: value}}, pos, epoch)``, or None when there is no
+        mirror, the epoch moved, the mirror is torn, or the suffix holds a
+        `!resync` marker or an array the mirror lacks: those go through
+        `sync()`. The counterpart of `peek_delta`
+        (emqx_tpu/ops/segments.py:157)."""
+        with self._lock:
+            if self._arrays is None or self._epoch != src.epoch or self._torn:
+                return None
+            per: Dict[str, Dict[int, int]] = {}
+            for name, idx, val in src.oplog[self._pos :]:
+                if name == RESYNC or name not in self._arrays:
+                    return None
+                per.setdefault(name, {})[idx] = val
+            return dict(self._arrays), per, len(src.oplog), self._epoch
+
+    def adopt(self, arrays: Mapping[str, torch.Tensor], pos: int, epoch: int) -> bool:
+        """Install rider-produced tensors as the mirror at op-log position
+        `pos`. Refused (False) when the epoch moved, the mirror is torn or
+        `pos` is behind it: the host arrays are authoritative, so the
+        refused rider's writes are covered by the resync that superseded
+        it. The counterpart of `adopt` (emqx_tpu/ops/segments.py:181)."""
+        with self._lock:
+            if (
+                self._arrays is None
+                or self._epoch != epoch
+                or self._torn
+                or pos < self._pos
+            ):
+                return False
+            self._arrays = dict(arrays)
+            self._pos = pos
+            return True
 
     def sync(self, src) -> Dict[str, torch.Tensor]:
         with self._lock:

@@ -218,7 +218,9 @@ def port_modules():
 def test_importing_the_port_loads_no_jax():
     assert {"emqx_tpu_torch.ops.csr_table", "emqx_tpu_torch.broker.shared_sub",
             "emqx_tpu_torch.models.router_model",
-            "emqx_tpu_torch.models.retained_index"} <= set(port_modules())
+            "emqx_tpu_torch.models.retained_index",
+            "emqx_tpu_torch.ops.session_table",
+            "emqx_tpu_torch.broker.session_store"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"
