@@ -133,15 +133,57 @@ retained path's):
     slots) against its twin, with `torch.nonzero` of the precomputed masks
     as the nearest library call;
 22. `session_seconds`: the path's time;
-23. one JSON line {"kernels": [...]}: the thirteen kernels, each with its
+The `semantic_256k` path (the semantic routing plane and the compiled rule
+masks): a SemanticTable(dim=384, topk=16) of 2^18 entries over the
+mixed_1m router's index and subscriber table. D = 384 is the output width
+of the public sentence-embedding model all-MiniLM-L6-v2; the vectors are
+bench.py agentic_fabric's `_near` draws (c + 0.25 n, normalised) around
+256 unit centroids, thresholds uniform in [0.90, 0.96] (through the
+same-cluster band, about 0.94), half the entries unscoped and half scoped
+to device/{d}/# or device/{d}/+/{j}/# (d < 100); entry slots 256 + i,
+except 256 entries that are the centroids themselves on slots 0-255, the
+topic slots, so the union's dedup fires. Each topic of a B = 8192 batch
+carries an embedding near the centroid of its topic slot, and a seeded
+JSON payload for the rule set `RULES_SQL` (eight WHERE clauses over
+device/#, all 20 opcodes). The path runs twice, with an f32 table (the
+main path) and a bf16 table (201 MB instead of 402 MB):
+23. `tables_semantic`: build seconds, capacities, bytes on the card;
+24. `kernel` for semantic_match (and, in the f32 pass, rule_masks): the
+    fused call (scores, then merge + union) against the plain twin run in
+    row chunks; integer outputs must be equal outside the tau band (tau =
+    D x 2^-23): the rows that differ, and 64 sampled rows, are recomputed
+    in f64 on the host and must pass `semantic_row_ok`; the band census is
+    printed. rule_masks must equal its twin and the numpy host masks. Its
+    times: the call (7 samples of 3), CUPTI device time, the twin (3
+    samples), torch.matmul with TF32 off alone and with torch.topk (5
+    samples each), and the bound (operations: 2 B E D flops at 67 TFLOP/s
+    in f32, at 989 TFLOP/s for bf16);
+25. `route_semantic` and `churn_semantic`, counters zeroed before the
+    first and read after the last: 3 batches through route(topics,
+    embeds=, rules=): every topic half against the host oracle, the
+    semantic half against the twin's winners after the union (a differing
+    row must hold the kernel's own winners and pass the f64 band check),
+    sem_count likewise, the rule masks equal to the twin and the numpy
+    host masks; semantic_match must launch twice a call and rule_masks
+    once; then churn: step A (100 adds, 50 replacements of packed entries,
+    100 removes: one scatter of f32 or bf16 lanes plus 4 hot-array
+    re-uploads), step B (900 adds and 900 removes, past the op-log cap: one
+    full upload), the mirror compared bit for bit with the host table after
+    each, and a checked batch;
+26. `route_breakdown_semantic` (f32): encode, h2d, launches, readback and
+    whole route;
+27. `semantic_seconds`: the path's time;
+28. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
-    session_1m),
+    session_1m; semantic_match (f32 table) and rule_masks on
+    semantic_256k),
     its wrapper-call, device, plain-twin and library-call times and the
     least time the card could take (bytes moved over 3.35 TB/s, or
-    integer operations over the 67 T/s scalar rate, the larger); then
-    the card line; then, last, {"ok": true, "device": ...}.
+    operations over the 67 T/s scalar rate, 989 T/s for a bf16 product,
+    the larger); then the card line; then, last, {"ok": true, "device":
+    ...}.
 """
 
 from __future__ import annotations
@@ -175,6 +217,7 @@ SUBS_PER_FILTER = 2
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 
 EDGE_TOPICS = ["", "$SYS/broker/x", "a/b/c/d/e/f/g/h/i/j", "device/3/mid/5/"]
 EDGE_TOPICS_10M = ["", "$SYS/broker/x", "$v/1/2/3/4/5/6/7",
@@ -215,6 +258,35 @@ SESS_BATCH = 64  # topics of the routed batch each sweep rides
 SESS_ACKS, SESS_RELS, SESS_AWAITS = 20000, 10000, 5000  # churn ride A
 SESS_EXPIRY = 100000  # churn ride B: sessions with an expiry deadline
 
+# semantic_256k: 2^18 embedding filters at D = 384 (the output width of the
+# public sentence-embedding model all-MiniLM-L6-v2), top-16, over the
+# mixed_1m router; vectors as bench.py's agentic_fabric `_near` draws them
+SEM_N = 1 << 18
+SEM_DIM = 384
+SEM_TOPK = 16
+SEM_CENTROIDS = 256
+SEM_THRESH = (0.90, 0.96)  # cuts through the same-cluster band (~0.94)
+SEM_SCOPE_DEVICES = 100  # scoped entries: device/{d}/# or device/{d}/+/{j}/#
+SEM_TOPIC_SLOTS = 256  # entries that take slots 0-255, topic slots too
+SEM_TAU = SEM_DIM * 2.0 ** -23  # the float-order band: D ulps of 1 at 2^-23
+SEM_ROUTE_BATCHES = 3
+SEM_CHURN = (100, 900)  # adds and removes per churn step
+SEM_CHECK_ROWS = 64  # rows recomputed in f64 beside every differing row
+SEM_CHUNK = 256  # rows per chunk of the plain twin on the card
+
+# the compiled rule set of the semantic_256k path: EMQX rule SQL over
+# device/#, together all 20 opcodes of the rule_masks kernel
+RULES_SQL = (
+    "payload.temp + payload.base > 30",
+    "payload.temp >= 20 AND payload.hum < 60",
+    "qos = 1 OR qos = 2 OR false",
+    "payload.level IN (1, 3, -5)",
+    "NOT (payload.temp - payload.base) * 2 <= 10",
+    "payload.count div 3 = 1 AND payload.count mod 4 != 0",
+    "topic(2) = '42'",
+    "payload.a / payload.b > 1 OR payload.flag",
+)
+
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
@@ -242,6 +314,88 @@ def zipf_ids(rng, n, k):
 
 
 # -- workloads ---------------------------------------------------------------
+
+
+def rule_messages(rng, topics) -> list:
+    """One event context per topic for `extract_features`: a seeded QoS and
+    JSON payload; each key is missing about 10% of the time and a string
+    about 2% (the row turns suspect), and `b` is 0 or 0.5 about 5%."""
+    keys = ("temp", "hum", "base", "level", "count", "a", "b", "flag")
+    out = []
+    for t in topics:
+        payload = {}
+        for k in keys:
+            r = rng.random()
+            if r < 0.10:
+                continue
+            if r < 0.12:
+                payload[k] = "n/a"
+            elif k == "b" and r < 0.17:
+                payload[k] = [0, 0.5][int(rng.integers(0, 2))]
+            elif k in ("level", "count", "flag"):
+                payload[k] = int(rng.integers(0, {"level": 7, "count": 13, "flag": 2}[k]))
+            else:
+                payload[k] = round(float(rng.uniform(-5, 50)), 2)
+        out.append({"qos": int(rng.integers(0, 3)), "topic": t,
+                    "payload": json.dumps(payload).encode()})
+    return out
+
+
+def rule_filter(sql_wheres, sql, compiler):
+    """A `DeviceRuleFilter` of the given package (`sql`, `compiler`: its
+    `rules.sql` and `rules.compile` modules) over one enabled rule per
+    WHERE clause, selecting device/#."""
+    from types import SimpleNamespace
+
+    rules = [SimpleNamespace(id=f"r{i}", enabled=True,
+                             query=sql.parse_sql(f'SELECT * FROM "device/#" WHERE {w}'))
+             for i, w in enumerate(sql_wheres)]
+    f = compiler.DeviceRuleFilter()
+    f.refresh(rules)
+    return f
+
+
+def sem_vectors(rng, cents, cluster):
+    """`_near` of bench.py's agentic_fabric, vectorised: c + 0.25 n (n a
+    unit normal), normalised, float32."""
+    n = rng.normal(size=(len(cluster), cents.shape[1])).astype(np.float32)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    v = cents[cluster] + np.float32(0.25) * n
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
+def semantic_row_ok(sims64, elig, ths, slots, topk, got, got_count, tau) -> bool:
+    """Can one row's semantic winners `got` (slots, score order, -1 holes)
+    and count come from its similarities `sims64` (float64, recomputed
+    from the same f32 or bf16 inputs) when every similarity may be off by
+    up to `tau`? `elig` marks the live, in-scope entries, `ths` their
+    thresholds, `slots` their slots (one entry per live slot). It holds
+    when: the count lies between the entries surely and possibly at or
+    above threshold; the winners are min(topk, count) possible entries in
+    score order (within 2 tau); and no sure entry is missing that either
+    fits in a short list or beats the last winner by more than 2 tau."""
+    sure = elig & (sims64 >= ths + tau)
+    maybe = elig & (sims64 >= ths - tau)
+    if not int(sure.sum()) <= got_count <= int(maybe.sum()):
+        return False
+    win = [int(s) for s in got if s >= 0]
+    if len(win) != min(topk, got_count) or len(set(win)) != len(win):
+        return False
+    ent = []
+    for s in win:
+        hit = np.nonzero((slots == s) & maybe)[0]
+        if len(hit) != 1:
+            return False
+        ent.append(int(hit[0]))
+    sc = sims64[ent]
+    if np.any(sc[1:] > sc[:-1] + 2 * tau):
+        return False
+    missing = sure.copy()
+    missing[ent] = False
+    if len(win) < topk:
+        return not missing.any()
+    return not np.any(missing & (sims64 > sc.min() + 2 * tau))
+
 
 
 def format_rows(parts, n: int) -> list:
@@ -582,6 +736,8 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "row_lengths": "row_lengths_kernel",
     "narrow_i16": "narrow_i16_kernel",
     "session_sweep": ("sweep_count", "sweep_scan", "sweep_write"),
+    "semantic_match": ("semantic_scores_kernel", "semantic_merge_kernel"),
+    "rule_masks": "rule_masks_kernel",
 }
 
 SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
@@ -611,6 +767,10 @@ SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
                    "emqx_tpu/models/retained_index.py:82"),
     "session_sweep": ("emqx_tpu_torch/kernels/csrc/session_sweep.cu",
                       "emqx_tpu/ops/session_table.py:76"),
+    "semantic_match": ("emqx_tpu_torch/kernels/csrc/semantic_match.cu",
+                       "emqx_tpu/ops/semantic_table.py:104"),
+    "rule_masks": ("emqx_tpu_torch/kernels/csrc/rule_masks.cu",
+                   "emqx_tpu/rules/compile.py:222"),
 }
 
 
@@ -670,9 +830,9 @@ def max_abs_err(got, want, torch) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -913,53 +1073,69 @@ def topic_batch_1m(rng, n):
     return [f"device/{i}/mid/{j}/leaf" for i, j in zip(ids, nums)]
 
 
-def route_breakdown(torch, router, batches, nfa_cfg=None) -> dict:
+def route_breakdown(torch, router, batches, extras=None) -> dict:
     """Where one routed batch's time goes, medians over the batches (host
     clock, each stage ending in a synchronize): host encode, host->device
     copy of the topic bytes, the launches up to their completion (the pick
     inputs' host draw and copy included, when the router has groups), and
     the readback; then a whole route() of the same batch. Plus the
-    device's busy share of profiled route() calls."""
+    device's busy share of profiled route() calls. `extras`: per batch an
+    (embeddings, rules) pair for the semantic stage and the rule masks,
+    whose arrays join the encode and copy stages (the rule features come
+    from the caller, as `DeviceRuleFilter` extracts them broker-side)."""
     from emqx_tpu_torch.models.router_model import shape_route_step
     from emqx_tpu_torch.ops.tokenizer import encode_topics
 
     args = router.prepare()
     cfg = router.config
     dev = router.device
+    extras = extras or [(None, None)] * len(batches)
     names = ("encode", "h2d", "kernels", "readback", "route")
     samples = {k: [] for k in names}
-    for topics in batches:
+    for topics, (q, rules) in zip(batches, extras):
         torch.cuda.synchronize()
         t = [time.perf_counter()]
         mat, lens, too_long = encode_topics(topics, MAX_BYTES)
+        arrays = [mat, lens]
+        if q is not None:
+            arrays += [np.ascontiguousarray(q, np.float32),
+                       np.ascontiguousarray(rules[1], np.float32),
+                       np.ascontiguousarray(rules[2], bool)]
         t.append(time.perf_counter())
-        bm = torch.from_numpy(mat).to(dev)
-        ln = torch.from_numpy(lens).to(dev)
+        ins = [torch.from_numpy(a).to(dev) for a in arrays]
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        picks = {}
+        kw = {}
         if args.group_tables is not None:
             ch, th, rand = router._pick_inputs(topics, None)
-            picks = dict(group_tables=args.group_tables, client_hash=ch,
-                         topic_hash=th, rand=rand, with_groups=True,
-                         share_strategy=router.share_strategy)
+            kw = dict(group_tables=args.group_tables, client_hash=ch,
+                      topic_hash=th, rand=rand, with_groups=True,
+                      share_strategy=router.share_strategy)
+        if q is not None:
+            kw.update(sem_tables=args.sem_tables, q_vecs=ins[2], sem_topk=args.sem_topk,
+                      rule_progs=tuple(rules[0]), rule_feats=ins[3], rule_valid=ins[4])
         out = shape_route_step(
-            args.tables, bm, ln, m_active=args.m_active, salt=args.salt,
+            args.tables, ins[0], ins[1], m_active=args.m_active, salt=args.salt,
             nfa_tables=args.nfa_tables, with_nfa=args.nfa_tables is not None,
             max_levels=cfg.max_levels, frontier=cfg.frontier,
             max_matches=cfg.max_matches, probes=cfg.probes, kslot=args.kslot,
-            device=dev, **picks)
+            device=dev, **kw)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
         router._readback(out, len(topics), too_long, args.kslot)
         t.append(time.perf_counter())
-        router.route(topics)
+        router.route(topics, embeds=q, rules=rules)
         t.append(time.perf_counter())
         for k, a, b in zip(names, t, t[1:]):
             samples[k].append(1e3 * (b - a))
     med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
-    it = iter(batches * 2)
-    events, wall = profiled(torch, lambda: router.route(next(it)), len(batches))
+    it = iter(list(zip(batches, extras)) * 2)
+
+    def one():
+        topics, (q, rules) = next(it)
+        router.route(topics, embeds=q, rules=rules)
+
+    events, wall = profiled(torch, one, len(batches))
     busy = sum(e.self_device_time_total for e in events) / 1e6
     med["device_busy_share"] = busy / wall if busy > 0 else None
     med["topics_per_s"] = BATCH / (med["route_ms"] / 1e3)
@@ -2589,6 +2765,456 @@ def session_path(torch, rng, router=None):
     return report, launches
 
 
+# -- the semantic_256k path --------------------------------------------------
+
+
+class SemHost:
+    """The host side of one semantic table for the f64 checks: its lanes
+    (packed then hot) and its vectors as float64, bf16 widened."""
+
+    def __init__(self, sem):
+        from emqx_tpu_torch.convert import BF16
+
+        snap = sem.device_snapshot()
+        cat = lambda a, b: np.concatenate([snap[a][0], snap[b][0]])  # noqa: E731
+        vecs = cat("sem_vec", "sem_hot_vec")
+        self.bf16 = vecs.dtype == BF16
+        if self.bf16:
+            vecs = (vecs.view(np.uint16).astype(np.uint32) << np.uint32(16)).view(np.float32)
+        self.vecs64 = vecs.astype(np.float64)
+        self.fids = cat("sem_fid", "sem_hot_fid")
+        self.slots = cat("sem_slot", "sem_hot_slot")
+        self.ths = cat("sem_thresh", "sem_hot_thresh")
+
+    def sims(self, q):
+        """float64 similarities of query rows q (f32 [R, D]), the query
+        rounded to bf16 first for a bf16 table, as the kernel does."""
+        from emqx_tpu_torch.convert import bf16_bits
+
+        if self.bf16:
+            q = (bf16_bits(q).astype(np.uint32) << np.uint32(16)).view(np.float32)
+        return q.astype(np.float64) @ self.vecs64.T
+
+    def check(self, q, matched, rows, results, topk) -> int:
+        """Every (slots [B, topk], count [B]) result in `results` must pass
+        `semantic_row_ok` on each of `rows`; -> rows checked."""
+        rows = np.asarray(sorted(rows), np.int64)
+        for lo in range(0, len(rows), 64):
+            part = rows[lo : lo + 64]
+            s64 = self.sims(q[part])
+            for i, r in enumerate(part):
+                m = matched[r][matched[r] >= 0]
+                elig = (self.slots >= 0) & ((self.fids < 0) | np.isin(self.fids, m))
+                for got, count in results:
+                    if not semantic_row_ok(s64[i], elig, self.ths, self.slots, topk,
+                                           got[r], int(count[r]), SEM_TAU):
+                        raise AssertionError(f"semantic row {r}: outside the tau band")
+        return len(rows)
+
+
+def sem_twin(torch, sem_t, q, matched, topk, census=True):
+    """The plain twin in row chunks of SEM_CHUNK (it materialises [rows, E]),
+    plus, with `census`, the tau-band census from f32 similarities: entries
+    within SEM_TAU of their threshold, and qualifying entries within
+    SEM_TAU of the row's k-th score (the k-th itself not counted)."""
+    from emqx_tpu_torch.ops import semantic_table as ST
+
+    vecs, fids, slots, ths = ST._lanes(sem_t)
+    vecs = vecs.float()
+    outs, counts = [], []
+    thr_band = kth_band = band_rows = 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for lo in range(0, q.shape[0], SEM_CHUNK):
+            qc, mc = q[lo : lo + SEM_CHUNK], matched[lo : lo + SEM_CHUNK]
+            s, c = ST.semantic_match_step_plain(sem_t, qc, mc, topk)
+            outs.append(s)
+            counts.append(c)
+            if not census:
+                continue
+            qq = qc.to(torch.bfloat16).float() if sem_t["sem_vec"].dtype == torch.bfloat16 else qc
+            sims = qq @ vecs.T
+            memb = torch.zeros_like(sims, dtype=torch.bool)
+            for k in range(mc.shape[1]):
+                memb |= mc[:, k, None] == fids[None, :]
+            elig = (slots >= 0)[None, :] & ((fids < 0)[None, :] | memb)
+            tb = elig & ((sims - ths[None, :]).abs() <= SEM_TAU)
+            ok = elig & (sims >= ths[None, :])
+            score = torch.where(ok, sims, torch.full_like(sims, -np.inf))
+            kth = torch.topk(score, topk, dim=1).values[:, -1:]
+            kb = ok & ((score - kth).abs() <= SEM_TAU) & (kth > -np.inf)
+            full = c >= topk
+            kb_n = kb.sum(dim=1) - full.to(torch.int64)  # the k-th itself
+            thr_band += int(tb.sum())
+            kth_band += int(torch.where(full, kb_n, 0).sum())
+            band_rows += int(((tb.sum(dim=1) > 0) | (full & (kb_n > 0))).sum())
+            del sims, memb, elig, tb, ok, score, kb
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    found = {"threshold_band_entries": thr_band, "kth_band_entries": kth_band,
+             "rows_with_band_entries": band_rows, "tau": SEM_TAU}
+    return torch.cat(outs), torch.cat(counts), found
+
+
+def build_semantic(rng, index, dtype, cents):
+    """The semantic_256k table: SEM_N entries `_near` SEM_CENTROIDS unit
+    centroids, thresholds uniform in SEM_THRESH, half unscoped and half
+    scoped to device/{d}/# (3/4) or device/{d}/+/{j}/# (1/4) for d <
+    SEM_SCOPE_DEVICES, slots 256 + i, except SEM_TOPIC_SLOTS random entries
+    that take slots 0-255: entry s is centroid s itself, unscoped, at the
+    lowest threshold, so it leads the rows of cluster s, which `sem_batch`
+    gives the topics whose topic slot is s, and the union deduplicates
+    it; one bulk_add. -> (table, seconds per stage)."""
+    from emqx_tpu_torch.ops.semantic_table import SemanticTable
+
+    n = SEM_N
+    t = [time.perf_counter()]
+    vecs = sem_vectors(rng, cents, rng.integers(0, SEM_CENTROIDS, n))
+    ths = rng.uniform(*SEM_THRESH, n).astype(np.float32)
+    d = rng.integers(0, SEM_SCOPE_DEVICES, n)
+    j = rng.integers(0, 1000, n)
+    kind = rng.random(n)  # < 0.5 unscoped, < 0.875 device/{d}/#, else device/{d}/+/{j}/#
+    names = [f"device/{a}/#" if k < 0.875 else f"device/{a}/+/{b}/#"
+             for a, b, k in zip(d.tolist(), j.tolist(), kind.tolist())]
+    fids = index._hash_lookup_batch(names)[0]
+    if (fids < 0).any():
+        raise AssertionError("a scope filter is not in the table")
+    fids = np.where(kind < 0.5, -1, fids)
+    slots = 256 + np.arange(n)
+    lead = rng.choice(n, SEM_TOPIC_SLOTS, replace=False)
+    slots[lead] = np.arange(SEM_TOPIC_SLOTS)
+    vecs[lead] = cents[np.arange(SEM_TOPIC_SLOTS) % SEM_CENTROIDS]
+    ths[lead] = SEM_THRESH[0]
+    fids[lead] = -1
+    t.append(time.perf_counter())
+    sem = SemanticTable(dim=SEM_DIM, topk=SEM_TOPK, dtype=dtype)
+    sem.bulk_add(slots, vecs, ths, fids)
+    t.append(time.perf_counter())
+    return sem, {"vectors": t[1] - t[0], "bulk_add": t[2] - t[1]}
+
+
+def sem_batch(rng, cents, n, edge=False):
+    """One routed batch: Zipf mixed_1m topics device/{i}/mid/{j}/leaf (with
+    `edge`, EDGE_TOPICS first), each with an embedding near the centroid of
+    its topic slot (filter device/{i}/+/{j}/# has fid 1000 i + j and slot
+    fid mod 256 in `build_mixed_1m`), and one seeded message per topic for
+    the rule set. -> (topics, embeddings, messages)."""
+    ids = zipf_ids(rng, n, 1000)
+    nums = rng.integers(0, 1000, size=n)
+    topics = [f"device/{i}/mid/{j}/leaf" for i, j in zip(ids, nums)]
+    if edge:
+        topics[: len(EDGE_TOPICS)] = EDGE_TOPICS
+    q = sem_vectors(rng, cents, (ids * 1000 + nums) % MAX_SUBSCRIBERS % SEM_CENTROIDS)
+    return topics, q, rule_messages(rng, topics)
+
+
+def check_sem_mirror(torch, args, sem) -> int:
+    """The semantic mirror equals the host table bit for bit (bf16 as its
+    bits) -> bytes compared."""
+    from emqx_tpu_torch.convert import BF16
+
+    n = 0
+    for k, host in sem.device_snapshot().items():
+        dev = args.sem_tables[k]
+        if host.dtype == BF16:
+            got, want = dev.view(torch.int16).cpu().numpy().view(np.uint16), host.view(np.uint16)
+        elif host.dtype == np.float32:
+            got, want = dev.view(torch.int32).cpu().numpy(), host.view(np.int32)
+        else:
+            got, want = dev.cpu().numpy(), host
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"semantic mirror {k} differs from the host table")
+        n += want.nbytes
+    return n
+
+
+def sem_route_checked(torch, router, host, oracle, filt, topics, q, msgs) -> dict:
+    """One routed batch with embeddings and the rule set's masks, checked:
+    the topic half of every row against the host oracle; the semantic half
+    against the twin's winners after the union (a differing row must hold
+    the kernel's own winners, recomputed for its rows, and those must pass
+    the f64 band check); sem_count likewise; the rule masks bit-equal to
+    the twin and to `filt.host_masks` (numpy)."""
+    from emqx_tpu_torch.ops import semantic_table as ST
+    from emqx_tpu_torch.rules import compile as RC
+
+    rules = (filt.progs, *filt.features(msgs))
+    t0 = time.perf_counter()
+    res = router.route(topics, embeds=q, rules=rules)
+    wall = time.perf_counter() - t0
+    args = router.prepare()
+    kslot, topk = args.kslot, args.sem_topk
+    if res.slots.shape != (len(topics), kslot + topk):
+        raise AssertionError(f"slots {res.slots.shape}, kslot {kslot}, topk {topk}")
+    topic_part = res._replace(slots=np.ascontiguousarray(res.slots[:, :kslot]))
+    checked = check_batch(topic_part, topics, oracle)
+    dev = router.device
+    qd = torch.from_numpy(q).to(dev)
+    md = torch.from_numpy(np.ascontiguousarray(res.matched)).to(dev)
+    ws, wc, census = sem_twin(torch, args.sem_tables, qd, md, topk)
+    want = ST.union_semantic_slots_plain(torch.from_numpy(topic_part.slots), ws.cpu()).numpy()
+    wc = wc.cpu().numpy()
+    diff = np.nonzero((res.slots != want).any(axis=1) | (res.sem_count != wc))[0]
+    if len(diff):
+        sel = torch.from_numpy(diff).to(dev)
+        ks, kc = ST.semantic_match_step(args.sem_tables, qd[sel].contiguous(),
+                                        md[sel].contiguous(), topk)
+        ks, kc = ks.cpu().numpy(), kc.cpu().numpy()
+        u = ST.union_semantic_slots_plain(torch.from_numpy(topic_part.slots[diff]),
+                                          torch.from_numpy(ks)).numpy()
+        if not (np.array_equal(u, res.slots[diff]) and np.array_equal(kc, res.sem_count[diff])):
+            raise AssertionError("routed semantic rows differ from the kernel's own winners")
+        full_ks = np.full((len(topics), topk), -1, np.int32)
+        full_kc = np.zeros(len(topics), np.int32)
+        full_ks[diff], full_kc[diff] = ks, kc
+        host.check(q, res.matched, diff, [(full_ks, full_kc), (ws.cpu().numpy(), wc)], topk)
+    progs, feats, valid = rules
+    plain = RC.eval_rule_masks_plain(progs, torch.from_numpy(feats),
+                                     torch.from_numpy(valid)).numpy()
+    if not (np.array_equal(res.rule_masks, plain)
+            and np.array_equal(plain, filt.host_masks(msgs))):
+        raise AssertionError("rule masks differ from the twin or the numpy host masks")
+    sem_part = res.slots[:, kslot:]
+    return {**checked, "route_ms": 1e3 * wall, "readback_bytes": res.readback_bytes,
+            "semantic_recipients": int((sem_part >= 0).sum()),
+            "deduplicated": int(((want[:, kslot:] < 0) & (ws.cpu().numpy() >= 0)).sum()),
+            "sem_count_mean": float(res.sem_count.mean()),
+            "rows_differing_from_twin": int(len(diff)), "band": census,
+            "rule_passes": res.rule_masks.sum(axis=1).tolist()}
+
+
+def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
+    """semantic_match at the path's shapes (B = 8192 rows of the routed
+    batch, E = 2^18, D = 384): the fused call against the twin (integer
+    outputs equal outside the tau band: differing rows and 64 sampled rows
+    checked in f64), then its times, its bound (operations: 2 B E D flops
+    at the f32 rate, or the bf16 tensor-core rate for a bf16 table) and
+    the nearest library calls (torch.matmul with TF32 off, then topk)."""
+    from emqx_tpu_torch.ops import semantic_table as ST
+
+    sem_t, topk = args.sem_tables, args.sem_topk
+    B, D = q.shape
+    E = sem_t["sem_vec"].shape[1] + sem_t["sem_hot_vec"].shape[1]
+    kslot = topic.shape[1]
+    got_u, got_c = ST.semantic_route_stage(sem_t, q, matched, topk, topic)
+    got_s, got_c2 = ST.semantic_match_step(sem_t, q, matched, topk)
+    torch.cuda.synchronize()
+    if not (torch.equal(got_u, ST.union_semantic_slots_plain(topic, got_s))
+            and torch.equal(got_c, got_c2)):
+        raise AssertionError("semantic_route_stage != its two halves")
+    ws, wc, census = sem_twin(torch, sem_t, q, matched, topk)
+    gs, gc = got_s.cpu().numpy(), got_c.cpu().numpy()
+    wsn, wcn = ws.cpu().numpy(), wc.cpu().numpy()
+    diff = np.nonzero((gs != wsn).any(axis=1) | (gc != wcn))[0]
+    sample = np.random.default_rng(SEED).choice(B, SEM_CHECK_ROWS, replace=False)
+    qn, mn = q.cpu().numpy(), matched.cpu().numpy()
+    host.check(qn, mn, sample, [(gs, gc)], topk)
+    n_checked = host.check(qn, mn, diff, [(gs, gc), (wsn, wcn)], topk)
+    err = int(np.abs(gs.astype(np.int64) - wsn).max()) if len(diff) else 0
+    uni = ST.union_semantic_slots(topic, got_s)  # the standalone union kernel
+    if not torch.equal(uni, got_u):
+        raise AssertionError("union_semantic_slots != the fused union")
+
+    fused = lambda: ST.semantic_route_stage(sem_t, q, matched, topk, topic)  # noqa: E731
+    ms = time_ms(fused, torch, inner=3, reps=7)
+    plain_ms = time_ms(lambda: sem_twin(torch, sem_t, q, matched, topk, census=False), torch,
+                       inner=1, reps=3)
+    dev_ms = device_ms(torch, "semantic_match", fused)
+    vecs = torch.cat([sem_t["sem_vec"][0], sem_t["sem_hot_vec"][0]]).float()
+    qq = q.to(torch.bfloat16).float() if dtype == "bfloat16" else q
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib_mm = time_ms(lambda: torch.matmul(qq, vecs.T), torch, inner=1, reps=5)
+        lib_ms = time_ms(lambda: torch.topk(torch.matmul(qq, vecs.T), topk, dim=1), torch,
+                         inner=1, reps=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del vecs, qq
+    torch.cuda.empty_cache()
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = (4 * B * D + elem * E * D + 12 * E + 4 * matched.numel() + 4 * B * kslot
+              + 4 * B * (kslot + topk) + 4 * B)
+    flops = 2 * B * E * D
+    bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S if dtype == "bfloat16"
+                               else SCALAR_OPS_PER_S)
+    src, replaces = SOURCES["semantic_match"]
+    rep = {"name": "semantic_match", "route": "cuda", "source": src, "replaces": replaces,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": lib_ms, "device_ms": dev_ms}
+    phase("kernel", kernel="semantic_match", case=f"semantic_256k/{dtype}", rows=B, entries=E,
+          dim=D, topk=topk, kslot=kslot, splits=ST.semantic_splits(
+              B, E, torch.cuda.get_device_properties(q.device).multi_processor_count),
+          rows_differing_from_twin=int(len(diff)), rows_checked_f64=n_checked + len(sample),
+          band=census, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, plain_samples=3,
+          kernel_samples="7 x 3", library_matmul_ms=lib_mm, library_matmul_topk_ms=lib_ms,
+          library_samples=5, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+          tflops=flops / (dev_ms or ms) / 1e9)
+    return rep
+
+
+def rule_kind(torch, filt, msgs, dev):
+    """rule_masks at the path's batch: against its twin and the numpy host
+    masks, EQUAL; bound by bytes (features and validity read once, masks
+    written)."""
+    from emqx_tpu_torch.rules import compile as RC
+
+    progs = filt.progs
+    f_np, v_np = filt.features(msgs)
+    feats, valid = torch.from_numpy(f_np).to(dev), torch.from_numpy(v_np).to(dev)
+    out = RC.eval_rule_masks(progs, feats, valid)
+    if not np.array_equal(out.cpu().numpy(), filt.host_masks(msgs)):
+        raise AssertionError("rule_masks != the numpy host masks")
+    B, F = feats.shape
+    n_ops = sum(len(p) for p in progs)
+    return dict(
+        kernel=lambda: RC.eval_rule_masks(progs, feats, valid),
+        plain=lambda: RC.eval_rule_masks_plain(progs, feats, valid),
+        out=out,
+        bytes=5 * B * F + len(progs) * B,
+        ops=B * n_ops * 4,
+    ), {"rules": len(progs), "features": F, "ops": n_ops, "device": str(dev),
+        "passes": out.sum(dim=1).tolist()}
+
+
+def sem_churn(rng, sem, cents, index, n_add, n_replace, n_remove, base):
+    """n_add new entries (slots base + i), n_replace replacements of live
+    packed entries, n_remove removes of live entries: one op-logged write
+    each, D + 3 per add and replacement."""
+    live = np.fromiter(sem._reg.keys(), np.int64, len(sem._reg))
+    pick = rng.choice(live, n_replace + n_remove, replace=False)
+    vecs = sem_vectors(rng, cents, rng.integers(0, SEM_CENTROIDS, n_add + n_replace))
+    ths = rng.uniform(*SEM_THRESH, n_add + n_replace)
+    scope = index._hash_lookup_batch(
+        [f"device/{d}/#" for d in rng.integers(0, SEM_SCOPE_DEVICES, n_add + n_replace)])[0]
+    scope = np.where(rng.random(n_add + n_replace) < 0.5, -1, scope)
+    for i in range(n_add):
+        sem.add(base + i, vecs[i], float(ths[i]), int(scope[i]))
+    for i, s in enumerate(pick[:n_replace]):
+        sem.add(int(s), vecs[n_add + i], float(ths[n_add + i]), int(scope[n_add + i]))
+    for s in pick[n_replace:]:
+        sem.remove(int(s))
+
+
+def semantic_path(torch, rng, router_1m):
+    """Phases 23-27: the semantic routing plane and the compiled rule masks
+    at semantic_256k, over the mixed_1m router's index and subscriber
+    table; a float32 pass (the main path) and a bfloat16 pass.
+    -> (kernels-line entries, launches on the f32 pass)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.rules import compile as RC
+    from emqx_tpu_torch.rules import sql as RS
+
+    index, subtab = router_1m.index, router_1m.subtab
+    filt = rule_filter(RULES_SQL, RS, RC)
+    ops = {op[0] for p in filt.progs for op in p}
+    if len(filt.progs) != len(RULES_SQL) or ops != set(RC.OPCODES):
+        raise AssertionError(f"the rule set compiles to {len(filt.progs)} programs over {ops}")
+    cents = np.random.default_rng(SEED + 7).normal(size=(SEM_CENTROIDS, SEM_DIM))
+    cents = (cents / np.linalg.norm(cents, axis=1, keepdims=True)).astype(np.float32)
+    oracle = Oracle(index, subtab)
+    report = {}
+    launches = None
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        sem, stages = build_semantic(rng, index, dtype, cents)
+        router = DeviceRouter(index, subtab,
+                              MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
+                              semtab=sem, device="cuda")
+        t1 = time.perf_counter()
+        args = router.prepare()
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t1
+        host = SemHost(sem)
+        sem_bytes = {k: t.numel() * t.element_size() for k, t in args.sem_tables.items()}
+        phase("tables_semantic", dtype=dtype, entries=len(sem), packed_capacity=sem._pcap,
+              hot_capacity=sem._hcap, dim=SEM_DIM, topk=sem.topk, kslot=args.kslot,
+              sparse_subscribers=subtab.sparse, build_stage_seconds=stages,
+              router_seconds=t1 - t0, upload_seconds=upload_s, device_bytes=sem_bytes,
+              segment_status=router.segment_status()["semantic"], reduced="none")
+        if args.kslot <= 0 or sem_bytes["sem_vec"] != SEM_N * SEM_DIM * (
+                4 if dtype == "float32" else 2):
+            raise AssertionError(f"kslot {args.kslot}, sem_vec {sem_bytes['sem_vec']} B")
+
+        # 1. the kernels against their twins, at the routed batch's shapes
+        topics, q, msgs = sem_batch(rng, cents, BATCH)
+        res = router.route(topics, embeds=q, rules=(filt.progs, *filt.features(msgs)))
+        dev = router.device
+        qd = torch.from_numpy(q).to(dev)
+        md = torch.from_numpy(np.ascontiguousarray(res.matched)).to(dev)
+        topic = torch.from_numpy(np.ascontiguousarray(res.slots[:, :args.kslot])).to(dev)
+        report[f"semantic_match/{dtype}"] = sem_kernel_report(torch, args, host, qd, md,
+                                                              topic, dtype)
+        if dtype == "float32":
+            kind, info = rule_kind(torch, filt, msgs, dev)
+            report.update(kernel_report(torch, {"rule_masks": kind}))
+            phase("kernel_inputs_rules", **info, rules_sql=list(RULES_SQL))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 2. routed batches, then 3. churn, counters zeroed before and read after
+        kernels.reset_launches()
+        routed = []
+        for _ in range(SEM_ROUTE_BATCHES):
+            batch = sem_batch(rng, cents, BATCH, edge=True)
+            routed.append(sem_route_checked(torch, router, host, oracle, filt, *batch))
+        after_route = dict(kernels.LAUNCHES)
+        if after_route["semantic_match"] != 2 * SEM_ROUTE_BATCHES \
+                or after_route["rule_masks"] != SEM_ROUTE_BATCHES:
+            raise AssertionError(f"launches on the routed batches: {after_route}")
+        phase("route_semantic", dtype=dtype, batches=routed, launches=after_route)
+
+        churn = {}
+        base = 1 << 20
+        for step, (n_add, n_rep, n_rem) in (("a", (SEM_CHURN[0], 50, SEM_CHURN[0])),
+                                            ("b", (SEM_CHURN[1], 0, SEM_CHURN[1]))):
+            c0 = router.segment_status()["semantic"]
+            t0 = time.perf_counter()
+            sem_churn(rng, sem, cents, index, n_add, n_rep, n_rem, base)
+            base += n_add
+            t1 = time.perf_counter()
+            args = router.prepare()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            c1 = router.segment_status()["semantic"]
+            moved = {k: c1[k] - c0[k] for k in c0}
+            want = ({"full_resyncs": 0, "delta_launches": 1, "array_resyncs": 4} if step == "a"
+                    else {"full_resyncs": 1, "delta_launches": 0, "array_resyncs": 0})
+            if moved != want:
+                raise AssertionError(f"churn {step}: mirror moved {moved}, want {want}")
+            churn[step] = {"adds": n_add, "replacements": n_rep, "removes": n_rem,
+                           "host_seconds": t1 - t0, "sync_ms": 1e3 * (t2 - t1),
+                           "mirror": moved, "oplog": len(sem.oplog), "epoch": sem.epoch,
+                           "hot_capacity": sem._hcap, "live": len(sem),
+                           "mirror_bytes_equal": check_sem_mirror(torch, args, sem)}
+        host = SemHost(sem)
+        churn["route"] = sem_route_checked(torch, router, host, oracle, filt,
+                                           *sem_batch(rng, cents, BATCH))
+        after = dict(kernels.LAUNCHES)
+        path = ("tokenize", "shape_match", "semantic_match", "rule_masks", "segment_scatter")
+        if not all(after[k] for k in path):
+            raise AssertionError(f"a kernel never launched on the semantic path: {after}")
+        phase("churn_semantic", dtype=dtype, **churn, launches=after,
+              segment_status=router.segment_status()["semantic"])
+        if dtype == "float32":
+            launches = after
+            brk = [sem_batch(rng, cents, BATCH) for _ in range(3)]
+            phase("route_breakdown_semantic", **route_breakdown(
+                torch, router, [b[0] for b in brk],
+                [(q, (filt.progs, *filt.features(m))) for _t, q, m in brk]))
+        del router, args, sem, host, res, qd, md, topic, msgs
+        gc.collect()
+        torch.cuda.empty_cache()
+    entries = {"semantic_match": report["semantic_match/float32"],
+               "rule_masks": report["rule_masks"]}
+    phase("kernel_semantic_bf16", entry=report["semantic_match/bfloat16"])
+    return entries, launches
+
+
+
 def main() -> int:
     import torch
 
@@ -2646,6 +3272,15 @@ def main() -> int:
     # and the session path's one
     report["session_sweep"] = {**sess_report["session_sweep"],
                                "launches": sess_launches["session_sweep"]}
+    del sess_report
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sem_report, sem_launches = semantic_path(torch, rng, router_1m)
+    phase("semantic_seconds", seconds=time.perf_counter() - t0)
+    # and the semantic path's two (semantic_match with its f32 table)
+    for k in ("semantic_match", "rule_masks"):
+        report[k] = {**sem_report[k], "launches": sem_launches[k]}
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

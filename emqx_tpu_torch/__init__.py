@@ -15,7 +15,12 @@ batch, the storm's filters as a one-shot shape index, alone or riding a
 routed batch as a `StormJob`); and the device session store
 (`broker.session_store.SessionStore` over `ops.session_table.SessionTable`:
 QoS1/QoS2 inflight writes and the retransmit/expiry sweep riding a routed
-batch as a `SessionRider`, its outputs a `SessionStepOut`).
+batch as a `SessionRider`, its outputs a `SessionStepOut`); and the
+semantic routing plane and compiled rule masks
+(`ops.semantic_table.SemanticTable`, the fifth mirrored table, and
+`rules.compile.DeviceRuleFilter`: `DeviceRouter(semtab=...)
+.route(topics, embeds=, rules=)` runs the similarity top-k and the WHERE
+masks in the same call and the same readback).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
@@ -35,22 +40,28 @@ from emqx_tpu_torch.models.router_model import (
 )
 from emqx_tpu_torch.ops.route_index import RouteIndex
 from emqx_tpu_torch.ops.segments import DeviceSegmentManager
+from emqx_tpu_torch.ops.semantic_table import SemanticTable
 from emqx_tpu_torch.ops.session_table import SessionTable
+from emqx_tpu_torch.rules.compile import DeviceRuleFilter, compile_where, extract_features
 
 __all__ = [
     "DeviceRetainedIndex",
     "DeviceRouter",
+    "DeviceRuleFilter",
     "DeviceSegmentManager",
     "GroupTable",
     "Prepared",
     "RouteIndex",
     "RouteResult",
+    "SemanticTable",
     "SessionRider",
     "SessionStepOut",
     "SessionStore",
     "SessionTable",
     "StormJob",
     "SubscriberTable",
+    "compile_where",
+    "extract_features",
     "resolve_device",
     "shape_route_step",
     "tables_to_device",

@@ -4,7 +4,8 @@ checks every wrapper shares.
 Each kernel lives beside its plain PyTorch twin in the module of its JAX
 counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
 `ops/segments.py`, `ops/csr_table.py`, `ops/session_table.py`,
-`models/router_model.py`, `models/retained_index.py`). A
+`ops/semantic_table.py`, `rules/compile.py`, `models/router_model.py`,
+`models/retained_index.py`). A
 wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (built at first use by `build.load`) and raises on any failure
 — there is no fallback from one to the other.
@@ -13,7 +14,7 @@ the kernel (built at first use by `build.load`) and raises on any failure
 after each CUDA kernel launched, and nowhere else, so a run can show that
 its path went through the kernels. A wrapper call may launch several
 (`share_pick` under round_robin two, `occurrence_index` one per sort pass,
-`session_sweep` three).
+`session_sweep` three, `semantic_match` two: the scores and the merge).
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ LAUNCHES = {
     "row_lengths": 0,
     "narrow_i16": 0,
     "session_sweep": 0,
+    "semantic_match": 0,
+    "rule_masks": 0,
 }
 
 

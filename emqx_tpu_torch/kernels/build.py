@@ -92,6 +92,20 @@ _SIGNATURES = {
     # slot, state, ts, cap, expiry, scap, now, retry, counts, offsets,
     # totals, due, expired, sweep_k, stream
     "emqx_sweep_write": (_P, _P, _P, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
+    # q, vec_p, P, vec_h, H, bf16, fid_p, slot_p, th_p, fid_h, slot_h, th_h,
+    # matched, B, K, D, topk, S, tiles_per_split, cand_s, cand_i, part,
+    # stream
+    "emqx_semantic_scores": (
+        _P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _L, _P, _P, _P, _P,
+    ),
+    # cand_s, cand_i, part, S, slot_p, P, slot_h, topic slots, kslot, B,
+    # topk, out, count, stream
+    "emqx_semantic_merge": (_P, _P, _P, _I, _P, _L, _P, _P, _I, _I, _I, _P, _P, _P),
+    # slots, kslot, sem_slots, topk, B, out, stream
+    "emqx_semantic_union": (_P, _I, _P, _I, _I, _P, _P),
+    # code, offsets, lits, R, feats, valid, B, F, out, stream
+    "emqx_rule_masks": (_P, _P, _P, _I, _P, _P, _I, _I, _P, _P),
 }
 
 _lib = None  # the loaded library (the port's one extension handle)

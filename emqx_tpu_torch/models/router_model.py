@@ -2,7 +2,8 @@
 $share picks, on one device. The port's counterpart of
 `emqx_tpu/models/router_model.py`, single device: the shape-index path
 with the residual-NFA lane, dense bitmaps or the sparse CSR subscriber
-table, and on-device $share picks.
+table, on-device $share picks, the semantic routing stage and the
+compiled rule masks.
 
 One routed batch runs these hand-written CUDA kernels, in order:
 
@@ -13,6 +14,9 @@ One routed batch runs these hand-written CUDA kernels, in order:
       CSR table:   sparse_fanout_slots                     (ops/csr_table.py)
   [->  occurrence_index (round_robin only)  ->  share_pick   (this module),
        when a group table is given]
+  [->  semantic_match, scores then merge + union (ops/semantic_table.py),
+       when a semantic table is live]
+  [->  rule_masks (rules/compile.py), when compiled rules ride the batch]
 
 then `DeviceRouter._readback` brings the trimmed outputs to the host in
 one copy. A retained replay storm (`models/retained_index.py`) can ride a
@@ -27,15 +31,18 @@ join the same copy. Subscriber state is either the dense
 bitmap matrix ``sub_bitmaps [Fcap, W]`` (uint32 bits in an int32 tensor:
 row = filter id, bit = subscriber slot) or the five CSR arrays of
 `ops/csr_table.py`; `SubscriberTable` switches between them (`set_mode`,
-or the `auto` policy). $share groups are `GroupTable`'s lanes. Each kernel has its plain
+or the `auto` policy). $share groups are `GroupTable`'s lanes. Embedding
+filters are `ops.semantic_table.SemanticTable`'s entries: their winners
+union into the compact slot rows, so a semantic table makes the compact
+stage mandatory. Each kernel has its plain
 PyTorch twin in the same module as its wrapper; a wrapper runs the twin
 only for CPU tensors. The device copies of the shape index, the NFA, the
-subscriber table and the group table are kept current by four
-`ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
+subscriber table, the group table and the semantic table are kept current
+by five `ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
 
-Not in the port yet: the semantic and rule stages, background CSR
-compaction (`CsrSegmentOwner`) and the mesh (`SubscriberTable.set_shards`
-refuses more than one shard).
+Not in the port yet: background compaction (`CsrSegmentOwner`,
+`SemanticSegmentOwner`) and the mesh (`SubscriberTable.set_shards` and
+`SemanticTable(shards=)` refuse more than one shard).
 """
 
 from __future__ import annotations
@@ -55,10 +62,12 @@ from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable, sparse_fanout_slots
 from emqx_tpu_torch.ops.matcher import MatcherConfig, batch_match_syms
 from emqx_tpu_torch.ops.nfa import MAX_PROBES, _next_pow2
 from emqx_tpu_torch.ops.segments import RESYNC, DeviceSegmentManager
+from emqx_tpu_torch.ops.semantic_table import SEM_KEYS, semantic_route_stage
 from emqx_tpu_torch.ops.session_table import session_ack
 from emqx_tpu_torch.ops.shape_index import shape_match
 from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize, vocab_lookup
 from emqx_tpu_torch.ops.u32 import mul32, u32
+from emqx_tpu_torch.rules.compile import eval_rule_masks
 
 
 # -- kernel 3: fan-out OR + popcount ---------------------------------------
@@ -371,14 +380,20 @@ def shape_route_step(
     probes: int = MAX_PROBES,
     kslot: int = 0,
     kg: int = 0,
+    sem_tables: Optional[Dict[str, torch.Tensor]] = None,
+    q_vecs=None,
+    sem_topk: int = 0,
+    rule_progs: tuple = (),
+    rule_feats=None,
+    rule_valid=None,
     device="cuda",
 ):
     """The serving step: tokenize -> shape match (-> residual NFA) ->
-    fan-out (-> compact) (-> $share picks).
+    fan-out (-> compact) (-> semantic stage) (-> rule masks) (-> $share
+    picks).
 
     The counterpart of `shape_route_step_impl`
-    (emqx_tpu/models/router_model.py:225) without the semantic and rule
-    stages. `tables` holds the shape tables on `device` plus the subscriber
+    (emqx_tpu/models/router_model.py:225). `tables` holds the shape tables on `device` plus the subscriber
     table: ``sub_bitmaps`` (dense; `convert.tables_to_device`) or the five
     `CSR_KEYS` arrays (sparse), as the `DeviceRouter` mirrors hold them.
     bytes_mat uint8 [B, MB] and lengths int32 [B] (numpy or tensors) as
@@ -399,19 +414,31 @@ def shape_route_step(
     with strategy ``share_strategy`` (`STRATEGY_IDS`) and the per-row
     client_hash / topic_hash / rand (uint32 bits, [B]).
 
+    ``sem_tables`` (the `SEM_KEYS` tensors of a `SemanticTable` mirror)
+    runs the semantic stage over ``q_vecs`` f32 [B, D] after the compact
+    stage, which it needs (kslot > 0 and a subscriber table, else
+    ValueError, as in JAX): `semantic_route_stage` widens ``slots`` to
+    [B, kslot + sem_topk] with the deduplicated winners and adds
+    ``sem_count`` [B], the uncapped qualifying count; ``slot_count`` and
+    ``overflow`` keep their topic-only meaning. ``rule_progs`` (compiled
+    WHERE programs, `rules.compile.compile_where`) adds ``rule_masks``
+    bool [R, B] over ``rule_feats`` f32 / ``rule_valid`` bool [B, F].
+
     Returns {matched [B, M (+ K)] (sparse, -1 holes), mcount [B], flags [B]
     (too deep or NFA overflow: the host must route the row), bitmaps
     [B, W] or None, stats {routed, matches, fanout_bits}}; with
     ``kslot > 0`` (always, for CSR) also slots [B, kslot], slot_count [B]
     and overflow [B]; with ``with_groups`` also pick_gid / pick_idx
-    [B, (M (+ K)) * GPF].
+    [B, (M (+ K)) * GPF]; with ``sem_tables`` sem_count [B]; with
+    ``rule_progs`` rule_masks [R, B].
     """
     dev = resolve_device(device)
     if with_nfa and nfa_tables is None:
         raise ValueError("with_nfa needs nfa_tables")
     if with_groups and group_tables is None:
         raise ValueError("with_groups needs group_tables")
-    extra = list((nfa_tables or {}).items()) + list((group_tables or {}).items())
+    extra = (list((nfa_tables or {}).items()) + list((group_tables or {}).items())
+             + list((sem_tables or {}).items()))
     for k, t in list(tables.items()) + extra:
         if t.device != dev:
             raise ValueError(f"table {k} lies on {t.device}, not {dev}")
@@ -463,6 +490,22 @@ def shape_route_step(
     elif kslot > 0 and bitmaps is not None:
         out["slots"], out["slot_count"], out["overflow"] = compact_fanout_slots(
             bitmaps, kslot
+        )
+    if sem_tables is not None:
+        if "slots" not in out:
+            raise ValueError(
+                "semantic routing requires the compact fan-out stage "
+                "(kslot > 0 and a subscriber table)"
+            )
+        q = torch.as_tensor(q_vecs, dtype=torch.float32, device=dev).contiguous()
+        out["slots"], out["sem_count"] = semantic_route_stage(
+            {k: sem_tables[k] for k in SEM_KEYS}, q, matched, sem_topk, out["slots"]
+        )
+    if rule_progs:
+        out["rule_masks"] = eval_rule_masks(
+            rule_progs,
+            torch.as_tensor(rule_feats, dtype=torch.float32, device=dev).contiguous(),
+            torch.as_tensor(rule_valid, dtype=torch.bool, device=dev).contiguous(),
         )
     if with_groups:
         B = matched.shape[0]
@@ -987,6 +1030,10 @@ class RouteResult(NamedTuple):
     ``session`` holds the outputs of a session rider's stage
     (`route_prepared(..., session=rider)`): the updated lanes, which stay
     on the device, and the sweep lists and counts, read back with the rest.
+    With a live semantic table, ``slots`` is [B, kslot + topk] (the
+    semantic winners after the topic slots, -1 where deduplicated) and
+    ``sem_count`` [B] the uncapped number of qualifying entries;
+    ``rule_masks`` is bool [R, B] when compiled rules rode the batch.
     """
 
     matched: np.ndarray  # [B, M (+ K)] sparse fids, -1 holes
@@ -1002,6 +1049,8 @@ class RouteResult(NamedTuple):
     readback_bytes: int = 0
     retained: Optional[Dict[str, np.ndarray]] = None  # fused storm's rows
     session: Optional[SessionStepOut] = None  # fused session stage
+    sem_count: Optional[np.ndarray] = None  # [B] qualifying semantic entries
+    rule_masks: Optional[np.ndarray] = None  # [R, B] bool compiled WHERE masks
 
 
 class _LazyDenseRows:
@@ -1048,17 +1097,21 @@ class Prepared(NamedTuple):
     m_active: int
     kslot: int
     group_tables: Optional[Dict[str, torch.Tensor]] = None  # None: no groups
+    # the semantic mirror and its top-k; None: no live semantic table
+    sem_tables: Optional[Dict[str, torch.Tensor]] = None
+    sem_topk: int = 0
 
 
 class DeviceRouter:
     """Serving-path engine on one device: owns the device mirrors of the
-    shape index, the residual NFA, the subscriber table and the $share
-    group table and runs `shape_route_step` over host batches. The
-    counterpart of `DeviceRouter` (emqx_tpu/models/router_model.py:1413),
-    single device.
+    shape index, the residual NFA, the subscriber table, the $share group
+    table and the semantic table, and runs `shape_route_step` over host
+    batches. The counterpart of `DeviceRouter`
+    (emqx_tpu/models/router_model.py:1413), single device.
 
     Each host table is mirrored by its own `DeviceSegmentManager`
-    (`_shape_sync`, `_nfa_sync`, `_bits_sync`, `_group_sync`): a full
+    (`_shape_sync`, `_nfa_sync`, `_bits_sync`, `_group_sync`,
+    `_sem_sync`): a full
     upload on an epoch change, otherwise one `segment_scatter` launch over
     the op-log suffix. The subscriber mirror follows the table's ACTIVE
     representation: a dense <-> CSR flip swaps in a fresh manager, whose
@@ -1066,7 +1119,9 @@ class DeviceRouter:
     prepare whose tables are all clean (`_version_key()` unchanged) touches
     no mirror at all. The residual lane runs exactly when the index holds
     residual filters; the pick stage exactly when the group table holds a
-    group (strategy `share_strategy`, one of `STRATEGY_IDS`).
+    group (strategy `share_strategy`, one of `STRATEGY_IDS`); the semantic
+    stage exactly when `semtab` (an `ops.semantic_table.SemanticTable`)
+    holds an entry, and then the compact stage runs whatever the width.
     """
 
     # clean-table prepares re-check the auto-sized kslot only every this
@@ -1080,11 +1135,12 @@ class DeviceRouter:
     def __init__(self, index, subtab: SubscriberTable, config=None,
                  grouptab: Optional[GroupTable] = None,
                  share_strategy: str = "round_robin", metrics=None,
-                 device="cuda"):
+                 semtab=None, device="cuda"):
         self.device = resolve_device(device)
         self.index = index
         self.subtab = subtab
         self.grouptab = grouptab  # None: no $share picks on the device
+        self.semtab = semtab  # None: no semantic stage
         self.share_strategy = STRATEGY_IDS.get(share_strategy, 1)
         # duck-typed: metrics.histogram(name) -> object with count, p99
         self.metrics = metrics
@@ -1097,6 +1153,7 @@ class DeviceRouter:
         self._shape_sync = DeviceSegmentManager(self.device, name="shapes")
         self._nfa_sync = DeviceSegmentManager(self.device, name="nfa")
         self._group_sync = DeviceSegmentManager(self.device, name="groups")
+        self._sem_sync = DeviceSegmentManager(self.device, name="semantic")
         self._bits_sparse = subtab.sparse
         self._bits_sync = self._mk_bits_sync()
         # per-batch pick entropy: batch n draws from default_rng(0xEC0 + n),
@@ -1111,15 +1168,17 @@ class DeviceRouter:
     def _mk_bits_sync(self) -> DeviceSegmentManager:
         return DeviceSegmentManager(self.device, name="bitmaps")
 
-    def _fanout_kslot(self, width_words: int, sparse: bool = False) -> int:
+    def _fanout_kslot(self, width_words: int, sparse: bool = False,
+                      semantic: bool = False) -> int:
         """kslot for the next batch; 0 = compaction off.
 
         Sized from the `dispatch.fanout` histogram p99 with 2x headroom,
         pow2-padded and GROW-ONLY; KSLOT_MIN when no metrics object is
         given. On a dense table compaction is off while the slot universe
         (W*32) is no wider than the compact output would be. A CSR table
-        has no dense rows to read back, so there the cap is mandatory:
-        never 0."""
+        has no dense rows to read back, and a live semantic table's winners
+        ride the compact slot rows, so there the cap is mandatory: never
+        0."""
         want = KSLOT_MIN
         if self.metrics is not None:
             h = self.metrics.histogram("dispatch.fanout")
@@ -1128,7 +1187,7 @@ class DeviceRouter:
                 want = max(want, 2 * max(1, int(h.p99)))
         k = max(self._kslot, _next_pow2(want))
         self._kslot = k
-        if sparse:
+        if sparse or semantic:
             return k
         if k >= width_words * 32:
             return 0  # dense rows are already the smaller readback
@@ -1141,6 +1200,7 @@ class DeviceRouter:
             self.index.version,
             self.subtab.version,
             self.grouptab.version if self.grouptab is not None else -1,
+            self.semtab.version if self.semtab is not None else -1,
         )
 
     def _device_args(self) -> Prepared:
@@ -1153,11 +1213,13 @@ class DeviceRouter:
         if self.grouptab is not None and len(self.grouptab):
             self.grouptab.pack_fcap(self.index.num_filters_capacity)
         key = self._version_key()
+        sem_on = self.semtab is not None and len(self.semtab) > 0
         if self._prep_key == key:
             self._clean_streak += 1
             if self._clean_streak % self.KSLOT_RECHECK == 0:
                 kslot = self._fanout_kslot(self.subtab.width_words,
-                                           sparse=self.subtab.sparse)
+                                           sparse=self.subtab.sparse,
+                                           semantic=sem_on)
                 if kslot != self._prep_args.kslot:
                     self._prep_args = self._prep_args._replace(kslot=kslot)
             return self._prep_args
@@ -1176,13 +1238,21 @@ class DeviceRouter:
         group_tables = None
         if self.grouptab is not None and len(self.grouptab):
             group_tables = self._group_sync.sync(self.grouptab)
+        sem_tables = None
+        if sem_on:
+            # full upload on an epoch change, op-logged float and int
+            # writes as one scatter otherwise
+            sem_tables = self._sem_sync.sync(self.semtab)
         args = Prepared(
             tables,
             nfa_tables,
             idx.salt,
             idx.shapes.m_active(),
-            self._fanout_kslot(self.subtab.width_words, sparse=sparse),
+            self._fanout_kslot(self.subtab.width_words, sparse=sparse,
+                               semantic=sem_on),
             group_tables,
+            sem_tables,
+            self.semtab.topk if sem_on else 0,
         )
         if self._version_key() == key:
             # a sync that raced a mutation is used once, never cached
@@ -1197,19 +1267,23 @@ class DeviceRouter:
         return self._device_args()
 
     def segment_status(self) -> Dict[str, Dict[str, int]]:
-        """Per mirror (`shapes`, `nfa`, `bitmaps`, and `groups` when the
-        router has a group table): full_resyncs, delta_launches and
-        array_resyncs since the mirror was made (the bitmaps mirror is
-        remade by a representation flip)."""
+        """Per mirror (`shapes`, `nfa`, `bitmaps`, `groups` when the router
+        has a group table, `semantic` when it has a semantic table):
+        full_resyncs, delta_launches and array_resyncs since the mirror was
+        made (the bitmaps mirror is remade by a representation flip)."""
         mirrors = [self._shape_sync, self._nfa_sync, self._bits_sync]
         if self.grouptab is not None:
             mirrors.append(self._group_sync)
+        if self.semtab is not None:
+            mirrors.append(self._sem_sync)
         return {m.name: m.counters() for m in mirrors}
 
-    def route(self, topics, client_hashes=None) -> RouteResult:
+    def route(self, topics, client_hashes=None, embeds=None, rules=None) -> RouteResult:
         """Batch route: returns a host-side `RouteResult` (all numpy).
-        `client_hashes` (uint32 per topic) feed the hash_clientid pick."""
-        return self.route_prepared(self._device_args(), topics, client_hashes)
+        `client_hashes` (uint32 per topic) feed the hash_clientid pick;
+        `embeds` and `rules` as `route_prepared` takes them."""
+        return self.route_prepared(self._device_args(), topics, client_hashes,
+                                   embeds=embeds, rules=rules)
 
     def _pick_inputs(self, topics, client_hashes):
         """The per-row pick inputs (client hash, topic hash, entropy), uint32
@@ -1241,11 +1315,21 @@ class DeviceRouter:
         return ch, th, rand
 
     def route_prepared(self, args: Prepared, topics, client_hashes=None,
-                       retained=None, session=None) -> RouteResult:
+                       retained=None, session=None, embeds=None,
+                       rules=None) -> RouteResult:
         """Kernel launches + readback against a `prepare()` snapshot.
 
         Unlike the JAX router, the batch is not padded to a power of two:
         there is no compiled program whose shape it would have to match.
+
+        `embeds` ([B, D] f32 per-message embeddings) feeds the semantic
+        stage when the snapshot carries a semantic table; without it every
+        row rides a zero vector, which matches nothing at any positive
+        threshold. `rules` is an optional ``(progs, feats, valid)`` triple
+        (`rules.compile.DeviceRuleFilter`: its `progs` and `features`):
+        the compiled WHERE masks run in the same call and land in
+        `RouteResult.rule_masks`. Both join the stages of a rider's or a
+        storm's call too, as in JAX.
 
         `retained`: a prepared replay storm (`StormJob`, from
         `DeviceRetainedIndex.prepare_storm`) to fuse into this call, as
@@ -1267,6 +1351,18 @@ class DeviceRouter:
         cfg = self.config
         topics = list(topics)
         mat, lens, too_long = encode_topics(topics, cfg.max_bytes)
+        B = len(topics)
+        qv = None
+        if args.sem_tables is not None:
+            qv = np.zeros((B, args.sem_tables["sem_vec"].shape[2]), np.float32)
+            if embeds is not None:
+                qv[:] = np.asarray(embeds, np.float32)
+            qv = torch.from_numpy(qv).to(self.device)
+        rprogs, rfeats, rvalid = (), None, None
+        if rules is not None and rules[0]:
+            rprogs = tuple(rules[0])
+            rfeats = torch.from_numpy(np.ascontiguousarray(rules[1], np.float32)).to(self.device)
+            rvalid = torch.from_numpy(np.ascontiguousarray(rules[2], bool)).to(self.device)
         with_groups = args.group_tables is not None
         ch = th = rand = None
         if with_groups:
@@ -1293,6 +1389,12 @@ class DeviceRouter:
             max_matches=cfg.max_matches,
             probes=cfg.probes,
             kslot=args.kslot,
+            sem_tables=args.sem_tables,
+            q_vecs=qv,
+            sem_topk=args.sem_topk,
+            rule_progs=rprogs,
+            rule_feats=rfeats,
+            rule_valid=rvalid,
             device=self.device,
         )
         if session is not None:
@@ -1326,8 +1428,9 @@ class DeviceRouter:
         (`storm`, one per chunk, int16 or int32) ride the same copy: an
         int16 matrix joins the int32 buffer as its bytes, two entries a
         word. So do a session stage's sweep lists and counts (`session`,
-        the dict `session_ack` returns); its updated lanes stay on the
-        device."""
+        the dict `session_ack` returns; its updated lanes stay on the
+        device), the semantic stage's ``sem_count`` (its winners are in
+        ``slots`` already) and the rule masks, four to a word."""
         M = out["matched"].shape[1]
         with_groups = "pick_gid" in out
         sparse = out["bitmaps"] is None
@@ -1340,9 +1443,15 @@ class DeviceRouter:
             P = out["pick_gid"].shape[1]
             parts += [out["pick_gid"].reshape(-1), out["pick_idx"].reshape(-1)]
         if kslot:
+            SW = out["slots"].shape[1]  # kslot (+ topk with a semantic table)
             parts += [out["slots"].reshape(-1), out["slot_count"]]
         else:
             parts.append(out["bitmaps"].reshape(-1))
+        if "sem_count" in out:
+            parts.append(out["sem_count"])
+        masks = out.get("rule_masks")
+        if masks is not None:
+            parts.append(_as_words(masks))
         storm = storm or []
         storm_words = [_as_words(m) for m in storm]
         sweep = session is not None and "due" in session
@@ -1367,11 +1476,15 @@ class DeviceRouter:
             picks = (take(B * P).reshape(B, P), take(B * P).reshape(B, P))
         bitmaps = slots = slot_count = None
         if kslot:
-            slots = take(B * kslot).reshape(B, kslot)
+            slots = take(B * SW).reshape(B, SW)
             slot_count = take(B)
         else:
             W = out["bitmaps"].shape[1]
             bitmaps = take(B * W).reshape(B, W).view(np.uint32)
+        sem_count = take(B) if "sem_count" in out else None
+        rule_masks = None
+        if masks is not None:
+            rule_masks = _from_words(take(-(-masks.numel() // 4)), masks)
         sess_res = None
         if session is not None:
             if sweep:
@@ -1383,16 +1496,13 @@ class DeviceRouter:
                 sess_res = SessionStepOut(session["tables"], None, 0, None, 0)
         retained_res = None
         if storm:
-            mats = []
-            for m, w in zip(storm, storm_words):
-                words = take(w.numel())
-                flat = words.view(np.int16) if m.dtype == torch.int16 else words
-                mats.append(flat[: m.numel()].reshape(tuple(m.shape)))
+            mats = [_from_words(take(w.numel()), m) for m, w in zip(storm, storm_words)]
             retained_res = retained.decode(mats)
         if not kslot:
             return RouteResult(matched, mcount, flags, bitmaps, picks,
                                readback_bytes=readback, retained=retained_res,
-                               session=sess_res)
+                               session=sess_res, sem_count=sem_count,
+                               rule_masks=rule_masks)
         # holds on the CSR path too: the kernel forces count past kslot for
         # gather-window overflow rows
         overflow = slot_count > kslot
@@ -1414,16 +1524,27 @@ class DeviceRouter:
             slots=slots, slot_count=slot_count, overflow=overflow,
             dense_rows=dense_rows, dense_index=dense_index,
             readback_bytes=readback, retained=retained_res, session=sess_res,
+            sem_count=sem_count, rule_masks=rule_masks,
         )
 
 
 def _as_words(m: torch.Tensor) -> torch.Tensor:
-    """A match matrix as flat int32 words for the coalesced readback: int32
-    as it is, int16 as its bytes (zero padded to a whole word), no copy
-    where the length is even."""
+    """A tensor as flat int32 words for the coalesced readback: int32 as it
+    is; int16 (a narrowed match matrix) or bool (rule masks) as its bytes,
+    zero padded to a whole word, with no copy where no padding is
+    needed."""
     flat = m.reshape(-1)
-    if m.dtype != torch.int16:
+    if m.dtype == torch.int32:
         return flat
-    if flat.numel() % 2:
-        flat = torch.cat([flat, flat.new_zeros(1)])
-    return flat.view(torch.int32)
+    raw = flat.view(torch.uint8)
+    if raw.numel() % 4:
+        raw = torch.cat([raw, raw.new_zeros(4 - raw.numel() % 4)])
+    return raw.view(torch.int32)
+
+
+def _from_words(words: np.ndarray, m: torch.Tensor) -> np.ndarray:
+    """The inverse of `_as_words` on the host: `m`'s values, shape and
+    type (int32, int16 or bool) back from its words."""
+    dt = {torch.int32: np.int32, torch.int16: np.int16, torch.bool: np.bool_}[m.dtype]
+    raw = words.view(np.uint8)[: m.numel() * m.element_size()]
+    return raw.view(dt).reshape(tuple(m.shape))

@@ -3,7 +3,8 @@
 `DeviceSegmentManager` with the rider handoff `peek_delta`/`adopt`).
 
 Every host table the serving step reads (the shape index, the residual
-NFA, the subscriber bitmaps, the group table, the retained topic chunks)
+NFA, the subscriber bitmaps, the group table, the retained topic chunks,
+the session lanes, the semantic table)
 keeps its arrays as numpy, mutates them in place, and op-logs each scalar
 write as ``(array_name, flat_index, value)``; a structural event (growth,
 rehash, salt change, a full op-log) bumps its `epoch` and clears the log.
@@ -19,7 +20,7 @@ rehash, salt change, a full op-log) bumps its `epoch` and clears the log.
   host table (which already holds every logged write to it).
 
 Op-log protocol (sources: `NfaBuilder`, `ShapeIndex`, `SubscriberTable`,
-`GroupTable`, `DeviceRetainedIndex`, `SessionTable`):
+`GroupTable`, `DeviceRetainedIndex`, `SessionTable`, `SemanticTable`):
 `epoch` int, `version` int (total mutation counter), `oplog` list and
 `device_snapshot() -> {name: np.ndarray}`.
 """
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from emqx_tpu_torch import kernels
-from emqx_tpu_torch.convert import resolve_device, upload
+from emqx_tpu_torch.convert import bf16_bits, resolve_device, upload
 
 RESYNC = "!resync"  # op-log marker: (RESYNC, array_name, 0)
 
@@ -41,35 +42,61 @@ RESYNC = "!resync"  # op-log marker: (RESYNC, array_name, 0)
 # -- kernel 7: the O(delta) scatter ----------------------------------------
 
 
-def _last_writes(idx, val):
-    """Ascending flat indices and the int32 bits of their values, one
-    entry per slot: the last write in program order wins. Values may be
-    given as int32, uint32 or Python ints of either range."""
+def _value_bits(val, dtype: torch.dtype) -> np.ndarray:
+    """Op-logged values -> int32 array of the bits an element of `dtype`
+    stores: a float32 array takes ``np.float32(value)``'s 32 bits, a
+    bfloat16 array the value rounded to nearest even from float32 (as
+    ``np.array(values, dtype=bfloat16)`` rounds it in the JAX manager) in
+    the low 16 bits, an int32 or uint8 array the int32 bits of an int32 or
+    uint32 value."""
+    if dtype == torch.float32:
+        return np.asarray(val, np.float64).astype(np.float32).view(np.int32)
+    if dtype == torch.bfloat16:
+        return bf16_bits(np.asarray(val, np.float64).astype(np.float32)).astype(np.int32)
+    return np.asarray(val, dtype=np.int64).astype(np.uint32).view(np.int32)
+
+
+def _last_writes(idx, val, dtype: torch.dtype = torch.int32):
+    """Ascending flat indices and the bits of their values
+    (`_value_bits`), one entry per slot: the last write in program order
+    wins."""
     idx = np.asarray(idx, dtype=np.int64).reshape(-1)
-    val = np.asarray(val, dtype=np.int64).reshape(-1).astype(np.uint32).view(np.int32)
+    val = _value_bits(val, dtype).reshape(-1)
     if idx.shape != val.shape:
         raise ValueError(f"{idx.shape[0]} indices but {val.shape[0]} values")
     uniq, last = np.unique(idx[::-1], return_index=True)
     return uniq, val[::-1][last]
 
 
-def segment_scatter_plain(flats, idxs, vals):
-    """Plain PyTorch twin of the `segment_scatter` kernel (any device):
-    `out[k] = flats[k].clone()` with ``out[k].view(-1)[idx] = val``, the
-    values cast to the array's type (a uint8 array takes their low byte)."""
+def _apply_plain(flats, writes):
     out = {}
     for k, flat in flats.items():
-        ix, vv = _last_writes(idxs[k], vals[k])
+        ix, bits = writes[k]
         new = flat.clone()
-        new.view(-1)[torch.from_numpy(ix).to(flat.device)] = torch.from_numpy(vv).to(
-            device=flat.device, dtype=flat.dtype
-        )
+        ix = torch.from_numpy(ix).to(flat.device)
+        if flat.dtype == torch.float32:
+            new.view(torch.int32).view(-1)[ix] = torch.from_numpy(bits).to(flat.device)
+        elif flat.dtype == torch.bfloat16:
+            new.view(torch.int16).view(-1)[ix] = torch.from_numpy(
+                bits.astype(np.int16)).to(flat.device)
+        else:
+            new.view(-1)[ix] = torch.from_numpy(bits).to(device=flat.device,
+                                                         dtype=flat.dtype)
         out[k] = new
     return out
 
 
+def segment_scatter_plain(flats, idxs, vals):
+    """Plain PyTorch twin of the `segment_scatter` kernel (any device):
+    `out[k] = flats[k].clone()` with ``out[k].view(-1)[idx] = val``, the
+    values converted to the array's type (`_value_bits`; a uint8 array
+    takes their low byte)."""
+    return _apply_plain(flats, {k: _last_writes(idxs[k], vals[k], flats[k].dtype)
+                                for k in flats})
+
+
 # element width in bytes of each array type the kernel writes
-_WIDTHS = {torch.int32: 4, torch.uint8: 1}
+_WIDTHS = {torch.int32: 4, torch.uint8: 1, torch.float32: 4, torch.bfloat16: 2}
 
 
 def segment_scatter(
@@ -82,9 +109,11 @@ def segment_scatter(
     array in one launch. The counterpart of `segment_scatter_impl`
     (emqx_tpu/ops/segments.py:73).
 
-    flats: contiguous int32 tensors (uint32 tables hold their bits) or
-    uint8 tensors (byte tables) of any shape, all on one device; idxs/vals:
-    host arrays or lists of flat indices and values in program order. A
+    flats: contiguous int32 tensors (uint32 tables hold their bits), uint8
+    tensors (byte tables), float32 or bfloat16 tensors (the semantic
+    table's lanes and vectors) of any shape, all on one device; idxs/vals:
+    host arrays or lists of flat indices and values in program order; a
+    float value travels as its bits (`_value_bits`). A
     repeated index keeps its last value: the host reduces each array to
     one write per slot before the launch, so no two threads of the kernel
     touch one element. The inputs are never written: a snapshot a caller
@@ -93,18 +122,15 @@ def segment_scatter(
     names = list(flats)
     for k in names:
         if not isinstance(flats[k], torch.Tensor) or flats[k].dtype not in _WIDTHS:
-            raise TypeError(f"{k}: expected an int32 or uint8 tensor")
+            raise TypeError(f"{k}: expected an int32, uint8, float32 or bfloat16 tensor")
         if not flats[k].is_contiguous():
             raise ValueError(f"{k}: must be contiguous")
-    writes = {k: _last_writes(idxs[k], vals[k]) for k in names}
+    writes = {k: _last_writes(idxs[k], vals[k], flats[k].dtype) for k in names}
     for k, (ix, _) in writes.items():
         if len(ix) and (ix.min() < 0 or ix.max() >= flats[k].numel()):
             raise IndexError(f"{k}: index outside [0, {flats[k].numel()})")
     if not names or not kernels.on_cuda(*(flats[k] for k in names)):
-        return segment_scatter_plain(
-            flats, {k: w[0] for k, w in writes.items()},
-            {k: w[1] for k, w in writes.items()},
-        )
+        return _apply_plain(flats, writes)
     dev = flats[names[0]].device
     out = {k: flats[k].clone() for k in names}
     n = sum(len(ix) for ix, _ in writes.values())
@@ -138,7 +164,8 @@ class DeviceSegmentManager:
 
     `sync(src)` returns ``{name: tensor}`` equal to ``src.device_snapshot()``
     (`convert.upload`'s types: int32 tensors, uint32 arrays keeping their
-    bits, and uint8 tensors for byte arrays). All internal state
+    bits, uint8 tensors for byte arrays, float32 and bfloat16 tensors for
+    the semantic table's lanes and vectors). All internal state
     changes under `_lock`, and callers receive a fresh shallow-copied dict,
     so a snapshot held across a later sync never tears.
 

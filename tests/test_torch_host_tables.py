@@ -220,7 +220,10 @@ def test_importing_the_port_loads_no_jax():
             "emqx_tpu_torch.models.router_model",
             "emqx_tpu_torch.models.retained_index",
             "emqx_tpu_torch.ops.session_table",
-            "emqx_tpu_torch.broker.session_store"} <= set(port_modules())
+            "emqx_tpu_torch.broker.session_store",
+            "emqx_tpu_torch.ops.semantic_table",
+            "emqx_tpu_torch.rules.sql",
+            "emqx_tpu_torch.rules.compile"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"
@@ -246,4 +249,5 @@ def test_no_jax_or_emqx_tpu_import_in_port_sources():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "emqx_tpu"), (path, name)
+                # ml_dtypes too: the port keeps bf16 as its own bits
+                assert root not in ("jax", "jaxlib", "emqx_tpu", "ml_dtypes"), (path, name)

@@ -115,8 +115,9 @@ def test_segment_scatter_keeps_the_last_write_per_slot():
     np.testing.assert_array_equal(got.reshape(-1).numpy(), [0, -1, 0, 13, 0, -4, 0, 0])
     with pytest.raises(IndexError, match="outside"):
         P_seg.segment_scatter(flat, {"x": np.array([8])}, {"x": np.array([1])})
+    # float32 and bfloat16 arrays are the semantic table's; float64 is no table's
     with pytest.raises(TypeError, match="int32"):
-        P_seg.segment_scatter({"x": torch.zeros(4)}, {"x": [0]}, {"x": [1]})
+        P_seg.segment_scatter({"x": torch.zeros(4, dtype=torch.float64)}, {"x": [0]}, {"x": [1]})
 
 
 class ScatterSpy:
