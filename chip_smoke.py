@@ -172,13 +172,53 @@ main path) and a bf16 table (201 MB instead of 402 MB):
     each, and a checked batch;
 26. `route_breakdown_semantic` (f32): encode, h2d, launches, readback and
     whole route;
-27. `semantic_seconds`: the path's time;
-28. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
+27. `semantic_seconds`: the path's time; the scatter of churn step A
+    (float32 and bfloat16 lanes) against its twin, with its times;
+The mesh paths (`emqx_tpu_torch.parallel`): a 2 x 2 ('dp', 'tp') mesh of
+four ranks, NCCL with one GPU a rank when the host shows four, else four
+gloo ranks sharing cuda:0 (`reduced` says so: gloo stages the collectives
+through the host, so NVLink is not measured). They run in a process of
+their own (`python3 chip_smoke.py --mesh BACKEND GPUS`, started by this
+one right after the build: a process that has used CUDA cannot fork ranks
+that use it), which builds every path's host tables once while this
+process runs the paths above, then, asked to, forks the ranks
+(`parallel.launch`); rank 0 prints the phases, every rank its counters.
+`python3 chip_smoke.py --mesh nccl 4 --now` runs the mesh paths alone on
+a four-GPU host (no kernels line, no last line):
+28. `mesh_share_2x2`: share_10m_csr as `share_path` builds it, the CSR
+    table in two slot-owner shards over 'tp', B = 8192 over 'dp' (4,096
+    rows a rank): 3 round-robin batches and one hash_clientid batch, every
+    recipient set against a per-shard host oracle (`MeshOracle`) and every
+    pick against `pick_oracle` over the whole batch in flat order; the
+    step's stats; a subscribe wave on shard 0's slots and an unsubscribe
+    wave on shard 1's, each one scatter on the owning ranks and a skip on
+    the others, every rank's mirrors equal to their host slices after
+    each; sparse_fanout_slots, occurrence_index, share_pick and
+    group_counts launched on every rank, compact_fanout_slots not;
+    group_counts and share_pick with rank offsets against their twins;
+    the breakdown (encode, h2d, step, collectives, assembly, route);
+29. `mesh_1m_2x2`: mixed_1m dense (4 of 8 lane words a tp rank): 3
+    batches against the host oracle, the raw outputs against the same
+    step run on CPU copies of each rank's tables (the twins, over gloo);
+    the retained_5m store (chunk rows over 'dp') and its 8,192-filter
+    storm fused into one batch, equal to `match_many` and the oracle;
+    semantic_256k f32 (2^17 entries a tp rank) with `RULES_SQL`: each
+    rank's block against the twin on its shard's entries (the union of
+    per-shard top-k, as JAX's mesh computes it), sem_count against the
+    shards' summed counts, the masks against twin and numpy; churn (rows
+    past kslot, their dense rows through the second gather; semantic step
+    A), mirrors after each; compact_fanout_slots with its lane base
+    against its twin; the breakdown;
+30. `mesh_1m_nccl1`: one NCCL rank, its MeshServingRouter equal to
+    DeviceRouter.route on the same batches bit for bit;
+31. one JSON line {"kernels": [...]}: the sixteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
     session_1m; semantic_match (f32 table) and rule_masks on
-    semantic_256k),
+    semantic_256k; group_counts on mesh_share_2x2, whose rank-offset
+    share_pick and mesh_1m_2x2's lane-based compact_fanout_slots are the
+    `mesh` cases of those two kernels' entries),
     its wrapper-call, device, plain-twin and library-call times and the
     least time the card could take (bytes moved over 3.35 TB/s, or
     operations over the 67 T/s scalar rate, 989 T/s for a bf16 product,
@@ -633,17 +673,53 @@ class Oracle:
                 out |= slot_set(self.subtab.arr[f])
         return out
 
+    def count(self, fids, want: set, kslot: int):
+        """-> (the slot_count the kernel reports, whether a row passed the
+        gather window). A CSR row counts every matched fid's slots, a slot
+        that two of its filters share twice; the bitmap OR counts it once.
+        A row whose packed regions pass the gather window (2 x kslot) has
+        its count forced to max(their allocated length, kslot + 1)."""
+        if not self.subtab.sparse:
+            return len(want), False
+        total = self.region_total(fids)
+        if total > 2 * kslot:
+            return max(total, kslot + 1), True
+        return self.slot_count(fids), False
 
-def check_batch(res, topics, oracle, exact_flags=True) -> dict:
+
+class MeshOracle(Oracle):
+    """The host reference of a mesh whose CSR table is split over 'tp': each
+    shard (subscription -> shard slot % S) gathers, windows and counts its
+    own slots, and the row's count is the sum over the shards."""
+
+    def count(self, fids, want: set, kslot: int):
+        if not self.subtab.sparse:
+            return len(want), False
+        csr = self.subtab.csr
+        n, window = 0, False
+        for s in range(csr.shards):
+            ln = csr.csr_len[s]
+            total = sum(int(ln[f]) for f in fids if f < len(ln))
+            if total > 2 * kslot:
+                n += max(total, kslot + 1)
+                window = True
+            else:
+                n += sum(int((csr.slots_of(f) % csr.shards == s).sum()) for f in fids)
+        return n, window
+
+
+def check_batch(res, topics, oracle, exact_flags=True, kslot=None) -> dict:
     """Every unflagged row's matched fids and recipient slots equal the
     oracle's. Topics deeper than MAX_LEVELS must be flagged; with
     `exact_flags` no other row may be, else other flagged rows (NFA
     frontier or match overflow, which the host routes) are counted. The
     recipient count must equal the oracle's too (on a CSR table, with the
-    kernel's count rules below; the router's gather window is the default
-    2 * kslot)."""
+    kernel's count rules, `Oracle.count`; the router's gather window is the
+    default 2 * kslot). `kslot`: the router's cap, when the slot rows are
+    wider (a mesh's tp segments side by side)."""
     n_ovf = n_flag = n_bits = n_other_flag = n_window = 0
-    kslot = res.slots.shape[1] if res.slots is not None else 0
+    if kslot is None:
+        kslot = res.slots.shape[1] if res.slots is not None else 0
     want_fids = oracle.fids(topics)
     for i, t in enumerate(topics):
         deep = len(t.split("/")) > MAX_LEVELS
@@ -667,16 +743,7 @@ def check_batch(res, topics, oracle, exact_flags=True) -> dict:
             got = set(res.slots[i][res.slots[i] >= 0].tolist())
         want = oracle.slots(want_f)
         count = int(res.slot_count[i])
-        # a CSR row counts every matched fid's slots, a slot that two of
-        # its filters share twice; the bitmap OR counts it once. A row whose
-        # packed regions pass the gather window (2 * kslot) has its count
-        # forced to max(their allocated length, kslot + 1)
-        window = False
-        want_count = len(want)
-        if oracle.subtab.sparse:
-            total = oracle.region_total(want_f)
-            window = total > 2 * kslot
-            want_count = max(total, kslot + 1) if window else oracle.slot_count(want_f)
+        want_count, window = oracle.count(want_f, want, kslot)
         if got != want or count != want_count:
             raise AssertionError(f"row {i} {t!r}: slots {sorted(got)} != {sorted(want)}")
         n_window += int(window)
@@ -738,6 +805,7 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "session_sweep": ("sweep_count", "sweep_scan", "sweep_write"),
     "semantic_match": ("semantic_scores_kernel", "semantic_merge_kernel"),
     "rule_masks": "rule_masks_kernel",
+    "group_counts": "group_counts_kernel",
 }
 
 SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
@@ -771,6 +839,8 @@ SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
                        "emqx_tpu/ops/semantic_table.py:104"),
     "rule_masks": ("emqx_tpu_torch/kernels/csrc/rule_masks.cu",
                    "emqx_tpu/rules/compile.py:222"),
+    "group_counts": ("emqx_tpu_torch/kernels/csrc/group_counts.cu",
+                     "emqx_tpu/models/router_model.py:944"),
 }
 
 
@@ -827,6 +897,9 @@ def max_abs_err(got, want, torch) -> int:
         raise AssertionError(f"shape/dtype {got.shape}/{got.dtype} != {want.shape}/{want.dtype}")
     if got.numel() == 0:
         return 0
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(got.dtype)
+    if bits is not None:  # float lanes written as bits: compared as bits
+        got, want = got.view(bits), want.view(bits)
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
@@ -1025,24 +1098,27 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
 
 def scatter_kind(torch, call):
     """The segment_scatter kernel on one recorded main-path call (flats,
-    idxs, vals; int32 or uint8 arrays): against its twin, and index_put_ on
-    the clones as the library yardstick."""
+    idxs, vals; int32, uint8, float32 or bfloat16 arrays): against its
+    twin, and index_put_ on the clones as the library yardstick (a float
+    lane takes its values' bits through the integer view of its width)."""
     from emqx_tpu_torch.ops import segments as G
 
     flats, idxs, vals = call
     dev = next(iter(flats.values())).device
     out = G.segment_scatter(flats, idxs, vals)
+    bits = {torch.float32: (torch.int32, np.int32), torch.bfloat16: (torch.int16, np.int16)}
     dvec = {}
     for k in flats:
-        ix, vv = G._last_writes(idxs[k], vals[k])
-        dvec[k] = (torch.from_numpy(ix).to(dev),
-                   torch.from_numpy(vv).to(device=dev, dtype=flats[k].dtype))
+        ix, vv = G._last_writes(idxs[k], vals[k], flats[k].dtype)
+        view, np_dt = bits.get(flats[k].dtype, (flats[k].dtype, None))
+        vv = torch.from_numpy(vv.astype(np_dt) if np_dt is not None else vv)
+        dvec[k] = (torch.from_numpy(ix).to(dev), vv.to(device=dev, dtype=view), view)
 
     def library():
         res = {}
         for k, flat in flats.items():
             res[k] = flat.clone()
-            res[k].view(-1).index_put_((dvec[k][0],), dvec[k][1])
+            res[k].view(dvec[k][2]).view(-1).index_put_((dvec[k][0],), dvec[k][1])
         return res
 
     n = sum(len(v[0]) for v in dvec.values())
@@ -1538,8 +1614,9 @@ def share_filters(n_ids, n_nums) -> list:
     return filters
 
 
-def build_share():
-    """-> (index, subtab, grouptab, seconds per build stage). Subscription
+def build_share(shards=1):
+    """-> (index, subtab, grouptab, seconds per build stage). `shards`: the
+    CSR table's slot-owner shards (2 for a tp = 2 mesh). Subscription
     n of the SHARE_SPF per device/{i}/+/{j}/# filter goes to slot n mod
     SHARE_SLOTS; each (name, members, ids) of SHARE_GROUPS is a
     `$share/name/device/{i}/#` subscription group for every i < ids."""
@@ -1555,7 +1632,7 @@ def build_share():
     del filters
     t.append(time.perf_counter())
     n = n_ids * n_nums
-    subtab = SubscriberTable(max_subscribers=n_slots, mode="sparse")
+    subtab = SubscriberTable(max_subscribers=n_slots, mode="sparse", shards=shards)
     subtab.bulk_add(np.repeat(fids[:n], SHARE_SPF),
                     np.arange(n * SHARE_SPF, dtype=np.int64) % n_slots)
     t.append(time.perf_counter())
@@ -2770,13 +2847,14 @@ def session_path(torch, rng, router=None):
 
 class SemHost:
     """The host side of one semantic table for the f64 checks: its lanes
-    (packed then hot) and its vectors as float64, bf16 widened."""
+    (packed then hot) and its vectors as float64, bf16 widened. `shard`:
+    which slot-owner shard (a mesh's 'tp' rank holds one)."""
 
-    def __init__(self, sem):
+    def __init__(self, sem, shard=0):
         from emqx_tpu_torch.convert import BF16
 
         snap = sem.device_snapshot()
-        cat = lambda a, b: np.concatenate([snap[a][0], snap[b][0]])  # noqa: E731
+        cat = lambda a, b: np.concatenate([snap[a][shard], snap[b][shard]])  # noqa: E731
         vecs = cat("sem_vec", "sem_hot_vec")
         self.bf16 = vecs.dtype == BF16
         if self.bf16:
@@ -2857,7 +2935,7 @@ def sem_twin(torch, sem_t, q, matched, topk, census=True):
     return torch.cat(outs), torch.cat(counts), found
 
 
-def build_semantic(rng, index, dtype, cents):
+def build_semantic(rng, index, dtype, cents, shards=1):
     """The semantic_256k table: SEM_N entries `_near` SEM_CENTROIDS unit
     centroids, thresholds uniform in SEM_THRESH, half unscoped and half
     scoped to device/{d}/# (3/4) or device/{d}/+/{j}/# (1/4) for d <
@@ -2888,7 +2966,7 @@ def build_semantic(rng, index, dtype, cents):
     ths[lead] = SEM_THRESH[0]
     fids[lead] = -1
     t.append(time.perf_counter())
-    sem = SemanticTable(dim=SEM_DIM, topk=SEM_TOPK, dtype=dtype)
+    sem = SemanticTable(dim=SEM_DIM, topk=SEM_TOPK, dtype=dtype, shards=shards)
     sem.bulk_add(slots, vecs, ths, fids)
     t.append(time.perf_counter())
     return sem, {"vectors": t[1] - t[0], "bulk_add": t[2] - t[1]}
@@ -3104,6 +3182,7 @@ def semantic_path(torch, rng, router_1m):
     -> (kernels-line entries, launches on the f32 pass)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops import segments as G
     from emqx_tpu_torch.ops.matcher import MatcherConfig
     from emqx_tpu_torch.rules import compile as RC
     from emqx_tpu_torch.rules import sql as RS
@@ -3169,6 +3248,13 @@ def semantic_path(torch, rng, router_1m):
 
         churn = {}
         base = 1 << 20
+        scatter_calls = []
+        real_scatter = G.segment_scatter
+
+        def recording_scatter(flats, idxs, vals):
+            scatter_calls.append((dict(flats), dict(idxs), dict(vals)))
+            return real_scatter(flats, idxs, vals)
+
         for step, (n_add, n_rep, n_rem) in (("a", (SEM_CHURN[0], 50, SEM_CHURN[0])),
                                             ("b", (SEM_CHURN[1], 0, SEM_CHURN[1]))):
             c0 = router.segment_status()["semantic"]
@@ -3176,8 +3262,12 @@ def semantic_path(torch, rng, router_1m):
             sem_churn(rng, sem, cents, index, n_add, n_rep, n_rem, base)
             base += n_add
             t1 = time.perf_counter()
-            args = router.prepare()
-            torch.cuda.synchronize()
+            G.segment_scatter = recording_scatter if step == "a" else real_scatter
+            try:
+                args = router.prepare()
+                torch.cuda.synchronize()
+            finally:
+                G.segment_scatter = real_scatter
             t2 = time.perf_counter()
             c1 = router.segment_status()["semantic"]
             moved = {k: c1[k] - c0[k] for k in c0}
@@ -3199,6 +3289,16 @@ def semantic_path(torch, rng, router_1m):
             raise AssertionError(f"a kernel never launched on the semantic path: {after}")
         phase("churn_semantic", dtype=dtype, **churn, launches=after,
               segment_status=router.segment_status()["semantic"])
+        # row 8's float lanes: the scatter of churn step A against its twin
+        # (after the path's launches were read: these launches do not count)
+        if len(scatter_calls) != 1:
+            raise AssertionError(f"churn a: {len(scatter_calls)} scatter calls")
+        kind, info = scatter_kind(torch, scatter_calls[0])
+        kind["name"] = "segment_scatter"
+        report[f"segment_scatter/{dtype}"] = kernel_report(
+            torch, {f"segment_scatter/{dtype}": kind})[f"segment_scatter/{dtype}"]
+        phase("kernel_inputs_scatter_semantic", dtype=dtype, **info)
+        del scatter_calls, kind
         if dtype == "float32":
             launches = after
             brk = [sem_batch(rng, cents, BATCH) for _ in range(3)]
@@ -3209,10 +3309,895 @@ def semantic_path(torch, rng, router_1m):
         gc.collect()
         torch.cuda.empty_cache()
     entries = {"semantic_match": report["semantic_match/float32"],
-               "rule_masks": report["rule_masks"]}
+               "rule_masks": report["rule_masks"],
+               "segment_scatter_lanes": {"float32": report["segment_scatter/float32"],
+                                         "bfloat16": report["segment_scatter/bfloat16"]}}
     phase("kernel_semantic_bf16", entry=report["semantic_match/bfloat16"])
     return entries, launches
 
+
+# -- the mesh paths (port of emqx_tpu/parallel/mesh.py) ---------------------------
+
+MESH_WORLD = 4  # a 2 x 2 ('dp', 'tp') mesh
+MESH_TP = 2
+MESH_TIMEOUT = {"share": 480, "1m": 420, "nccl1": 150}  # seconds, each launch
+MESH_DEADLINE = 900  # the whole mesh process
+
+
+def mesh_reduced(backend: str, n_gpu: int) -> list:
+    if backend == "nccl":
+        return []
+    return [f"{MESH_WORLD} gloo ranks share cuda:0 ({n_gpu} visible GPU): the "
+            "collectives are staged through the host, so the mesh paths measure the "
+            "sharded kernels, the layout, the collectives' semantics and the assembly, "
+            "not NVLink"]
+
+
+def mesh_route(router, topics, oracle, kslot, strategy=None, client_hashes=None) -> dict:
+    """One routed batch on every rank; the lead rank (the one holding an
+    oracle) checks every recipient set and, with groups, every pick against
+    `pick_oracle` over the WHOLE batch in flat order (the dp ranks' offsets);
+    every rank then advances the round-robin bases as the broker does."""
+    t0 = time.perf_counter()
+    res = router.route(topics, client_hashes=client_hashes)
+    wall = time.perf_counter() - t0
+    out = {"route_ms": 1e3 * wall, "readback_bytes": res.readback_bytes}
+    if oracle is not None:
+        out.update(check_batch(res, topics, oracle, kslot=kslot))
+        if strategy is not None:
+            want = pick_oracle(router.grouptab, res.matched, strategy, client_hashes)
+            for got, w, what in zip(res.picks, want, ("pick_gid", "pick_idx")):
+                if got.shape != w.shape or not np.array_equal(got, w):
+                    bad = np.argwhere(got != w)[:3].tolist()
+                    raise AssertionError(f"mesh {strategy}: {what} differs at {bad}")
+            out["picks"] = int((res.picks[0] >= 0).sum())
+    if strategy == "round_robin":
+        advance_rr(router.grouptab, res.picks)
+    return out, res
+
+
+def per_batch(coll: dict, n: int) -> dict:
+    return {b: {op: c / n for op, c in ops.items()} for b, ops in coll.items()}
+
+
+def mesh_barrier(torch, mesh) -> None:
+    """Every rank waits here (the lead rank times kernels meanwhile)."""
+    mesh.all_reduce(torch.zeros(1, device=mesh.device), ("dp", "tp"), "barrier")
+
+
+def mesh_mirrors(torch, pairs) -> dict:
+    """Each mirror of this rank against this rank's slice of its host table,
+    bit for bit; -> {mirror: its counters}. Raises on a difference."""
+    from emqx_tpu_torch.convert import _as_device_type
+
+    out = {}
+    for mgr, src in pairs:
+        snap = src.device_snapshot()
+        if set(mgr._arrays) != set(snap):
+            raise AssertionError(f"{mgr.name}: arrays {sorted(mgr._arrays)} != {sorted(snap)}")
+        for k, t in mgr._arrays.items():
+            want = _as_device_type(np.ascontiguousarray(mgr.placement.place(k, snap[k])), k)
+            got = t.contiguous()
+            got = got.view(torch.int16) if got.dtype == torch.bfloat16 else got
+            got = got.cpu().numpy()
+            if got.shape != want.shape or got.tobytes() != want.tobytes():
+                raise AssertionError(f"mirror {mgr.name}/{k} differs from its host slice")
+        out[mgr.name] = mgr.counters()
+    return out
+
+
+def mesh_local_inputs(torch, mesh, router, topics):
+    """This rank's rows of a batch as `_route_mesh` prepares them."""
+    from emqx_tpu_torch.ops.tokenizer import encode_topics
+    from emqx_tpu_torch.parallel import mesh as M
+
+    per, lo = M.batch_rows(mesh, len(topics))
+    mat, lens, too_long = encode_topics(topics[lo:lo + per], MAX_BYTES)
+    bm, ln = (torch.from_numpy(x).to(mesh.device) for x in router._mesh_pad(mat, lens, per))
+    return per, lo, bm, ln, too_long
+
+
+def mesh_tables(args):
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS
+
+    sub = {k: v for k, v in args.tables.items() if k in CSR_KEYS} or args.tables["sub_bitmaps"]
+    shape = {k: v for k, v in args.tables.items() if k not in CSR_KEYS and k != "sub_bitmaps"}
+    return shape, sub
+
+
+def mesh_step(torch, mesh, router, args, topics):
+    """The sharded step alone on this rank's rows (no assembly)."""
+    from emqx_tpu_torch.parallel import mesh as M
+
+    per, lo, bm, ln, _tl = mesh_local_inputs(torch, mesh, router, topics)
+    pick = (None,) * 4
+    if args.group_tables is not None:
+        pick = (args.group_tables, *(
+            torch.from_numpy(router._mesh_pad_rows(v, lo, per).view(np.int32)).to(mesh.device)
+            for v in router._pick_inputs(topics, None)))
+    shape, sub = mesh_tables(args)
+    cfg = router.config
+    return M.dist_shape_route_step(
+        mesh, shape, args.nfa_tables, sub, bm, ln, *pick, m_active=args.m_active,
+        salt=args.salt, max_levels=cfg.max_levels, frontier=cfg.frontier,
+        max_matches=cfg.max_matches, probes=cfg.probes,
+        share_strategy=router.share_strategy, kslot=args.kslot)
+
+
+def mesh_stats(torch, mesh, router, args, topics, res, windows: int) -> dict:
+    """The step's stats (reduced over the mesh) against the single-device
+    step's formulas on the assembled rows: routed and matches from mcount;
+    fanout_bits, the OR's set bits on a dense table or the CSR gather's
+    live candidates (both the row's slot_count when no row passed a
+    shard's gather window)."""
+    out = mesh_step(torch, mesh, router, args, topics)
+    got = {k: int(v) for k, v in out["stats"].items()}
+    want = {"routed": int((res.mcount > 0).sum()), "matches": int(res.mcount.sum())}
+    if not windows:
+        want["fanout_bits"] = int(res.slot_count.astype(np.int64).sum())
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"mesh stats {got} != {want}")
+    return got
+
+
+def mesh_breakdown(torch, mesh, router, batches) -> dict:
+    """Where one sharded batch's time goes on this rank, medians over the
+    batches (host clock, each stage ending in a synchronize): encoding this
+    rank's rows, their host->device copy, the step to completion (kernels
+    and the step's collectives; the collectives' own time beside it), the
+    assembly (the packed all-gather, the one device->host copy and the host
+    decode), then a whole route() of the same batch. Every rank runs it."""
+    from emqx_tpu_torch.ops.tokenizer import encode_topics
+    from emqx_tpu_torch.parallel import mesh as M
+
+    coll = [0.0]
+    real = (M.Mesh.all_reduce, M.Mesh.all_gather)
+
+    def timed(f):
+        def run(self, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = f(self, *a, **k)
+            torch.cuda.synchronize()
+            coll[0] += time.perf_counter() - t
+            return r
+        return run
+
+    args = router.prepare()
+    names = ("encode", "h2d", "step", "assembly", "route")
+    samples = {k: [] for k in names + ("step_collectives", "assembly_collectives")}
+    shape, sub = mesh_tables(args)
+    cfg = router.config
+    for topics in batches:
+        per, lo = M.batch_rows(mesh, len(topics))
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        mat, lens, too_long = encode_topics(topics[lo:lo + per], MAX_BYTES)
+        pick_np = router._pick_inputs(topics, None) if args.group_tables is not None else None
+        t.append(time.perf_counter())
+        bm, ln = (torch.from_numpy(x).to(mesh.device) for x in router._mesh_pad(mat, lens, per))
+        pick = (None,) * 4
+        if pick_np is not None:
+            pick = (args.group_tables, *(torch.from_numpy(
+                router._mesh_pad_rows(v, lo, per).view(np.int32)).to(mesh.device)
+                for v in pick_np))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        M.Mesh.all_reduce, M.Mesh.all_gather = (timed(f) for f in real)
+        try:
+            coll[0] = 0.0
+            out = M.dist_shape_route_step(
+                mesh, shape, args.nfa_tables, sub, bm, ln, *pick, m_active=args.m_active,
+                salt=args.salt, max_levels=cfg.max_levels, frontier=cfg.frontier,
+                max_matches=cfg.max_matches, probes=cfg.probes,
+                share_strategy=router.share_strategy, kslot=args.kslot)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            step_coll = coll[0]
+            tl = np.zeros(per, bool)
+            tl[:len(too_long)] = too_long
+            out["flags"] = out["flags"] | torch.from_numpy(tl).to(mesh.device)
+            router._readback_mesh(out, len(topics), per, args.kslot)
+            t.append(time.perf_counter())
+            asm_coll = coll[0] - step_coll
+        finally:
+            M.Mesh.all_reduce, M.Mesh.all_gather = real
+        router.route(topics)
+        t.append(time.perf_counter())
+        for k, a, b in zip(names, t, t[1:]):
+            samples[k].append(1e3 * (b - a))
+        samples["step_collectives"].append(1e3 * step_coll)
+        samples["assembly_collectives"].append(1e3 * asm_coll)
+    med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
+    med["topics_per_s"] = len(batches[0]) / (med["route_ms"] / 1e3)
+    return med
+
+
+def mesh_share_kinds(torch, mesh, router, args, topics):
+    """The mesh's own kernels at share_10m_csr shapes, on the lead rank's
+    rows (no collective): group_counts over the raw group lanes, and the
+    round-robin share_pick with rank offsets (the counts of a lower dp
+    rank taken as this rank's own, dp rank 1)."""
+    from emqx_tpu_torch.models import router_model as R
+
+    per, lo, bm, ln, _tl = mesh_local_inputs(torch, mesh, router, topics)
+    shape, sub = mesh_tables(args)
+    out = R.shape_route_step({**shape, **sub}, bm, ln, m_active=args.m_active,
+                             salt=args.salt, max_levels=MAX_LEVELS, kslot=args.kslot,
+                             device=mesh.device)
+    matched = out["matched"]
+    gt = args.group_tables
+    gcap = gt["group_len"].shape[0]
+    gpf = gt["filter_groups"].shape[1]
+    lanes = R._group_lanes(gt, matched)[0].contiguous()
+    n = lanes.numel()
+    live = int((lanes >= 0).sum())
+    counts = R.group_counts(lanes, gcap)
+    all_c = torch.stack([counts, counts])
+    B, K = matched.shape
+    zeros = torch.zeros(B, dtype=torch.int32, device=mesh.device)
+    pick = lambda f: f(gt, matched, zeros, zeros, zeros, strategy=1,  # noqa: E731
+                       dp_gather=lambda _c: all_c, dp_rank=1)
+    fids_live = int((matched >= 0).sum())
+    kinds = {
+        "group_counts": dict(
+            kernel=lambda: R.group_counts(lanes, gcap),
+            plain=lambda: R.group_counts_plain(lanes, gcap),
+            out=counts,
+            bytes=4 * n + 4 * gcap,  # each lane read once, each count written once
+            ops=n,
+        ),
+        "share_pick/mesh": dict(
+            name="share_pick",
+            per_call={"share_pick_kernel": 2},
+            kernel=lambda: pick(R.share_pick),
+            plain=lambda: pick(R.share_pick_plain),
+            out=pick(R.share_pick),
+            # as share_pick/round_robin, plus the lower rank's count of
+            # each live lane's group
+            bytes=4 * B * K + 12 * B + 4 * gpf * fids_live + 16 * live + 8 * n,
+            ops=12 * n + live,
+        ),
+    }
+    return kinds, {"rows": B, "group_lanes": n, "live_group_lanes": live, "gcap": gcap}
+
+
+def mesh_composite_bound(torch, mesh, router, args, topics, names, extra=0.0) -> float:
+    """The sharded step's bound on this rank for one batch: the sum of its
+    kernels' bounds at this rank's shapes (its rows, its shard), as row 7's
+    composite bound sums its kernels'."""
+    from emqx_tpu_torch.parallel import mesh as M
+
+    per, lo = M.batch_rows(mesh, len(topics))
+    rows = topics[lo:lo + per]
+    kinds = (share_kinds(torch, router, args, rows) if args.group_tables is not None
+             else serving_kinds(torch, args, rows))[0]
+    return extra + sum(bound(kinds[k]["bytes"], kinds[k]["ops"])[0] for k in names)
+
+
+def rank_mesh_share(mesh, st) -> dict:
+    """mesh_share_2x2 on one rank: share_10m_csr over the 2 x 2 mesh, the
+    CSR table in two slot-owner shards over 'tp', B = 8192 over 'dp'."""
+    import torch
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import STRATEGY_IDS, MeshServingRouter
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.parallel import mesh as M
+
+    lead = mesh.rank == 0
+    index, subtab, grouptab = st["index"], st["subtab"], st["grouptab"]
+    rng = np.random.default_rng(SEED + 40)  # the same draws on every rank
+    router = MeshServingRouter(index, subtab,
+                               MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES),
+                               grouptab=grouptab, mesh=mesh)
+    t0 = time.perf_counter()
+    args = router.prepare()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if subtab.shards != mesh.tp or args.kslot != KSLOT or args.tables["csr_slots"].shape[0] != 1:
+        raise AssertionError(f"shards {subtab.shards}, kslot {args.kslot}")
+    dev_bytes = {**mirror_bytes(args.tables), **mirror_bytes(args.group_tables)}
+    oracle = MeshOracle(index, subtab) if lead else None
+    batches = [topic_batch_share(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+    batches[0][: len(EDGE_TOPICS_SHARE)] = EDGE_TOPICS_SHARE
+
+    # the main path: counters zeroed here, read after the churn
+    kernels.reset_launches()
+    M.reset_collectives()
+    routed, results = [], []
+    for topics in batches:
+        rec, res = mesh_route(router, topics, oracle, args.kslot, "round_robin")
+        routed.append(rec)
+        results.append(res)
+    coll_rr = per_batch(M.COLLECTIVES, len(batches))
+    router.share_strategy = STRATEGY_IDS["hash_clientid"]
+    client_hashes = rng.integers(0, 1 << 32, BATCH, dtype=np.uint64).astype(np.uint32)
+    rec, _res = mesh_route(router, batches[0], oracle, args.kslot, "hash_clientid",
+                           client_hashes)
+    routed.append(rec)
+    router.share_strategy = STRATEGY_IDS["round_robin"]
+    windows = routed[-2].get("gather_window_rows", 0) if lead else 0
+    windows = int(mesh.all_reduce(torch.tensor([windows], device=mesh.device),
+                                  ("dp", "tp"), "check")[0])
+    stats = mesh_stats(torch, mesh, router, router.prepare(), batches[-1], results[-1], windows)
+    if lead:
+        phase("mesh_route_share", batches=routed, stats=stats,
+              collectives_per_batch=coll_rr, upload_seconds=upload_s, device_bytes=dev_bytes)
+
+    # churn: each wave's writes belong to one tp shard; they must reach that
+    # shard's ranks as one scatter and nothing else, and every mirror must
+    # equal its host slice after it
+    def fid_of(i, j=None):
+        return index.filter_id(f"device/{i}/#" if j is None else f"device/{i}/+/{j}/#")
+
+    tp_rank = mesh.axis_index("tp")
+    churn = {}
+
+    def wave(what, mutate, topics_extra, owner):
+        router.prepare()  # the last batch's round-robin bases
+        c0 = router.segment_status()
+        mutate()
+        t0 = time.perf_counter()
+        router.prepare()
+        torch.cuda.synchronize()
+        sync_ms = 1e3 * (time.perf_counter() - t0)
+        c1 = router.segment_status()
+        moved_ = {m: {k: c1[m][k] - c0[m][k] for k in c1[m]} for m in c1}
+        mine = tp_rank == owner
+        want = {"full_resyncs": 0, "delta_launches": int(mine), "array_resyncs": 0,
+                "delta_skipped": int(not mine)}
+        if moved_["bitmaps"] != want:
+            raise AssertionError(f"{what}: bitmaps mirror moved {moved_['bitmaps']}, want {want}")
+        mirrors = mesh_mirrors(torch, [(router._shape_sync, index.shapes),
+                                       (router._bits_sync, subtab),
+                                       (router._group_sync, grouptab)])
+        topics = topic_batch_share(rng, BATCH)
+        topics[: len(topics_extra)] = topics_extra
+        rec, _res = mesh_route(router, topics, oracle, args.kslot, "round_robin")
+        return {"prepare_ms": sync_ms, "moved": moved_, "mirrors": mirrors, "routed": rec,
+                "hot_fill": subtab.csr.hot_fill, "packed_tombstones": subtab.csr.packed_tombs}
+
+    hot_i = 7
+    # 100 even slots on a group filter (its rows pass kslot on shard 0) and
+    # 120 even slots on bench filters: every write is shard 0's
+    hot_adds = [(fid_of(hot_i), 500_000 + 2 * s) for s in range(100)]
+    ij = rng.integers(0, [50, SHARE_NUMS], size=(120, 2))
+    hot_adds += [(fid_of(int(i), int(j)), 2 * int(s)) for (i, j), s in
+                 zip(ij, rng.integers(0, SHARE_SLOTS // 2, 120))]
+    row_topics = [f"device/{hot_i}/mid/{j}/leaf" for j in range(64)]
+    row_topics += [f"device/{i}/mid/{j}/leaf" for i, j in ij]
+    churn["subscribe"] = wave("subscribe wave", lambda: [subtab.add(f, s) for f, s in hot_adds],
+                              row_topics, owner=0)
+    # 1,000 packed subscriptions with odd slots (subscription n has slot n
+    # mod 2^20): every write is shard 1's
+    n_subs = SHARE_IDS * SHARE_NUMS * SHARE_SPF
+    gone = 2 * rng.choice(n_subs // 2, size=1000, replace=False) + 1
+    gone_pairs = [(int(n // SHARE_SPF), int(n % SHARE_SLOTS)) for n in gone]
+    gone_topics = []
+    for f, _s in gone_pairs[:300]:
+        i, _plus, j = index.filter_name(f).split("/")[1:4]
+        gone_topics.append(f"device/{i}/mid/{j}/leaf")
+    churn["unsubscribe"] = wave("unsubscribe wave",
+                                lambda: [subtab.remove(f, s) for f, s in gone_pairs],
+                                gone_topics, owner=1)
+    launches = dict(kernels.LAUNCHES)
+    coll = {k: dict(v) for k, v in M.COLLECTIVES.items()}
+    path = ("tokenize", "shape_match", "sparse_fanout_slots", "share_pick",
+            "occurrence_index", "group_counts")
+    if not all(launches[k] for k in path) or launches["fanout_bitmaps"] \
+            or launches["compact_fanout_slots"]:
+        raise AssertionError(f"rank {mesh.rank}: mesh_share_2x2 launches {launches}")
+    if lead:
+        phase("mesh_churn_share", **{k: {kk: vv for kk, vv in v.items() if kk != "mirrors"}
+                                     for k, v in churn.items()})
+
+    # the mesh kernels at this path's shapes, timed on the lead rank alone
+    report = kinds_info = comp = None
+    if lead:
+        args = router.prepare()
+        kinds, kinds_info = mesh_share_kinds(torch, mesh, router, args, batches[0])
+        report = kernel_report(torch, kinds)
+        gc_bound = bound(kinds["group_counts"]["bytes"], kinds["group_counts"]["ops"])[0]
+        comp = mesh_composite_bound(
+            torch, mesh, router, args, batches[0],
+            ("tokenize", "shape_match", "sparse_fanout_slots", "occurrence_index",
+             "share_pick/round_robin"), gc_bound)
+        phase("kernel_inputs_mesh_share", **kinds_info)
+    mesh_barrier(torch, mesh)
+    brk = mesh_breakdown(torch, mesh, router,
+                         [topic_batch_share(rng, BATCH) for _ in range(3)])
+    if lead:
+        phase("mesh_route_breakdown_share", **brk, composite_bound_ms=comp)
+    return {"rank": mesh.rank, "launches": launches, "collectives": coll,
+            "collectives_per_batch": coll_rr, "mirrors": {k: v["mirrors"] for k, v in
+                                                          churn.items()},
+            "moved": {k: v["moved"]["bitmaps"] for k, v in churn.items()},
+            "report": report, "breakdown": brk, "device_bytes": dev_bytes}
+
+
+def mesh_twin(torch, mesh, router, args, topics) -> dict:
+    """The raw outputs of this rank's sharded step against the per-shard
+    twin composition: the same step on CPU copies of this rank's tables,
+    so every kernel runs as its plain twin and the collectives run on the
+    CPU tensors (gloo carries both). Every output must be equal."""
+    import copy
+
+    from emqx_tpu_torch.models.router_model import Prepared
+
+    got = mesh_step(torch, mesh, router, args, topics)
+    cpu = lambda d: None if d is None else {k: v.cpu() for k, v in d.items()}  # noqa: E731
+    cmesh = copy.copy(mesh)
+    cmesh.device = torch.device("cpu")
+    cargs = Prepared(cpu(args.tables), cpu(args.nfa_tables), args.salt, args.m_active,
+                     args.kslot, cpu(args.group_tables))
+
+    class Host:  # the router's host side, on the CPU
+        config, share_strategy = router.config, router.share_strategy
+        _mesh_pad, _mesh_pad_rows = router._mesh_pad, router._mesh_pad_rows
+        _pick_inputs = router._pick_inputs
+
+    want = mesh_step(torch, cmesh, Host, cargs, topics)
+    keys = ("matched", "mcount", "flags", "bitmaps", "slots", "slot_count", "overflow")
+    for k in keys:
+        a, b = got.get(k), want.get(k)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+            raise AssertionError(f"rank {mesh.rank}: {k} differs from the twin composition")
+    if {k: int(v) for k, v in got["stats"].items()} != \
+            {k: int(v) for k, v in want["stats"].items()}:
+        raise AssertionError(f"rank {mesh.rank}: stats differ from the twin composition")
+    return {"rows": int(got["matched"].shape[0]), "compared": list(keys) + ["stats"]}
+
+
+def mesh_sem_check(torch, mesh, srouter, sargs, res, topics, q, msgs, filt, oracle) -> dict:
+    """One routed batch with embeddings and rules on the semantic mesh. On
+    every rank: this rank's block (its dp rows x its tp shard's segment of
+    kslot + topk slots) against the twin run on its shard's entries and
+    unioned into its shard's topic slots, as `_sem_rules_local` does; a
+    row that differs must hold the kernel's own winners and pass the f64
+    band check on this shard; the qualifying counts, summed over 'tp',
+    must equal the assembled sem_count (the single-device count). On the
+    lead rank: the topic recipients (every shard's topic segment) against
+    the host oracle, the rule masks against the twin and the numpy masks."""
+    from emqx_tpu_torch.models.router_model import RouteResult
+    from emqx_tpu_torch.ops import semantic_table as ST
+    from emqx_tpu_torch.parallel import mesh as M
+    from emqx_tpu_torch.rules import compile as RC
+
+    per, lo = M.batch_rows(mesh, len(topics))
+    tp = mesh.axis_index("tp")
+    kslot, topk = sargs.kslot, sargs.sem_topk
+    seg = kslot + topk
+    if res.slots.shape != (len(topics), seg * mesh.tp):
+        raise AssertionError(f"semantic mesh slots {res.slots.shape}")
+    block = np.ascontiguousarray(res.slots[lo:lo + per, tp * seg:(tp + 1) * seg])
+    topic = np.ascontiguousarray(block[:, :kslot])
+    dev = mesh.device
+    qd = torch.from_numpy(np.ascontiguousarray(q[lo:lo + per])).to(dev)
+    md = torch.from_numpy(np.ascontiguousarray(res.matched[lo:lo + per])).to(dev)
+    ws, wc, census = sem_twin(torch, sargs.sem_tables, qd, md, topk)
+    want = ST.union_semantic_slots_plain(torch.from_numpy(topic), ws.cpu()).numpy()
+    diff = np.nonzero((block != want).any(axis=1))[0]
+    if len(diff):
+        sel = torch.from_numpy(diff).to(dev)
+        ks, kc = ST.semantic_match_step(sargs.sem_tables, qd[sel].contiguous(),
+                                        md[sel].contiguous(), topk)
+        u = ST.union_semantic_slots_plain(torch.from_numpy(topic[diff]), ks.cpu()).numpy()
+        if not np.array_equal(u, block[diff]):
+            raise AssertionError("semantic mesh rows differ from the kernel's own winners")
+        full_ks = np.full((per, topk), -1, np.int32)
+        full_kc = np.zeros(per, np.int32)
+        full_ks[diff], full_kc[diff] = ks.cpu().numpy(), kc.cpu().numpy()
+        SemHost(srouter.semtab, shard=tp).check(
+            q[lo:lo + per], res.matched[lo:lo + per], diff,
+            [(full_ks, full_kc), (ws.cpu().numpy(), wc.cpu().numpy())], topk)
+    counts = mesh.all_reduce(wc.to(torch.int32).contiguous(), "tp", "check").cpu().numpy()
+    off = np.nonzero(counts != res.sem_count[lo:lo + per])[0]
+    if len(off):
+        SemHost(srouter.semtab, shard=tp).check(
+            q[lo:lo + per], res.matched[lo:lo + per], off, [(ws.cpu().numpy(), wc.cpu().numpy())],
+            topk)
+    out = {"rows_differing_from_twin": int(len(diff)), "count_rows_off": int(len(off)),
+           "band": census}
+    if oracle is not None:
+        topic_all = np.concatenate([res.slots[:, t * seg:t * seg + kslot]
+                                    for t in range(mesh.tp)], axis=1)
+        out.update(check_batch(RouteResult(**{**res._asdict(), "slots": topic_all}),
+                               topics, oracle, kslot=kslot))
+        progs, feats, valid = filt.progs, *filt.features(msgs)
+        plain = RC.eval_rule_masks_plain(progs, torch.from_numpy(feats),
+                                         torch.from_numpy(valid)).numpy()
+        if not (np.array_equal(res.rule_masks, plain)
+                and np.array_equal(plain, filt.host_masks(msgs))):
+            raise AssertionError("mesh rule masks differ from the twin or the host masks")
+        out["semantic_recipients"] = int(sum((res.slots[:, t * seg + kslot:(t + 1) * seg] >= 0)
+                                             .sum() for t in range(mesh.tp)))
+        out["sem_count_mean"] = float(res.sem_count.mean())
+    return out
+
+
+def mesh_compact_kind(torch, mesh, router, args, topics):
+    """compact_fanout_slots with a lane base at mixed_1m's mesh shapes
+    (this rank's rows, its 4 of 8 lane words, at the base tp rank 1
+    writes), against the twin."""
+    from emqx_tpu_torch.models import router_model as R
+
+    per, lo, bm, ln, _tl = mesh_local_inputs(torch, mesh, router, topics)
+    shape, sub = mesh_tables(args)
+    out = R.shape_route_step({**shape, "sub_bitmaps": sub}, bm, ln, m_active=args.m_active,
+                             salt=args.salt, max_levels=MAX_LEVELS, device=mesh.device)
+    bits = out["bitmaps"]
+    B, W = bits.shape
+    base = W * 32  # the lane base of tp rank 1, on this rank's bits
+    kslot = args.kslot
+    return {"compact_fanout_slots/mesh": dict(
+        name="compact_fanout_slots",
+        kernel=lambda: R.compact_fanout_slots_shard(bits, kslot, base),
+        plain=lambda: R.compact_fanout_slots_shard_plain(bits, kslot, base),
+        out=R.compact_fanout_slots_shard(bits, kslot, base),
+        bytes=4 * B * W + 4 * B * kslot + 8 * B,  # words in; slots and the pair out
+        ops=B * W * 32,
+    )}, {"rows": B, "words": W, "lane_base": base, "kslot": kslot}
+
+
+def rank_mesh_1m(mesh, st) -> dict:
+    """mesh_1m_2x2 on one rank: mixed_1m dense (256 slots, 4 of the 8 lane
+    words a tp rank), the retained_5m storm fused into one batch (chunk
+    rows over 'dp'), semantic_256k f32 (2^17 entries a tp rank) with the
+    rule set, and churn; raw outputs against the per-shard twins."""
+    import torch
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import MeshServingRouter
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.parallel import mesh as M
+    from emqx_tpu_torch.rules import compile as RC
+    from emqx_tpu_torch.rules import sql as RS
+
+    lead = mesh.rank == 0
+    index, subtab, ridx, sem, cents = (st[k] for k in ("index", "subtab", "ridx", "sem",
+                                                       "cents"))
+    cfg = MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES)
+    rng = np.random.default_rng(SEED + 50)
+    router = MeshServingRouter(index, subtab, cfg, mesh=mesh)
+    args = router.prepare()
+    if args.kslot != KSLOT or args.tables["sub_bitmaps"].shape[1] != subtab.width_words // mesh.tp:
+        raise AssertionError(f"kslot {args.kslot}, lanes {tuple(args.tables['sub_bitmaps'].shape)}")
+    oracle = Oracle(index, subtab) if lead else None
+    batches = []
+    for _ in range(ROUTE_BATCHES):
+        topics = topic_batch_1m(rng, BATCH)
+        topics[: len(EDGE_TOPICS)] = EDGE_TOPICS
+        batches.append(topics)
+    out = {"rank": mesh.rank}
+
+    kernels.reset_launches()
+    M.reset_collectives()
+    routed = [mesh_route(router, t, oracle, args.kslot)[0] for t in batches]
+    out["collectives_per_batch"] = per_batch(M.COLLECTIVES, len(batches))
+    twin = mesh_twin(torch, mesh, router, args, batches[0]) if mesh.backend == "gloo" else None
+    if lead:
+        phase("mesh_route_1m", batches=routed, twin=twin,
+              collectives_per_batch=out["collectives_per_batch"],
+              device_bytes=mirror_bytes(args.tables))
+
+    # the retained_5m store and its 8,192-filter storm fused into one batch
+    t0 = time.perf_counter()
+    ridx.place(mesh)
+    storm = [f"site/+/dev/{d}/ch/#" for d in range(RET_STORM)]
+    job = ridx.prepare_storm(storm)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    topics = topic_batch_1m(rng, BATCH)
+    M.reset_collectives()
+    t0 = time.perf_counter()
+    fused = router.route_prepared(router.prepare(), topics, retained=job)
+    fused_ms = 1e3 * (time.perf_counter() - t0)
+    fused_coll = {k: dict(v) for k, v in M.COLLECTIVES.items()}
+    plain = router.route(topics)
+    for k in ("matched", "mcount", "flags", "slots", "slot_count", "overflow"):
+        if not np.array_equal(getattr(fused, k), getattr(plain, k)):
+            raise AssertionError(f"fused mesh route half: {k} differs from the unfused route")
+    alone = ridx.match_many(storm)
+    pairs = 0
+    if lead:
+        if not storms_equal(fused.retained, alone):
+            raise AssertionError("the fused mesh storm differs from match_many's")
+        for d, f in enumerate(storm):
+            if not np.array_equal(fused.retained[f], np.arange(d, RET_N, RET_DEVIDS)):
+                raise AssertionError(f"{f}: mesh storm rows differ from the oracle's")
+        pairs = sum(len(v) for v in fused.retained.values())
+        phase("mesh_fused_retained", chunks=len(job.chunks), chunk_rows_per_rank=int(
+            job.chunks[0].shape[0]), chunk_bytes_per_rank=sum(
+                c.numel() * c.element_size() for c in job.chunks), pairs=pairs, prepare_seconds=prep_s,
+            fused_ms=fused_ms, readback_bytes=fused.readback_bytes, collectives=fused_coll,
+            chunk_mirror=ridx._seg.counters())
+
+    # semantic_256k (f32, slot-owner shards over 'tp') with the rule set
+    filt = rule_filter(RULES_SQL, RS, RC)
+    srouter = MeshServingRouter(index, subtab, cfg, semtab=sem, mesh=mesh)
+    t0 = time.perf_counter()
+    sargs = srouter.prepare()
+    torch.cuda.synchronize()
+    sem_upload_s = time.perf_counter() - t0
+    if sargs.sem_tables["sem_vec"].shape[0] != 1 or sem.shards != mesh.tp:
+        raise AssertionError("the semantic mirror is not this rank's shard")
+    M.reset_collectives()
+    semantic = []
+    for _ in range(SEM_ROUTE_BATCHES):
+        topics, q, msgs = sem_batch(rng, cents, BATCH, edge=True)
+        t0 = time.perf_counter()
+        res = srouter.route(topics, embeds=q, rules=(filt.progs, *filt.features(msgs)))
+        wall = 1e3 * (time.perf_counter() - t0)
+        semantic.append({"route_ms": wall, **mesh_sem_check(
+            torch, mesh, srouter, sargs, res, topics, q, msgs, filt, oracle)})
+    out["sem_collectives"] = {k: dict(v) for k, v in M.COLLECTIVES.items()}
+    if lead:
+        phase("mesh_route_semantic", batches=semantic, upload_seconds=sem_upload_s,
+              sem_bytes=mirror_bytes(sargs.sem_tables), collectives=out["sem_collectives"])
+
+    # churn: 100 subscribers on device/7/# (its rows pass kslot on tp shard
+    # 0: the dense rows come back through the second gather), then their
+    # removal; semantic churn step A; mirrors against host slices after each
+    mirrors = {}
+    fid = index.add("device/7/#")
+    churn_slots = [s for s in range(100) if s not in slot_set(subtab.arr[fid])]
+    churn_topics = topic_batch_1m(rng, BATCH)
+    churn_topics[:64] = [f"device/7/mid/{j}/leaf" for j in range(64)]
+    for s in churn_slots:
+        subtab.add(fid, s)
+    rec_sub, _ = mesh_route(router, churn_topics, oracle, args.kslot)
+    mirrors["subscribe"] = mesh_mirrors(torch, [(router._shape_sync, index.shapes),
+                                                (router._bits_sync, subtab)])
+    if lead and not rec_sub["overflow_rows"]:
+        raise AssertionError("mesh churn produced no overflow rows")
+    for s in churn_slots:
+        subtab.remove(fid, s)
+    index.remove("device/7/#")
+    rec_unsub, _ = mesh_route(router, churn_topics, oracle, args.kslot)
+    mirrors["unsubscribe"] = mesh_mirrors(torch, [(router._shape_sync, index.shapes),
+                                                  (router._bits_sync, subtab)])
+    c0 = srouter.segment_status()["semantic"]
+    sem_churn(rng, sem, cents, index, SEM_CHURN[0], 50, SEM_CHURN[0], 1 << 20)
+    t0 = time.perf_counter()
+    srouter.prepare()
+    torch.cuda.synchronize()
+    sem_sync_ms = 1e3 * (time.perf_counter() - t0)
+    c1 = srouter.segment_status()["semantic"]
+    mirrors["semantic"] = mesh_mirrors(torch, [(srouter._sem_sync, sem)])
+    sem_moved = {k: c1[k] - c0[k] for k in c1}
+    topics, q, msgs = sem_batch(rng, cents, BATCH)
+    res = srouter.route(topics, embeds=q, rules=(filt.progs, *filt.features(msgs)))
+    sem_after = mesh_sem_check(torch, mesh, srouter, srouter.prepare(), res, topics, q, msgs,
+                               filt, oracle)
+    out["launches"] = dict(kernels.LAUNCHES)
+    path = ("tokenize", "shape_match", "fanout_bitmaps", "compact_fanout_slots",
+            "row_lengths", "narrow_i16", "semantic_match", "rule_masks", "segment_scatter")
+    if not all(out["launches"][k] for k in path) or out["launches"]["sparse_fanout_slots"]:
+        raise AssertionError(f"rank {mesh.rank}: mesh_1m_2x2 launches {out['launches']}")
+    out["mirrors"], out["sem_moved"] = mirrors, sem_moved
+    if lead:
+        phase("mesh_churn_1m", subscribe=rec_sub, unsubscribe=rec_unsub,
+              semantic={"mirror_moved": sem_moved, "sync_ms": sem_sync_ms,
+                        "route": sem_after})
+
+    # compact_fanout_slots with its lane base, timed on the lead rank alone
+    out["report"] = comp = None
+    if lead:
+        args = router.prepare()
+        kinds, info = mesh_compact_kind(torch, mesh, router, args, batches[0])
+        out["report"] = kernel_report(torch, kinds)
+        comp = mesh_composite_bound(torch, mesh, router, args, batches[0],
+                                    ("tokenize", "shape_match", "fanout_bitmaps",
+                                     "compact_fanout_slots"))
+        phase("kernel_inputs_mesh_1m", **info)
+    mesh_barrier(torch, mesh)
+    out["breakdown"] = mesh_breakdown(torch, mesh, router,
+                                      [topic_batch_1m(rng, BATCH) for _ in range(3)])
+    if lead:
+        phase("mesh_route_breakdown_1m", **out["breakdown"], composite_bound_ms=comp)
+    return out
+
+
+def rank_mesh_nccl1(mesh, st) -> dict:
+    """mesh_1m_nccl1: a world of one NCCL rank; its MeshServingRouter must
+    equal DeviceRouter.route on the same batches, bit for bit."""
+    import torch
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import DeviceRouter, MeshServingRouter
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.parallel import mesh as M
+
+    index, subtab = st["index"], st["subtab"]
+    cfg = MatcherConfig(max_levels=MAX_LEVELS, max_bytes=MAX_BYTES)
+    router = MeshServingRouter(index, subtab, cfg, mesh=mesh)
+    single = DeviceRouter(index, subtab, cfg, device=mesh.device)
+    rng = np.random.default_rng(SEED + 60)
+    batches = [topic_batch_1m(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+    batches[0][: len(EDGE_TOPICS)] = EDGE_TOPICS
+    fid = index.add("device/7/#")
+    churn_topics = topic_batch_1m(rng, BATCH)
+    churn_topics[:64] = [f"device/7/mid/{j}/leaf" for j in range(64)]
+
+    def compare(topics):
+        a, b = router.route(topics), single.route(topics)
+        for k in ("matched", "mcount", "flags", "bitmaps", "slots", "slot_count", "overflow"):
+            x, y = getattr(a, k), getattr(b, k)
+            if (x is None) != (y is None) or (x is not None and not np.array_equal(x, y)):
+                raise AssertionError(f"nccl1: {k} differs from DeviceRouter.route")
+        if a.dense_index != b.dense_index or any(
+                not np.array_equal(a.dense_rows[j], b.dense_rows[j])
+                for j in range(len(a.dense_index or ()))):
+            raise AssertionError("nccl1: dense rows differ from DeviceRouter.route")
+        return int(a.overflow.sum())
+
+    kernels.reset_launches()
+    M.reset_collectives()
+    ovf = [compare(t) for t in batches]
+    coll = per_batch(M.COLLECTIVES, len(batches))
+    churn_slots = [s for s in range(100) if s not in slot_set(subtab.arr[fid])]
+    for s in churn_slots:
+        subtab.add(fid, s)
+    ovf.append(compare(churn_topics))
+    launches = dict(kernels.LAUNCHES)
+    if not ovf[-1] or not all(launches[k] for k in ("tokenize", "shape_match", "fanout_bitmaps",
+                                                       "compact_fanout_slots")):
+        raise AssertionError(f"nccl1: overflow {ovf}, launches {launches}")
+    brk = mesh_breakdown(torch, mesh, router, [topic_batch_1m(rng, BATCH) for _ in range(3)])
+    phase("mesh_1m_nccl1", backend=mesh.backend, world=mesh.world, batches=len(ovf),
+          overflow_rows=ovf, collectives_per_batch=coll, launches=launches,
+          breakdown=brk, equal_to_device_router=True)
+    return {"launches": launches, "collectives_per_batch": coll, "breakdown": brk}
+
+
+def mesh_check_ranks(name: str, ranks: list) -> None:
+    """Every rank took the same mirror decisions (a delta is a launch or a
+    skip); the per-rank summary line."""
+    def decision(c):
+        return c["full_resyncs"], c["array_resyncs"], c["delta_launches"] + c["delta_skipped"]
+
+    for r in ranks[1:]:
+        for step, mirrors in r["mirrors"].items():
+            for m, c in mirrors.items():
+                if decision(ranks[0]["mirrors"][step][m]) != decision(c):
+                    raise AssertionError(f"{name}/{step}/{m}: rank {r['rank']} decided {c}")
+    phase(f"{name}_ranks", ranks=[{k: r.get(k) for k in ("rank", "launches", "collectives",
+                                                          "collectives_per_batch", "mirrors",
+                                                          "moved", "sem_moved")}
+                                   for r in ranks])
+
+
+def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
+    """The mesh paths, in a process that never touches CUDA itself: it
+    builds every path's host tables first (with `wait`, while the calling
+    process runs the earlier paths, then it waits for a line on its
+    standard input; at end of input it exits without running), then
+    `parallel.launch` forks the ranks, which share the tables
+    copy-on-write. Prints the mesh kernels' entries as one `mesh_report`
+    line for the calling process."""
+    from emqx_tpu_torch.models.retained_index import DeviceRetainedIndex
+    from emqx_tpu_torch.parallel import launch
+
+    reduced = mesh_reduced(backend, n_gpu)
+    out = {"backend": backend, "reduced": reduced}
+    t0 = time.perf_counter()
+    index, subtab, grouptab, secs = build_share(shards=MESH_TP)
+    phase("tables_mesh_share", filters=len(index), subscriptions=subtab.live,
+          shards=subtab.shards, groups=len(grouptab), build_seconds=time.perf_counter() - t0,
+          build_stage_seconds=secs, backend=backend, ranks=MESH_WORLD, tp=MESH_TP,
+          reduced=reduced)
+    t0 = time.perf_counter()
+    index1, subtab1 = build_mixed_1m()
+    t1 = time.perf_counter()
+    ridx = DeviceRetainedIndex(max_bytes=RET_MAX_BYTES, max_levels=MAX_LEVELS, device="cpu")
+    if ridx.bulk_add(retained_topics(range(RET_N))) != RET_N:
+        raise AssertionError("bulk_add refused topics")
+    t2 = time.perf_counter()
+    cents = np.random.default_rng(SEED + 7).normal(size=(SEM_CENTROIDS, SEM_DIM))
+    cents = (cents / np.linalg.norm(cents, axis=1, keepdims=True)).astype(np.float32)
+    sem, sem_stages = build_semantic(np.random.default_rng(SEED + 8), index1, "float32", cents,
+                                     shards=MESH_TP)
+    t3 = time.perf_counter()
+    phase("tables_mesh_1m", filters=len(index1), subscriptions=subtab1.live,
+          width_words=subtab1.width_words, retained_topics=len(ridx), chunks=len(ridx._host_b),
+          semantic_entries=len(sem), semantic_shards=sem.shards,
+          semantic_shard_entries=[int((sem.sem_slot[t] >= 0).sum()) for t in range(sem.shards)],
+          semantic_shard_capacity=sem._pcap,
+          build_seconds={"mixed_1m": t1 - t0, "retained_5m": t2 - t1,
+                         "semantic_256k": t3 - t2, "semantic_stages": sem_stages},
+          backend=backend, ranks=MESH_WORLD, tp=MESH_TP, reduced=reduced)
+    if wait and not sys.stdin.readline():
+        return 3  # the calling process ended before it asked for the paths
+    t_all = time.perf_counter()
+
+    # 1. mesh_share_2x2
+    t0 = time.perf_counter()
+    ranks = launch.run(rank_mesh_share, MESH_WORLD, backend=backend, tp=MESH_TP,
+                       timeout=MESH_TIMEOUT["share"],
+                       state={"index": index, "subtab": subtab, "grouptab": grouptab})
+    mesh_check_ranks("mesh_share_2x2", ranks)
+    out["share"] = {"report": ranks[0]["report"], "launches": ranks[0]["launches"],
+                    "seconds": time.perf_counter() - t0}
+    phase("mesh_share_seconds", seconds=time.perf_counter() - t0)
+    del index, subtab, grouptab, ranks
+    gc.collect()
+
+    # 2. mesh_1m_2x2 and 3. mesh_1m_nccl1
+    t0 = time.perf_counter()
+    ranks = launch.run(rank_mesh_1m, MESH_WORLD, backend=backend, tp=MESH_TP,
+                       timeout=MESH_TIMEOUT["1m"],
+                       state={"index": index1, "subtab": subtab1, "ridx": ridx, "sem": sem,
+                              "cents": cents})
+    mesh_check_ranks("mesh_1m_2x2", ranks)
+    out["1m"] = {"report": ranks[0]["report"], "launches": ranks[0]["launches"],
+                 "seconds": time.perf_counter() - t0}
+    phase("mesh_1m_seconds", seconds=time.perf_counter() - t0)
+    del ranks
+    t0 = time.perf_counter()
+    nccl1 = launch.run(rank_mesh_nccl1, 1, backend="nccl", tp=1,
+                       timeout=MESH_TIMEOUT["nccl1"], state={"index": index1, "subtab": subtab1})
+    out["nccl1"] = {"launches": nccl1[0]["launches"], "seconds": time.perf_counter() - t0}
+    phase("mesh_seconds", seconds=time.perf_counter() - t_all)
+    print(json.dumps({"mesh_report": out}), flush=True)
+    return 0
+
+
+def mesh_start(torch):
+    """Start the mesh paths' process (`python3 chip_smoke.py --mesh BACKEND
+    GPUS`: a process that has used CUDA cannot fork ranks that use it). It
+    builds its host tables while this process runs the earlier paths, then
+    waits for `mesh_finish`. 4 ranks on NCCL with four GPUs or more, else
+    4 gloo ranks sharing cuda:0. -> (process, backend)."""
+    import os
+
+    n_gpu = torch.cuda.device_count()
+    backend = "nccl" if n_gpu >= MESH_WORLD else "gloo"
+    # a session of its own: killing it (`mesh_kill`) takes its ranks too
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh", backend,
+                             str(n_gpu)], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True, bufsize=1, start_new_session=True)
+    return proc
+
+
+def mesh_kill(proc) -> None:
+    """Kill the mesh process and every rank it forked, if any is left."""
+    import os
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def mesh_finish(torch, proc) -> dict:
+    """Phases 28-30: let the mesh process run its paths, relay its lines,
+    -> the `mesh_report` it printed. Raises when it fails or outlives
+    MESH_DEADLINE (then it is killed with its ranks)."""
+    import threading
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    watchdog = threading.Timer(MESH_DEADLINE, mesh_kill, (proc,))
+    watchdog.start()
+    report = None
+    try:
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+        for line in proc.stdout:
+            if line.startswith('{"mesh_report"'):
+                report = json.loads(line)["mesh_report"]
+                continue
+            print(line, end="", flush=True)
+        rc = proc.wait()
+    finally:
+        watchdog.cancel()
+        mesh_kill(proc)
+    if rc != 0 or report is None:
+        raise AssertionError(f"the mesh paths failed (exit code {rc})")
+    return report
 
 
 def main() -> int:
@@ -3227,6 +4212,14 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     build.load()
+    mesh_proc = mesh_start(torch)  # builds the mesh paths' tables meanwhile
+    try:
+        return run_paths(torch, build, card, t0, mesh_proc)
+    finally:
+        mesh_kill(mesh_proc)
+
+
+def run_paths(torch, build, card, t0, mesh_proc) -> int:
     phase("toolchain", card=card, python=sys.version.split()[0],
           torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_version(),
           build_seconds=time.perf_counter() - t0)
@@ -3278,9 +4271,28 @@ def main() -> int:
     t0 = time.perf_counter()
     sem_report, sem_launches = semantic_path(torch, rng, router_1m)
     phase("semantic_seconds", seconds=time.perf_counter() - t0)
-    # and the semantic path's two (semantic_match with its f32 table)
+    # and the semantic path's two (semantic_match with its f32 table), and
+    # the scatter's float lanes beside its int32 case
     for k in ("semantic_match", "rule_masks"):
         report[k] = {**sem_report[k], "launches": sem_launches[k]}
+    report["segment_scatter"]["lanes"] = sem_report["segment_scatter_lanes"]
+    del sem_report, router_1m
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the mesh paths: group_counts joins the line; compact_fanout_slots and
+    # share_pick gain their mesh cases (lane base, rank offsets)
+    t0 = time.perf_counter()
+    mesh = mesh_finish(torch, mesh_proc)
+    phase("mesh_paths_seconds", seconds=time.perf_counter() - t0, backend=mesh["backend"],
+          reduced=mesh["reduced"])
+    share_mesh, launches_share = mesh["share"]["report"], mesh["share"]["launches"]
+    report["group_counts"] = {**share_mesh["group_counts"],
+                              "launches": launches_share["group_counts"]}
+    report["share_pick"]["mesh"] = {**share_mesh["share_pick/mesh"],
+                                    "launches": launches_share["share_pick"]}
+    report["compact_fanout_slots"]["mesh"] = {
+        **mesh["1m"]["report"]["compact_fanout_slots/mesh"],
+        "launches": mesh["1m"]["launches"]["compact_fanout_slots"]}
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3290,4 +4302,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh"]:  # the mesh paths' own process (mesh_start)
+        # with --now it runs at once (the mesh paths alone, e.g. on a
+        # four-GPU host: `--mesh nccl 4 --now`)
+        sys.exit(mesh_main(sys.argv[2], int(sys.argv[3]), wait="--now" not in sys.argv))
     sys.exit(main())

@@ -20,7 +20,10 @@ semantic routing plane and compiled rule masks
 (`ops.semantic_table.SemanticTable`, the fifth mirrored table, and
 `rules.compile.DeviceRuleFilter`: `DeviceRouter(semtab=...)
 .route(topics, embeds=, rules=)` runs the similarity top-k and the WHERE
-masks in the same call and the same readback).
+masks in the same call and the same readback); and all of it on a
+('dp', 'tp') mesh of ranks (`parallel.mesh`, `parallel.launch`:
+`MeshServingRouter` over sharded mirrors, the same kernels on each rank's
+rows and shard, all-reduces and all-gathers on torch.distributed).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
@@ -33,6 +36,7 @@ from emqx_tpu_torch.models.retained_index import DeviceRetainedIndex, StormJob
 from emqx_tpu_torch.models.router_model import (
     DeviceRouter,
     GroupTable,
+    MeshServingRouter,
     Prepared,
     RouteResult,
     SubscriberTable,
@@ -50,6 +54,7 @@ __all__ = [
     "DeviceRuleFilter",
     "DeviceSegmentManager",
     "GroupTable",
+    "MeshServingRouter",
     "Prepared",
     "RouteIndex",
     "RouteResult",

@@ -17,6 +17,16 @@ through it;
 `tables_to_device` gathers the shape tables and the subscriber bitmaps
 into the one dict `models.router_model.shape_route_step` reads.
 
+On a ('dp', 'tp') mesh (`parallel.mesh`) every rank holds the same host
+tables and uploads only its own part of each array: `upload(...,
+placement=)` with a `Replicated` placement (match tables, storm filter
+tables, group tables) or a `Block` one (dense bitmap lanes over 'tp' on
+axis 1, CSR and semantic slot-owner shards over 'tp' on axis 0, retained
+chunk rows over 'dp' on axis 0), the counterparts of the JAX placements
+(emqx_tpu/parallel/mesh.py:795-857). A placement also maps an op-log
+write's global flat index to this rank's local one (`local_writes`), so a
+mirror replays only the writes it owns.
+
 `resolve_device` is the one place an entry point turns its `device`
 argument into a torch device: CUDA unless the caller asks for the CPU, and
 an error — never a quiet move to the CPU — when CUDA is asked for and
@@ -92,12 +102,78 @@ def _to_device(arr: np.ndarray, name: str, device) -> torch.Tensor:
     return t.view(torch.bfloat16) if np.asarray(arr).dtype == BF16 else t
 
 
-def upload(snapshot: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+class Replicated:
+    """Every rank holds the whole array (JAX's ``P()``). Called as
+    ``placement(name, array)`` (a numpy array or a tensor) it returns this
+    rank's tensor on `device`, as the JAX placements return a placed
+    array."""
+
+    def __init__(self, device=None):
+        self.device = device
+
+    def __call__(self, name: str, arr) -> torch.Tensor:
+        if isinstance(arr, torch.Tensor):
+            return self.place(name, arr).contiguous().to(resolve_device(self.device))
+        return upload({name: arr}, self.device or "cuda", self)[name]
+
+    def place(self, name: str, arr):
+        """`arr` (numpy or tensor) -> this rank's part of it, a view."""
+        return arr
+
+    def local_writes(self, name: str, shape, idx: np.ndarray):
+        """Global flat indices of `name` (an array of `shape`) -> (mask of
+        the writes this rank owns, their local flat indices)."""
+        return np.ones(len(idx), bool), idx
+
+
+class Block(Replicated):
+    """Axis `axis` cut into `parts` equal blocks; this rank holds block
+    `index` (JAX's ``P(None, "tp")`` for axis 1, ``P("tp")`` /
+    ``P("dp", None)`` for axis 0). Raises when the axis does not divide."""
+
+    def __init__(self, axis: int, parts: int, index: int, device=None):
+        if parts < 1 or not 0 <= index < parts:
+            raise ValueError(f"block {index} of {parts}")
+        super().__init__(device)
+        self.axis, self.parts, self.index = axis, parts, index
+
+    def _block(self, name: str, shape) -> int:
+        if len(shape) <= self.axis or shape[self.axis] % self.parts:
+            raise ValueError(
+                f"{name}: axis {self.axis} of shape {tuple(shape)} does not "
+                f"split into {self.parts} equal blocks"
+            )
+        return shape[self.axis] // self.parts
+
+    def place(self, name: str, arr):
+        blk = self._block(name, tuple(arr.shape))
+        sl = [slice(None)] * arr.ndim
+        sl[self.axis] = slice(self.index * blk, (self.index + 1) * blk)
+        return arr[tuple(sl)]
+
+    def local_writes(self, name: str, shape, idx: np.ndarray):
+        blk = self._block(name, shape)
+        inner = int(np.prod(shape[self.axis + 1:], dtype=np.int64))
+        n_ax = shape[self.axis]
+        idx = np.asarray(idx, np.int64)
+        outer, rest = np.divmod(idx, n_ax * inner)
+        a, r = np.divmod(rest, inner)
+        lo = self.index * blk
+        mask = (a >= lo) & (a < lo + blk)
+        local = (outer * blk + (a - lo)) * inner + r
+        return mask, local[mask]
+
+
+def upload(snapshot: Dict[str, np.ndarray], device="cuda",
+           placement=None) -> Dict[str, torch.Tensor]:
     """{name: host array} -> {name: fresh tensor on `device`} of the same
-    shapes and bits: int32 for the int32 and uint32 arrays, uint8 for byte
-    arrays, float32 for float32 lanes, bfloat16 for `BF16` arrays."""
+    bits: int32 for the int32 and uint32 arrays, uint8 for byte arrays,
+    float32 for float32 lanes, bfloat16 for `BF16` arrays. With a
+    `placement` each tensor holds this rank's part of its array (`Block`),
+    or all of it (`Replicated`, the default)."""
     dev = resolve_device(device)
-    return {k: _to_device(v, k, dev) for k, v in snapshot.items()}
+    place = placement.place if placement is not None else (lambda _k, v: v)
+    return {k: _to_device(place(k, v), k, dev) for k, v in snapshot.items()}
 
 
 def tables_to_device(

@@ -5,7 +5,9 @@ Each kernel lives beside its plain PyTorch twin in the module of its JAX
 counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
 `ops/segments.py`, `ops/csr_table.py`, `ops/session_table.py`,
 `ops/semantic_table.py`, `rules/compile.py`, `models/router_model.py`,
-`models/retained_index.py`). A
+`models/retained_index.py`; the mesh's lane-based compaction, group
+counts and rank-offset picks sit beside their single-device forms in
+`models/router_model.py`). A
 wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (built at first use by `build.load`) and raises on any failure
 — there is no fallback from one to the other.
@@ -37,6 +39,7 @@ LAUNCHES = {
     "session_sweep": 0,
     "semantic_match": 0,
     "rule_masks": 0,
+    "group_counts": 0,
 }
 
 

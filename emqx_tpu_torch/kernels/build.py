@@ -52,8 +52,8 @@ _SIGNATURES = {
     ),
     # sub_bitmaps, fcap, matched, out, popcount, B, K, W, stream
     "emqx_fanout_bitmaps": (_P, _L, _P, _P, _P, _I, _I, _I, _P),
-    # bitmaps, slots, count, overflow, B, W, kslot, stream
-    "emqx_compact_fanout_slots": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # bitmaps, slots, count, overflow, pair, B, W, kslot, lane_base, stream
+    "emqx_compact_fanout_slots": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # h1, h2, vocab_h1, vocab_h2, vocab_sym, V, sym, n, probes, stream
     "emqx_vocab_lookup": (_P, _P, _P, _P, _P, _L, _P, _L, _I, _P),
     # syms, nwords, dollar, plus_child, hash_filter, term_filter, edge_node,
@@ -71,10 +71,13 @@ _SIGNATURES = {
     ),
     # filter_groups, Fcap, GPF, group_len, group_rr, group_sticky, Gcap,
     # matched, occ, client_hash, topic_hash, rand, pick_gid, pick_idx, B,
-    # K, strategy, phase, stream
+    # K, strategy, phase, all_counts, dp_rank, stream
     "emqx_share_pick": (
-        _P, _L, _I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+        _P, _L, _I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _P, _I, _P,
     ),
+    # gids, n, counts, gcap, stream
+    "emqx_group_counts": (_P, _L, _P, _L, _P),
     # gids, keys (n uint64), n, stream
     "emqx_occ_tile_sort": (_P, _P, _L, _P),
     # keys in, keys out, n, run, stream
@@ -176,16 +179,24 @@ def _build(target: Path) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+def library_path() -> Path:
+    """-> the built library's path, building it first if this checkout's
+    sources have none yet. Runs `nvcc` only and makes no CUDA call, so a
+    process that forks workers (`parallel.launch`) builds once, before the
+    fork, and every worker only loads."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libemqx_kernels-{_tag()}.so"
+    if not target.exists():
+        _build(target)
+    return target
+
+
 def load():
     """-> the ctypes library with every launcher bound (built if needed)."""
     global _lib
     if _lib is not None:
         return _lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"libemqx_kernels-{_tag()}.so"
-    if not target.exists():
-        _build(target)
-    lib = ctypes.CDLL(str(target))
+    lib = ctypes.CDLL(str(library_path()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

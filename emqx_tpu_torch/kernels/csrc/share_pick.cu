@@ -22,6 +22,15 @@
 // the occurrence index that round-robin needs (kernel 10); phase 1 writes
 // the picks.
 //
+// The mesh branch (`dp_axis`, emqx_tpu/models/router_model.py:942-962):
+// with the batch split over 'dp', a round-robin lane's rank within its
+// group must count the lanes of lower dp ranks too. `all_counts` [dp,
+// gcap] holds every dp rank's per-group lane counts (group_counts.cu,
+// then an all-gather); phase 1 adds prev[g], the sum of the rows below
+// `dp_rank`, to the local occurrence before the modulo, in the same
+// launch: O(dp) reads a lane, no pass of its own. A null `all_counts` is
+// the single-device kernel, bit for bit.
+//
 // Bound: bytes. Each lane reads one filter_groups word and two or three
 // group words and writes two words; a few integer operations. Design: one
 // thread per lane; neighbouring lanes of one fid read neighbouring words.
@@ -39,7 +48,7 @@ __global__ void share_pick_kernel(
     const int32_t* __restrict__ ch, const int32_t* __restrict__ th,
     const int32_t* __restrict__ rnd, int32_t* __restrict__ pick_gid,
     int32_t* __restrict__ pick_idx, long long n, int K, int strategy,
-    int phase) {
+    int phase, const int32_t* __restrict__ all_counts, int dp_rank) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n) return;
@@ -64,8 +73,13 @@ __global__ void share_pick_kernel(
   int32_t idx;
   switch (strategy) {
     case 1: {
-      const int32_t a = static_cast<int32_t>(static_cast<uint32_t>(grr[gs]) +
-                                             static_cast<uint32_t>(occ[i]));
+      uint32_t o = static_cast<uint32_t>(occ[i]);
+      if (all_counts != nullptr) {
+        for (int r = 0; r < dp_rank; ++r)
+          o += static_cast<uint32_t>(all_counts[r * gcap + gs]);
+      }
+      const int32_t a =
+          static_cast<int32_t>(static_cast<uint32_t>(grr[gs]) + o);
       int32_t r = a % denom;
       if (r < 0) r += denom;  // floored: the divisor is >= 1
       idx = r;
@@ -100,7 +114,8 @@ EMQX_EXPORT int emqx_share_pick(
     const void* grr, const void* gsticky, long long gcap,
     const void* matched, const void* occ, const void* ch, const void* th,
     const void* rnd, void* pick_gid, void* pick_idx, int B, int K,
-    int strategy, int phase, void* stream) {
+    int strategy, int phase, const void* all_counts, int dp_rank,
+    void* stream) {
   const long long n = static_cast<long long>(B) * K * gpf;
   if (n > 0) {
     share_pick_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
@@ -111,7 +126,8 @@ EMQX_EXPORT int emqx_share_pick(
         static_cast<const int32_t*>(matched), static_cast<const int32_t*>(occ),
         static_cast<const int32_t*>(ch), static_cast<const int32_t*>(th),
         static_cast<const int32_t*>(rnd), static_cast<int32_t*>(pick_gid),
-        static_cast<int32_t*>(pick_idx), n, K, strategy, phase);
+        static_cast<int32_t*>(pick_idx), n, K, strategy, phase,
+        static_cast<const int32_t*>(all_counts), dp_rank);
   }
   return static_cast<int>(cudaGetLastError());
 }

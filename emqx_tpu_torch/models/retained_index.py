@@ -25,7 +25,13 @@ alone, and only a change of the bucket width pays a full upload. A storm's
 filter tables are uploaded per storm and never mirrored.
 
 `CHUNK` is read at call time, as a module global, in the JAX module too.
-Not in the port yet: the mesh placement (`mesh=` raises).
+
+On a ('dp', 'tp') mesh (`mesh=`, or `place(mesh)` for an index whose host
+state was built before the ranks existed) the chunk mirror holds this
+rank's 'dp' block of every chunk's rows (`parallel.mesh
+.retained_placement`) and a storm's filter tables are replicated: each
+rank matches its block, and `match` / `match_many` gather the blocks over
+'dp'; a `MeshServingRouter` fuses them into its batch's one gather.
 """
 
 from __future__ import annotations
@@ -168,7 +174,8 @@ class StormJob(NamedTuple):
 class DeviceRetainedIndex:
     """The retained topics of one node, on the device, for replay storms.
     The counterpart of `DeviceRetainedIndex`
-    (emqx_tpu/models/retained_index.py:110), single device."""
+    (emqx_tpu/models/retained_index.py:110), with its mesh placement
+    (`:117-156`)."""
 
     # retained churn is row-granular (up to `bucket` logged bytes per
     # insert or delete), so the op-log cap sits higher than the index
@@ -176,13 +183,10 @@ class DeviceRetainedIndex:
     OPLOG_MAX = 1 << 18
 
     def __init__(self, max_bytes: int = 64, max_levels: int = 8, mesh=None,
-                 device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-placed retained index belongs to the port's mesh "
-                "slice (ROADMAP Queue 1, item 11)"
-            )
-        self.device = resolve_device(device)
+                 device=None):
+        """`mesh`: a `parallel.mesh.Mesh` rank: the chunk mirror uploads
+        this rank's 'dp' row block and storms run on the mesh's device.
+        Without a mesh, `device` defaults to CUDA."""
         self.max_bytes = max_bytes  # hard cap (device-budget gate)
         self.max_levels = max_levels
         # storage width: a pow2 bucket grown to the longest stored topic
@@ -192,10 +196,30 @@ class DeviceRetainedIndex:
         self._free: List[int] = []
         self._tombstones = 0  # live rows removed
         self._host_b: List[np.ndarray] = []  # mirrored-array
-        self._seg = DeviceSegmentManager(self.device, name="retained")
         self.epoch = 0
         self.oplog: list = []
         self.version = 0
+        self.mesh = None
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
+            self.place(mesh)
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
+            self._seg = DeviceSegmentManager(self.device, name="retained")
+
+    def place(self, mesh) -> None:
+        """Serve from rank `mesh` of a ('dp', 'tp') mesh: a fresh chunk
+        mirror holding this rank's 'dp' row block (its first sync is a full
+        upload). For host state built before the ranks existed (a launcher
+        builds the store once and forks), as JAX's constructor takes
+        `mesh=`."""
+        from emqx_tpu_torch.parallel.mesh import retained_placement
+
+        self.mesh = mesh
+        self.device = mesh.device
+        self._seg = DeviceSegmentManager(self.device, name="retained",
+                                         placement=retained_placement(mesh))
 
     # -- delta protocol -----------------------------------------------------
     def device_snapshot(self) -> Dict[str, np.ndarray]:
@@ -346,11 +370,16 @@ class DeviceRetainedIndex:
         return [segs[f"chunk_{c}"] for c in range(len(self._host_b))]
 
     def _launch_all(self, shape_tables, nfa_tables, kwargs) -> List[torch.Tensor]:
-        """One storm launch per chunk, all before any readback."""
-        return [
+        """One storm launch per chunk, all before any readback; on a mesh,
+        this rank's row blocks, gathered over 'dp' into whole chunks."""
+        outs = [
             retained_step(shape_tables, nfa_tables, d, **kwargs)
             for d in self._ensure_chunks()
         ]
+        if self.mesh is None:
+            return outs
+        return [self.mesh.all_gather(m, "dp", "retained").reshape(-1, m.shape[1])
+                for m in outs]
 
     def prepare_storm(self, filters: List[str]) -> Optional[StormJob]:
         """Build one storm's filter tables and sync the chunks, so that the

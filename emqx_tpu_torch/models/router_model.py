@@ -40,9 +40,15 @@ only for CPU tensors. The device copies of the shape index, the NFA, the
 subscriber table, the group table and the semantic table are kept current
 by five `ops.segments.DeviceSegmentManager` mirrors (O(delta) scatters).
 
+On a ('dp', 'tp') mesh (`parallel.mesh`) each process is one rank: a
+`DeviceRouter(mesh=)` or `MeshServingRouter` mirrors its part of every
+table, runs the same kernels on its 'dp' rows and 'tp' shard (the dense
+compaction with a lane base, the round-robin picks with the lower dp
+ranks' group counts), and assembles the global result from one
+all-gather (`_route_mesh`, `_readback_mesh`).
+
 Not in the port yet: background compaction (`CsrSegmentOwner`,
-`SemanticSegmentOwner`) and the mesh (`SubscriberTable.set_shards` and
-`SemanticTable(shards=)` refuse more than one shard).
+`SemanticSegmentOwner`).
 """
 
 from __future__ import annotations
@@ -168,11 +174,47 @@ def compact_fanout_slots(bitmaps, kslot: int):
         slots.data_ptr(),
         count.data_ptr(),
         overflow.data_ptr(),
+        None,
         B,
         W,
         kslot,
+        0,
     )
     return slots, count, overflow
+
+
+def compact_fanout_slots_shard_plain(bitmaps, kslot: int, lane_base: int):
+    """Plain PyTorch twin of `compact_fanout_slots_shard` (any device)."""
+    slots, count, overflow = compact_fanout_slots_plain(bitmaps, kslot)
+    slots = torch.where(slots >= 0, slots + lane_base, slots)
+    return slots, torch.stack([count, overflow.to(torch.int32)])
+
+
+def compact_fanout_slots_shard(bitmaps, kslot: int, lane_base: int):
+    """One 'tp' shard's compaction on a mesh (kernel 4 with a lane base).
+
+    bitmaps int32 [B, W] holds this shard's lane slice; ``lane_base`` =
+    tp rank x W x 32. -> (slots int32 [B, kslot], GLOBAL slot ids, -1
+    padded; pair int32 [2, B]: the uncapped local count and the local
+    overflow as 0/1, one buffer for the 'tp' all-reduce). Replaces the
+    dense branch of the mesh builders (emqx_tpu/parallel/mesh.py:372-384):
+    `compact_fanout_slots`, then `jnp.where(slots >= 0, slots + off, -1)`,
+    in the kernel's one store."""
+    kernels.check_tensor(bitmaps, "bitmaps", torch.int32, 2)
+    if kslot < 1:
+        raise ValueError(f"kslot must be >= 1, got {kslot}")
+    B, W = bitmaps.shape
+    if lane_base < 0 or lane_base + W * 32 >= 1 << 31:
+        raise ValueError(f"lane_base {lane_base} with {W} words leaves int32")
+    if not kernels.on_cuda(bitmaps):
+        return compact_fanout_slots_shard_plain(bitmaps, kslot, lane_base)
+    dev = bitmaps.device
+    slots = torch.empty((B, kslot), dtype=torch.int32, device=dev)
+    pair = torch.empty((2, B), dtype=torch.int32, device=dev)
+    kernels.launch("compact_fanout_slots", "emqx_compact_fanout_slots", dev,
+                   bitmaps.data_ptr(), slots.data_ptr(), None, None,
+                   pair.data_ptr(), B, W, kslot, lane_base)
+    return slots, pair
 
 
 # -- kernel 10: per-group occurrence rank ------------------------------------
@@ -264,13 +306,46 @@ def _group_lanes(group_tables, matched):
     return gids, gids.clamp(min=0)
 
 
+def group_counts_plain(gids, gcap: int):
+    """Plain PyTorch twin of the `group_counts` kernel (any device)."""
+    g = gids.reshape(-1).to(torch.int64)
+    g = g[(g >= 0) & (g < gcap)]
+    return torch.bincount(g, minlength=gcap)[:gcap].to(torch.int32)
+
+
+def group_counts(gids, gcap: int):
+    """Per-group count of live $share lanes (kernel `group_counts`).
+
+    gids int32 (any shape; -1 = no group) -> int32 [gcap], a gid at or
+    past gcap dropped. One dp shard's histogram of the mesh branch of
+    `share_pick_device` (emqx_tpu/models/router_model.py:944-947):
+    ``zeros(Gcap).at[max(gids, 0)].add(gids >= 0, mode="drop")``."""
+    if not isinstance(gids, torch.Tensor) or gids.dtype != torch.int32 \
+            or not gids.is_contiguous():
+        raise TypeError("gids: expected a contiguous int32 tensor")
+    if not kernels.on_cuda(gids):
+        return group_counts_plain(gids, gcap)
+    counts = torch.zeros(gcap, dtype=torch.int32, device=gids.device)
+    kernels.launch("group_counts", "emqx_group_counts", gids.device,
+                   gids.data_ptr(), gids.numel(), counts.data_ptr(), gcap)
+    return counts
+
+
+def _dp_check(all_counts, dp_rank: int, gcap: int) -> None:
+    kernels.check_tensor(all_counts, "all_counts", torch.int32, 2)
+    if all_counts.shape[1] != gcap or not 0 <= dp_rank < all_counts.shape[0]:
+        raise ValueError(f"all_counts {tuple(all_counts.shape)} against gcap "
+                         f"{gcap}, dp rank {dp_rank}")
+
+
 def share_pick_plain(group_tables, matched, client_hash, topic_hash, rand, *,
-                     strategy: int):
+                     strategy: int, dp_gather=None, dp_rank: int = 0):
     """Plain PyTorch twin of the `share_pick` kernel (any device), written
-    after `share_pick_device` (emqx_tpu/models/router_model.py:904, the
-    single-device branch). uint32 arithmetic runs in int64 lanes masked to
-    32 bits (`ops/u32.py`); round-robin's int32 sum wraps and its modulo is
-    floored, as jnp's ``%``."""
+    after `share_pick_device` (emqx_tpu/models/router_model.py:904), with
+    the mesh branch when `dp_gather` is given (see `share_pick`). uint32
+    arithmetic runs in int64 lanes masked to 32 bits (`ops/u32.py`);
+    round-robin's int32 sum wraps and its modulo is floored, as jnp's
+    ``%``."""
     glen = group_tables["group_len"]
     gids, gsafe = _group_lanes(group_tables, matched)
     gi = gsafe.clamp(max=glen.shape[0] - 1).to(torch.int64)
@@ -278,8 +353,14 @@ def share_pick_plain(group_tables, matched, client_hash, topic_hash, rand, *,
     denom = lens.clamp(min=1).to(torch.int64)
     g32 = gsafe.to(torch.int64)
     if strategy == 1:  # round_robin: per-batch occurrence + synced base
-        occ = occurrence_index_plain(gids.reshape(-1)).reshape(gids.shape)
-        a = group_tables["group_rr"][gi].to(torch.int64) + occ.to(torch.int64)
+        occ = occurrence_index_plain(gids.reshape(-1)).reshape(gids.shape).to(torch.int64)
+        if dp_gather is not None:
+            gcap = glen.shape[0]
+            all_c = dp_gather(group_counts_plain(gids, gcap))
+            _dp_check(all_c, dp_rank, gcap)
+            prev = all_c[:dp_rank].to(torch.int64).sum(dim=0)
+            occ = occ + prev[gi]
+        a = group_tables["group_rr"][gi].to(torch.int64) + occ
         a = ((a + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)  # int32 wrap-around
         idx = torch.remainder(a, denom)
     elif strategy == 2:  # sticky: stored index, random fallback
@@ -299,7 +380,7 @@ def share_pick_plain(group_tables, matched, client_hash, topic_hash, rand, *,
 
 
 def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
-               strategy: int):
+               strategy: int, dp_gather=None, dp_rank: int = 0):
     """Resolve $share picks (kernel 9; round_robin also runs kernel 10).
 
     group_tables: the four `GROUP_KEYS` int32 tensors (`GroupTable`'s
@@ -312,7 +393,16 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
 
     On CUDA, round_robin launches the pick kernel twice: first for the raw
     group lanes, whose per-group ranks `occurrence_index` computes, then
-    for the picks."""
+    for the picks.
+
+    The mesh branch (``dp_axis``, emqx_tpu/models/router_model.py:942-962):
+    with the batch split over 'dp', ``dp_gather`` maps this shard's
+    per-group lane counts int32 [Gcap] to every dp rank's, [dp, Gcap] (an
+    all-gather over 'dp'), and ``dp_rank`` is this shard's rank. Under
+    round_robin the counts come from `group_counts` over the raw lanes, and
+    the pick launch adds the counts of the lower ranks to each lane's
+    occurrence, so the picks equal the single-device picks of the whole
+    batch. Other strategies ignore both."""
     for k in GROUP_KEYS:
         kernels.check_tensor(group_tables[k], k, torch.int32,
                              2 if k == "filter_groups" else 1)
@@ -329,7 +419,8 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     if not kernels.on_cuda(matched, client_hash, topic_hash, rand,
                            *(group_tables[k] for k in GROUP_KEYS)):
         return share_pick_plain(group_tables, matched, client_hash, topic_hash,
-                                rand, strategy=strategy)
+                                rand, strategy=strategy, dp_gather=dp_gather,
+                                dp_rank=dp_rank)
     fg = group_tables["filter_groups"]
     glen = group_tables["group_len"]
     gpf = fg.shape[1]
@@ -337,7 +428,7 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     pick_gid = torch.empty((B, K * gpf), dtype=torch.int32, device=dev)
     pick_idx = torch.empty((B, K * gpf), dtype=torch.int32, device=dev)
 
-    def run(occ_ptr, phase):
+    def run(occ_ptr, phase, all_c=None):
         kernels.launch(
             "share_pick", "emqx_share_pick", dev,
             fg.data_ptr(), fg.shape[0], gpf, glen.data_ptr(),
@@ -346,13 +437,17 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
             matched.data_ptr(), occ_ptr, client_hash.data_ptr(),
             topic_hash.data_ptr(), rand.data_ptr(), pick_gid.data_ptr(),
             pick_idx.data_ptr(), B, K, strategy, phase,
+            all_c.data_ptr() if all_c is not None else None, dp_rank,
         )
 
-    occ = None
+    occ = all_c = None
     if strategy == 1:
         run(None, 0)  # the raw group lanes, into pick_gid
         occ = occurrence_index(pick_gid.reshape(-1))
-    run(occ.data_ptr() if occ is not None else None, 1)
+        if dp_gather is not None:
+            all_c = dp_gather(group_counts(pick_gid, gcap)).contiguous()
+            _dp_check(all_c, dp_rank, gcap)
+    run(occ.data_ptr() if occ is not None else None, 1, all_c)
     return pick_gid, pick_idx
 
 
@@ -386,6 +481,8 @@ def shape_route_step(
     rule_progs: tuple = (),
     rule_feats=None,
     rule_valid=None,
+    dp_gather=None,
+    dp_rank: int = 0,
     device="cuda",
 ):
     """The serving step: tokenize -> shape match (-> residual NFA) ->
@@ -412,7 +509,9 @@ def shape_route_step(
     as the JAX step does with ``sub_bitmaps=None``. ``with_groups`` runs
     `share_pick` over `group_tables` (`GroupTable`'s snapshot uploaded)
     with strategy ``share_strategy`` (`STRATEGY_IDS`) and the per-row
-    client_hash / topic_hash / rand (uint32 bits, [B]).
+    client_hash / topic_hash / rand (uint32 bits, [B]); on a mesh shard,
+    ``dp_gather`` and ``dp_rank`` make its round-robin picks globally exact
+    (`share_pick`'s mesh branch).
 
     ``sem_tables`` (the `SEM_KEYS` tensors of a `SemanticTable` mirror)
     runs the semantic stage over ``q_vecs`` f32 [B, D] after the compact
@@ -512,7 +611,7 @@ def shape_route_step(
         out["pick_gid"], out["pick_idx"] = share_pick(
             group_tables, matched,
             *(_u32_rows(v, B, dev) for v in (client_hash, topic_hash, rand)),
-            strategy=share_strategy,
+            strategy=share_strategy, dp_gather=dp_gather, dp_rank=dp_rank,
         )
     return out
 
@@ -746,8 +845,7 @@ class SubscriberTable:
         self.version = 0
         self.OPLOG_MAX = 65536
         self.mode = "dense"
-        self.shards = 1
-        self.set_shards(shards)
+        self.shards = max(1, int(shards))
         self._sp: Optional[CsrTable] = None  # the sparse rep when active
         self.live = 0  # live subscriptions (both reps; drives the policy)
         self.flips = 0
@@ -798,15 +896,15 @@ class SubscriberTable:
             self._flip_dense()
 
     def set_shards(self, shards: int) -> None:
-        """Partition count of the mesh placement. The port serves one
-        device, so only 1 is accepted."""
+        """Partition count for the mesh placement ('tp' slices of the CSR
+        slot column). Re-shards a live sparse table (epoch bump). The dense
+        matrix has no shard axis: its lanes split over 'tp' at upload."""
         shards = max(1, int(shards))
-        if shards != 1:
-            raise NotImplementedError(
-                f"{shards} subscriber-table shards: the sharded CSR table "
-                "belongs to the multi-GPU mesh, a later slice of the port "
-                "(ROADMAP.md, Queue 1)"
-            )
+        if shards == self.shards:
+            return
+        self.shards = shards
+        if self._sp is not None:
+            self._sp.reshard(shards)
 
     def _csr_estimate(self) -> int:
         """Estimated CSR footprint: 4B slot column + 2 x 4B region lanes
@@ -1127,16 +1225,26 @@ class DeviceRouter:
     # clean-table prepares re-check the auto-sized kslot only every this
     # many batches: the fanout histogram drifts slowly
     KSLOT_RECHECK = 64
-    # a retained storm or a session rider may ride `route_prepared` (one
-    # device: no mesh engine that would have to refuse them)
-    supports_retained_fusion = True
-    supports_session_fusion = True
 
     def __init__(self, index, subtab: SubscriberTable, config=None,
                  grouptab: Optional[GroupTable] = None,
                  share_strategy: str = "round_robin", metrics=None,
-                 semtab=None, device="cuda"):
-        self.device = resolve_device(device)
+                 semtab=None, device=None, mesh=None):
+        """`mesh`: a `parallel.mesh.Mesh` (this process's rank of a ('dp',
+        'tp') mesh): the mirrors then upload this rank's part of every
+        table (match and group tables replicated, subscriber lanes or CSR
+        shards and semantic shards over 'tp'), and every batch runs the
+        sharded step, its global result assembled on every rank
+        (`_route_mesh`). The router serves from the mesh's device; a
+        `device` other than it raises. Without a mesh, `device` defaults to
+        CUDA."""
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.device
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
         self.index = index
         self.subtab = subtab
         self.grouptab = grouptab  # None: no $share picks on the device
@@ -1150,10 +1258,19 @@ class DeviceRouter:
             # entries at the end of a probe window become invisible
             config = dataclasses.replace(config, probes=MAX_PROBES)
         self.config = config
-        self._shape_sync = DeviceSegmentManager(self.device, name="shapes")
-        self._nfa_sync = DeviceSegmentManager(self.device, name="nfa")
-        self._group_sync = DeviceSegmentManager(self.device, name="groups")
-        self._sem_sync = DeviceSegmentManager(self.device, name="semantic")
+        tplace = sem_place = None
+        if mesh is not None:
+            from emqx_tpu_torch.parallel.mesh import semantic_placement, table_placement
+
+            tplace = table_placement(mesh)
+            sem_place = semantic_placement(mesh)
+        self._shape_sync = DeviceSegmentManager(self.device, name="shapes", placement=tplace)
+        self._nfa_sync = DeviceSegmentManager(self.device, name="nfa", placement=tplace)
+        # group tables are replicated on a mesh, like the match tables
+        self._group_sync = DeviceSegmentManager(self.device, name="groups", placement=tplace)
+        # semantic entries shard their slot-owner axis over 'tp'
+        self._sem_sync = DeviceSegmentManager(self.device, name="semantic",
+                                              placement=sem_place)
         self._bits_sparse = subtab.sparse
         self._bits_sync = self._mk_bits_sync()
         # per-batch pick entropy: batch n draws from default_rng(0xEC0 + n),
@@ -1166,7 +1283,26 @@ class DeviceRouter:
         self._clean_streak = 0
 
     def _mk_bits_sync(self) -> DeviceSegmentManager:
-        return DeviceSegmentManager(self.device, name="bitmaps")
+        """The subscriber mirror of the ACTIVE representation: on a mesh,
+        dense lanes over 'tp' or the CSR table's slot-owner shards over
+        'tp' (a flip swaps in a fresh mirror under the other placement)."""
+        placement = None
+        if self.mesh is not None:
+            from emqx_tpu_torch.parallel.mesh import bitmap_placement, csr_placement
+
+            placement = (csr_placement if self.subtab.sparse else bitmap_placement)(self.mesh)
+        return DeviceSegmentManager(self.device, name="bitmaps", placement=placement)
+
+    # a retained storm or a session rider may ride `route_prepared` on one
+    # device; a plain router on a mesh fuses neither (`MeshServingRouter`
+    # fuses storms), as in JAX (emqx_tpu/models/router_model.py:2363-2375)
+    @property
+    def supports_retained_fusion(self) -> bool:
+        return self.mesh is None
+
+    @property
+    def supports_session_fusion(self) -> bool:
+        return self.mesh is None
 
     def _fanout_kslot(self, width_words: int, sparse: bool = False,
                       semantic: bool = False) -> int:
@@ -1189,6 +1325,10 @@ class DeviceRouter:
         self._kslot = k
         if sparse or semantic:
             return k
+        if self.mesh is not None:
+            # per-shard compaction: each tp shard emits its own kslot-wide
+            # list, so the win condition is against the LOCAL lane width
+            width_words = max(1, width_words // self.mesh.tp)
         if k >= width_words * 32:
             return 0  # dense rows are already the smaller readback
         return k
@@ -1208,8 +1348,21 @@ class DeviceRouter:
         # BEFORE the version key: the growth bumps their epoch and version,
         # and a bump inside the sync would read as a torn snapshot (on a CSR
         # table `pack` also folds an oversized hot segment into the packed
-        # regions, `CsrTable.maybe_absorb`)
+        # regions, `CsrTable.maybe_absorb`). A mesh attached after the
+        # tables were built re-partitions the CSR and semantic tables over
+        # 'tp' here, like any growth.
+        if self.mesh is not None:
+            tp = self.mesh.tp
+            if self.subtab.sparse and self.subtab.shards != tp:
+                self.subtab.set_shards(tp)
+            if self.semtab is not None and self.semtab.shards != tp:
+                self.semtab.reshard(tp)
         self.subtab.pack(self.index.num_filters_capacity)
+        if self.mesh is not None and not self.subtab.sparse \
+                and self.subtab.width_words % self.mesh.tp:
+            raise ValueError(
+                f"subscriber bitmap width {self.subtab.width_words} not "
+                f"divisible by mesh tp={self.mesh.tp}; use a power-of-two tp")
         if self.grouptab is not None and len(self.grouptab):
             self.grouptab.pack_fcap(self.index.num_filters_capacity)
         key = self._version_key()
@@ -1347,7 +1500,13 @@ class DeviceRouter:
         `expired_count` join the one device->host copy. `RouteResult.session`
         is the `SessionStepOut` to `commit`. A rider takes precedence over a
         storm, as in the JAX router (the broker never pairs them): given
-        both, the storm is not launched and `retained` is None."""
+        both, the storm is not launched and `retained` is None.
+
+        On a mesh the batch runs sharded (`_route_mesh`)."""
+        if self.mesh is not None:
+            return self._route_mesh(args, list(topics), client_hashes,
+                                    retained=retained, session=session,
+                                    embeds=embeds, rules=rules)
         cfg = self.config
         topics = list(topics)
         mat, lens, too_long = encode_topics(topics, cfg.max_bytes)
@@ -1526,6 +1685,297 @@ class DeviceRouter:
             readback_bytes=readback, retained=retained_res, session=sess_res,
             sem_count=sem_count, rule_masks=rule_masks,
         )
+
+
+    # -- the mesh ---------------------------------------------------------------
+
+    def _route_mesh(self, args: Prepared, topics, client_hashes=None,
+                    retained=None, session=None, embeds=None,
+                    rules=None) -> RouteResult:
+        """SPMD serving (emqx_tpu/models/router_model.py:2381): this rank
+        encodes only its 'dp' rows of the batch (padded to a multiple of
+        dp, `_mesh_pad`), runs `parallel.mesh.dist_shape_route_step` (or
+        `dist_fused_route_step` with a storm, `MeshServingRouter` only) on
+        the tables its mirrors hold, and `_readback_mesh` assembles the
+        same global `RouteResult` on every rank. The per-row pick entropy,
+        query vectors and rule features follow their rows. A session rider
+        raises: the mesh engine fuses none (`supports_session_fusion`)."""
+        from emqx_tpu_torch.parallel import mesh as M
+
+        if session is not None:
+            raise RuntimeError("session rider handed to a non-fusing mesh engine")
+        storm = retained is not None and bool(retained.chunks)
+        if storm and not self.supports_retained_fusion:
+            raise RuntimeError("retained storm handed to a non-fusing mesh engine; "
+                               "use MeshServingRouter for mesh serving")
+        mesh, cfg = self.mesh, self.config
+        B = len(topics)
+        per, lo = M.batch_rows(mesh, B)
+        mine = topics[lo:lo + per]
+        mat, lens, too_long = encode_topics(mine, cfg.max_bytes)
+        bm, ln = (torch.from_numpy(x).to(self.device) for x in self._mesh_pad(mat, lens, per))
+        tl = np.zeros(per, bool)
+        tl[:len(mine)] = too_long
+        dev = self.device
+        with_groups = args.group_tables is not None
+        ch = th = rand = None
+        if with_groups:
+            ch, th, rand = (
+                torch.from_numpy(self._mesh_pad_rows(v, lo, per).view(np.int32)).to(dev)
+                for v in self._pick_inputs(topics, client_hashes)
+            )
+        qv = None
+        if args.sem_tables is not None:
+            qv = np.zeros((B, args.sem_tables["sem_vec"].shape[2]), np.float32)
+            if embeds is not None:
+                qv[:] = np.asarray(embeds, np.float32)
+            qv = torch.from_numpy(self._mesh_pad_rows(qv, lo, per)).to(dev)
+        rprogs, rfeats, rvalid = (), None, None
+        if rules is not None and rules[0]:
+            rprogs = tuple(rules[0])
+            rfeats = torch.from_numpy(self._mesh_pad_rows(
+                np.asarray(rules[1], np.float32), lo, per)).to(dev)
+            rvalid = torch.from_numpy(self._mesh_pad_rows(
+                np.asarray(rules[2], bool), lo, per)).to(dev)
+        sub = {k: v for k, v in args.tables.items() if k in CSR_KEYS}
+        if not sub:
+            sub = args.tables["sub_bitmaps"]
+        shape_tables = {k: v for k, v in args.tables.items()
+                        if k not in CSR_KEYS and k != "sub_bitmaps"}
+        kw = dict(
+            m_active=args.m_active, salt=args.salt, max_levels=cfg.max_levels,
+            frontier=cfg.frontier, max_matches=cfg.max_matches,
+            probes=cfg.probes, share_strategy=self.share_strategy,
+            kslot=args.kslot, sem_topk=args.sem_topk, rule_progs=rprogs,
+        )
+        pick_in = (args.group_tables, ch, th, rand, args.sem_tables, qv, rfeats, rvalid)
+        extra = []
+        if storm:
+            out = M.dist_fused_route_step(
+                mesh, shape_tables, args.nfa_tables, sub, bm, ln,
+                retained.shape_tables, retained.nfa_tables, retained.chunks[0],
+                *pick_in,
+                ret_m_active=retained.kwargs["m_active"],
+                ret_with_nfa=retained.kwargs["with_nfa"],
+                ret_salt=retained.kwargs["salt"],
+                ret_max_levels=retained.kwargs["max_levels"],
+                ret_narrow=retained.kwargs["narrow"], **kw)
+            from emqx_tpu_torch.models.retained_index import retained_step
+
+            # each further chunk on this rank's row block, before any
+            # readback; the blocks meet in the one assembly gather
+            extra = [retained_step(retained.shape_tables, retained.nfa_tables, c,
+                                   **retained.kwargs)
+                     for c in retained.chunks[1:]]
+        else:
+            out = M.dist_shape_route_step(mesh, shape_tables, args.nfa_tables, sub,
+                                          bm, ln, *pick_in, **kw)
+        out["flags"] = out["flags"] | torch.from_numpy(tl).to(dev)
+        storm_out = [out["retained"]] + extra if storm else None
+        return self._readback_mesh(out, B, per, args.kslot,
+                                   retained=retained if storm else None,
+                                   storm=storm_out)
+
+    @staticmethod
+    def _mesh_pad(mat, lens, per: int):
+        """This rank's encoded rows padded to `per` empty rows (JAX pads
+        the whole batch to a multiple of dp, `_mesh_pad`,
+        emqx_tpu/models/router_model.py:2456: the same rows land on each
+        rank) -> (bytes, lengths), numpy."""
+        return (np.pad(mat, ((0, per - len(mat)), (0, 0))),
+                np.pad(lens, (0, per - len(lens))))
+
+    @staticmethod
+    def _mesh_pad_rows(v: np.ndarray, lo: int, per: int) -> np.ndarray:
+        """Rows [lo, lo + per) of a per-row batch input, zero padded past
+        its end (`_mesh_pad_rows`, emqx_tpu/models/router_model.py:2445)."""
+        part = np.ascontiguousarray(v[lo:lo + per])
+        if len(part) == per:
+            return part
+        pad = [(0, per - len(part))] + [(0, 0)] * (part.ndim - 1)
+        return np.pad(part, pad)
+
+    def _readback_mesh(self, out, B: int, per: int, kslot: int, retained=None,
+                       storm=None) -> RouteResult:
+        """Every rank's outputs -> the global `RouteResult`, on every rank:
+        the mesh branch of `_readback` (emqx_tpu/models/router_model.py
+        :2142, ``mesh=True``). Each rank packs its block of every output
+        into one int32 buffer, ONE all-gather over the world carries them
+        all, and one device->host copy brings the gathered buffers over.
+        The layout is JAX's `_out_specs` (emqx_tpu/parallel/mesh.py:107):
+        matched, mcount, flags, picks, sem_count and rule masks
+        concatenated over 'dp' (from the tp = 0 replicas); slots [B, SW x
+        tp], each 'tp' shard's segment side by side with -1 holes; slot
+        count and overflow reduced over 'tp'; overflow read from the
+        device, since a row overflows when any shard did. A storm's match
+        matrices join the buffer and come back as whole chunks (row blocks
+        over 'dp'). A dense table's overflow rows come back through a
+        second, masked gather; a CSR table's are built from the host table
+        when read (`_LazyDenseRows`)."""
+        mesh = self.mesh
+        dp, tp = mesh.dp, mesh.tp
+        M_ = out["matched"].shape[1]
+        with_groups = "pick_gid" in out
+        sparse = out["bitmaps"] is None
+        fields = [("matched", out["matched"]), ("mcount", out["mcount"]),
+                  ("flags", out["flags"].to(torch.int32))]
+        if with_groups:
+            fields += [("pick_gid", out["pick_gid"]), ("pick_idx", out["pick_idx"])]
+        if kslot:
+            fields += [("slots", out["slots"]), ("slot_count", out["slot_count"]),
+                       ("overflow", out["overflow"].to(torch.int32))]
+        else:
+            fields.append(("bitmaps", out["bitmaps"]))
+        if "sem_count" in out:
+            fields.append(("sem_count", out["sem_count"]))
+        masks = out.get("rule_masks")
+        storm = storm or []
+        words = [(k, t.reshape(-1)) for k, t in fields]
+        if masks is not None:
+            words.append(("rule_masks", _as_words(masks)))
+        words += [(f"storm{j}", _as_words(m)) for j, m in enumerate(storm)]
+        sizes = [w.numel() for _, w in words]
+        buf = torch.cat([w for _, w in words])
+        host = self.mesh.all_gather(buf, ("dp", "tp"), "readback").cpu().numpy()
+        readback = host.nbytes
+        offs = np.concatenate([[0], np.cumsum(sizes)])
+        part = {k: (offs[i], offs[i + 1]) for i, (k, _) in enumerate(words)}
+
+        def block(rank, k):
+            a, b = part[k]
+            return host[rank, a:b]
+
+        def rows(k, shape):  # a 'dp'-split output: the tp = 0 replicas
+            return np.concatenate([block(d * tp, k).reshape(shape) for d in range(dp)])[:B]
+
+        matched = rows("matched", (per, M_))
+        mcount = rows("mcount", (per,))
+        flags = rows("flags", (per,)).astype(bool)
+        picks = None
+        if with_groups:
+            P = out["pick_gid"].shape[1]
+            picks = (rows("pick_gid", (per, P)), rows("pick_idx", (per, P)))
+        sem_count = rows("sem_count", (per,)) if "sem_count" in out else None
+        rule_masks = None
+        if masks is not None:
+            rule_masks = np.concatenate(
+                [_from_words(block(d * tp, "rule_masks"), masks) for d in range(dp)],
+                axis=1)[:, :B]
+        retained_res = None
+        if storm:
+            mats = [np.concatenate([_from_words(block(d * tp, f"storm{j}"), m)
+                                    for d in range(dp)])
+                    for j, m in enumerate(storm)]
+            retained_res = retained.decode(mats)
+        if not kslot:
+            W_ = out["bitmaps"].shape[1]
+            bitmaps = np.concatenate(
+                [np.concatenate([block(d * tp + t, "bitmaps").reshape(per, W_)
+                                 for t in range(tp)], axis=1) for d in range(dp)]
+            )[:B].view(np.uint32)
+            return RouteResult(matched, mcount, flags, bitmaps, picks,
+                               readback_bytes=readback, retained=retained_res,
+                               sem_count=sem_count, rule_masks=rule_masks)
+        SW = out["slots"].shape[1]
+        slots = np.concatenate(
+            [np.concatenate([block(d * tp + t, "slots").reshape(per, SW)
+                             for t in range(tp)], axis=1) for d in range(dp)]
+        )[:B]
+        slot_count = rows("slot_count", (per,))
+        overflow = rows("overflow", (per,)).astype(bool)
+        dense_rows = dense_index = None
+        ovf_idx = np.nonzero(overflow)[0]
+        if ovf_idx.size:
+            dense_index = {int(r): j for j, r in enumerate(ovf_idx)}
+            if sparse:
+                dense_rows = _LazyDenseRows(
+                    self.subtab,
+                    [matched[r][matched[r] >= 0].tolist() for r in ovf_idx],
+                )
+            else:
+                dense_rows = self._gather_dense_rows(out["bitmaps"], ovf_idx, per)
+                readback += dense_rows.nbytes
+        return RouteResult(
+            matched, mcount, flags, None, picks,
+            slots=slots, slot_count=slot_count, overflow=overflow,
+            dense_rows=dense_rows, dense_index=dense_index,
+            readback_bytes=readback, retained=retained_res,
+            sem_count=sem_count, rule_masks=rule_masks,
+        )
+
+    def _gather_dense_rows(self, bitmaps, ovf_idx: np.ndarray, per: int) -> np.ndarray:
+        """The dense rows of the overflow rows (global row ids, the same on
+        every rank): each rank fills the rows of its 'dp' block from its
+        lane slice, one all-gather over the world, and the host puts every
+        row's 'tp' slices side by side -> uint32 [n, W]."""
+        mesh = self.mesh
+        d0 = mesh.axis_index("dp") * per
+        W_ = bitmaps.shape[1]
+        local = torch.zeros((len(ovf_idx), W_), dtype=torch.int32, device=self.device)
+        mine = np.nonzero((ovf_idx >= d0) & (ovf_idx < d0 + per))[0]
+        if mine.size:
+            src = torch.from_numpy(ovf_idx[mine] - d0).to(self.device)
+            local[torch.from_numpy(mine).to(self.device)] = bitmaps[src]
+        host = mesh.all_gather(local, ("dp", "tp"), "readback").cpu().numpy()
+        owner = ovf_idx // per  # the dp rank of each row
+        rows = np.empty((len(ovf_idx), W_ * mesh.tp), np.int32)
+        for t in range(mesh.tp):
+            rows[:, t * W_:(t + 1) * W_] = host[owner * mesh.tp + t, np.arange(len(ovf_idx))]
+        return rows.view(np.uint32)
+
+
+class MeshServingRouter(DeviceRouter):
+    """The scale-out serving engine (emqx_tpu/models/router_model.py:2513):
+    a `DeviceRouter` on a ('dp', 'tp') mesh that also fuses a retained
+    storm into the sharded call (`parallel.mesh.dist_fused_route_step`):
+    chunk 0's row block rides the route step, the further chunks run on
+    their row blocks before the readback, and every block meets in the one
+    assembly gather. `shard_label` names this process's slice in span
+    attributes."""
+
+    supports_retained_fusion = True
+
+    def __init__(self, index, subtab: SubscriberTable, config=None,
+                 grouptab: Optional[GroupTable] = None,
+                 share_strategy: str = "round_robin", mesh=None, metrics=None,
+                 semtab=None, device=None):
+        if mesh is None:
+            raise ValueError("MeshServingRouter requires a ('dp','tp') mesh")
+        super().__init__(index, subtab, config, grouptab=grouptab,
+                         share_strategy=share_strategy, metrics=metrics,
+                         semtab=semtab, device=device, mesh=mesh)
+        self.shard_label = "local"
+
+    def span_attrs(self) -> Dict:
+        return {"device.mesh_shape": f"{self.mesh.dp}x{self.mesh.tp}",
+                "device.shard": self.shard_label}
+
+    def shard_status(self) -> Dict:
+        """Per-'tp'-shard occupancy of the subscriber table: nonzero lane
+        words of each dense lane slice, or each CSR shard's live
+        subscriptions as a share of all (`shard_status`,
+        emqx_tpu/models/router_model.py:2561)."""
+        mesh = self.mesh
+        out = {"dp": mesh.dp, "tp": mesh.tp, "shards": mesh.world}
+        if self.subtab.sparse:
+            sp = self.subtab.csr
+            per = sp.csr_len.sum(axis=1)
+            hot_live = (sp.hot_fid >= 0).sum(axis=1)
+            fills = (per + hot_live).astype(np.float64)
+            denom = max(1.0, float(fills.sum()))
+            out["lane_fill_max"] = float(fills.max()) / denom
+            out["lane_fill_min"] = float(fills.min()) / denom
+            out["sub_table"] = "sparse"
+            return out
+        arr = self.subtab.arr
+        w = arr.shape[1]
+        per = w // mesh.tp if w % mesh.tp == 0 else w
+        fills = [float(np.count_nonzero(arr[:, s * per:(s + 1) * per]))
+                 / max(1, arr[:, s * per:(s + 1) * per].size)
+                 for s in range(w // per if per else 0)]
+        out["lane_fill_max"] = max(fills) if fills else 0.0
+        out["lane_fill_min"] = min(fills) if fills else 0.0
+        return out
 
 
 def _as_words(m: torch.Tensor) -> torch.Tensor:

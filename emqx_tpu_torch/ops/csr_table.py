@@ -21,10 +21,12 @@ subscriptions: at 2^20 subscriber slots and 10M filters it would be about
   (int64 key lanes + int32 position lanes) that makes unsubscribe O(1)
   without a per-entry Python dict.
 
-``S`` is the shard axis of the mesh placement; the port's single-device
-tables keep ``S = 1`` (`SubscriberTable.set_shards` refuses more). Not
-ported yet: `CsrSegmentOwner` (background compaction on the segment
-compactor) and `reshard`, both with the mesh and compaction slices.
+``S`` is the shard axis of the mesh placement (`parallel.mesh
+.csr_placement` gives 'tp' rank t the block ``[t : t + 1]``): a
+subscription is owned by shard ``slot % S``, and slot ids are stored
+globally, so the per-shard compact rows concatenate over 'tp' with no lane
+rebase. `reshard` re-partitions a live table. Not ported yet:
+`CsrSegmentOwner` (background compaction on the segment compactor).
 
 `sparse_fanout_slots` unions the matched fids' slot lists into the same
 ``slots [B, kslot] / count [B] / overflow [B]`` compact contract as
@@ -115,7 +117,8 @@ def sparse_fanout_slots_plain(csr: Dict, matched, kslot: int, kg: int = 0):
 def sparse_fanout_slots(csr: Dict, matched, kslot: int, kg: int = 0):
     """Union the matched fids' CSR slot lists -> compact slot rows (kernel 8).
 
-    csr: the five `CSR_KEYS` int32 tensors, ``[1, ...]`` (shard 0 of 1);
+    csr: the five `CSR_KEYS` int32 tensors of one shard, ``[1, ...]`` (a
+    single device's table, or a mesh rank's 'tp' slice of it);
     matched: int32 [B, K] sparse fids (-1 holes), every fid < Fcap. Returns
     (slots int32 [B, kslot], count int32 [B], overflow bool [B], live int32
     [B]). The counterpart of `sparse_fanout_slots`
@@ -620,6 +623,20 @@ class CsrTable:
         if not len(fids):
             return
         self._rebuild(fids, slots)
+
+    def reshard(self, shards: int) -> None:
+        """Re-partition the table over a new shard count (a mesh attached
+        after subscriptions landed): one rebuild, one epoch bump. The
+        counterpart of `reshard` (emqx_tpu/ops/csr_table.py:625)."""
+        if shards == self.shards:
+            return
+        fids, slots = self.live_pairs()
+        self.shards = max(1, int(shards))
+        self._structure_gen += 1
+        self._journal = None
+        built = self._build(fids, slots, self.shards, 64)
+        self._install(built)
+        self._bump()
 
     def device_snapshot(self) -> Dict[str, np.ndarray]:
         return {

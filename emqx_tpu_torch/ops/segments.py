@@ -178,29 +178,46 @@ class DeviceSegmentManager:
     the scatter into a routed batch; `offer`, whose caller (background
     compaction) is a later slice, is not ported.
 
+    `placement` (a `convert.Replicated` or `convert.Block`, the counterpart
+    of the JAX manager's placement hook, emqx_tpu/ops/segments.py:106-135)
+    makes the mirror one mesh rank's part of each array: a full upload or
+    an array resync places this rank's slice, and an op-log suffix is
+    filtered to the writes this rank owns, rebased to its local flat
+    indices. Every rank takes the same full / delta / array decisions as a
+    single-device mirror of the same op-log; a rank that owns none of a
+    delta's writes launches nothing for it (`delta_skipped`).
+
     Counters: `full_resyncs` (epoch changes and torn syncs), `delta_launches`
-    (scatter launches), `array_resyncs` (single arrays re-uploaded).
+    (scatter launches), `array_resyncs` (single arrays re-uploaded) and, for
+    a placed mirror, `delta_skipped` (deltas of which this rank owned no
+    write).
     """
 
-    def __init__(self, device="cuda", name: str = "") -> None:
+    def __init__(self, device="cuda", name: str = "", placement=None) -> None:
         self.device = resolve_device(device)
         self.name = name
+        self.placement = placement
         self._lock = threading.Lock()
         self._arrays = None  # guarded-by: _lock
+        self._shapes: Dict[str, tuple] = {}  # guarded-by: _lock (host shapes)
         self._epoch = -1  # guarded-by: _lock
         self._pos = 0  # guarded-by: _lock
         self._torn = False  # guarded-by: _lock
         self.full_resyncs = 0  # guarded-by: _lock
         self.delta_launches = 0  # guarded-by: _lock
+        self.delta_skipped = 0  # guarded-by: _lock
         self.array_resyncs = 0  # guarded-by: _lock
 
     def counters(self) -> Dict[str, int]:
         with self._lock:
-            return {
+            out = {
                 "full_resyncs": self.full_resyncs,
                 "delta_launches": self.delta_launches,
                 "array_resyncs": self.array_resyncs,
             }
+            if self.placement is not None:
+                out["delta_skipped"] = self.delta_skipped
+            return out
 
     def has_mirror(self) -> bool:
         with self._lock:
@@ -215,10 +232,11 @@ class DeviceSegmentManager:
         {name: {index: value}}, pos, epoch)``, or None when there is no
         mirror, the epoch moved, the mirror is torn, or the suffix holds a
         `!resync` marker or an array the mirror lacks: those go through
-        `sync()`. The counterpart of `peek_delta`
-        (emqx_tpu/ops/segments.py:157)."""
+        `sync()`; and so does every suffix of a placed (mesh) mirror. The
+        counterpart of `peek_delta` (emqx_tpu/ops/segments.py:157)."""
         with self._lock:
-            if self._arrays is None or self._epoch != src.epoch or self._torn:
+            if self._arrays is None or self._epoch != src.epoch or self._torn \
+                    or self.placement is not None:
                 return None
             per: Dict[str, Dict[int, int]] = {}
             for name, idx, val in src.oplog[self._pos :]:
@@ -263,14 +281,29 @@ class DeviceSegmentManager:
         return self._delta_sync(src)
 
     def _full_resync(self, src):  # holds-lock: _lock
-        self._arrays = upload(src.device_snapshot(), self.device)
+        snap = src.device_snapshot()
+        self._arrays = upload(snap, self.device, self.placement)
+        self._shapes = {k: v.shape for k, v in snap.items()}
         self._epoch = src.epoch
         self._pos = len(src.oplog)
         self.full_resyncs += 1
         return dict(self._arrays)
 
     def _put(self, name: str, arr: np.ndarray) -> torch.Tensor:
-        return upload({name: arr}, self.device)[name]
+        self._shapes[name] = arr.shape
+        return upload({name: arr}, self.device, self.placement)[name]
+
+    def _owned(self, per):  # holds-lock: _lock
+        """Per array, the writes this rank owns, at local flat indices."""
+        if self.placement is None:
+            return per
+        out = {}
+        for name, (ix, vv) in per.items():
+            keep, local = self.placement.local_writes(
+                name, self._shapes[name], np.asarray(ix, np.int64))
+            if local.size:
+                out[name] = (local, np.asarray(vv, dtype=object)[keep].tolist())
+        return out
 
     def _delta_sync(self, src):  # holds-lock: _lock
         ops = src.oplog[self._pos :]
@@ -305,12 +338,16 @@ class DeviceSegmentManager:
                 self.array_resyncs += 1
                 del per[name]
         if per:
-            out = segment_scatter(
-                {k: self._arrays[k] for k in per},
-                {k: w[0] for k, w in per.items()},
-                {k: w[1] for k, w in per.items()},
-            )
-            self.delta_launches += 1
-            self._arrays.update(out)
+            mine = self._owned(per)
+            if mine:
+                out = segment_scatter(
+                    {k: self._arrays[k] for k in mine},
+                    {k: w[0] for k, w in mine.items()},
+                    {k: w[1] for k, w in mine.items()},
+                )
+                self.delta_launches += 1
+                self._arrays.update(out)
+            else:
+                self.delta_skipped += 1
         self._pos = len(src.oplog)
         return dict(self._arrays)

@@ -26,14 +26,15 @@ quantized mode) with the lanes ``sem_fid / sem_slot / sem_thresh [S, P]``,
 written only by rebuilds; an append-only hot segment, the ``sem_hot_*``
 twins, where an insert is D + 3 op-logged scalar writes the router's
 mirror replays as one `segment_scatter`; a remove is ONE op-logged write
-of ``slot = -1``. ``S = 1`` here (the mesh is a later slice). E = P + H:
+of ``slot = -1``. ``S`` is the mesh's shard axis (`parallel.mesh
+.semantic_placement`: 'tp' rank t holds shard t, and each shard's winners
+are global slot ids); a single device holds ``S = 1``. E = P + H:
 the kernels read both segments in place, and nothing of size [B, E] is
 ever stored (the JAX program materialises the [B, E] similarities and a
 [B, E] membership mask: 8.6 GB and 2.1 GB at B = 8,192, E = 2^18).
 
 Not in the port yet: `SemanticSegmentOwner` and the table's compaction
-cycle (ROADMAP item 13), `reshard` and `semantic_placement` (item 11), and
-the broker's `SemanticRouting` (item 3).
+cycle (ROADMAP item 13), and the broker's `SemanticRouting` (item 3).
 """
 
 from __future__ import annotations
@@ -83,7 +84,8 @@ SEM_TILE = 64
 
 
 def _lanes(sem: Dict[str, torch.Tensor]):
-    """(vecs [E, D], fids, slots, ths [E]) of shard 0: packed ++ hot."""
+    """(vecs [E, D], fids, slots, ths [E]) of the one shard the tensors hold
+    (a single device's, or a mesh rank's): packed ++ hot."""
     return tuple(
         torch.cat([sem[k][0], sem[h][0]], dim=0)
         for k, h in (("sem_vec", "sem_hot_vec"), ("sem_fid", "sem_hot_fid"),
@@ -155,7 +157,7 @@ def _check_sem(sem, q_vecs, matched, topk: int, *extra) -> bool:
         kernels.check_tensor(sem[k], k, dt, 2)
     D = sem["sem_vec"].shape[2]
     if sem["sem_vec"].shape[0] != 1:
-        raise ValueError("one shard only: the sharded table is the mesh's")
+        raise ValueError("one shard a call: a mesh rank passes its own 'tp' slice")
     kernels.check_tensor(q_vecs, "q_vecs", torch.float32, 2)
     kernels.check_tensor(matched, "matched", torch.int32, 2)
     if q_vecs.shape[1] != D or q_vecs.shape[0] != matched.shape[0]:
@@ -216,8 +218,9 @@ def semantic_match_step(sem: Dict[str, torch.Tensor], q_vecs, matched, topk: int
     """ONE batched similarity pass + threshold/scope mask + top-k (kernel
     `semantic_match`, two launches).
 
-    sem: the eight `SEM_KEYS` tensors of shard 0 of 1 ([1, ...] leading
-    axis, as `SemanticTable.device_snapshot()` uploads them; ``sem_vec``
+    sem: the eight `SEM_KEYS` tensors of one shard ([1, ...] leading axis:
+    a single device's `SemanticTable.device_snapshot()`, or one mesh
+    rank's 'tp' slice of it; ``sem_vec``
     float32 or bfloat16); q_vecs: f32 [B, D] per-message embeddings;
     matched: int32 [B, K] sparse fids (-1 holes) from the topic match.
     Returns ``(sem_slots int32 [B, topk], sem_count int32 [B])``: the top-k
@@ -275,7 +278,8 @@ class SemanticTable:
     """Host-side embedding-filter registry + its device mirror source
     (epoch/oplog/version protocol, docs/update_path.md): the port's copy of
     `SemanticTable` (emqx_tpu/ops/semantic_table.py:202), single device
-    (``shards`` must be 1), without `reshard` (the mesh's) and the
+    (``shards`` entries' owner axis: an entry is owned by shard ``slot %
+    shards``, the mesh's 'tp' rank of that index holds it), without the
     compaction cycle (`begin_compact`, `build_compact`, `apply_compact`;
     ROADMAP item 13): a hot segment past `HOT_ABSORB_MAX` folds inline by
     `_rebuild`. `_journal` stays None until that cycle is ported.
@@ -304,11 +308,6 @@ class SemanticTable:
         self.topk = topk
         self.dtype = dtype
         self.shards = S = max(1, int(shards))
-        if S != 1:
-            raise NotImplementedError(
-                f"{S} semantic-table shards: the sharded table belongs to the "
-                "multi-GPU mesh, a later slice of the port (ROADMAP.md, item 11)"
-            )
         self._pcap = 64  # packed capacity PER SHARD
         self.sem_vec = np.zeros((S, self._pcap, dim), np.float32)
         self.sem_fid = np.full((S, self._pcap), -1, np.int32)
@@ -456,6 +455,23 @@ class SemanticTable:
             for i in range(len(slots))
         ]
         self._rebuild(extra)
+
+    def reshard(self, shards: int) -> None:
+        """Re-partition over a new shard count (a mesh attached after
+        filters landed): one rebuild, one epoch bump. The counterpart of
+        `reshard` (emqx_tpu/ops/semantic_table.py:380)."""
+        shards = max(1, int(shards))
+        if shards == self.shards:
+            return
+        # the live entries of the OLD layout, before every array's leading
+        # axis changes
+        ent = self._live_tuples()
+        self.shards = shards
+        self._structure_gen += 1
+        self._journal = None
+        built = self._build(ent, shards, self.dim)
+        self._install(built)
+        self._bump()
 
     # -- structure ----------------------------------------------------------
     def _grow_hot(self) -> None:

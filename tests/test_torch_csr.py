@@ -196,12 +196,27 @@ def test_auto_mode_flips_once_like_jax():
 
 
 def test_more_than_one_shard_is_refused():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        P_router.SubscriberTable(shards=2)
-    t = P_router.SubscriberTable(mode="sparse")
-    t.set_shards(1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t.set_shards(4)
+    """More than one shard is the mesh's CSR layout (subscription -> shard
+    slot % S), no longer refused: a table built sharded and a live table
+    resharded (`CsrTable.reshard`, an epoch-bump rebuild) equal JAX's."""
+    tabs = []
+    for R in (P_router, J_router):
+        a = R.SubscriberTable(mode="sparse", shards=2)
+        b = R.SubscriberTable(mode="sparse")
+        for t in (a, b):
+            for f, s in ((3, 700), (9, 5), (9, 6), (40, 1023)):
+                t.add(f, s)
+        b.set_shards(1)  # unchanged: no rebuild
+        e0 = b.epoch
+        b.set_shards(4)
+        assert b.epoch == e0 + 1 and b.shards == 4 and b.csr.shards == 4
+        a.remove(9, 5)
+        tabs.append((a, b))
+    for p, j in zip(*tabs):
+        assert (p.shards, p.epoch, p.version, p.oplog) == (j.shards, j.epoch, j.version, j.oplog)
+        for k, v in j.device_snapshot().items():
+            np.testing.assert_array_equal(p.device_snapshot()[k], v, err_msg=k)
+        assert p.device_snapshot()["csr_slots"].shape[0] == p.shards
 
 
 def assert_mirror(out, src):

@@ -151,15 +151,24 @@ def test_subscriber_table_matches():
 
 
 def test_subscriber_table_refuses_sparse_modes_across_shards():
-    """The sparse and auto modes are refused across more than one shard:
-    the sharded CSR table belongs to the mesh, which the port does not
-    serve yet (on one shard they build, `test_subscriber_table_sparse_modes_match_jax`)."""
+    """The sparse and auto modes across more than one shard (the mesh's
+    layout) are no longer refused: built sharded, or resharded live, they
+    equal JAX's tables."""
     for mode in ("sparse", "auto"):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            P_router.SubscriberTable(mode=mode, shards=2)
-        t = P_router.SubscriberTable(mode=mode)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            t.set_shards(4)
+        tabs = []
+        for R in (P_router, J_router):
+            a = R.SubscriberTable(mode=mode, shards=2)
+            b = R.SubscriberTable(mode=mode)
+            for t in (a, b):
+                t.add(3, 700)
+                t.add(9, 5)
+            b.set_shards(4)
+            tabs.append((a, b))
+        for p, j in zip(*tabs):
+            assert (p.shards, p.sparse, p.version, p.epoch, p.oplog) == (
+                j.shards, j.sparse, j.version, j.epoch, j.oplog)
+            for k, v in j.device_snapshot().items():
+                np.testing.assert_array_equal(p.device_snapshot()[k], v)
 
 
 def test_subscriber_table_sparse_modes_match_jax():
@@ -217,6 +226,7 @@ def port_modules():
 
 def test_importing_the_port_loads_no_jax():
     assert {"emqx_tpu_torch.ops.csr_table", "emqx_tpu_torch.broker.shared_sub",
+            "emqx_tpu_torch.parallel.mesh", "emqx_tpu_torch.parallel.launch",
             "emqx_tpu_torch.models.router_model",
             "emqx_tpu_torch.models.retained_index",
             "emqx_tpu_torch.ops.session_table",

@@ -158,8 +158,24 @@ def test_table_matches_jax_through_churn(dtype):
 
 
 def test_table_refuses_shards():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        P_sem.SemanticTable(dim=4, shards=2)
+    """More than one shard is the mesh's layout (entry -> shard slot % S),
+    no longer refused: a table built sharded and one resharded live
+    (`reshard`, an epoch-bump rebuild) equal JAX's, byte for byte."""
+    rng = np.random.default_rng(5)
+    vecs = rng.normal(size=(40, 8)).astype(np.float32)
+    tabs = []
+    for S in (P_sem, J_sem):
+        a = S.SemanticTable(dim=8, topk=4, shards=2)
+        b = S.SemanticTable(dim=8, topk=4)
+        for t in (a, b):
+            t.bulk_add(np.arange(30), vecs[:30], np.full(30, 0.5), np.arange(30) % 4 - 1)
+            t.add(77, vecs[30], 0.25, 3)
+            t.remove(4)
+        b.reshard(3)
+        tabs.append((a, b))
+    for p, j in zip(*tabs):
+        assert p.shards == j.shards
+        assert_same_table(p, j)
 
 
 # -- the similarity stage ----------------------------------------------------
