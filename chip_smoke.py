@@ -174,6 +174,62 @@ main path) and a bf16 table (201 MB instead of 402 MB):
     whole route;
 27. `semantic_seconds`: the path's time; the scatter of churn step A
     (float32 and bfloat16 lanes) against its twin, with its times;
+The `broker_1m` path (the broker's synchronous publish path): BASELINE
+config 3 loaded through `Broker.subscribe` into a port
+`Broker(Router(MatcherConfig(max_bytes=64, max_levels=8),
+min_tpu_batch=64), Hooks())`: one client a filter subscribing
+device/{i}/+/{j}/# (i, j < 1000) and device/{i}/# (i < 100), 1,000,100
+plain subscriptions, one slot each, then $share/ingest/device/{i}/# with
+16 members for i < 100 (round_robin); stub deliverers record (message,
+subscriber id):
+28. `tables_broker`: the subscribe loop's seconds, the `auto` flip (the
+    table must be CSR), kslot, bytes on the card, `reduced` (none);
+29. `publish_broker`, `churn_broker`, `match_only_broker` and
+    `breakdown_broker`, the launch counters zeroed before each batch and
+    read after it: 3 batches of B = 8192 mixed_1m topics (seed 0) through
+    `publish_batch`, every message's plain recipients equal to the
+    subscribers of the router's exact and trie matches, every matched
+    group's one delivery to the member `pick_oracle` names, the bases
+    written back as `advance_rr` would, no row on the CPU; tokenize,
+    shape_match, sparse_fanout_slots, occurrence_index and share_pick
+    launched a batch, nfa_walk, fanout_bitmaps and compact_fanout_slots
+    not; churn (1,000 plain unsubscribes on filters the next batch hits,
+    1,000 subscribes on fresh filters of the table's shape, one member
+    leaving each of 10 groups) synced with at most one scatter a mirror,
+    a full upload only where an epoch moved, every mirror equal to its
+    host table, and the next batch, checked the same way, showing each
+    change; `Router.match_batch` (the match-only router: tokenize and
+    shape_match) equal to `Router.match` per topic; 3 more batches for
+    the breakdown (prepare, route(), host dispatch, the whole call,
+    messages/s and deliveries/s), and one more traced for the device's
+    busy share of a publish_batch;
+30. `kernel` for tokenize, shape_match, sparse_fanout_slots,
+    occurrence_index and share_pick (round_robin) at broker_1m's shapes,
+    each against its twin (their `broker_1m` cases in the kernels line);
+The `plus_100k` path (the NFA-only step, `route_step`): BASELINE config 2
+as bench.py builds it (100,000 filters, 95,480 distinct, 10% single-'+',
+8-level topics) in an `NfaBuilder`, one subscriber slot a distinct
+filter, in a dense `SubscriberTable` (W = 4,096 words, 2.1 GB on the
+card) and a CSR one; `MatcherConfig(max_bytes=64, max_levels=8)`:
+31. `tables_plus`: build seconds per stage, bytes on the card, `reduced`
+    (none);
+32. `matcher_plus`, `route_step_plus` and `churn_plus`, the counters
+    zeroed before the first and read after the last: `TpuMatcher.match_batch`
+    on 3 batches of bench.py's topics equal to `TopicTrie.match` per
+    topic, flagged rows counted by cause; `route_step` dense with kslot 0
+    and 64 and CSR with kslot 64, every row's fids, bitmap row or slot
+    list and the stats against the host oracle (the OR of the trie's
+    filters' host rows); churn: 1,000 filters removed and 1,000 added
+    through the NFA mirror and the dense table's mirror (a full upload
+    exactly where an epoch moved; mirrors equal to the host tables), then
+    a checked batch of their topics; tokenize, vocab_lookup, nfa_walk,
+    fanout_bitmaps and compact_fanout_slots launched, shape_match not;
+    the launches a batch (`launches_per_batch_plus`);
+33. `kernel` for tokenize, vocab_lookup, nfa_walk, fanout_bitmaps and
+    compact_fanout_slots at plus_100k's shapes, each against its twin
+    (their `plus_100k` cases), the composite's bound, and
+    `route_breakdown_plus` (encode, h2d, launches, readback, route, and a
+    `TpuMatcher` batch);
 The mesh paths (`emqx_tpu_torch.parallel`): a 2 x 2 ('dp', 'tp') mesh of
 four ranks, NCCL with one GPU a rank when the host shows four, else four
 gloo ranks sharing cuda:0 (`reduced` says so: gloo stages the collectives
@@ -185,7 +241,7 @@ process runs the paths above, then, asked to, forks the ranks
 (`parallel.launch`); rank 0 prints the phases, every rank its counters.
 `python3 chip_smoke.py --mesh nccl 4 --now` runs the mesh paths alone on
 a four-GPU host (no kernels line, no last line):
-28. `mesh_share_2x2`: share_10m_csr as `share_path` builds it, the CSR
+34. `mesh_share_2x2`: share_10m_csr as `share_path` builds it, the CSR
     table in two slot-owner shards over 'tp', B = 8192 over 'dp' (4,096
     rows a rank): 3 round-robin batches and one hash_clientid batch, every
     recipient set against a per-shard host oracle (`MeshOracle`) and every
@@ -197,7 +253,7 @@ a four-GPU host (no kernels line, no last line):
     group_counts launched on every rank, compact_fanout_slots not;
     group_counts and share_pick with rank offsets against their twins;
     the breakdown (encode, h2d, step, collectives, assembly, route);
-29. `mesh_1m_2x2`: mixed_1m dense (4 of 8 lane words a tp rank): 3
+35. `mesh_1m_2x2`: mixed_1m dense (4 of 8 lane words a tp rank): 3
     batches against the host oracle, the raw outputs against the same
     step run on CPU copies of each rank's tables (the twins, over gloo);
     the retained_5m store (chunk rows over 'dp') and its 8,192-filter
@@ -208,26 +264,41 @@ a four-GPU host (no kernels line, no last line):
     shards' summed counts, the masks against twin and numpy; churn (rows
     past kslot, their dense rows through the second gather; semantic step
     A), mirrors after each; compact_fanout_slots with its lane base
-    against its twin; the breakdown;
-30. `mesh_1m_nccl1`: one NCCL rank, its MeshServingRouter equal to
+    against its twin; the composite bounds of the dense, semantic and
+    fused steps on a rank (`composite_bounds_mesh_1m`); the breakdown;
+36. `mesh_1m_nccl1`: one NCCL rank, its MeshServingRouter equal to
     DeviceRouter.route on the same batches bit for bit;
-31. one JSON line {"kernels": [...]}: the sixteen kernels, each with its
+37. `mesh_plus_2x2`: plus_100k's dense table (2,048 of 4,096 lane words a
+    tp rank) through `dist_route_step`, B = 8192 over 'dp': 3 batches,
+    every rank's blocks of matched, mcount, flags and bitmaps ([4,096,
+    2,048] uint32) against the host oracle's slice, the reduced stats
+    equal on every rank and to the single-device `route_step`'s (run by
+    rank 0 before the counters are zeroed), two all-reduces a batch (`COLLECTIVES['dist_step']`), tokenize,
+    vocab_lookup, nfa_walk and fanout_bitmaps launched on every rank;
+    the breakdown (encode, h2d, step, collectives, readback, route);
+38. one JSON line {"kernels": [...]}: the sixteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
     session_1m; semantic_match (f32 table) and rule_masks on
     semantic_256k; group_counts on mesh_share_2x2, whose rank-offset
     share_pick and mesh_1m_2x2's lane-based compact_fanout_slots are the
-    `mesh` cases of those two kernels' entries),
-    its wrapper-call, device, plain-twin and library-call times and the
+    `mesh` cases of those two kernels' entries; the broker_1m and
+    plus_100k cases of the kernels those paths launch, with their
+    launches there),
+    its wrapper-call, device (CUPTI; CUDA events around calls queued
+    behind a spin where the trace held none: `device_via`), plain-twin
+    and library-call times and the
     least time the card could take (bytes moved over 3.35 TB/s, or
     operations over the 67 T/s scalar rate, 989 T/s for a bf16 product,
-    the larger); then the card line; then, last, {"ok": true, "device":
-    ...}.
+    the larger), after `composite_bounds_nfa` (the bounds of `route_step`
+    a batch and of `dist_step` a rank); then the card line; then, last,
+    {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import collections
 import gc
 import itertools
 import json
@@ -862,12 +933,29 @@ def profiled(torch, fn, reps: int):
     return prof.key_averages(), wall
 
 
+def queued_ms(torch, fn, calls: int = 20) -> float:
+    """Device time of one call from CUDA events around `calls` calls queued
+    behind a spin kernel on the stream, so that the host's launch path opens
+    no gaps between them on the device."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # about 50 ms of spinning: longer than queueing the calls
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def device_ms(torch, name: str, fn, per_call=None):
-    """Device time of one call of kernel `name`, from the CUPTI trace of 20
-    calls: per CUDA kernel of the launcher (`KERNEL_SYMBOLS`), its mean
-    time per launch times its launches per call (`per_call`, 1 where not
-    given), summed. A trace that lost every event of one of them is taken
-    once more; None when neither holds device time for all."""
+    """Device time of one call of kernel `name`, and where it came from.
+    From the CUPTI trace of 20 calls ("cupti"): per CUDA kernel of the
+    launcher (`KERNEL_SYMBOLS`), its mean time per launch times its
+    launches per call (`per_call`, 1 where not given), summed. A trace that
+    lost every event of one of them is taken once more; when neither holds
+    device time for all, from `queued_ms` ("events")."""
     syms = KERNEL_SYMBOLS[name]
     syms = (syms,) if isinstance(syms, str) else syms
     per_call = per_call or {}
@@ -882,8 +970,8 @@ def device_ms(torch, name: str, fn, per_call=None):
                 break
             ms += total / count / 1e3 * per_call.get(sym, 1)
         else:
-            return ms
-    return None
+            return ms, "cupti"
+    return queued_ms(torch, fn), "events"
 
 
 def max_abs_err(got, want, torch) -> int:
@@ -948,21 +1036,58 @@ def kernel_report(torch, kinds, plain_reps=TIMING_REPS) -> dict:
         ms = time_ms(k["kernel"], torch)
         plain_ms = time_ms(k["plain"], torch, inner=PLAIN_INNER, reps=plain_reps)
         lib_ms = time_ms(k["library"], torch) if k.get("library") else None
-        dev_ms = device_ms(torch, kname, k["kernel"], k.get("per_call"))
+        dev_ms, dev_via = device_ms(torch, kname, k["kernel"], k.get("per_call"))
         bound_ms, bound_by = bound(k["bytes"], k["ops"])
         src, replaces = SOURCES[kname]
         report[name] = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lib_ms,
-            # the kernel alone on the device (CUPTI), without the launch
-            # path that `ms` includes
-            "device_ms": dev_ms,
+            # the kernel alone on the device, without the launch path that
+            # `ms` includes
+            "device_ms": dev_ms, "device_via": dev_via,
         }
         phase("kernel", kernel=kname, case=name, equal=True, ms=ms, device_ms=dev_ms,
+              device_via=dev_via,
               plain_ms=plain_ms, plain_samples=plain_reps, library_ms=lib_ms,
               bound_ms=bound_ms, bytes=k["bytes"], ops=k["ops"])
     return report
+
+
+def serving_work(name: str, *, B: int, L: int = 0, MB: int = 0, nbytes: int = 0, P: int = 0,
+                 in_vocab: int = 0, K: int = 0, visits: int = 0, final: int = 0,
+                 lanes: int = 0, hits: int = 0, fids: int = 0, W: int = 0, kslot: int = 0,
+                 pop: int = 0) -> dict:
+    """The least bytes and the integer operations of one serving kernel at
+    one batch's counts, for its bound; every path that times the kernel
+    takes them from here. B rows, L levels, MB topic bytes (nbytes of them
+    live), P probes, in_vocab lanes found, K match columns, the NFA's
+    visits and final states, `lanes` fan-out columns (hits of them
+    matched, fids distinct), W words a row, kslot slots, pop bits set."""
+    if name == "tokenize":
+        return dict(bytes=B * MB + 4 * B + 2 * 4 * B * L + 4 * B + B,
+                    ops=6 * nbytes + 12 * B * L)
+    if name == "vocab_lookup":
+        # the hash pairs in, the symbols out, one 12-byte vocab slot per
+        # lane found and one 4-byte symbol word per lane not found
+        return dict(bytes=3 * 4 * B * L + 12 * in_vocab + 4 * (B * L - in_vocab),
+                    ops=B * L * (6 + 8 * P))
+    if name == "nfa_walk":
+        # symbols, depth and `$` in; matched, count and four flags out;
+        # per live state and level its `#` and `+` words and one 12-byte
+        # edge slot; per final state its terminal and `#` words
+        return dict(bytes=4 * B * L + 5 * B + 4 * B * K + 4 * B + 4 * B
+                    + 20 * visits + 8 * final,
+                    ops=visits * (16 + 8 * P) + B * (L * 8 + K))
+    if name == "fanout_bitmaps":
+        # the lanes in, each distinct fid's row read once, the rows and
+        # counts out; one OR a word of each matched lane's row, a popcount
+        # and an add a word out, a check a lane
+        return dict(bytes=4 * B * lanes + 4 * W * fids + 4 * B * W + 4 * B,
+                    ops=hits * W + 2 * B * W + B * lanes)
+    if name == "compact_fanout_slots":
+        return dict(bytes=4 * B * W + 4 * B * kslot + 4 * B + B, ops=B * W * 12 + pop * 4)
+    raise KeyError(name)
 
 
 def match_kinds(torch, tables, m_active, bm, ln, salt, L=MAX_LEVELS):
@@ -993,8 +1118,7 @@ def match_kinds(torch, tables, m_active, bm, ln, salt, L=MAX_LEVELS):
             kernel=lambda: T.tokenize(bm, ln, salt, L),
             plain=lambda: T.tokenize_plain(bm, ln, salt, L),
             out=tok,
-            bytes=B * MB + 4 * B + 2 * 4 * B * L + 4 * B + B,
-            ops=6 * nbytes + 12 * B * L,
+            **serving_work("tokenize", B=B, MB=MB, L=L, nbytes=nbytes),
         ),
         "shape_match": dict(
             kernel=lambda: S.shape_match(tables, M, h1, h2, nw, dl),
@@ -1043,10 +1167,7 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
             kernel=lambda: T.vocab_lookup(nfa_tables, h1, h2, P),
             plain=lambda: T.vocab_lookup_plain(nfa_tables, h1, h2, P),
             out=syms,
-            # the hash pairs in, the symbols out, one 12-byte vocab slot per
-            # lane found and one 4-byte symbol word per lane not found
-            bytes=3 * 4 * B * L + 12 * in_vocab + 4 * (B * L - in_vocab),
-            ops=B * L * (6 + 8 * P),
+            **serving_work("vocab_lookup", B=B, L=L, P=P, in_vocab=in_vocab),
         )
         kinds["nfa_walk"] = dict(
             kernel=lambda: Mt.batch_match_syms(nfa_tables, syms, nw, dl, frontier=F,
@@ -1054,12 +1175,7 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
             plain=lambda: Mt.batch_match_syms_plain(nfa_tables, syms, nw, dl, frontier=F,
                                                     max_matches=K, probes=P),
             out=nfa_out,
-            # symbols, depth and `$` in; matched, count and four flags out;
-            # per live state and level its `#` and `+` words and one 12-byte
-            # edge slot; per final state its terminal and `#` words
-            bytes=4 * B * L + 5 * B + 4 * B * K + 4 * B + 4 * B
-            + 20 * visits + 8 * final,
-            ops=visits * (16 + 8 * P) + B * (L * 8 + K),
+            **serving_work("nfa_walk", B=B, L=L, P=P, K=K, visits=visits, final=final),
         )
     else:
         matched_all = matched
@@ -1072,7 +1188,8 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
     torch.cuda.synchronize()
 
     fids = matched_all[matched_all >= 0].unique().numel()
-    inputs.update(**counts, distinct_fids=fids)
+    hits = int((matched_all >= 0).sum())
+    inputs.update(**counts, distinct_fids=fids, matched_lanes=hits)
     kinds.update(match)
     if not dense:
         return kinds, inputs
@@ -1082,15 +1199,13 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
             kernel=lambda: R.fanout_bitmaps(tables["sub_bitmaps"], matched_all),
             plain=lambda: R.fanout_bitmaps_plain(tables["sub_bitmaps"], matched_all),
             out=(bits, pop),
-            bytes=4 * B * Mall + 4 * W * fids + 4 * B * W + 4 * B,
-            ops=B * W * (3 * Mall + 2),
+            **serving_work("fanout_bitmaps", B=B, lanes=Mall, hits=hits, fids=fids, W=W),
         ),
         "compact_fanout_slots": dict(
             kernel=lambda: R.compact_fanout_slots(bits, kslot),
             plain=lambda: R.compact_fanout_slots_plain(bits, kslot),
             out=comp,
-            bytes=4 * B * W + 4 * B * kslot + 4 * B + B,
-            ops=B * W * 12 + int(pop.sum()) * 4,
+            **serving_work("compact_fanout_slots", B=B, W=W, kslot=kslot, pop=int(pop.sum())),
         ),
     })
     return kinds, inputs
@@ -3098,7 +3213,7 @@ def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
     ms = time_ms(fused, torch, inner=3, reps=7)
     plain_ms = time_ms(lambda: sem_twin(torch, sem_t, q, matched, topk, census=False), torch,
                        inner=1, reps=3)
-    dev_ms = device_ms(torch, "semantic_match", fused)
+    dev_ms, dev_via = device_ms(torch, "semantic_match", fused)
     vecs = torch.cat([sem_t["sem_vec"][0], sem_t["sem_hot_vec"][0]]).float()
     qq = q.to(torch.bfloat16).float() if dtype == "bfloat16" else q
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -3120,7 +3235,8 @@ def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
     src, replaces = SOURCES["semantic_match"]
     rep = {"name": "semantic_match", "route": "cuda", "source": src, "replaces": replaces,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": lib_ms, "device_ms": dev_ms}
+           "bound_by": bound_by, "library_ms": lib_ms, "device_ms": dev_ms,
+           "device_via": dev_via}
     phase("kernel", kernel="semantic_match", case=f"semantic_256k/{dtype}", rows=B, entries=E,
           dim=D, topk=topk, kslot=kslot, splits=ST.semantic_splits(
               B, E, torch.cuda.get_device_properties(q.device).multi_processor_count),
@@ -3316,11 +3432,735 @@ def semantic_path(torch, rng, router_1m):
     return entries, launches
 
 
+# -- the broker_1m path (the broker's publish path) -------------------------------
+
+BROKER_IDS, BROKER_NUMS, BROKER_HOT = 1000, 1000, 100  # mixed_1m's filters
+BROKER_GROUPS, BROKER_MEMBERS = 100, 16  # $share/ingest/device/{i}/#, i < 100
+BROKER_MIN_BATCH = 64
+BROKER_CHURN = 1000  # plain unsubscribes, and subscribes on fresh filters
+BROKER_LEAVE = 10  # groups that lose a member
+
+
+class Deliveries:
+    """The stub deliverers: each records (message, subscriber id)."""
+
+    def __init__(self):
+        self.log = []
+
+    def record(self, sid, msg, _opts):
+        self.log.append((msg, sid))
+
+    def sink(self, sid):
+        import functools
+
+        return functools.partial(self.record, sid)
+
+
+def broker_build(torch):
+    """BASELINE config 3 through `Broker.subscribe`: one client a filter for
+    device/{i}/+/{j}/# (i, j < 1000) and device/{i}/# (i < 100), 1,000,100
+    plain subscriptions, then 16 members in each of 100 round-robin groups
+    $share/ingest/device/{i}/#. -> (broker, deliveries, seconds)."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.hooks import Hooks
+    from emqx_tpu_torch.broker.router import Router
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+
+    rec = Deliveries()
+    broker = Broker(Router(MatcherConfig(max_bytes=MAX_BYTES, max_levels=MAX_LEVELS),
+                           min_tpu_batch=BROKER_MIN_BATCH), Hooks())
+    opts = SubOpts()
+    t0 = time.perf_counter()
+    for i in range(BROKER_IDS):
+        for j in range(BROKER_NUMS):
+            sid = f"c{i}_{j}"
+            broker.subscribe(sid, sid, f"device/{i}/+/{j}/#", opts, rec.sink(sid))
+    for i in range(BROKER_HOT):
+        sid = f"h{i}"
+        broker.subscribe(sid, sid, f"device/{i}/#", opts, rec.sink(sid))
+    t1 = time.perf_counter()
+    for i in range(BROKER_GROUPS):
+        for m in range(BROKER_MEMBERS):
+            sid = f"g{i}_{m}"
+            broker.subscribe(sid, sid, f"$share/ingest/device/{i}/#", opts, rec.sink(sid))
+    t2 = time.perf_counter()
+    return broker, rec, {"plain": t1 - t0, "groups": t2 - t1}
+
+
+class BrokerTimer:
+    """Host-clock spans of one `publish_batch` (each ending in a
+    synchronize): the DeviceRouter's prepare and route() (which includes
+    the prepare), and the broker's host dispatch
+    (`_dispatch_device_results`), wrapped on the instances."""
+
+    def __init__(self, torch, broker):
+        self.torch = torch
+        self.samples = {"prepare": [], "route": [], "host_dispatch": []}
+        dev = broker._device_router()
+        for obj, attr, name in ((dev, "_device_args", "prepare"), (dev, "route", "route"),
+                                (broker, "_dispatch_device_results", "host_dispatch")):
+            setattr(obj, attr, self.wrap(getattr(obj, attr), name))
+
+    def wrap(self, fn, name):
+        def run(*a, **k):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            self.torch.cuda.synchronize()
+            self.samples[name].append(1e3 * (time.perf_counter() - t0))
+            return r
+        return run
+
+    def take(self) -> dict:
+        out = {f"{k}_ms": v[-1] for k, v in self.samples.items()}
+        for v in self.samples.values():
+            v.clear()
+        return out
+
+
+def broker_publish(torch, broker, rec, timer, topics, tag: int) -> dict:
+    """One checked `publish_batch` of `topics`: every message's plain
+    recipients against the CPU oracle (the subscribers of the router's
+    exact and trie matches), and every matched group's one delivery
+    against `pick_oracle` (taken before the batch, the bases it reads
+    advanced as `advance_rr` would after it). -> the batch's record."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.message import Message
+
+    r = broker.router
+    gt = broker.grouptab
+    msgs = [Message(topic=t, payload=b"%d" % k, from_client=f"pub{tag}") for k, t in
+            enumerate(topics)]
+    gfid = np.full((len(topics), 1), -1, np.int64)
+    for k, t in enumerate(topics):
+        ws = t.split("/")
+        if len(ws) > 1 and ws[1].isdigit() and int(ws[1]) < BROKER_GROUPS:
+            fid = r.filter_id(f"device/{ws[1]}/#")
+            gfid[k, 0] = -1 if fid is None else fid
+    lanes, idx = pick_oracle(gt, gfid, "round_robin")
+    rr0 = gt.group_rr.copy()
+    rec.log.clear()
+    fb0 = broker.metrics.get("messages.routed.device_fallback")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = broker.publish_batch(msgs)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    got = [[] for _ in msgs]
+    pos = {id(m): k for k, m in enumerate(msgs)}
+    for m, sid in rec.log:
+        got[pos[id(m)]].append(sid)
+    if n != len(rec.log):
+        raise AssertionError(f"publish_batch returned {n}, {len(rec.log)} deliveries recorded")
+    plain_n = group_n = 0
+    counts = collections.Counter()
+    for k, t in enumerate(topics):
+        want = {sid for f in r.match(t) for sid in broker._subs.get(f, ())}
+        plain = [s for s in got[k] if not s.startswith("g")]
+        grp = [s for s in got[k] if s.startswith("g")]
+        if len(plain) != len(set(plain)) or set(plain) != want:
+            raise AssertionError(f"message {k} {t!r}: plain {sorted(plain)} != {sorted(want)}")
+        g = int(lanes[k, 0])
+        if g < 0:
+            if grp:
+                raise AssertionError(f"message {k} {t!r}: group deliveries {grp}")
+        else:
+            real, gname = gt.info(g)
+            members = list(broker.shared.group(real, gname).members)
+            if grp != [members[int(idx[k, 0])]]:
+                raise AssertionError(f"message {k} {t!r}: group got {grp}, oracle "
+                                     f"{members[int(idx[k, 0])]}")
+            counts[g] += 1
+        plain_n += len(plain)
+        group_n += len(grp)
+    for g, c in counts.items():  # the bases the broker wrote back
+        if int(gt.group_rr[g]) != int(rr0[g]) + c:
+            raise AssertionError(f"group {g}: rr {int(gt.group_rr[g])} != {int(rr0[g]) + c}")
+    fell = broker.metrics.get("messages.routed.device_fallback") - fb0
+    if fell:
+        raise AssertionError(f"{fell} rows fell back to the CPU")
+    want_launch = {"tokenize": 1, "shape_match": 1, "sparse_fanout_slots": 1,
+                   "share_pick": 2, "nfa_walk": 0, "fanout_bitmaps": 0,
+                   "compact_fanout_slots": 0}
+    if any(launches[k] != v for k, v in want_launch.items()) or not launches["occurrence_index"]:
+        raise AssertionError(f"broker batch launches {launches}")
+    return {"messages": len(msgs), "deliveries": n, "plain": plain_n, "group": group_n,
+            "groups_matched": len(counts), "publish_batch_ms": wall,
+            "launches": {k: v for k, v in launches.items() if v}, **timer.take()}
+
+
+def broker_path(torch, rng):
+    """broker_1m: BASELINE config 3 loaded through `Broker.subscribe`, with
+    100 $share groups, published through `publish_batch`. -> (the path's
+    kernel cases, its launches)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS
+
+    t0 = time.perf_counter()
+    broker, rec, secs = broker_build(torch)
+    build_s = time.perf_counter() - t0
+    subtab = broker.subtab
+    n_subs = BROKER_IDS * BROKER_NUMS + BROKER_HOT + BROKER_GROUPS * BROKER_MEMBERS
+    if not subtab.sparse or broker.subscription_count() != n_subs:
+        raise AssertionError(f"broker_1m: sparse {subtab.sparse}, "
+                             f"{broker.subscription_count()} subscriptions")
+    dev = broker._device_router()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = dev.prepare()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    phase("tables_broker", subscriptions=broker.subscription_count(), filters=len(broker.router),
+          slots=len(broker._slot_subs), groups=len(broker.grouptab),
+          sub_table="csr" if subtab.sparse else "dense", flips=subtab.flips,
+          kslot=args.kslot, kg=args.kg, m_active=args.m_active,
+          residual_count=broker.router.index.residual_count,
+          subscribe_seconds=secs, subscribes_per_s=n_subs / build_s,
+          first_prepare_seconds=upload_s,
+          device_bytes={"shapes": sum(mirror_bytes({k: v for k, v in args.tables.items()
+                                                    if k not in CSR_KEYS}).values()),
+                        "csr": sum(mirror_bytes({k: args.tables[k] for k in CSR_KEYS})
+                                   .values()),
+                        "groups": sum(mirror_bytes(args.group_tables).values())},
+          reduced=[])
+    timer = BrokerTimer(torch, broker)
+    batches = [topic_batch_1m(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+    launches = collections.Counter()
+    published = []
+    for k, topics in enumerate(batches):
+        published.append(broker_publish(torch, broker, rec, timer, topics, k))
+        launches.update(published[-1]["launches"])
+    phase("publish_broker", batches=published, sub_table="csr", kslot=dev.prepare().kslot)
+
+    # churn: 1,000 plain unsubscribes on filters the next batch hits, 1,000
+    # subscribes on fresh filters (device/{i}/+/{j}/# for j >= 1000, of the
+    # table's shape) that it hits too, one member leaving each of 10 groups
+    nxt = topic_batch_1m(rng, BATCH)
+    pairs = [(i, j) for i, j in dict.fromkeys((t.split("/")[1], t.split("/")[3])
+                                              for t in nxt[:BATCH - BROKER_CHURN])
+             if int(i) < BROKER_IDS and int(j) < BROKER_NUMS]
+    gone = pairs[:BROKER_CHURN]
+    fresh = [(str(i), str(BROKER_NUMS + j)) for j, i in enumerate(
+        zipf_ids(rng, BROKER_CHURN, BROKER_IDS))]
+    for k, (i, j) in enumerate(fresh):
+        nxt[BATCH - 1 - k] = f"device/{i}/mid/{j}/leaf"
+
+    def state():
+        idx = broker.router.index
+        return (mirror_counts(dev),
+                {"shapes": idx.shapes.version, "nfa": idx.nfa.version,
+                 "bitmaps": subtab.version, "groups": broker.grouptab.version},
+                {"shapes": idx.shapes.epoch, "nfa": idx.nfa.epoch, "bitmaps": subtab.epoch,
+                 "groups": broker.grouptab.epoch})
+
+    dev.prepare()  # the last batch's round-robin bases reach the card
+    c0, v0, e0 = state()
+    for i, j in gone:
+        if not broker.unsubscribe(f"c{i}_{j}", f"device/{i}/+/{j}/#"):
+            raise AssertionError(f"unsubscribe c{i}_{j} refused")
+    for i, j in fresh:
+        sid = f"n{i}_{j}"
+        broker.subscribe(sid, sid, f"device/{i}/+/{j}/#", SubOpts(), rec.sink(sid))
+    for i in range(BROKER_LEAVE):
+        broker.unsubscribe(f"g{i}_0", f"$share/ingest/device/{i}/#")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.prepare()
+    torch.cuda.synchronize()
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    sync_launches = kernels.LAUNCHES["segment_scatter"]
+    c1, v1, e1 = state()
+    moves = check_wave("broker churn", c0, c1, e0, e1, {m: v1[m] != v0[m] for m in v0})
+    mirrors = check_mirrors(torch, dev)
+    if sync_launches != sum(moves["delta_launches"].values()) or \
+            any(v > 1 for v in moves["delta_launches"].values()):
+        raise AssertionError(f"churn sync: {sync_launches} scatters, moves {moves}")
+    after = broker_publish(torch, broker, rec, timer, nxt, 9)
+    launches.update(after["launches"])
+    # each change shows: the gone subscribers get nothing, the fresh ones
+    # their rows, the members that left nothing
+    got = {sid for m, sid in rec.log}
+    left = {f"g{i}_0" for i in range(BROKER_LEAVE)}
+    if got & ({f"c{i}_{j}" for i, j in gone} | left):
+        raise AssertionError("a removed subscription still received")
+    if not {f"n{i}_{j}" for i, j in fresh} <= got:
+        raise AssertionError("a fresh subscription received nothing")
+    phase("churn_broker", unsubscribed=len(gone), subscribed=len(fresh),
+          members_left=BROKER_LEAVE, prepare_ms=sync_ms, scatter_launches=sync_launches,
+          **moves, mirrors_equal=mirrors, batch=after, segment_status=mirror_counts(dev))
+
+    # the match-only router: Router.match_batch against Router.match
+    topics = topic_batch_1m(rng, BATCH)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = broker.router.match_batch(topics)
+    match_ms = 1e3 * (time.perf_counter() - t0)
+    match_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for t, names in zip(topics, got):
+        if sorted(names) != sorted(broker.router.match(t)):
+            raise AssertionError(f"Router.match_batch {t!r}: {names}")
+    if match_launches != {"tokenize": 1, "shape_match": 1}:
+        raise AssertionError(f"match-only launches {match_launches}")
+    phase("match_only_broker", topics=len(topics), match_batch_ms=match_ms,
+          matches=sum(len(n) for n in got), launches=match_launches,
+          segment_status=broker.router.matcher.segment_status())
+
+    # where a broker batch's time goes: 3 more checked batches
+    brk = [broker_publish(torch, broker, rec, timer, topic_batch_1m(rng, BATCH), 20 + k)
+           for k in range(3)]
+    for b in brk:
+        launches.update(b["launches"])
+    med = {k: float(np.median([b[k] for b in brk])) for k in
+           ("publish_batch_ms", "prepare_ms", "route_ms", "host_dispatch_ms")}
+    med["deliveries"] = float(np.median([b["deliveries"] for b in brk]))
+    med["messages_per_s"] = BATCH / (med["publish_batch_ms"] / 1e3)
+    med["deliveries_per_s"] = med["deliveries"] / (med["publish_batch_ms"] / 1e3)
+    med["route_share"] = med["route_ms"] / med["publish_batch_ms"]
+    med["host_dispatch_share"] = med["host_dispatch_ms"] / med["publish_batch_ms"]
+    # the device's busy share of one more publish_batch, from its trace (a
+    # trace that came back without device events is taken again, on a
+    # fresh batch, up to three times)
+    for attempt in range(1, 4):
+        msgs = [Message(topic=t, payload=b"%d" % k, from_client=f"pub{30 + attempt}")
+                for k, t in enumerate(topic_batch_1m(rng, BATCH))]
+        events, wall = profiled(torch, lambda: broker.publish_batch(msgs), 1)
+        busy = sum(e.self_device_time_total for e in events) / 1e6
+        rec.log.clear()
+        timer.take()
+        if busy > 0:
+            break
+    med.update(traced_publish_batch_ms=1e3 * wall, traced_device_ms=1e3 * busy,
+               device_busy_share=busy / wall if busy > 0 else None, trace_attempts=attempt)
+    phase("breakdown_broker", subscribe_seconds=secs, first_batch=published[0],
+          **med)
+
+    # the path's kernels at broker_1m shapes, against their twins
+    args = dev.prepare()
+    kinds, inputs = share_kinds(torch, dev, args, batches[0])
+    keep = ("tokenize", "shape_match", "sparse_fanout_slots", "occurrence_index",
+            "share_pick/round_robin")
+    report = kernel_report(torch, {k: kinds[k] for k in keep})
+    phase("kernel_inputs_broker", **inputs)
+    phase("broker_launches", launches=dict(launches))
+    del broker, rec, dev, timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, dict(launches)
+
+
+# -- the plus_100k path (the NFA-only step) ---------------------------------------
+
+PLUS_CHURN = 1000  # filters added and removed through the NFA mirror
+
+
+def plus_100k_filters() -> list:
+    """bench.py's plus_100k (`build_config`): 90,000 exact 8-level filters
+    and 10,000 single-'+' filters over the same space."""
+    filters = []
+    for i in range(90_000):
+        a, b, c, d = i % 30, (i // 30) % 50, (i // 1500) % 60, i // 90_000 + i % 7
+        filters.append(f"org/{a}/dev/{b}/ch/{c}/m/{d}")
+    for i in range(10_000):
+        a, b, c = i % 30, (i // 30) % 50, i % 60
+        parts = ["org", str(a), "dev", str(b), "ch", str(c), "m", str(i % 7)]
+        parts[1 + 2 * (i % 4)] = "+"
+        filters.append("/".join(parts))
+    return filters
+
+
+def plus_topics(rng, n) -> list:
+    """bench.py's plus_100k topic draw."""
+    return [f"org/{a}/dev/{b}/ch/{c}/m/{d}" for a, b, c, d in zip(
+        rng.integers(0, 30, n), rng.integers(0, 50, n), rng.integers(0, 60, n),
+        rng.integers(0, 7, n))]
+
+
+def build_plus():
+    """The NFA over plus_100k, one subscriber slot per distinct filter (its
+    index among them) in a dense table (W = 4,096 words) and in a CSR
+    table, and the trie oracle. -> dict."""
+    from emqx_tpu_torch.broker.trie import TopicTrie
+    from emqx_tpu_torch.models.router_model import SubscriberTable
+    from emqx_tpu_torch.ops.nfa import NfaBuilder
+
+    t = [time.perf_counter()]
+    filters = plus_100k_filters()
+    builder = NfaBuilder()
+    for f in filters:
+        builder.add(f)
+    t.append(time.perf_counter())
+    distinct = list(dict.fromkeys(filters))
+    fids = np.array([builder.filter_id(f) for f in distinct], np.int64)
+    slots = np.arange(len(distinct), dtype=np.int64)
+    trie = TopicTrie()
+    for f in distinct:
+        trie.insert(f)
+    t.append(time.perf_counter())
+    dense = SubscriberTable(max_subscribers=len(distinct), mode="dense")
+    dense.bulk_add(fids, slots)
+    dense.pack(builder.num_filters_capacity)
+    t.append(time.perf_counter())
+    csr = SubscriberTable(max_subscribers=len(distinct), mode="sparse")
+    csr.bulk_add(fids, slots)
+    csr.pack(builder.num_filters_capacity)
+    t.append(time.perf_counter())
+    names = ("nfa", "trie", "dense_table", "csr_table")
+    return {"filters": len(filters), "builder": builder, "trie": trie, "dense": dense,
+            "csr": csr, "slot_of": dict(zip(fids.tolist(), slots.tolist())),
+            "seconds": {k: b - a for k, a, b in zip(names, t, t[1:])}}
+
+
+class PlusOracle:
+    """The host reference of the NFA-only step: the trie's filters of each
+    topic, their ids in the builder, and the OR of their rows of the dense
+    host table."""
+
+    def __init__(self, st):
+        self.builder, self.trie, self.dense = st["builder"], st["trie"], st["dense"]
+
+    def fids(self, topics) -> list:
+        fid = self.builder.filter_id
+        return [{fid(f) for f in self.trie.match(t)} for t in topics]
+
+    def rows(self, fids, lanes=None) -> np.ndarray:
+        """[len(fids), W] uint32 expected bitmap rows (a lane slice with
+        `lanes`), gathered in chunks."""
+        arr = self.dense.arr if lanes is None else self.dense.arr[:, lanes]
+        out = np.zeros((len(fids), arr.shape[1]), np.uint32)
+        for k, fs in enumerate(fids):
+            for f in fs:
+                out[k] |= arr[f]
+        return out
+
+
+def check_plus(out, topics, oracle, kslot, lanes=None) -> dict:
+    """One route_step result (dict of host arrays) against the oracle: every
+    row's matched fids and count, the dense bitmap rows (kslot 0) or the
+    slot lists and counts, and the stats. No row may be flagged."""
+    want = oracle.fids(topics)
+    if out["flags"].any():
+        raise AssertionError(f"{int(out['flags'].sum())} plus_100k rows flagged")
+    for i, w in enumerate(want):
+        row = out["matched"][i]
+        if set(row[row >= 0].tolist()) != w or int(out["mcount"][i]) != len(w):
+            raise AssertionError(f"row {i} {topics[i]!r}: matched != {sorted(w)}")
+    rows = oracle.rows(want, lanes)
+    bits = int(sum(int(np.unpackbits(r.view(np.uint8)).sum()) for r in rows))
+    if out.get("bitmaps") is not None:
+        if not np.array_equal(out["bitmaps"].view(np.uint32), rows):
+            raise AssertionError("bitmap rows differ from the oracle's OR")
+    if "slots" in out:
+        for i in range(len(topics)):
+            got = out["slots"][i]
+            if set(got[got >= 0].tolist()) != slot_set(rows[i]) or \
+                    int(out["slot_count"][i]) != len(slot_set(rows[i])):
+                raise AssertionError(f"row {i} {topics[i]!r}: slots differ")
+        if out["overflow"].any():
+            raise AssertionError("plus_100k rows overflowed kslot")
+    if "stats" in out:
+        st = {k: int(v) for k, v in out["stats"].items()}
+        want_st = {"routed": sum(1 for w in want if w), "matches": sum(map(len, want)),
+                   "fanout_bits": bits}
+        if st != want_st:
+            raise AssertionError(f"stats {st} != {want_st}")
+    return {"rows": len(topics), "matches": sum(map(len, want)), "recipients": bits}
+
+
+def plus_step(torch, tables, bits, topics, salt, kslot, cfg):
+    """encode -> h2d -> route_step -> one readback -> host dict."""
+    from emqx_tpu_torch.models.router_model import route_step
+    from emqx_tpu_torch.ops.tokenizer import encode_topics
+
+    dev = next(iter(tables.values())).device
+    mat, lens, _ = encode_topics(topics, MAX_BYTES)
+    out = route_step(tables, bits, torch.from_numpy(mat).to(dev),
+                     torch.from_numpy(lens).to(dev), salt=salt, kslot=kslot, device=dev,
+                     **cfg)
+    return plus_readback(torch, out)
+
+
+def plus_readback(torch, out) -> dict:
+    """A route_step output -> host arrays, in one device->host copy (the
+    dense rows only when there is no compaction, as `DeviceRouter` reads
+    them)."""
+    skip = {"bitmaps"} if "slots" in out else set()
+    keys = [k for k in ("matched", "mcount", "flags", "bitmaps", "slots", "slot_count",
+                        "overflow") if out.get(k) is not None and k not in skip]
+    flat = torch.cat([out[k].reshape(-1).to(torch.int32) for k in keys]
+                     + [torch.stack([v.to(torch.int32) for v in out["stats"].values()])])
+    host = flat.cpu().numpy()
+    res, o = {}, 0
+    for k in keys:
+        n = out[k].numel()
+        res[k] = host[o:o + n].reshape(tuple(out[k].shape))
+        o += n
+    for k in ("flags", "overflow"):
+        if k in res:
+            res[k] = res[k].astype(bool)
+    res["stats"] = dict(zip(out["stats"], host[o:].tolist()))
+    return res
+
+
+def plus_kinds(torch, tables, bits, topics, salt, cfg, kslot):
+    """The NFA-only step's five kernels on one batch: inputs, outputs and
+    work (`serving_work`; the compaction twin in row chunks: its bit
+    expansion at W = 4,096 would take 34 GB at once)."""
+    from emqx_tpu_torch.models import router_model as R
+    from emqx_tpu_torch.ops import matcher as Mt
+    from emqx_tpu_torch.ops import tokenizer as T
+
+    dev = bits.device
+    mat, lens, _ = T.encode_topics(topics, MAX_BYTES)
+    bm, ln = torch.from_numpy(mat).to(dev), torch.from_numpy(lens).to(dev)
+    B, MB, L = len(topics), MAX_BYTES, MAX_LEVELS
+    P, F, K = cfg["probes"], cfg["frontier"], cfg["max_matches"]
+    tok = T.tokenize(bm, ln, salt, L)
+    h1, h2, nw, dl = tok
+    syms = T.vocab_lookup(tables, h1, h2, P)
+    nfa_out = Mt.batch_match_syms(tables, syms, nw, dl, frontier=F, max_matches=K, probes=P)
+    matched = nfa_out[0]
+    fb = R.fanout_bitmaps(bits, matched)
+    comp = R.compact_fanout_slots(fb[0], kslot)
+    torch.cuda.synchronize()
+    W = bits.shape[1]
+    in_vocab = int((syms >= 0).sum())
+    visits, final = nfa_work(torch, tables, syms, nw, dl, F)
+    fids = int(matched[matched >= 0].unique().numel())
+    hits = int((matched >= 0).sum())
+    pop = int(fb[1].sum())
+    n = dict(B=B, MB=MB, L=L, nbytes=int(ln.clamp(0, MB).sum()), P=P, in_vocab=in_vocab, K=K,
+             visits=visits, final=final, lanes=K, hits=hits, fids=fids, W=W, kslot=kslot,
+             pop=pop)
+
+    def comp_plain():
+        parts = [R.compact_fanout_slots_plain(fb[0][lo:lo + 1024], kslot)
+                 for lo in range(0, B, 1024)]
+        return tuple(torch.cat(p) for p in zip(*parts))
+
+    kinds = {
+        "tokenize": dict(
+            kernel=lambda: T.tokenize(bm, ln, salt, L),
+            plain=lambda: T.tokenize_plain(bm, ln, salt, L), out=tok),
+        "vocab_lookup": dict(
+            kernel=lambda: T.vocab_lookup(tables, h1, h2, P),
+            plain=lambda: T.vocab_lookup_plain(tables, h1, h2, P), out=syms),
+        "nfa_walk": dict(
+            kernel=lambda: Mt.batch_match_syms(tables, syms, nw, dl, frontier=F,
+                                               max_matches=K, probes=P),
+            plain=lambda: Mt.batch_match_syms_plain(tables, syms, nw, dl, frontier=F,
+                                                    max_matches=K, probes=P),
+            out=nfa_out),
+        "fanout_bitmaps": dict(
+            kernel=lambda: R.fanout_bitmaps(bits, matched),
+            plain=lambda: R.fanout_bitmaps_plain(bits, matched), out=fb),
+        "compact_fanout_slots": dict(
+            kernel=lambda: R.compact_fanout_slots(fb[0], kslot),
+            plain=comp_plain, out=comp),
+    }
+    for name, k in kinds.items():
+        k.update(serving_work(name, **n))
+    inputs = {"batch": B, "max_levels": L, "frontier": F, "max_matches": K, "probes": P,
+              "width_words": W, "kslot": kslot, "in_vocab_lanes": in_vocab,
+              "nfa_state_visits": visits, "nfa_final_states": final, "distinct_fids": fids,
+              "matched_lanes": hits, "fanout_bits": pop}
+    return kinds, inputs
+
+
+def plus_path(torch, rng):
+    """plus_100k: TpuMatcher and route_step (dense with kslot 0 and 64, and
+    CSR) against the trie, churn through the NFA mirror, the five kernels
+    against their twins. -> (kernel cases, launches, composite bound)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.ops.matcher import CAUSES, MatcherConfig, TpuMatcher
+    from emqx_tpu_torch.ops.segments import DeviceSegmentManager
+
+    t0 = time.perf_counter()
+    st = build_plus()
+    build_s = time.perf_counter() - t0
+    builder, trie, dense, csr = (st[k] for k in ("builder", "trie", "dense", "csr"))
+    mc = MatcherConfig(max_bytes=MAX_BYTES, max_levels=MAX_LEVELS)
+    cfg = dict(max_levels=mc.max_levels, frontier=mc.frontier, max_matches=mc.max_matches,
+               probes=mc.probes)
+    metrics = Metrics()
+    matcher = TpuMatcher(builder, mc, metrics=metrics)
+    bits_sync = DeviceSegmentManager("cuda", name="bitmaps")
+    csr_sync = DeviceSegmentManager("cuda", name="csr")
+    t0 = time.perf_counter()
+    tables = matcher._tables()
+    bits = bits_sync.sync(dense)["sub_bitmaps"]
+    csr_t = csr_sync.sync(csr)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    phase("tables_plus", filters=st["filters"], distinct=len(builder),
+          width_words=dense.width_words, fcap=int(dense.arr.shape[0]),
+          build_seconds=build_s, build_stage_seconds=st["seconds"], upload_seconds=upload_s,
+          device_bytes={"nfa": sum(mirror_bytes(tables).values()),
+                        "dense": bits.numel() * 4,
+                        "csr": sum(mirror_bytes(csr_t).values())},
+          nfa_lanes={k: int(v.numel()) for k, v in tables.items()}, reduced=[])
+    oracle = PlusOracle(st)
+    batches = [plus_topics(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+
+    # -- the counters are zeroed here and read after the churn batch
+    kernels.reset_launches()
+    matched = []
+    for topics in batches:
+        t0 = time.perf_counter()
+        got = matcher.match_batch(topics)
+        wall = 1e3 * (time.perf_counter() - t0)
+        for t, names in zip(topics, got):
+            if sorted(names) != sorted(trie.match(t)):
+                raise AssertionError(f"TpuMatcher {t!r}: {names}")
+        matched.append({"match_batch_ms": wall, "matches": sum(map(len, got))})
+    flagged = {c: metrics.get(f"matcher.fallback.rows.{c}") for c in CAUSES + ("too_long",)}
+    phase("matcher_plus", batches=matched, flagged_by_cause=flagged,
+          flagged=metrics.get("matcher.fallback.rows"))
+    steps = []
+    for kslot in (0, 64):
+        for topics in batches:
+            t0 = time.perf_counter()
+            out = plus_step(torch, tables, bits, topics, builder.salt, kslot, cfg)
+            wall = 1e3 * (time.perf_counter() - t0)
+            steps.append({"table": "dense", "kslot": kslot, "step_ms": wall,
+                          **check_plus(out, topics, oracle, kslot)})
+    for topics in batches:
+        t0 = time.perf_counter()
+        out = plus_step(torch, tables, csr_t, topics, builder.salt, KSLOT, cfg)
+        wall = 1e3 * (time.perf_counter() - t0)
+        steps.append({"table": "csr", "kslot": KSLOT, "step_ms": wall,
+                      **check_plus(out, topics, oracle, KSLOT)})
+    phase("route_step_plus", steps=steps)
+
+    # -- churn: 1,000 filters removed (every reference) and 1,000 fresh exact
+    # filters of existing words added, through the NFA mirror and the
+    # dense table's mirror; then a checked batch of their topics
+    distinct = list(st["slot_of"])
+    pick = rng.choice(len(distinct), PLUS_CHURN, replace=False)
+    gone = [builder.filter_name(distinct[k]) for k in pick]
+    fresh = []
+    while len(fresh) < PLUS_CHURN:
+        a, b, c, d = (int(x) for x in rng.integers(0, [30, 50, 60, 7]))
+        f = f"org/{a}/dev/{b}/ch/{c}/m/{d}"
+        if builder.filter_id(f) is None and f not in fresh:
+            fresh.append(f)
+    e0 = {"nfa": builder.epoch, "bitmaps": dense.epoch}
+    c0 = {"nfa": matcher._sync.counters(), "bitmaps": bits_sync.counters()}
+    slot_of = st["slot_of"]
+    next_slot = len(distinct)
+    for f in gone:
+        fid = builder.filter_id(f)
+        while builder.filter_id(f) is not None:
+            builder.remove(f)
+        trie.delete(f)
+        dense.remove(fid, slot_of.pop(fid))
+    for k, f in enumerate(fresh):
+        fid = builder.add(f)
+        trie.insert(f)
+        slot_of[fid] = next_slot + k
+        dense.add(fid, next_slot + k)
+    topics = plus_topics(rng, BATCH)
+    topics[:PLUS_CHURN // 2] = [g.replace("+", "7") for g in gone[:PLUS_CHURN // 2]]
+    topics[PLUS_CHURN // 2:PLUS_CHURN * 3 // 2] = fresh
+    sc0 = kernels.LAUNCHES["segment_scatter"]
+    t0 = time.perf_counter()
+    tables = matcher._tables()
+    bits = bits_sync.sync(dense)["sub_bitmaps"]
+    torch.cuda.synchronize()
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    scatters = kernels.LAUNCHES["segment_scatter"] - sc0
+    c1 = {"nfa": matcher._sync.counters(), "bitmaps": bits_sync.counters()}
+    moves = {m: {k: c1[m][k] - c0[m][k] for k in c1[m]} for m in c1}
+    for m, mv in moves.items():
+        epoch_moved = (builder.epoch if m == "nfa" else dense.epoch) != e0[m]
+        if mv["full_resyncs"] != int(epoch_moved) or \
+                (not epoch_moved and mv["delta_launches"] + mv["array_resyncs"] < 1):
+            raise AssertionError(f"plus churn: {m} {mv}, epoch moved {epoch_moved}")
+    for mgr, src in ((matcher._sync, builder), (bits_sync, dense)):
+        snap = src.device_snapshot()
+        for k, host in snap.items():
+            if not np.array_equal(mgr._arrays[k].cpu().numpy().view(host.dtype), host):
+                raise AssertionError(f"mirror {mgr.name}/{k} differs from the host table")
+    got = matcher.match_batch(topics)
+    for t, names in zip(topics, got):
+        if sorted(names) != sorted(trie.match(t)):
+            raise AssertionError(f"TpuMatcher after churn {t!r}: {names}")
+    churn_check = check_plus(plus_step(torch, tables, bits, topics, builder.salt, KSLOT, cfg),
+                             topics, oracle, KSLOT)
+    launches = dict(kernels.LAUNCHES)
+    path = ("tokenize", "vocab_lookup", "nfa_walk", "fanout_bitmaps", "compact_fanout_slots",
+            "sparse_fanout_slots", "segment_scatter")
+    if not all(launches[k] for k in path) or launches["shape_match"]:
+        raise AssertionError(f"plus_100k launches {launches}")
+    phase("churn_plus", removed=len(gone), added=len(fresh), sync_ms=sync_ms,
+          scatter_launches=scatters, moved=moves,
+          epoch_moved={"nfa": builder.epoch != e0["nfa"], "bitmaps": dense.epoch != e0["bitmaps"]},
+          mirrors_equal=True, matches=sum(map(len, got)), route_step=churn_check,
+          launches=launches)
+
+    # per batch: a matcher call, a route_step
+    per = {}
+    for name, fn in (("match_batch", lambda: matcher.match_batch(batches[0])),
+                     ("route_step", lambda: plus_step(torch, tables, bits, batches[0],
+                                                      builder.salt, KSLOT, cfg))):
+        kernels.reset_launches()
+        fn()
+        per[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    phase("launches_per_batch_plus", **per)
+
+    # -- the five kernels at plus_100k shapes, against their twins
+    kinds, inputs = plus_kinds(torch, tables, bits, batches[0], builder.salt, cfg, KSLOT)
+    report = kernel_report(torch, kinds)
+    comp = sum(r["bound_ms"] for r in report.values())
+    phase("kernel_inputs_plus", **inputs, composite_bound_ms=comp)
+
+    # -- where one NFA-only batch's time goes
+    from emqx_tpu_torch.models.router_model import route_step
+    from emqx_tpu_torch.ops.tokenizer import encode_topics
+
+    names = ("encode", "h2d", "kernels", "readback", "route")
+    samples = {k: [] for k in names + ("match_batch",)}
+    for topics in [plus_topics(rng, BATCH) for _ in range(3)]:
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        mat, lens, _ = encode_topics(topics, MAX_BYTES)
+        t.append(time.perf_counter())
+        bm, ln = torch.from_numpy(mat).to(bits.device), torch.from_numpy(lens).to(bits.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        out = route_step(tables, bits, bm, ln, salt=builder.salt, kslot=KSLOT,
+                         device=bits.device, **cfg)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        plus_readback(torch, out)
+        t.append(time.perf_counter())
+        plus_step(torch, tables, bits, topics, builder.salt, KSLOT, cfg)
+        t.append(time.perf_counter())
+        for k, a, b in zip(names, t, t[1:]):
+            samples[k].append(1e3 * (b - a))
+        t0 = time.perf_counter()
+        matcher.match_batch(topics)
+        samples["match_batch"].append(1e3 * (time.perf_counter() - t0))
+    med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
+    med["topics_per_s"] = BATCH / (med["route_ms"] / 1e3)
+    phase("route_breakdown_plus", **med, composite_bound_ms=comp)
+    del st, builder, trie, dense, csr, matcher, bits_sync, csr_sync, tables, bits, csr_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, launches, comp
+
+
 # -- the mesh paths (port of emqx_tpu/parallel/mesh.py) ---------------------------
 
 MESH_WORLD = 4  # a 2 x 2 ('dp', 'tp') mesh
 MESH_TP = 2
-MESH_TIMEOUT = {"share": 480, "1m": 420, "nccl1": 150}  # seconds, each launch
+MESH_TIMEOUT = {"share": 480, "1m": 420, "nccl1": 150, "plus": 300}  # s, each launch
 MESH_DEADLINE = 900  # the whole mesh process
 
 
@@ -3840,6 +4680,42 @@ def mesh_compact_kind(torch, mesh, router, args, topics):
     )}, {"rows": B, "words": W, "lane_base": base, "kslot": kslot}
 
 
+def mesh_stage_bounds(torch, mesh, sargs, filt, msgs, job, m_active, kslot) -> dict:
+    """On this rank, the bounds a batch of the semantic and the fused mesh
+    steps adds to the dense step's kernels: the semantic stage over its
+    'tp' shard's live entries for its 'dp' rows (`sem_kernel_report`'s
+    count, f32) with the rule masks (`rule_kind`'s), and the storm's
+    kernels on its 'dp' block of every chunk (`retained_kinds`'s:
+    row_lengths, tokenize, shape_match, narrow_i16)."""
+    from emqx_tpu_torch.models import retained_index as RI
+    from emqx_tpu_torch.parallel import mesh as M
+
+    per, _lo = M.batch_rows(mesh, BATCH)
+    st_ = sargs.sem_tables
+    e_live = int((st_["sem_slot"] >= 0).sum()) + int((st_["sem_hot_slot"] >= 0).sum())
+    D, topk = st_["sem_vec"].shape[2], sargs.sem_topk
+    sem = bound(4 * per * D + 4 * e_live * D + 12 * e_live + 4 * per * m_active
+                + 4 * per * kslot + 4 * per * (kslot + topk) + 4 * per,
+                2 * per * e_live * D)[0]
+    F = filt.features(msgs)[0].shape[1]
+    n_ops = sum(len(p) for p in filt.progs)
+    rules = bound(5 * per * F + len(filt.progs) * per, per * n_ops * 4)[0]
+    kw = job.kwargs
+    storm = 0.0
+    for chunk in job.chunks:
+        N, MB = chunk.shape
+        ln = RI.row_lengths(chunk)
+        kinds = match_kinds(torch, job.shape_tables, kw["m_active"], chunk, ln, kw["salt"],
+                            kw["max_levels"])[0]
+        n = N * kw["m_active"]
+        storm += (bound(N * MB + 4 * N, N * MB)[0] + bound(6 * n, n)[0]
+                  + sum(bound(kinds[k]["bytes"], kinds[k]["ops"])[0]
+                        for k in ("tokenize", "shape_match")))
+    return {"semantic_entries": e_live, "semantic_ms": sem, "rule_masks_ms": rules,
+            "storm_chunks": len(job.chunks), "storm_rows_per_chunk": int(job.chunks[0].shape[0]),
+            "storm_ms": storm}
+
+
 def rank_mesh_1m(mesh, st) -> dict:
     """mesh_1m_2x2 on one rank: mixed_1m dense (256 slots, 4 of the 8 lane
     words a tp rank), the retained_5m storm fused into one batch (chunk
@@ -3991,6 +4867,12 @@ def rank_mesh_1m(mesh, st) -> dict:
                                     ("tokenize", "shape_match", "fanout_bitmaps",
                                      "compact_fanout_slots"))
         phase("kernel_inputs_mesh_1m", **info)
+        # rows 15c and 15d of PERF.md: the dense step's bound plus the stages
+        extra = mesh_stage_bounds(torch, mesh, srouter.prepare(), filt, msgs, job,
+                                  args.m_active, args.kslot)
+        phase("composite_bounds_mesh_1m", dist_shape_step_ms=comp,
+              sem_dist_shape_step_ms=comp + extra["semantic_ms"] + extra["rule_masks_ms"],
+              dist_fused_step_ms=comp + extra["storm_ms"], **extra)
     mesh_barrier(torch, mesh)
     out["breakdown"] = mesh_breakdown(torch, mesh, router,
                                       [topic_batch_1m(rng, BATCH) for _ in range(3)])
@@ -4051,6 +4933,151 @@ def rank_mesh_nccl1(mesh, st) -> dict:
     return {"launches": launches, "collectives_per_batch": coll, "breakdown": brk}
 
 
+def mesh_plus_breakdown(torch, mesh, tables, sub, batches, salt, cfg) -> dict:
+    """Where one NFA-only mesh batch's time goes on this rank, medians over
+    the batches (host clock, each stage ending in a synchronize): encoding
+    this rank's rows, their host->device copy, `dist_route_step` to
+    completion (its all-reduces' own time beside it), the one copy of the
+    rank's blocks back, and the four together."""
+    from emqx_tpu_torch.ops.tokenizer import encode_topics
+    from emqx_tpu_torch.parallel import mesh as M
+
+    coll = [0.0]
+    real = M.Mesh.all_reduce
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = real(self, *a, **k)
+        torch.cuda.synchronize()
+        coll[0] += time.perf_counter() - t
+        return r
+
+    names = ("encode", "h2d", "step", "readback")
+    samples = {k: [] for k in names + ("collectives", "route")}
+    for topics in batches:
+        per, lo = M.batch_rows(mesh, len(topics))
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        mat, lens, _ = encode_topics(topics[lo:lo + per], MAX_BYTES)
+        t.append(time.perf_counter())
+        bm, ln = torch.from_numpy(mat).to(mesh.device), torch.from_numpy(lens).to(mesh.device)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        M.Mesh.all_reduce = timed
+        try:
+            coll[0] = 0.0
+            out = M.dist_route_step(mesh, tables, sub, bm, ln, salt=salt, **cfg)
+            torch.cuda.synchronize()
+        finally:
+            M.Mesh.all_reduce = real
+        t.append(time.perf_counter())
+        plus_readback(torch, out)
+        t.append(time.perf_counter())
+        for k, a, b in zip(names, t, t[1:]):
+            samples[k].append(1e3 * (b - a))
+        samples["collectives"].append(1e3 * coll[0])
+        samples["route"].append(1e3 * (t[-1] - t[0]))
+    med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
+    med["topics_per_s"] = len(batches[0]) / (med["route_ms"] / 1e3)
+    return med
+
+
+def rank_mesh_plus(mesh, st) -> dict:
+    """mesh_plus_2x2 on one rank: the NFA-only step (`dist_route_step`) on
+    plus_100k's dense table, 2,048 of its 4,096 lane words a tp rank, B =
+    8192 over 'dp': this rank's blocks of matched / mcount / flags /
+    bitmaps against the host oracle's slice, the reduced stats against the
+    single-device `route_step`'s (lead rank), two all-reduces a batch."""
+    import torch
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models.router_model import route_step
+    from emqx_tpu_torch.ops.segments import DeviceSegmentManager
+    from emqx_tpu_torch.ops.tokenizer import encode_topics
+    from emqx_tpu_torch.parallel import mesh as M
+
+    lead = mesh.rank == 0
+    builder, dense = st["builder"], st["dense"]
+    oracle = PlusOracle(st)
+    cfg = dict(max_levels=MAX_LEVELS, frontier=32, max_matches=64, probes=8)
+    nfa = DeviceSegmentManager(mesh.device, name="nfa", placement=M.table_placement(mesh))
+    lanes = DeviceSegmentManager(mesh.device, name="bitmaps",
+                                 placement=M.bitmap_placement(mesh))
+    t0 = time.perf_counter()
+    tables = nfa.sync(builder)
+    sub = lanes.sync(dense)["sub_bitmaps"]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    w_l = dense.width_words // mesh.tp
+    tpi = mesh.axis_index("tp")
+    if tuple(sub.shape) != (dense.arr.shape[0], w_l):
+        raise AssertionError(f"lane block {tuple(sub.shape)}")
+    rng = np.random.default_rng(SEED + 70)
+    batches = [plus_topics(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+    want = []
+    if lead:  # the single-device step on the whole table, for the stats:
+        # run before the launch window, so the counts are the mesh step's own
+        full = DeviceSegmentManager(mesh.device, name="full").sync(dense)["sub_bitmaps"]
+        for topics in batches:
+            mat, lens, _ = encode_topics(topics, MAX_BYTES)
+            one = route_step(tables, full, torch.from_numpy(mat).to(mesh.device),
+                             torch.from_numpy(lens).to(mesh.device), salt=builder.salt,
+                             device=mesh.device, **cfg)
+            want.append({k: int(v) for k, v in one["stats"].items()})
+        del full, one
+        torch.cuda.empty_cache()
+    out = {"rank": mesh.rank, "stats": []}
+    kernels.reset_launches()
+    M.reset_collectives()
+    checked = []
+    for i, topics in enumerate(batches):
+        mat, lens, _ = encode_topics(topics, MAX_BYTES)
+        bm, ln = M.place_batch(mesh, mat, lens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = M.dist_route_step(mesh, tables, sub, bm, ln, salt=builder.salt, **cfg)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        host = plus_readback(torch, step)
+        per, lo = M.batch_rows(mesh, len(topics))
+        rec = check_plus({k: host[k] for k in ("matched", "mcount", "flags", "bitmaps")},
+                         topics[lo:lo + per], oracle, 0,
+                         lanes=slice(tpi * w_l, (tpi + 1) * w_l))
+        out["stats"].append(host["stats"])
+        if lead and host["stats"] != want[i]:
+            raise AssertionError(f"mesh stats {host['stats']} != single device {want[i]}")
+        checked.append({"step_ms": step_ms, "block_rows": per,
+                        "block_bytes": int(host["bitmaps"].nbytes), **rec})
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["collectives_per_batch"] = per_batch(M.COLLECTIVES, len(batches))
+    if out["collectives_per_batch"] != {"dist_step": {"all_reduce": 2.0, "all_gather": 0.0}}:
+        raise AssertionError(f"dist_step collectives {out['collectives_per_batch']}")
+    want_l = {"tokenize": 3, "vocab_lookup": 3, "nfa_walk": 3, "fanout_bitmaps": 3,
+              "compact_fanout_slots": 0, "shape_match": 0}
+    if any(out["launches"][k] != v for k, v in want_l.items()):
+        raise AssertionError(f"rank {mesh.rank}: mesh_plus launches {out['launches']}")
+    out["mirrors"] = {"upload": {"nfa": nfa.counters(), "bitmaps": lanes.counters()}}
+    if lead:
+        phase("mesh_route_plus", batches=checked, upload_seconds=upload_s,
+              lane_words_per_rank=w_l, collectives=dict(M.COLLECTIVES),
+              collectives_per_batch=out["collectives_per_batch"],
+              device_bytes={"nfa": sum(mirror_bytes(tables).values()),
+                            "lanes": sub.numel() * 4})
+        per, lo = M.batch_rows(mesh, BATCH)
+        kinds, _ = plus_kinds(torch, tables, sub, batches[0][lo:lo + per], builder.salt, cfg,
+                              KSLOT)
+        out["bound_ms"] = sum(bound(kinds[k]["bytes"], kinds[k]["ops"])[0] for k in (
+            "tokenize", "vocab_lookup", "nfa_walk", "fanout_bitmaps"))
+    mesh_barrier(torch, mesh)
+    out["breakdown"] = mesh_plus_breakdown(torch, mesh, tables, sub,
+                                           [plus_topics(rng, BATCH) for _ in range(3)],
+                                           builder.salt, cfg)
+    if lead:
+        phase("mesh_route_breakdown_plus", **out["breakdown"], composite_bound_ms=out["bound_ms"])
+    return out
+
+
 def mesh_check_ranks(name: str, ranks: list) -> None:
     """Every rank took the same mirror decisions (a delta is a launch or a
     skip); the per-rank summary line."""
@@ -4107,6 +5134,13 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
           build_seconds={"mixed_1m": t1 - t0, "retained_5m": t2 - t1,
                          "semantic_256k": t3 - t2, "semantic_stages": sem_stages},
           backend=backend, ranks=MESH_WORLD, tp=MESH_TP, reduced=reduced)
+    t0 = time.perf_counter()
+    plus = build_plus()
+    phase("tables_mesh_plus", filters=plus["filters"], distinct=len(plus["builder"]),
+          width_words=plus["dense"].width_words, lane_words_per_rank=plus["dense"].width_words
+          // MESH_TP, build_seconds=time.perf_counter() - t0,
+          build_stage_seconds=plus["seconds"], backend=backend, ranks=MESH_WORLD, tp=MESH_TP,
+          reduced=reduced)
     if wait and not sys.stdin.readline():
         return 3  # the calling process ended before it asked for the paths
     t_all = time.perf_counter()
@@ -4138,6 +5172,18 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
     nccl1 = launch.run(rank_mesh_nccl1, 1, backend="nccl", tp=1,
                        timeout=MESH_TIMEOUT["nccl1"], state={"index": index1, "subtab": subtab1})
     out["nccl1"] = {"launches": nccl1[0]["launches"], "seconds": time.perf_counter() - t0}
+
+    # 4. mesh_plus_2x2: the NFA-only step over the mesh
+    t0 = time.perf_counter()
+    ranks = launch.run(rank_mesh_plus, MESH_WORLD, backend=backend, tp=MESH_TP,
+                       timeout=MESH_TIMEOUT["plus"], state=plus)
+    mesh_check_ranks("mesh_plus_2x2", ranks)
+    if any(r["stats"] != ranks[0]["stats"] for r in ranks):
+        raise AssertionError("mesh_plus_2x2: the ranks' reduced stats differ")
+    out["plus"] = {"launches": ranks[0]["launches"], "bound_ms": ranks[0]["bound_ms"],
+                   "collectives_per_batch": ranks[0]["collectives_per_batch"],
+                   "breakdown": ranks[0]["breakdown"], "seconds": time.perf_counter() - t0}
+    phase("mesh_plus_seconds", seconds=time.perf_counter() - t0)
     phase("mesh_seconds", seconds=time.perf_counter() - t_all)
     print(json.dumps({"mesh_report": out}), flush=True)
     return 0
@@ -4173,7 +5219,7 @@ def mesh_kill(proc) -> None:
 
 
 def mesh_finish(torch, proc) -> dict:
-    """Phases 28-30: let the mesh process run its paths, relay its lines,
+    """Phases 34-37: let the mesh process run its paths, relay its lines,
     -> the `mesh_report` it printed. Raises when it fails or outlives
     MESH_DEADLINE (then it is killed with its ranks)."""
     import threading
@@ -4279,6 +5325,21 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     del sem_report, router_1m
     gc.collect()
     torch.cuda.empty_cache()
+    # the broker's publish path and the NFA-only step: their kernels' cases
+    # at these paths' shapes join the entries
+    t0 = time.perf_counter()
+    broker_report, broker_launches = broker_path(torch, np.random.default_rng(SEED))
+    phase("broker_seconds", seconds=time.perf_counter() - t0)
+    for case in broker_report.values():
+        report[case["name"]]["broker_1m"] = {**case, "launches": broker_launches[case["name"]]}
+    t0 = time.perf_counter()
+    plus_report, plus_launches, plus_bound = plus_path(torch, np.random.default_rng(SEED + 70))
+    phase("plus_seconds", seconds=time.perf_counter() - t0)
+    for name, case in plus_report.items():
+        report[name]["plus_100k"] = {**case, "launches": plus_launches[name]}
+    del broker_report, plus_report
+    gc.collect()
+    torch.cuda.empty_cache()
     # the mesh paths: group_counts joins the line; compact_fanout_slots and
     # share_pick gain their mesh cases (lane base, rank offsets)
     t0 = time.perf_counter()
@@ -4293,6 +5354,11 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     report["compact_fanout_slots"]["mesh"] = {
         **mesh["1m"]["report"]["compact_fanout_slots/mesh"],
         "launches": mesh["1m"]["launches"]["compact_fanout_slots"]}
+    # the two composites this slice ports: route_step's bound per batch (the
+    # sum of its kernels' bounds) beside dist_step's on a rank
+    phase("composite_bounds_nfa", route_step_ms=plus_bound,
+          dist_step_rank_ms=mesh["plus"]["bound_ms"],
+          dist_step_collectives_per_batch=mesh["plus"]["collectives_per_batch"])
     print(card, flush=True)
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

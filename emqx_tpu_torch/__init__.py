@@ -23,13 +23,22 @@ semantic routing plane and compiled rule masks
 masks in the same call and the same readback); and all of it on a
 ('dp', 'tp') mesh of ranks (`parallel.mesh`, `parallel.launch`:
 `MeshServingRouter` over sharded mirrors, the same kernels on each rank's
-rows and shard, all-reduces and all-gathers on torch.distributed).
+rows and shard, all-reduces and all-gathers on torch.distributed); and
+the NFA-only step (`models.router_model.route_step`, on the mesh
+`parallel.mesh.dist_route_step`) with its host-facing matcher
+(`ops.matcher.TpuMatcher`); and the broker's synchronous publish path
+(`broker.broker.Broker` over `broker.router.Router`: subscribe and
+unsubscribe, plain and `$share`, `publish_batch` through one
+`DeviceRouter.route` a batch, the CPU trie for small batches and flagged
+rows).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which
 runs each kernel's plain PyTorch twin instead.
 """
 
+from emqx_tpu_torch.broker.broker import Broker
+from emqx_tpu_torch.broker.router import Router
 from emqx_tpu_torch.broker.session_store import SessionRider, SessionStepOut, SessionStore
 from emqx_tpu_torch.convert import resolve_device, tables_to_device, upload
 from emqx_tpu_torch.models.retained_index import DeviceRetainedIndex, StormJob
@@ -40,15 +49,19 @@ from emqx_tpu_torch.models.router_model import (
     Prepared,
     RouteResult,
     SubscriberTable,
+    route_step,
     shape_route_step,
 )
+from emqx_tpu_torch.ops.matcher import TpuMatcher
 from emqx_tpu_torch.ops.route_index import RouteIndex
 from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 from emqx_tpu_torch.ops.semantic_table import SemanticTable
 from emqx_tpu_torch.ops.session_table import SessionTable
+from emqx_tpu_torch.parallel.mesh import dist_route_step
 from emqx_tpu_torch.rules.compile import DeviceRuleFilter, compile_where, extract_features
 
 __all__ = [
+    "Broker",
     "DeviceRetainedIndex",
     "DeviceRouter",
     "DeviceRuleFilter",
@@ -58,6 +71,7 @@ __all__ = [
     "Prepared",
     "RouteIndex",
     "RouteResult",
+    "Router",
     "SemanticTable",
     "SessionRider",
     "SessionStepOut",
@@ -65,9 +79,12 @@ __all__ = [
     "SessionTable",
     "StormJob",
     "SubscriberTable",
+    "TpuMatcher",
     "compile_where",
+    "dist_route_step",
     "extract_features",
     "resolve_device",
+    "route_step",
     "shape_route_step",
     "tables_to_device",
     "upload",

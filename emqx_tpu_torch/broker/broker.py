@@ -1,0 +1,463 @@
+"""The pub/sub kernel: subscribe/unsubscribe/publish/dispatch, on the
+port's device engine. The port's copy of `Broker` and `Subscriber`
+(emqx_tpu/broker/broker.py), the synchronous publish path.
+
+Parity with the reference kernel (apps/emqx/src/emqx_broker.erl):
+- subscribe/unsubscribe maintain the subscriber registry + route table
+  (emqx_broker.erl:127-160 ETS inserts + :441-454 route add)
+- publish runs the 'message.publish' fold, matches routes, and dispatches
+  to local subscribers (:204-215 publish, :505-530 do_dispatch)
+- publish_batch routes many topics in one device step
+  (`DeviceRouter.route`), then fans out from the subscriber slots and
+  the device's $share picks.
+
+Every plain subscription owns a subscriber slot in `SubscriberTable`
+(dense bitmaps or CSR, as `MatcherConfig.sub_table` says); $share groups
+are `GroupTable` lanes whose member the device picks. Batches smaller than
+`Router.min_tpu_batch` and rows the device flags take the authoritative
+CPU path. A failed launch raises: the degrade ladder is not ported.
+
+Not ported yet (ROADMAP item 3 queues them as the next slices):
+`BatchIngest` with `apublish`/`adispatch_begin` and the dispatch pool;
+the session store's broker half; `SemanticRouting` (a subscribe with an
+``embedding=`` raises NotImplementedError) and the rule engine's device
+attach; the broker on a mesh; and, with the app, the cluster forward,
+the degrade controller, span tracing and the retained feed.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from emqx_tpu_torch.broker.hooks import Hooks, default_hooks
+from emqx_tpu_torch.broker.message import Message
+from emqx_tpu_torch.broker.metrics import Metrics
+from emqx_tpu_torch.broker.router import Router
+from emqx_tpu_torch.broker.shared_sub import SharedSub, stable_hash
+from emqx_tpu_torch.models.router_model import DeviceRouter, GroupTable, SubscriberTable
+from emqx_tpu_torch.mqtt import packet as pkt
+from emqx_tpu_torch.ops import topics as T
+
+# deliverer: called with (msg, subopts); a raise counts as not delivered
+Deliverer = Callable[[Message, pkt.SubOpts], None]
+
+
+class Subscriber:
+    __slots__ = ("sid", "deliver", "opts", "client_id", "slot", "filter")
+
+    def __init__(self, sid: str, client_id: str, deliver: Deliverer, opts: pkt.SubOpts):
+        self.sid = sid
+        self.client_id = client_id
+        self.deliver = deliver
+        self.opts = opts
+        self.slot = -1  # subscriber-table slot (non-shared subs only)
+        self.filter = ""  # the real (share-stripped) subscription filter
+
+
+class Broker:
+    def __init__(
+        self,
+        router: Optional[Router] = None,
+        hooks: Optional[Hooks] = None,
+        metrics: Optional[Metrics] = None,
+    ):
+        # NOT `router or Router()`: Router defines __len__, so an EMPTY
+        # router is falsy and would be silently swapped for a default one
+        self.router = router if router is not None else Router()
+        self.hooks = hooks or default_hooks
+        self.metrics = metrics or Metrics()
+        # filter -> {sid -> Subscriber}
+        self._subs: Dict[str, Dict[str, Subscriber]] = {}
+        self.shared = SharedSub()
+        # the sub_table policy: the CSR representation serves through the
+        # compact readback, so fanout_compact=False pins the dense matrix
+        mc = self.router.matcher_config
+        self.subtab = SubscriberTable(
+            mode=mc.sub_table if mc.fanout_compact else "dense")
+        # running plain-subscription count (no O(N) recount per subscribe)
+        self._plain_subs = 0
+        # $share groups mirrored as device lane segments so the kernel
+        # resolves the member pick too (emqx_shared_sub.erl:234-285)
+        self.grouptab = GroupTable()
+        self._slot_subs: List[Optional[Subscriber]] = []
+        self._free_slots: List[int] = []
+        self._device: Optional[DeviceRouter] = None  # lazy
+
+    # -- subscribe side ---------------------------------------------------
+    def subscribe(
+        self,
+        sid: str,
+        client_id: str,
+        filter_: str,
+        opts: pkt.SubOpts,
+        deliver: Deliverer,
+        embedding=None,
+        sem_threshold=None,
+    ) -> None:
+        if embedding is not None:
+            raise NotImplementedError(
+                "embedding-filtered subscriptions need the broker's semantic "
+                "plane, not ported yet (ROADMAP item 3)")
+        group, real = T.parse_share(filter_)
+        sub = Subscriber(sid, client_id, deliver, opts)
+        sub.filter = real
+        if group is not None:
+            # one route ref per group (matched by delete on group-empty)
+            if self.shared.subscribe(group, real, sub):
+                self.router.add_route(self.shared.route_filter(group, real))
+            fid = self.router.filter_id(real)
+            if fid is not None:
+                gid = self.grouptab.ensure_group(fid, real, group)
+                g = self.shared.group(real, group)
+                self.grouptab.set_len(gid, len(g.members) if g else 0)
+        else:
+            entry = self._subs.setdefault(real, {})
+            prev = entry.get(sid)
+            first = not entry
+            entry[sid] = sub
+            fid = self.router.add_route(real) if first else None
+            if prev is not None:
+                # re-subscribe with fresh opts: keep the slot, swap the sub
+                sub.slot = prev.slot
+                self._slot_subs[sub.slot] = sub
+            else:
+                self._plain_subs += 1
+                sub.slot = self._alloc_slot(sub)
+                if fid is None:
+                    # route already existed: resolve its id (one probe)
+                    fid = self.router.filter_id(real)
+                if fid is not None:
+                    self.subtab.add(fid, sub.slot)
+        self.metrics.gauge_set("subscriptions.count", self.subscription_count())
+
+    def unsubscribe(self, sid: str, filter_: str) -> bool:
+        group, real = T.parse_share(filter_)
+        if group is not None:
+            fid = self.router.filter_id(real)
+            removed, empty = self.shared.unsubscribe(group, real, sid)
+            if empty:
+                if fid is not None:
+                    self.grouptab.drop_group(fid, real, group)
+                self.router.delete_route(self.shared.route_filter(group, real))
+            elif removed and fid is not None:
+                gid = self.grouptab.gid_of(real, group)
+                g = self.shared.group(real, group)
+                if gid is not None and g is not None:
+                    self.grouptab.set_len(gid, len(g.members))
+                    # a member leaving shifts indices: re-derive the pin
+                    # from the sid so it stays on the same live member
+                    self.grouptab.repin(gid, g.members.keys(), g.sticky_sid)
+            return removed
+        entry = self._subs.get(real)
+        if not entry or sid not in entry:
+            return False
+        sub = entry.pop(sid)
+        self._plain_subs -= 1
+        if sub.slot >= 0:
+            fid = self.router.filter_id(real)
+            if fid is not None:
+                self.subtab.remove(fid, sub.slot)
+            self._free_slot(sub.slot)
+        if not entry:
+            del self._subs[real]
+            self.router.delete_route(real)
+        self.metrics.gauge_set("subscriptions.count", self.subscription_count())
+        return True
+
+    def _alloc_slot(self, sub: Subscriber) -> int:
+        if self._free_slots:
+            slot = self._free_slots.pop()
+            self._slot_subs[slot] = sub
+            return slot
+        self._slot_subs.append(sub)
+        return len(self._slot_subs) - 1
+
+    def _free_slot(self, slot: int) -> None:
+        self._slot_subs[slot] = None
+        self._free_slots.append(slot)
+
+    def subscription_count(self) -> int:
+        return self._plain_subs + self.shared.count()
+
+    def subscriptions(self) -> List[Tuple[str, str, pkt.SubOpts]]:
+        out = []
+        for f, entry in self._subs.items():
+            for sub in entry.values():
+                out.append((sub.client_id, f, sub.opts))
+        out.extend(self.shared.subscriptions())
+        return out
+
+    # -- publish side -----------------------------------------------------
+    def publish(self, msg: Message) -> int:
+        """Route + dispatch one message on the CPU; returns delivery count."""
+        msg = self.hooks.run_fold("message.publish", (), msg)
+        if msg is None or msg.headers.get("allow_publish") is False:
+            self.metrics.inc("messages.dropped")
+            return 0
+        return self._dispatch_routed(msg)
+
+    def _dispatch_routed(self, msg: Message) -> int:
+        n = self._route_dispatch(msg, self.router.match(msg.topic))
+        if n == 0:
+            self.hooks.run("message.dropped", msg, "no_subscribers")
+            self.metrics.inc("messages.dropped.no_subscribers")
+        return n
+
+    def publish_batch(self, msgs: Sequence[Message]) -> int:
+        """Batch publish: the publish fold per message, then one device
+        step for the batch (`dispatch_batch_folded`); returns the total
+        delivery count."""
+        msgs2: List[Message] = []
+        for m in msgs:
+            m = self.hooks.run_fold("message.publish", (), m)
+            if m is not None and m.headers.get("allow_publish") is not False:
+                msgs2.append(m)
+        return sum(self.dispatch_batch_folded(msgs2))
+
+    def dispatch_batch_folded(self, msgs: Sequence[Message]) -> List[int]:
+        """Route + dispatch already-folded messages as one device step:
+        tokenize, match, fan-out and $share picks in `DeviceRouter.route`,
+        then host delivery straight from the slots. Rows the device flags
+        (too deep / overflow / too long) fall back to the CPU path per row;
+        batches below `min_tpu_batch` skip the device. -> deliveries per
+        message."""
+        r = self.router
+        if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
+            return self._dispatch_cpu_batch(msgs)
+        dev = self._device_router()
+        results = dev.route([m.topic_key() for m in msgs], self._client_hashes(msgs))
+        return self._dispatch_device_results(msgs, results)
+
+    def _dispatch_cpu_batch(self, msgs: Sequence[Message]) -> List[int]:
+        """The authoritative CPU path for a whole batch: per-message trie
+        match + host fan-out. Never touches the device."""
+        return [self._dispatch_routed(m) for m in msgs]
+
+    def _device_router(self) -> DeviceRouter:
+        if self._device is None:
+            self._device = DeviceRouter(
+                self.router.index,
+                self.subtab,
+                self.router.matcher_config,
+                grouptab=self.grouptab,
+                share_strategy=self.shared.strategy,
+                metrics=self.metrics,
+                device=self.router.device,
+            )
+        return self._device
+
+    def _client_hashes(self, msgs):
+        """Publisher-id hashes for the device $share pick — skipped
+        entirely when no groups exist or the strategy doesn't use them."""
+        if not len(self.grouptab) or self.shared.strategy != "hash_clientid":
+            return None
+        return [stable_hash(m.from_client) for m in msgs]
+
+    def _dispatch_device_results(self, msgs, results) -> List[int]:
+        """Fan one routed batch (a `RouteResult`) out to local subscribers.
+
+        On the compact path (`results.slots`) non-overflow rows dispatch
+        straight from their slot lists, overflow rows decode the dense rows
+        of the second transfer (or, on a CSR table, rows built from the
+        host table); with compaction off every row decodes
+        `results.bitmaps`. The match and fid memos are per batch."""
+        matched, flags = results.matched, results.flags
+        picks = results.picks
+        r = self.router
+        out: List[int] = []
+        fell_back = 0
+        touched_gids: set = set()
+        match_memo: Dict[Tuple[str, str], bool] = {}
+        fid_memo: Dict[int, Tuple[Optional[str], bool]] = {}
+        compact = results.slots is not None
+        # ONE .tolist() per output matrix up front: the per-message loop
+        # then runs on plain ints
+        flags_l = np.asarray(flags).tolist()
+        slots_ll = results.slots.tolist() if compact else None
+        ovf_l = results.overflow.tolist() if compact else None
+        # matched fid rows only matter when groups exist AND the device
+        # did not already resolve the picks
+        need_fids = picks is None and bool(self.shared._table)
+        matched_l = matched.tolist() if need_fids else None
+        fanouts: List[int] = []
+        for i, m in enumerate(msgs):
+            if flags_l[i]:
+                fell_back += 1
+                n = self._route_dispatch(m, r.match(m.topic))
+            else:
+                msg_picks = (picks[0][i], picks[1][i]) if picks is not None else None
+                if compact and not ovf_l[i]:
+                    bits, slots = None, slots_ll[i]  # -1 pads skip below
+                elif compact:
+                    bits, slots = results.dense_rows[results.dense_index[i]], None
+                else:
+                    bits, slots = results.bitmaps[i], None
+                # matched rows are SPARSE (-1 holes between engines)
+                fids = [f for f in matched_l[i] if f >= 0] if matched_l is not None else ()
+                n = self._dispatch_row(
+                    m, bits, fids, msg_picks, touched_gids, slots=slots,
+                    match_memo=match_memo, fid_memo=fid_memo, stats=fanouts)
+            if n == 0:
+                self.hooks.run("message.dropped", m, "no_subscribers")
+                self.metrics.inc("messages.dropped.no_subscribers")
+            out.append(n)
+        if fanouts:
+            # batched flight-recorder upkeep: same series, one lock
+            self.metrics.inc("messages.received", len(fanouts))
+            self.metrics.observe_many("dispatch.fanout", fanouts)
+            delivered = sum(fanouts)
+            if delivered:
+                self.metrics.inc("messages.delivered", delivered)
+        if touched_gids:
+            self._sync_group_counters(touched_gids)
+        if fell_back:
+            self.metrics.inc("messages.routed.device_fallback", fell_back)
+        self.metrics.inc("messages.routed.device", len(msgs) - fell_back)
+        return out
+
+    def _dispatch_row(
+        self, msg: Message, bits: Optional[np.ndarray], fids, picks=None,
+        touched_gids: Optional[set] = None, *, slots=None,
+        match_memo: Optional[Dict] = None, fid_memo: Optional[Dict] = None,
+        stats: Optional[List] = None,
+    ) -> int:
+        """Deliver one routed message from its device outputs: the slot
+        list (compact path) or the bitmap row (dense path) -> plain subs;
+        the device's (gids, idxs) picks, or with no picks the matched
+        filter ids, -> shared groups (host pick and failover). With
+        `stats` given the fan-out lands there and the caller batches the
+        metric upkeep."""
+        if stats is None:
+            self.metrics.inc("messages.received")
+        if match_memo is None:
+            match_memo = {}
+        if fid_memo is None:
+            fid_memo = {}
+        n = 0
+        topic = msg.topic
+        if bits is not None:
+            if not bits.flags.c_contiguous:
+                bits = np.ascontiguousarray(bits)
+            slots = np.nonzero(
+                np.unpackbits(bits.view(np.uint8), bitorder="little")
+            )[0].tolist()
+        elif not isinstance(slots, list):
+            slots = np.asarray(slots).tolist()
+        slot_subs = self._slot_subs
+        nsubs = len(slot_subs)
+        for slot in slots:
+            # -1 pads (compact rows) and slots past the table skip here
+            if slot < 0 or slot >= nsubs:
+                continue
+            sub = slot_subs[slot]
+            if sub is None:
+                continue
+            if sub.opts.no_local and sub.client_id == msg.from_client:
+                continue
+            # staleness net: the kernel ran against a snapshot, and slots
+            # freed during an in-flight batch can be reused by unrelated
+            # subscriptions — verify the sub's filter really matches before
+            # delivering (memoized per batch: a pure fn of (topic, filter))
+            f = sub.filter
+            if topic != f:
+                ok = match_memo.get((topic, f))
+                if ok is None:
+                    ok = match_memo[(topic, f)] = T.match(topic, f)
+                if not ok:
+                    continue
+            n += self._deliver_one(sub, msg)
+        if picks is not None:
+            # device-resolved $share picks: the host does delivery + failover
+            gids, idxs = picks
+            for gid, idx in zip(gids, idxs):
+                if gid < 0:
+                    continue
+                info = self.grouptab.info(int(gid))
+                if info is None:
+                    continue  # group dropped while the batch was in flight
+                real, gname = info
+                ok = match_memo.get((topic, real))
+                if ok is None:
+                    ok = match_memo[(topic, real)] = T.match(topic, real)
+                if not ok:
+                    continue
+                n += self.shared.dispatch_picked(real, gname, int(idx), msg)
+                if touched_gids is not None:
+                    touched_gids.add(int(gid))
+        else:
+            for fid in fids:
+                fid = int(fid)
+                ent = fid_memo.get(fid)
+                if ent is None:
+                    name = self.router.filter_name(fid)
+                    ent = fid_memo[fid] = (
+                        name, name is not None and self.shared.has_groups(name))
+                name, has_g = ent
+                if not has_g:
+                    continue
+                ok = match_memo.get((topic, name))
+                if ok is None:
+                    ok = match_memo[(topic, name)] = T.match(topic, name)
+                if ok:
+                    n += self.shared.dispatch_groups(name, msg)
+        if stats is not None:
+            stats.append(n)
+            return n
+        self.metrics.observe("dispatch.fanout", n)
+        if n:
+            self.metrics.inc("messages.delivered", n)
+        return n
+
+    def _sync_group_counters(self, gids) -> None:
+        """Push advanced round-robin bases / sticky pins back to the
+        device mirror — once per BATCH with the touched gid set, so churn
+        is one bounded write per group per batch."""
+        for gid in gids:
+            info = self.grouptab.info(gid)
+            if info is None:
+                continue
+            g = self.shared.group(*info)
+            if g is None:
+                continue
+            self.grouptab.set_rr(gid, g.rr_index)
+            if self.shared.strategy == "sticky" and g.sticky_sid is not None:
+                self.grouptab.repin(gid, g.members.keys(), g.sticky_sid)
+
+    def dispatch(self, filters: List[str], msg: Message) -> int:
+        """Deliver to local subscribers of pre-matched filters (the
+        receiving half of a forward, emqx_broker.erl:505-530)."""
+        return self._route_dispatch(msg, filters)
+
+    def _route_dispatch(self, msg: Message, filters: List[str]) -> int:
+        self.metrics.inc("messages.received")
+        n = 0
+        for f in filters:
+            # one matched filter may carry plain subscribers AND shared groups
+            entry = self._subs.get(f)
+            if entry:
+                for sub in list(entry.values()):
+                    if sub.opts.no_local and sub.client_id == msg.from_client:
+                        continue
+                    n += self._deliver_one(sub, msg)
+            n += self.shared.dispatch_groups(f, msg)
+        self.metrics.observe("dispatch.fanout", n)
+        if n:
+            self.metrics.inc("messages.delivered", n)
+        return n
+
+    def _deliver_one(self, sub: Subscriber, msg: Message) -> int:
+        """One raising deliverer must not poison the rest of the fan-out
+        (or, on the batch path, every other message in the batch)."""
+        try:
+            sub.deliver(msg, sub.opts)
+            return 1
+        except Exception:
+            self.metrics.inc("delivery.errors")
+            return 0
+
+    def drop_session_subs(self, sid: str, filters: Sequence[str]) -> None:
+        """Bulk cleanup when a session dies (emqx_broker_helper pmon parity)."""
+        for f in list(filters):
+            self.unsubscribe(sid, f)

@@ -19,7 +19,10 @@ One routed batch runs these hand-written CUDA kernels, in order:
   [->  rule_masks (rules/compile.py), when compiled rules ride the batch]
 
 then `DeviceRouter._readback` brings the trimmed outputs to the host in
-one copy. A retained replay storm (`models/retained_index.py`) can ride a
+one copy. `route_step` is the NFA-only step (every filter in the NFA, no
+shape index): tokenize -> vocab_lookup -> nfa_walk -> the same fan-out;
+`DeviceRouter(index, None, config)` is a match-only router (no fan-out
+half) with its `match_batch`. A retained replay storm (`models/retained_index.py`) can ride a
 routed batch: `DeviceRouter.route_prepared(..., retained=job)` launches
 the storm's chunk matches after the route kernels and reads their match
 matrices back in the same copy. So can the session store's rider
@@ -65,12 +68,18 @@ from emqx_tpu_torch.broker.session_store import SessionStepOut
 from emqx_tpu_torch.broker.shared_sub import stable_hash
 from emqx_tpu_torch.convert import resolve_device
 from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable, sparse_fanout_slots
-from emqx_tpu_torch.ops.matcher import MatcherConfig, batch_match_syms
+from emqx_tpu_torch.ops.matcher import (
+    MatcherConfig,
+    MatchError,
+    batch_match_bytes,
+    batch_match_syms,
+)
 from emqx_tpu_torch.ops.nfa import MAX_PROBES, _next_pow2
 from emqx_tpu_torch.ops.segments import RESYNC, DeviceSegmentManager
 from emqx_tpu_torch.ops.semantic_table import SEM_KEYS, semantic_route_stage
 from emqx_tpu_torch.ops.session_table import session_ack
 from emqx_tpu_torch.ops.shape_index import shape_match
+from emqx_tpu_torch.ops import topics as T
 from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize, vocab_lookup
 from emqx_tpu_torch.ops.u32 import mul32, u32
 from emqx_tpu_torch.rules.compile import eval_rule_masks
@@ -451,7 +460,92 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     return pick_gid, pick_idx
 
 
-# -- the composite ---------------------------------------------------------
+# -- the composites ----------------------------------------------------------
+
+
+def route_step(
+    tables: Dict[str, torch.Tensor],
+    sub_bitmaps,
+    bytes_mat,
+    lengths,
+    *,
+    salt: int,
+    max_levels: int = 16,
+    frontier: int = 32,
+    max_matches: int = 64,
+    probes: int = MAX_PROBES,
+    kslot: int = 0,
+    kg: int = 0,
+    device="cuda",
+):
+    """The NFA-only serving step: tokenize -> vocab lookup -> NFA walk ->
+    fan-out (-> compact). The counterpart of `route_step_impl`
+    (emqx_tpu/models/router_model.py:130, contract `route_step` :210),
+    built from the kernels of rows 1, 3-6 and 9; it has no kernel of its
+    own.
+
+    `tables` holds the NFA tables (`NFA_TABLE_KEYS`, an `NfaBuilder`'s
+    snapshot uploaded) on `device`; `sub_bitmaps` is the dense int32
+    [Fcap, W] matrix (every matched fid < Fcap) or a dict of the five
+    `CSR_KEYS` arrays. bytes_mat uint8 [B, MB] and lengths int32 [B]
+    (numpy or tensors) as `encode_topics` makes them.
+
+    Dense: `fanout_bitmaps`, then with ``kslot > 0`` `compact_fanout_slots`.
+    CSR: `sparse_fanout_slots` (kslot must be > 0; ``kg`` its gather
+    window, 0 = 2 * kslot), and ``bitmaps`` is None. Returns {matched
+    [B, K], mcount [B] (capped at K), flags [B], bitmaps [B, W] or None,
+    stats {routed, matches, fanout_bits}} and, with compaction, slots
+    [B, kslot], slot_count [B], overflow [B]."""
+    dev = resolve_device(device)
+    sparse = isinstance(sub_bitmaps, dict)
+    subs = list(sub_bitmaps.values()) if sparse else [sub_bitmaps]
+    for t in list(tables.values()) + subs:
+        if t.device != dev:
+            raise ValueError(f"a table lies on {t.device}, not {dev}")
+    bytes_mat = torch.as_tensor(bytes_mat, dtype=torch.uint8, device=dev)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    matched, mcount, flags, _causes = batch_match_bytes(
+        tables, bytes_mat, lengths, salt=salt, max_levels=max_levels,
+        frontier=frontier, max_matches=max_matches, probes=probes,
+    )
+    sub = {k: sub_bitmaps[k] for k in CSR_KEYS} if sparse else sub_bitmaps
+    return _with_fanout(matched, mcount, flags, sub, kslot, kg, dev)
+
+
+def _with_fanout(matched, mcount, flags, sub, kslot: int, kg: int, dev) -> dict:
+    """The fan-out half both composites share, as `route_step_impl` and
+    `shape_route_step_impl` share theirs: `sub` a dict of the `CSR_KEYS`
+    arrays (`sparse_fanout_slots`, straight to compact slots), a dense
+    [Fcap, W] matrix (`fanout_bitmaps`, then `compact_fanout_slots` with
+    ``kslot > 0``), or None (match-only: no fan-out runs). -> the step's
+    output dict with its stats."""
+    compact = None
+    if isinstance(sub, dict):
+        bitmaps = None
+        *compact, live = sparse_fanout_slots(sub, matched, kslot=kslot, kg=kg)
+        fanout_bits = live.sum()
+    elif sub is not None:
+        bitmaps, popcount = fanout_bitmaps(sub, matched)
+        fanout_bits = popcount.sum()
+        if kslot > 0:
+            compact = compact_fanout_slots(bitmaps, kslot)
+    else:
+        bitmaps = None
+        fanout_bits = torch.zeros((), dtype=torch.int32, device=dev)
+    out = {
+        "matched": matched,
+        "mcount": mcount,
+        "flags": flags,
+        "bitmaps": bitmaps,
+        "stats": {
+            "routed": (mcount > 0).sum(),
+            "matches": mcount.sum(),
+            "fanout_bits": fanout_bits,
+        },
+    }
+    if compact is not None:
+        out["slots"], out["slot_count"], out["overflow"] = compact
+    return out
 
 
 def shape_route_step(
@@ -559,37 +653,10 @@ def shape_route_step(
         matched = torch.cat([matched, m2], dim=1)
         flags = flags | f2
     mcount = (matched >= 0).sum(dim=1, dtype=torch.int32)
-    compact = None
-    if sparse:
-        bitmaps = None
-        s_slots, s_count, s_ovf, s_live = sparse_fanout_slots(
-            {k: tables[k] for k in CSR_KEYS}, matched, kslot=kslot, kg=kg
-        )
-        compact = (s_slots, s_count, s_ovf)
-        fanout_bits = s_live.sum()
-    elif dense:
-        bitmaps, popcount = fanout_bitmaps(tables["sub_bitmaps"], matched)
-        fanout_bits = popcount.sum()
-    else:  # match-only: no subscriber table, no fan-out half
-        bitmaps = None
-        fanout_bits = torch.zeros((), dtype=torch.int32, device=dev)
-    out = {
-        "matched": matched,
-        "mcount": mcount,
-        "flags": flags,
-        "bitmaps": bitmaps,
-        "stats": {
-            "routed": (mcount > 0).sum(),
-            "matches": mcount.sum(),
-            "fanout_bits": fanout_bits,
-        },
-    }
-    if compact is not None:
-        out["slots"], out["slot_count"], out["overflow"] = compact
-    elif kslot > 0 and bitmaps is not None:
-        out["slots"], out["slot_count"], out["overflow"] = compact_fanout_slots(
-            bitmaps, kslot
-        )
+    # match-only: no subscriber table, no fan-out half
+    sub = ({k: tables[k] for k in CSR_KEYS} if sparse
+           else tables["sub_bitmaps"] if dense else None)
+    out = _with_fanout(matched, mcount, flags, sub, kslot, kg, dev)
     if sem_tables is not None:
         if "slots" not in out:
             raise ValueError(
@@ -1198,6 +1265,7 @@ class Prepared(NamedTuple):
     # the semantic mirror and its top-k; None: no live semantic table
     sem_tables: Optional[Dict[str, torch.Tensor]] = None
     sem_topk: int = 0
+    kg: int = 0  # the CSR gather window (`MatcherConfig.sparse_gather`)
 
 
 class DeviceRouter:
@@ -1220,6 +1288,13 @@ class DeviceRouter:
     group (strategy `share_strategy`, one of `STRATEGY_IDS`); the semantic
     stage exactly when `semtab` (an `ops.semantic_table.SemanticTable`)
     holds an entry, and then the compact stage runs whatever the width.
+
+    ``subtab=None`` makes a match-only router (`broker.router.Router`'s
+    matcher, emqx_tpu/models/router_model.py:1452): no subscriber mirror,
+    no fan-out half, and `match_batch` decodes the matched filters. The
+    config's fan-out knobs act as in the reference: ``fanout_compact=False``
+    reads dense bitmap rows back (kslot 0), ``fanout_slots > 0`` pins the
+    kslot, ``sparse_gather`` is the CSR gather window.
     """
 
     # clean-table prepares re-check the auto-sized kslot only every this
@@ -1237,7 +1312,9 @@ class DeviceRouter:
         sharded step, its global result assembled on every rank
         (`_route_mesh`). The router serves from the mesh's device; a
         `device` other than it raises. Without a mesh, `device` defaults to
-        CUDA."""
+        CUDA. A match-only router (``subtab=None``) runs on one device."""
+        if mesh is not None and subtab is None:
+            raise ValueError("a match-only router runs on one device, not a mesh")
         self.mesh = mesh
         if mesh is not None:
             self.device = mesh.device
@@ -1271,7 +1348,7 @@ class DeviceRouter:
         # semantic entries shard their slot-owner axis over 'tp'
         self._sem_sync = DeviceSegmentManager(self.device, name="semantic",
                                               placement=sem_place)
-        self._bits_sparse = subtab.sparse
+        self._bits_sparse = subtab is not None and subtab.sparse
         self._bits_sync = self._mk_bits_sync()
         # per-batch pick entropy: batch n draws from default_rng(0xEC0 + n),
         # the JAX router's sequence
@@ -1290,7 +1367,7 @@ class DeviceRouter:
         if self.mesh is not None:
             from emqx_tpu_torch.parallel.mesh import bitmap_placement, csr_placement
 
-            placement = (csr_placement if self.subtab.sparse else bitmap_placement)(self.mesh)
+            placement = (csr_placement if self._bits_sparse else bitmap_placement)(self.mesh)
         return DeviceSegmentManager(self.device, name="bitmaps", placement=placement)
 
     # a retained storm or a session rider may ride `route_prepared` on one
@@ -1308,13 +1385,20 @@ class DeviceRouter:
                       semantic: bool = False) -> int:
         """kslot for the next batch; 0 = compaction off.
 
-        Sized from the `dispatch.fanout` histogram p99 with 2x headroom,
-        pow2-padded and GROW-ONLY; KSLOT_MIN when no metrics object is
-        given. On a dense table compaction is off while the slot universe
-        (W*32) is no wider than the compact output would be. A CSR table
-        has no dense rows to read back, and a live semantic table's winners
-        ride the compact slot rows, so there the cap is mandatory: never
-        0."""
+        0 for a match-only router, and on a dense table with
+        ``fanout_compact`` off. A pinned ``fanout_slots`` is used
+        pow2-padded. Otherwise sized from the `dispatch.fanout` histogram
+        p99 with 2x headroom, pow2-padded and GROW-ONLY; KSLOT_MIN when no
+        metrics object is given. On a dense table compaction is off while
+        the slot universe (W*32) is no wider than the compact output would
+        be. A CSR table has no dense rows to read back, and a live semantic
+        table's winners ride the compact slot rows, so there the cap is
+        mandatory: never 0."""
+        cfg = self.config
+        if self.subtab is None or (not sparse and not semantic and not cfg.fanout_compact):
+            return 0
+        if cfg.fanout_slots > 0:
+            return _next_pow2(cfg.fanout_slots)
         want = KSLOT_MIN
         if self.metrics is not None:
             h = self.metrics.histogram("dispatch.fanout")
@@ -1338,7 +1422,7 @@ class DeviceRouter:
         from — equal keys mean the device copies are current."""
         return (
             self.index.version,
-            self.subtab.version,
+            self.subtab.version if self.subtab is not None else -1,
             self.grouptab.version if self.grouptab is not None else -1,
             self.semtab.version if self.semtab is not None else -1,
         )
@@ -1351,40 +1435,47 @@ class DeviceRouter:
         # regions, `CsrTable.maybe_absorb`). A mesh attached after the
         # tables were built re-partitions the CSR and semantic tables over
         # 'tp' here, like any growth.
+        subtab = self.subtab
         if self.mesh is not None:
             tp = self.mesh.tp
-            if self.subtab.sparse and self.subtab.shards != tp:
-                self.subtab.set_shards(tp)
+            if subtab.sparse and subtab.shards != tp:
+                subtab.set_shards(tp)
             if self.semtab is not None and self.semtab.shards != tp:
                 self.semtab.reshard(tp)
-        self.subtab.pack(self.index.num_filters_capacity)
-        if self.mesh is not None and not self.subtab.sparse \
-                and self.subtab.width_words % self.mesh.tp:
-            raise ValueError(
-                f"subscriber bitmap width {self.subtab.width_words} not "
-                f"divisible by mesh tp={self.mesh.tp}; use a power-of-two tp")
+        if subtab is not None:
+            subtab.pack(self.index.num_filters_capacity)
+            if self.mesh is not None and not subtab.sparse \
+                    and subtab.width_words % self.mesh.tp:
+                raise ValueError(
+                    f"subscriber bitmap width {subtab.width_words} not "
+                    f"divisible by mesh tp={self.mesh.tp}; use a power-of-two tp")
         if self.grouptab is not None and len(self.grouptab):
             self.grouptab.pack_fcap(self.index.num_filters_capacity)
         key = self._version_key()
         sem_on = self.semtab is not None and len(self.semtab) > 0
         if self._prep_key == key:
             self._clean_streak += 1
-            if self._clean_streak % self.KSLOT_RECHECK == 0:
-                kslot = self._fanout_kslot(self.subtab.width_words,
-                                           sparse=self.subtab.sparse,
+            if self._clean_streak % self.KSLOT_RECHECK == 0 and subtab is not None:
+                kslot = self._fanout_kslot(subtab.width_words, sparse=subtab.sparse,
                                            semantic=sem_on)
                 if kslot != self._prep_args.kslot:
                     self._prep_args = self._prep_args._replace(kslot=kslot)
             return self._prep_args
         self._clean_streak = 0
         idx = self.index
-        sparse = self.subtab.sparse
-        if sparse != self._bits_sparse:
-            # representation flip: a fresh mirror, whose first sync is a
-            # full upload of the other representation's arrays
-            self._bits_sync = self._mk_bits_sync()
-            self._bits_sparse = sparse
-        bits = self._bits_sync.sync(self.subtab)
+        bits, kslot, kg = {}, 0, 0
+        if subtab is not None:
+            sparse = subtab.sparse
+            if sparse != self._bits_sparse:
+                # representation flip: a fresh mirror, whose first sync is
+                # a full upload of the other representation's arrays
+                self._bits_sparse = sparse
+                self._bits_sync = self._mk_bits_sync()
+            bits = self._bits_sync.sync(subtab)
+            kslot = self._fanout_kslot(subtab.width_words, sparse=sparse,
+                                       semantic=sem_on)
+            if sparse:
+                kg = self.config.sparse_gather
         tables = self._shape_sync.sync(idx.shapes)
         tables.update(bits)
         nfa_tables = self._nfa_sync.sync(idx.nfa) if idx.residual_count > 0 else None
@@ -1401,11 +1492,11 @@ class DeviceRouter:
             nfa_tables,
             idx.salt,
             idx.shapes.m_active(),
-            self._fanout_kslot(self.subtab.width_words, sparse=sparse,
-                               semantic=sem_on),
+            kslot,
             group_tables,
             sem_tables,
             self.semtab.topk if sem_on else 0,
+            kg,
         )
         if self._version_key() == key:
             # a sync that raced a mutation is used once, never cached
@@ -1420,11 +1511,14 @@ class DeviceRouter:
         return self._device_args()
 
     def segment_status(self) -> Dict[str, Dict[str, int]]:
-        """Per mirror (`shapes`, `nfa`, `bitmaps`, `groups` when the router
-        has a group table, `semantic` when it has a semantic table):
-        full_resyncs, delta_launches and array_resyncs since the mirror was
-        made (the bitmaps mirror is remade by a representation flip)."""
-        mirrors = [self._shape_sync, self._nfa_sync, self._bits_sync]
+        """Per mirror (`shapes`, `nfa`, `bitmaps` unless the router is
+        match-only, `groups` when it has a group table, `semantic` when it
+        has a semantic table): full_resyncs, delta_launches and
+        array_resyncs since the mirror was made (the bitmaps mirror is
+        remade by a representation flip)."""
+        mirrors = [self._shape_sync, self._nfa_sync]
+        if self.subtab is not None:
+            mirrors.append(self._bits_sync)
         if self.grouptab is not None:
             mirrors.append(self._group_sync)
         if self.semtab is not None:
@@ -1437,6 +1531,30 @@ class DeviceRouter:
         `embeds` and `rules` as `route_prepared` takes them."""
         return self.route_prepared(self._device_args(), topics, client_hashes,
                                    embeds=embeds, rules=rules)
+
+    def match_batch(self, topics, fallback=None) -> List:
+        """Topic strings -> per row the matched filter names, no fan-out
+        half (emqx_tpu/models/router_model.py:2475). A flagged row (too
+        deep, NFA overflow, too long) gets ``fallback(topic)``, or a
+        `MatchError` in its slot without one. Every device hit is
+        re-verified on the host with `topics.match` before it is returned:
+        the shape lane's 64-bit combined hash admits a ~2^-64 false
+        positive, and a route decision has no per-delivery re-check."""
+        res = self.route(topics)
+        matched, flags = res.matched, res.flags
+        out: List = []
+        for i, t in enumerate(topics):
+            if flags[i]:
+                out.append(MatchError(t) if fallback is None else fallback(t))
+                continue
+            row = matched[i]
+            names = []
+            for fid in row[row >= 0]:
+                name = self.index.filter_name(int(fid))
+                if name is not None and T.match(t, name):
+                    names.append(name)
+            out.append(names)
+        return out
 
     def _pick_inputs(self, topics, client_hashes):
         """The per-row pick inputs (client hash, topic hash, entropy), uint32
@@ -1548,6 +1666,7 @@ class DeviceRouter:
             max_matches=cfg.max_matches,
             probes=cfg.probes,
             kslot=args.kslot,
+            kg=args.kg,
             sem_tables=args.sem_tables,
             q_vecs=qv,
             sem_topk=args.sem_topk,
@@ -1593,6 +1712,7 @@ class DeviceRouter:
         M = out["matched"].shape[1]
         with_groups = "pick_gid" in out
         sparse = out["bitmaps"] is None
+        fan = not sparse or "slots" in out  # False: a match-only router
         parts = [
             out["matched"].reshape(-1),
             out["mcount"],
@@ -1604,7 +1724,7 @@ class DeviceRouter:
         if kslot:
             SW = out["slots"].shape[1]  # kslot (+ topk with a semantic table)
             parts += [out["slots"].reshape(-1), out["slot_count"]]
-        else:
+        elif fan:
             parts.append(out["bitmaps"].reshape(-1))
         if "sem_count" in out:
             parts.append(out["sem_count"])
@@ -1637,7 +1757,7 @@ class DeviceRouter:
         if kslot:
             slots = take(B * SW).reshape(B, SW)
             slot_count = take(B)
-        else:
+        elif fan:
             W = out["bitmaps"].shape[1]
             bitmaps = take(B * W).reshape(B, W).view(np.uint32)
         sem_count = take(B) if "sem_count" in out else None
@@ -1746,7 +1866,7 @@ class DeviceRouter:
             m_active=args.m_active, salt=args.salt, max_levels=cfg.max_levels,
             frontier=cfg.frontier, max_matches=cfg.max_matches,
             probes=cfg.probes, share_strategy=self.share_strategy,
-            kslot=args.kslot, sem_topk=args.sem_topk, rule_progs=rprogs,
+            kslot=args.kslot, kg=args.kg, sem_topk=args.sem_topk, rule_progs=rprogs,
         )
         pick_in = (args.group_tables, ch, th, rand, args.sem_tables, qv, rfeats, rvalid)
         extra = []

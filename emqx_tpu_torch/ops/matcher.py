@@ -1,6 +1,7 @@
-"""Batched NFA topic matching: the port's copy of `MatcherConfig` and the
+"""Batched NFA topic matching: the port's copy of `MatcherConfig`, the
 residual-NFA walk of `emqx_tpu/ops/matcher.py` (`batch_match_syms` with its
-helpers `_probe_edges`, `_compact` and `_append`, :84-:214).
+helpers `_probe_edges`, `_compact` and `_append`, :84-:214), the fused
+`batch_match_bytes` (:221) and the host-facing `TpuMatcher` (:277).
 
 The route index keeps the filters its 64-shape table rejects in an NFA
 (ops/nfa.py). `batch_match_syms` walks a batch of tokenized topics through
@@ -15,30 +16,44 @@ On CUDA tensors `batch_match_syms` launches the hand-written kernel
 tensors it runs `batch_match_syms_plain`, the same scan in plain PyTorch,
 written after the JAX function line by line. Both give the same outputs in
 the same order: the order of `matched` is part of the contract.
+
+`batch_match_bytes` runs the three kernels of a match in sequence
+(`tokenize`, `vocab_lookup`, `nfa_walk`); `TpuMatcher` owns an
+`NfaBuilder`'s device mirror (a `DeviceSegmentManager`, the counterpart of
+JAX's `DeviceDeltaSync`, ops/nfa.py:171), matches batches of topic strings
+through it with one readback, and hands each flagged row to a fallback or
+a `MatchError` in its slot.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
+from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from emqx_tpu_torch import kernels
+from emqx_tpu_torch.broker.metrics import default_metrics
 from emqx_tpu_torch.ops.nfa import (
     EDGE_H_MUL_NODE,
     EDGE_H_MUL_SYM,
     EDGE_H_SHIFT,
     MAX_PROBES,
+    _next_pow2,
 )
+from emqx_tpu_torch.ops.segments import DeviceSegmentManager
+from emqx_tpu_torch.ops.tokenizer import encode_topics, tokenize, vocab_lookup
 from emqx_tpu_torch.ops.u32 import M32, mul32, u32
 
 
 @dataclass(frozen=True)
 class MatcherConfig:
-    """The fields of `MatcherConfig` (emqx_tpu/ops/matcher.py:46) that a
-    caller of the port's serving path sets; the fan-out knobs
-    (`fanout_compact`, `fanout_slots`) join with the first caller that
-    sets them."""
+    """The fields of `MatcherConfig` (emqx_tpu/ops/matcher.py:46) with the
+    reference's defaults; the two jit knobs (`donate_buffers`,
+    `jit_cache_max`) have no compiled program to act on here."""
 
     max_levels: int = 16  # topic depth budget (scan length)
     frontier: int = 32  # max simultaneous NFA states per topic
@@ -47,6 +62,19 @@ class MatcherConfig:
     # (nfa.MAX_PROBES) or lookups would silently miss — DeviceRouter clamps
     probes: int = MAX_PROBES
     max_bytes: int = 256  # topic byte budget for the tokenizer
+    # compact fan-out readback (`compact_fanout_slots`): O(matches) slot
+    # lists instead of dense [B, W] bitmaps; overflow rows take a masked
+    # dense transfer, so the cap is a bandwidth knob, never a correctness one
+    fanout_compact: bool = True
+    # per-row compact-slot cap: 0 = auto-size from the dispatch.fanout
+    # histogram p99 (grow-only, pow2-padded); > 0 pins it (pow2-padded)
+    fanout_slots: int = 0
+    # subscriber-table policy: "dense" pins the [Fcap, W] matrix, "sparse"
+    # the CSR slot lists, "auto" starts dense and flips once when the
+    # matrix is mostly zeros (`SubscriberTable._maybe_flip`)
+    sub_table: str = "auto"
+    # CSR gather-window bound per row: 0 = auto (2 x kslot)
+    sparse_gather: int = 0
 
 
 # the NFA device tables, as `NfaBuilder.device_snapshot()` names them
@@ -158,7 +186,7 @@ def batch_match_syms_plain(tables, syms, nwords, dollar, *, frontier: int,
     mover = mcount > K
     causes = {"too_deep": too_deep, "frontier_overflow": fover,
               "match_overflow": mover}
-    return (matched, mcount.clamp(max=K).to(torch.int32),
+    return (matched.contiguous(), mcount.clamp(max=K).to(torch.int32),
             fover | mover | too_deep, causes)
 
 
@@ -250,3 +278,142 @@ def batch_match_syms(tables, syms, nwords, dollar, *, frontier: int = 32,
     causes = {"too_deep": bools[1], "frontier_overflow": bools[2],
               "match_overflow": bools[3]}
     return matched, mcount, bools[0], causes
+
+
+# -- the fused match and the host-facing matcher ---------------------------
+
+
+def batch_match_bytes(tables, bytes_mat, lengths, *, salt: int, max_levels: int = 16,
+                      frontier: int = 32, max_matches: int = 64,
+                      probes: int = MAX_PROBES):
+    """tokenize -> vocab lookup -> NFA walk: the counterpart of
+    `batch_match_bytes_impl` (emqx_tpu/ops/matcher.py:221), three kernel
+    launches on CUDA tensors (their plain twins on CPU tensors).
+
+    bytes_mat uint8 [B, MB] and lengths int32 [B] tensors on the tables'
+    device, as `encode_topics` makes them -> (matched, mcount, flags,
+    causes) as `batch_match_syms` returns them."""
+    h1, h2, nwords, dollar = tokenize(bytes_mat, lengths, salt, max_levels)
+    syms = vocab_lookup(tables, h1, h2, probes)
+    return batch_match_syms(tables, syms, nwords, dollar, frontier=frontier,
+                            max_matches=max_matches, probes=probes)
+
+
+def _pad_pow2(n: int, lo: int = 256) -> int:
+    return max(lo, _next_pow2(n))
+
+
+class MatchError(RuntimeError):
+    """Per-row match failure marker, returned in the row's slot and never
+    raised mid-batch (emqx_tpu/ops/matcher.py:258): one flagged topic must
+    not poison its batchmates' results."""
+
+    def __init__(self, topic: str, cause: str = "overflow"):
+        super().__init__(
+            f"device match overflow for topic {topic!r}; no fallback provided"
+        )
+        self.topic = topic
+        self.cause = cause
+
+
+CAUSES = ("too_deep", "frontier_overflow", "match_overflow")
+
+
+class TpuMatcher:
+    """Host-facing matcher over an `NfaBuilder` (emqx_tpu/ops/matcher.py:277):
+    owns the NFA's device mirror, pads each batch to a power of two (at
+    least 64 rows, as the reference does), runs `batch_match_bytes`,
+    brings every output back in one copy and decodes the filter ids to
+    names. A flagged row (too deep, frontier or match overflow, too long)
+    gets ``fallback(topic)`` or, without a fallback, a `MatchError` in its
+    slot.
+
+    Records the `matcher.*` series of the reference into `metrics` (a
+    `broker.metrics.Metrics`; the process-wide default when None):
+    sync and match wall time, batch size, rows, fallback rows by cause."""
+
+    def __init__(self, builder, config: MatcherConfig = MatcherConfig(), metrics=None,
+                 device="cuda"):
+        self.builder = builder
+        if config.probes < MAX_PROBES:
+            config = dataclasses.replace(config, probes=MAX_PROBES)
+        self.config = config
+        self.metrics = metrics if metrics is not None else default_metrics
+        self._sync = DeviceSegmentManager(device, name="nfa")
+        self.device = self._sync.device
+        self._salt = 0
+
+    def _tables(self):
+        # churn reaches the device as O(delta) scatters, not full uploads
+        self._salt = self.builder.salt
+        t0 = time.perf_counter()
+        tables = self._sync.sync(self.builder)
+        self.metrics.observe("matcher.sync.seconds", time.perf_counter() - t0)
+        return tables
+
+    def match_batch(self, topics: Sequence[str], fallback=None) -> List:
+        """Topic strings -> per row the matched filter names, the
+        fallback's answer, or a `MatchError` (flagged rows)."""
+        cfg = self.config
+        tables = self._tables()
+        B = len(topics)
+        Bp = _pad_pow2(B, 64)
+        mat, lens, too_long = encode_topics(list(topics), cfg.max_bytes)
+        if Bp != B:
+            mat = np.pad(mat, ((0, Bp - B), (0, 0)))
+            lens = np.pad(lens, (0, Bp - B))
+        t0 = time.perf_counter()
+        matched, mcount, flags, causes = batch_match_bytes(
+            tables,
+            torch.from_numpy(mat).to(self.device),
+            torch.from_numpy(lens).to(self.device),
+            salt=self._salt,
+            max_levels=cfg.max_levels,
+            frontier=cfg.frontier,
+            max_matches=cfg.max_matches,
+            probes=cfg.probes,
+        )
+        # ONE device->host copy for the rows and their causes
+        K = matched.shape[1]
+        host = torch.cat(
+            [matched[:B].reshape(-1), mcount[:B]]
+            + [v[:B].to(torch.int32) for v in [flags] + [causes[c] for c in CAUSES]]
+        ).cpu().numpy()
+        matched = host[: B * K].reshape(B, K)
+        mcount = host[B * K : B * K + B]
+        rest = host[B * K + B :].reshape(1 + len(CAUSES), B).astype(bool)
+        cause_rows = dict(zip(CAUSES, rest[1:]))
+        flags = rest[0] | too_long
+        self.metrics.inc("device.transfer.bytes", host.nbytes)
+        self._record(B, time.perf_counter() - t0, flags, cause_rows, too_long)
+        out: List = []
+        for i in range(B):
+            if flags[i]:
+                out.append(MatchError(topics[i]) if fallback is None
+                           else fallback(topics[i]))
+                continue
+            names = []
+            for fid in matched[i, : mcount[i]]:
+                name = self.builder.filter_name(int(fid))
+                if name is not None:
+                    names.append(name)
+            out.append(names)
+        return out
+
+    def _record(self, B, wall_s, flags, causes, too_long) -> None:
+        m = self.metrics
+        m.observe("matcher.device.seconds", wall_s)
+        m.observe("matcher.batch.size", B)
+        m.inc("matcher.rows", B)
+        fell = int(np.count_nonzero(flags))
+        if not fell:
+            return
+        m.inc("matcher.fallback.rows", fell)
+        # causes are independent bits: a row may count under two of them
+        for cause, arr in causes.items():
+            n = int(np.count_nonzero(arr))
+            if n:
+                m.inc(f"matcher.fallback.rows.{cause}", n)
+        n_long = int(np.count_nonzero(too_long))
+        if n_long:
+            m.inc("matcher.fallback.rows.too_long", n_long)

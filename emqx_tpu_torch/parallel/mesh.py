@@ -27,8 +27,8 @@ mesh with more ranks than GPUs; ``"gloo"`` runs any number of ranks on the
 CPU or on CUDA tensors (staged through the host by gloo itself). Nothing
 here picks or switches a backend. `parallel.launch` starts the ranks.
 
-Not ported: `dist_route_step` and the `dist_step` contract (`:171-261`),
-which need `route_step_impl`, and `session_placement` (`:840`).
+`dist_route_step` is the NFA-only step over the mesh (the `dist_step`
+contract, `:171-261`). Not ported: `session_placement` (`:840`).
 """
 
 from __future__ import annotations
@@ -329,6 +329,31 @@ def _local_step(mesh: Mesh, builder: str, shape_tables, nfa_tables, sub_bitmaps,
     _sem_rules_local(mesh, builder, out, sem_tables, q_vecs, rule_feats,
                      rule_valid, sem_topk, rule_progs)
     return _reduce_stats(mesh, builder, out)
+
+
+def dist_route_step(mesh: Mesh, tables: Dict, sub_bitmaps, bytes_mat, lengths, *,
+                    salt: int, max_levels: int = 16, frontier: int = 32,
+                    max_matches: int = 64, probes: int = 8) -> Dict:
+    """One rank's share of the NFA-only route step over the mesh
+    (`dist_route_step`, emqx_tpu/parallel/mesh.py:219, built at
+    `:171-216` as the `dist_step` contract).
+
+    Layout, as JAX's shard_map specs place it: `tables`, the NFA tables,
+    replicated (`table_placement`); `sub_bitmaps` this rank's dense lane
+    slice [Fcap, W / tp] (`bitmap_placement`); bytes_mat / lengths this
+    rank's 'dp' rows (`place_batch`). Each rank runs `route_step` with no
+    compaction (JAX's `_dist_step_fn` passes no kslot) and returns its
+    blocks of JAX's outputs (`_out_specs()`, `:107`): matched / mcount /
+    flags for its 'dp' rows (tp replicas), bitmaps [B / dp, W / tp] for
+    its ('dp', 'tp') block, and the stats reduced by `_reduce_stats`:
+    two all-reduces a batch under the builder name ``dist_step`` (routed
+    and matches over 'dp', fanout_bits over the mesh)."""
+    from emqx_tpu_torch.models.router_model import route_step
+
+    out = route_step(tables, sub_bitmaps, bytes_mat, lengths, salt=salt,
+                     max_levels=max_levels, frontier=frontier,
+                     max_matches=max_matches, probes=probes, device=mesh.device)
+    return _reduce_stats(mesh, "dist_step", out)
 
 
 def step_builder(sub_bitmaps, sem_tables, fused: bool = False) -> str:

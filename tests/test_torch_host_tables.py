@@ -233,7 +233,11 @@ def test_importing_the_port_loads_no_jax():
             "emqx_tpu_torch.broker.session_store",
             "emqx_tpu_torch.ops.semantic_table",
             "emqx_tpu_torch.rules.sql",
-            "emqx_tpu_torch.rules.compile"} <= set(port_modules())
+            "emqx_tpu_torch.rules.compile",
+            "emqx_tpu_torch.broker.broker", "emqx_tpu_torch.broker.router",
+            "emqx_tpu_torch.broker.trie", "emqx_tpu_torch.broker.hooks",
+            "emqx_tpu_torch.broker.message", "emqx_tpu_torch.broker.metrics",
+            "emqx_tpu_torch.mqtt.packet"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"

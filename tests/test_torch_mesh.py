@@ -34,7 +34,12 @@ suite. JAX runs in this process, on the 2 x 2 slice of the virtual
   `dp_axis="dp"`, and the dp picks equal to the single-device picks;
 - (e) backend/device mismatches, a failing rank and a hung collective;
 - (f) every rank's mirrors equal to its slice of the host tables after
-  churn, with the same full/delta/array decisions on every rank.
+  churn, with the same full/delta/array decisions on every rank;
+- (g) the NFA-only step (`dist_route_step`, JAX's `dist_step`) on bench.py's
+  plus_100k recipe at a test's size: each rank's blocks of matched /
+  mcount / flags / bitmaps against the single-device JAX `route_step`
+  (JAX's own mesh program is not a stable oracle here, as in (c)) and the
+  stats against its stats; two all-reduces a batch.
 
 Tolerance: EXACT equality for every integer output; the semantic band as
 stated above.
@@ -302,13 +307,68 @@ def scen_semantic(mesh):
     return {"batches": out, "mirrors": mirrors, "entries": (slots, vecs, ths, scope)}
 
 
+def nfa_filters():
+    """bench.py's plus_100k recipe over small moduli (duplicates included),
+    with `#` filters."""
+    out = [f"org/{i % 5}/dev/{(i // 5) % 8}/ch/{(i // 40) % 6}/m/{i % 7}" for i in range(400)]
+    for i in range(60):
+        parts = ["org", str(i % 5), "dev", str((i // 5) % 8), "ch", str(i % 6), "m", str(i % 7)]
+        parts[1 + 2 * (i % 4)] = "+"
+        out.append("/".join(parts))
+    return out + ["org/1/#", "#", "org/+/dev/3/#"]
+
+
+def nfa_tables(nfa_cls):
+    """The NFA over `nfa_filters` and a dense [Fcap, 8] uint32 bitmap table
+    (1-3 seeded slots a filter id)."""
+    b = nfa_cls()
+    for f in nfa_filters():
+        b.add(f)
+    rng = np.random.default_rng(31)
+    bits = np.zeros((P_router._next_pow2(b.num_filters_capacity), 8), np.uint32)
+    for fid in range(b.num_filters_capacity):
+        for slot in rng.integers(0, 256, rng.integers(1, 4)):
+            bits[fid, slot // 32] |= np.uint32(1 << int(slot % 32))
+    return b, bits
+
+
+def nfa_batch(seed, n=90):
+    rng = np.random.default_rng(seed)
+    out = [f"org/{a}/dev/{b}/ch/{c}/m/{d}" for a, b, c, d in zip(
+        rng.integers(0, 6, n), rng.integers(0, 9, n), rng.integers(0, 7, n),
+        rng.integers(0, 8, n))]
+    out[:3] = ["", "$SYS/a", "org/1/dev/2/ch/3/m/4/x/y"]  # the last too deep
+    return out
+
+
+def scen_nfa(mesh):
+    from emqx_tpu_torch.ops.nfa import NfaBuilder
+
+    builder, bits = nfa_tables(NfaBuilder)
+    tables = convert.upload(builder.device_snapshot(), mesh.device,
+                            P_mesh.table_placement(mesh))
+    sub = convert.upload({"sub_bitmaps": bits}, mesh.device,
+                         P_mesh.bitmap_placement(mesh))["sub_bitmaps"]
+    out = []
+    for seed in range(2):
+        mat, lens, _ = encode_topics(nfa_batch(seed), 64)
+        bm, ln = P_mesh.place_batch(mesh, mat, lens)
+        P_mesh.reset_collectives()
+        step = P_mesh.dist_route_step(mesh, tables, sub, bm, ln, salt=builder.salt,
+                                      max_levels=8, frontier=16, max_matches=16, probes=8)
+        out.append({"coll": _collectives(),
+                    "stats": {k: int(v) for k, v in step["stats"].items()},
+                    **{k: _np(step[k]) for k in ("matched", "mcount", "flags", "bitmaps")}})
+    return out
+
+
 def rank_main(mesh):
     """Every scenario, on every rank of a 2 x 2 gloo mesh on the CPU."""
     assert (mesh.dp, mesh.tp) == (DP, TP)
     return {"rank": mesh.rank, "coords": (mesh.axis_index("dp"), mesh.axis_index("tp")),
             "device": str(mesh.device), "dense": scen_dense(mesh),
             "fused": scen_fused(mesh), "csr": scen_csr(mesh),
-            "semantic": scen_semantic(mesh)}
+            "semantic": scen_semantic(mesh), "nfa": scen_nfa(mesh)}
 
 
 def rank_fails(mesh):
@@ -470,6 +530,37 @@ def test_dense_mesh_collectives_per_batch(ranks):
         st = r["dense"]["shard_status"]
         assert (st["dp"], st["tp"], st["shards"]) == (2, 2, 4)
         assert 0 < st["lane_fill_min"] <= st["lane_fill_max"] <= 1
+
+
+# -- (g) the NFA-only step ----------------------------------------------------------
+
+
+def test_dist_route_step_blocks_match_the_jax_route_step(ranks):
+    import jax
+
+    from emqx_tpu.models import router_model as J_router
+    from emqx_tpu.ops.nfa import NfaBuilder
+
+    builder, bits = nfa_tables(NfaBuilder)
+    for n in range(2):
+        mat, lens, _ = encode_topics(nfa_batch(n), 64)
+        want = jax.jit(lambda t, sb, bm, ln: J_router.route_step_impl(
+            t, sb, bm, ln, salt=builder.salt, max_levels=8, frontier=16, max_matches=16,
+            probes=8))(builder.device_snapshot(), bits, mat, lens)
+        per, w_l = len(lens) // DP, bits.shape[1] // TP
+        assert np.asarray(want["flags"]).any() and int(want["stats"]["fanout_bits"]) > 0
+        for r in ranks:
+            d, t = r["coords"]
+            got = r["nfa"][n]
+            rows = slice(d * per, (d + 1) * per)
+            for k in ("matched", "mcount", "flags"):
+                np.testing.assert_array_equal(got[k], np.asarray(want[k])[rows], err_msg=k)
+            np.testing.assert_array_equal(got["bitmaps"].view(np.uint32),
+                                          np.asarray(want["bitmaps"])[rows,
+                                                                      t * w_l:(t + 1) * w_l])
+            assert got["stats"] == {k: int(v) for k, v in want["stats"].items()}
+            # routed and matches over 'dp', fanout_bits over the mesh
+            assert got["coll"] == {"dist_step": {"all_reduce": 2, "all_gather": 0}}
 
 
 # -- (b) the fused storm ----------------------------------------------------------
