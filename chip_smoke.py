@@ -154,10 +154,12 @@ main path) and a bf16 table (201 MB instead of 402 MB):
     D x 2^-23): the rows that differ, and 64 sampled rows, are recomputed
     in f64 on the host and must pass `semantic_row_ok`; the band census is
     printed. rule_masks must equal its twin and the numpy host masks. Its
-    times: the call (7 samples of 3), CUPTI device time, the twin (3
-    samples), torch.matmul with TF32 off alone and with torch.topk (5
-    samples each), and the bound (operations: 2 B E D flops at 67 TFLOP/s
-    in f32, at 989 TFLOP/s for bf16);
+    times: the call (7 samples of 3), CUPTI device time and the TFLOP/s
+    it makes, the twin (3 samples), torch.matmul with TF32 off alone and
+    with torch.topk (5 samples each), and the bound (operations: 2 B E D
+    flops at 67 TFLOP/s in f32, at 989 TFLOP/s for bf16); and the largest
+    |score - f64 score| over every candidate the score launch keeps for
+    the batch, as a multiple of tau (`candidate_err_tau`);
 25. `route_semantic` and `churn_semantic`, counters zeroed before the
     first and read after the last: 3 batches through route(topics,
     embeds=, rules=): every topic half against the host oracle, the
@@ -173,7 +175,9 @@ main path) and a bf16 table (201 MB instead of 402 MB):
 26. `route_breakdown_semantic` (f32): encode, h2d, launches, readback and
     whole route;
 27. `semantic_seconds`: the path's time; the scatter of churn step A
-    (float32 and bfloat16 lanes) against its twin, with its times;
+    (float32 and bfloat16 lanes) against its twin, with its times and its
+    split (as every recorded scatter's: host prep, pinned fill, copy,
+    clones, launches; `kernel_inputs_*`);
 The `broker_1m` path (the broker's synchronous publish path): BASELINE
 config 3 loaded through `Broker.subscribe` into a port
 `Broker(Router(MatcherConfig(max_bytes=64, max_levels=8),
@@ -867,14 +871,14 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "compact_fanout_slots": "compact_kernel",
     "vocab_lookup": "vocab_lookup_kernel",
     "nfa_walk": "nfa_walk_kernel",
-    "segment_scatter": "segment_scatter_kernel",
+    "segment_scatter": ("scatter_claim_kernel", "scatter_store_kernel"),
     "sparse_fanout_slots": "sparse_fanout_kernel",
     "share_pick": "share_pick_kernel",
     "occurrence_index": ("occ_tile_sort", "occ_merge", "occ_finalize"),
     "row_lengths": "row_lengths_kernel",
     "narrow_i16": "narrow_i16_kernel",
     "session_sweep": ("sweep_count", "sweep_scan", "sweep_write"),
-    "semantic_match": ("semantic_scores_kernel", "semantic_merge_kernel"),
+    "semantic_match": ("scores_", "semantic_merge_kernel"),  # scores_f32_ or scores_bf16_
     "rule_masks": "rule_masks_kernel",
     "group_counts": "group_counts_kernel",
 }
@@ -1214,8 +1218,12 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
 def scatter_kind(torch, call):
     """The segment_scatter kernel on one recorded main-path call (flats,
     idxs, vals; int32, uint8, float32 or bfloat16 arrays): against its
-    twin, and index_put_ on the clones as the library yardstick (a float
-    lane takes its values' bits through the integer view of its width)."""
+    twin, and index_put_ of the last write per slot on the clones as the
+    library yardstick (a float lane takes its values' bits through the
+    integer view of its width); with the call's split, each part timed
+    alone: host prep (`pack_entries`: conversion, bounds, concatenation),
+    the pinned buffer's fill, its copy, the fresh-output clones and the
+    two launches (with the hash table's memset)."""
     from emqx_tpu_torch.ops import segments as G
 
     flats, idxs, vals = call
@@ -1236,22 +1244,37 @@ def scatter_kind(torch, call):
             res[k].view(dvec[k][2]).view(-1).index_put_((dvec[k][0],), dvec[k][1])
         return res
 
-    n = sum(len(v[0]) for v in dvec.values())
+    names, offsets, idx, vbits = G.pack_entries(flats, idxs, vals)
+    outs = [flats[k].clone() for k in names]
+    host = G.pinned_entries(outs, offsets, idx, vbits)
+    dbuf = host.to(dev)
+    n_raw = len(idx)
+    split = {
+        "call_ms": host_ms(lambda: G.segment_scatter(flats, idxs, vals), torch, reps=9),
+        "host_prep_ms": host_ms(lambda: G.pack_entries(flats, idxs, vals), torch, reps=9),
+        "pin_ms": host_ms(lambda: G.pinned_entries(outs, offsets, idx, vbits), torch, reps=9),
+        "copy_ms": time_ms(lambda: host.to(dev, non_blocking=True), torch),
+        "clone_ms": time_ms(lambda: [flats[k].clone() for k in names], torch),
+        "launches_ms": time_ms(lambda: G.launch_scatter(dbuf, len(names), n_raw), torch),
+    }
+    del outs, host, dbuf
+    kept = sum(len(v[0]) for v in dvec.values())
     table_bytes = sum(t.numel() * t.element_size() for t in flats.values())
-    # a 4-byte index, a value and its store per entry, at the array's width
-    entry_bytes = sum((4 + 2 * t.element_size()) * len(dvec[k][0]) for k, t in flats.items())
     info = {"arrays": {k: [int(t.numel()), len(dvec[k][0]), str(t.dtype)]
                        for k, t in flats.items()},
-            "entries": n, "cloned_bytes": table_bytes}
+            "entries": n_raw, "entries_kept": kept, "cloned_bytes": table_bytes,
+            "split": split}
     return dict(
         kernel=lambda: G.segment_scatter(flats, idxs, vals),
         plain=lambda: G.segment_scatter_plain(flats, idxs, vals),
         library=library,
         out=out,
         # fresh outputs: every touched array read once and written once,
-        # plus each entry's index and value read and its element written
-        bytes=2 * table_bytes + entry_bytes,
-        ops=4 * n,
+        # each entry's 8-byte index and 4-byte value read, each kept
+        # entry's element written
+        bytes=2 * table_bytes + 12 * n_raw
+        + sum(t.element_size() * len(dvec[k][0]) for k, t in flats.items()),
+        ops=2 * n_raw,
     ), info
 
 
@@ -2412,7 +2435,7 @@ def retained_path(torch, rng):
 
     churn_step("add_remove_1000", add_and_remove,
                {"full_resyncs": 0, "delta_launches": 1, "array_resyncs": 0,
-                "segment_scatter_launches": 1}, record=True)
+                "segment_scatter_launches": G.SCATTER_LAUNCHES}, record=True)
     if len(scatter_calls) != 1 \
             or any(t.dtype != torch.uint8 for t in scatter_calls[0][0].values()):
         raise AssertionError(f"the scatter touched {[sorted(c[0]) for c in scatter_calls]}")
@@ -2617,6 +2640,35 @@ def check_session_mirror(torch, store) -> dict:
             "pending_stamps": len(suffix)}
 
 
+def traced_complete(torch, fn, pad_s: float):
+    """fn() once under torch.profiler, `pad_s` seconds of host sleep on
+    each side of it inside the trace. -> (its result, the trace's
+    "Memcpy DtoH" events as (key, count), whether the trace is complete:
+    it holds a device event for every kernel launch fn made, by
+    `kernels.LAUNCHES` and `KERNEL_SYMBOLS`). Late in a long process a
+    trace loses its first device records (kernel and copy records apart,
+    the more the older the process; PERF.md), so a short trace can lose
+    them all and a caller retakes an incomplete trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emqx_tpu_torch import kernels
+
+    syms = {s for v in KERNEL_SYMBOLS.values() for s in ((v,) if isinstance(v, str) else v)}
+    n0 = sum(kernels.LAUNCHES.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    launched = sum(kernels.LAUNCHES.values()) - n0
+    events = prof.key_averages()
+    seen = sum(e.count for e in events
+               if e.self_device_time_total > 0 and any(s in e.key for s in syms))
+    d2h = [(e.key, e.count) for e in events if "Memcpy DtoH" in e.key]
+    return out, d2h, seen == launched > 0
+
+
 def session_ride(torch, store, router, args, topics, profile=False) -> dict:
     """One rider through `route_prepared(..., session=rider)`: the sweep
     lists against the host oracle taken just before the launch, the route
@@ -2634,21 +2686,19 @@ def session_ride(torch, store, router, args, topics, profile=False) -> dict:
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     if profile:
-        # late in this long run a CUPTI trace has come back without any
-        # device event: such a trace is taken again, the same call on the
-        # same rider, up to three times
-        for attempts in range(1, 4):
-            got = []
-            events, _wall = profiled(
-                torch, lambda: got.append(router.route_prepared(args, topics, session=rider)), 1)
-            device = [(e.key[:60], e.count) for e in events if e.self_device_time_total > 0]
-            if device:
+        # the CUPTI trace counts the call's device->host copies; a trace
+        # that lost a kernel's events, or shows no copy, is taken again
+        # (the same call on the same rider) with longer pads; more than
+        # one copy fails at once, and so does a fifth incomplete trace
+        for attempts, pad in enumerate((0.5, 1.0, 2.0, 4.0, 4.0), 1):
+            res, d2h, complete = traced_complete(
+                torch, lambda: router.route_prepared(args, topics, session=rider), pad)
+            copies = sum(c for _k, c in d2h)
+            if copies > 1 or (complete and copies == 1):
                 break
-        res = got[0]
-        d2h = [(e.key, e.count) for e in events if "Memcpy DtoH" in e.key]
-        if sum(c for _k, c in d2h) != 1:
+        if not complete or copies != 1:
             raise AssertionError(f"the rider-carrying call copied device->host {d2h}; "
-                                 f"trace {attempts}: device events {device}")
+                                 f"trace {attempts} complete: {complete}")
     else:
         res = router.route_prepared(args, topics, session=rider)
     t3 = time.perf_counter()
@@ -2692,6 +2742,7 @@ def session_path(torch, rng, router=None):
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.session_store import PID_SPACE, SessionStore
     from emqx_tpu_torch.models.router_model import DeviceRouter
+    from emqx_tpu_torch.ops import segments as SG
     from emqx_tpu_torch.ops import session_table as ST
     from emqx_tpu_torch.ops.matcher import MatcherConfig
     from emqx_tpu_torch.ops.nfa import _next_pow2
@@ -2859,7 +2910,7 @@ def session_path(torch, rng, router=None):
     ra = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH))
     c1 = store.manager.counters()
     if ra["writes"] != {k: len(v) for k, v in rider.idxs.items()} or ra["due_count"] \
-            or c1 != c0 or kernels.LAUNCHES["segment_scatter"] - s0 != 2:
+            or c1 != c0 or kernels.LAUNCHES["segment_scatter"] - s0 != 2 * SG.SCATTER_LAUNCHES:
         raise AssertionError(f"ride A: {ra['writes']}, {ra['due_count']} due, {c0} -> {c1}")
     mirror = check_session_mirror(torch, store)
     st = table.sess_state
@@ -3122,13 +3173,29 @@ def check_sem_mirror(torch, args, sem) -> int:
     return n
 
 
-def sem_route_checked(torch, router, host, oracle, filt, topics, q, msgs) -> dict:
+def take_launches(path: dict) -> dict:
+    """Add the launch counts so far to `path` and set them to 0: read just
+    after a part of a path, before a check that launches kernels of its
+    own (a kernel again, to compare it with its twin), whose launches the
+    `kernels.reset_launches()` after it drops. -> path"""
+    from emqx_tpu_torch import kernels
+
+    for k, v in kernels.LAUNCHES.items():
+        path[k] = path.get(k, 0) + v
+    kernels.reset_launches()
+    return path
+
+
+def sem_route_checked(torch, router, host, oracle, filt, path, topics, q, msgs) -> dict:
     """One routed batch with embeddings and the rule set's masks, checked:
     the topic half of every row against the host oracle; the semantic half
     against the twin's winners after the union (a differing row must hold
     the kernel's own winners, recomputed for its rows, and those must pass
     the f64 band check); sem_count likewise; the rule masks bit-equal to
-    the twin and to `filt.host_masks` (numpy)."""
+    the twin and to `filt.host_masks` (numpy). The launch counts are added
+    to `path` just after the route (`take_launches`); the check's own
+    launches are dropped."""
+    from emqx_tpu_torch import kernels
     from emqx_tpu_torch.ops import semantic_table as ST
     from emqx_tpu_torch.rules import compile as RC
 
@@ -3136,6 +3203,7 @@ def sem_route_checked(torch, router, host, oracle, filt, topics, q, msgs) -> dic
     t0 = time.perf_counter()
     res = router.route(topics, embeds=q, rules=rules)
     wall = time.perf_counter() - t0
+    take_launches(path)
     args = router.prepare()
     kslot, topk = args.kslot, args.sem_topk
     if res.slots.shape != (len(topics), kslot + topk):
@@ -3153,6 +3221,7 @@ def sem_route_checked(torch, router, host, oracle, filt, topics, q, msgs) -> dic
         sel = torch.from_numpy(diff).to(dev)
         ks, kc = ST.semantic_match_step(args.sem_tables, qd[sel].contiguous(),
                                         md[sel].contiguous(), topk)
+        kernels.reset_launches()
         ks, kc = ks.cpu().numpy(), kc.cpu().numpy()
         u = ST.union_semantic_slots_plain(torch.from_numpy(topic_part.slots[diff]),
                                           torch.from_numpy(ks)).numpy()
@@ -3208,6 +3277,7 @@ def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
     uni = ST.union_semantic_slots(topic, got_s)  # the standalone union kernel
     if not torch.equal(uni, got_u):
         raise AssertionError("union_semantic_slots != the fused union")
+    cand_err = sem_candidate_err(torch, sem_t, q, matched, topk, dtype)
 
     fused = lambda: ST.semantic_route_stage(sem_t, q, matched, topk, topic)  # noqa: E731
     ms = time_ms(fused, torch, inner=3, reps=7)
@@ -3233,10 +3303,11 @@ def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
     bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S if dtype == "bfloat16"
                                else SCALAR_OPS_PER_S)
     src, replaces = SOURCES["semantic_match"]
+    tflops = flops / dev_ms / 1e9
     rep = {"name": "semantic_match", "route": "cuda", "source": src, "replaces": replaces,
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": lib_ms, "device_ms": dev_ms,
-           "device_via": dev_via}
+           "device_via": dev_via, "tflops": tflops, "candidate_err_tau": cand_err}
     phase("kernel", kernel="semantic_match", case=f"semantic_256k/{dtype}", rows=B, entries=E,
           dim=D, topk=topk, kslot=kslot, splits=ST.semantic_splits(
               B, E, torch.cuda.get_device_properties(q.device).multi_processor_count),
@@ -3244,8 +3315,30 @@ def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
           band=census, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, plain_samples=3,
           kernel_samples="7 x 3", library_matmul_ms=lib_mm, library_matmul_topk_ms=lib_ms,
           library_samples=5, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-          tflops=flops / (dev_ms or ms) / 1e9)
+          tflops=tflops, candidate_err_tau=cand_err)
     return rep
+
+
+def sem_candidate_err(torch, sem_t, q, matched, topk, dtype, rows=64) -> float:
+    """The largest |score - f64 score| over every candidate the score
+    kernel keeps for one batch (each split's top-k of every row), as a
+    multiple of SEM_TAU; the f64 score from the same inputs (the query
+    rounded to bf16 for a bf16 table), on the card in row chunks."""
+    from emqx_tpu_torch.ops import semantic_table as ST
+
+    cand_s, cand_i, _part = ST._scores(sem_t, q, matched, topk)
+    vecs = torch.cat([sem_t["sem_vec"][0], sem_t["sem_hot_vec"][0]]).double()
+    q64 = (q.to(torch.bfloat16) if dtype == "bfloat16" else q).double()
+    worst = 0.0
+    for lo in range(0, q.shape[0], rows):
+        ci = cand_i[lo : lo + rows].reshape(-1, cand_i.shape[1] * topk).long()
+        cs = cand_s[lo : lo + rows].reshape(ci.shape).double()
+        ref = torch.einsum("rd,rcd->rc", q64[lo : lo + rows], vecs[ci.clamp(min=0)])
+        diff = torch.where(ci >= 0, (cs - ref).abs(), torch.zeros_like(ref))
+        worst = max(worst, float(diff.max()))
+    del vecs, q64, cand_s, cand_i
+    torch.cuda.empty_cache()
+    return worst / SEM_TAU
 
 
 def rule_kind(torch, filt, msgs, dev):
@@ -3352,11 +3445,11 @@ def semantic_path(torch, rng, router_1m):
 
         # 2. routed batches, then 3. churn, counters zeroed before and read after
         kernels.reset_launches()
-        routed = []
+        routed, path = [], {}
         for _ in range(SEM_ROUTE_BATCHES):
             batch = sem_batch(rng, cents, BATCH, edge=True)
-            routed.append(sem_route_checked(torch, router, host, oracle, filt, *batch))
-        after_route = dict(kernels.LAUNCHES)
+            routed.append(sem_route_checked(torch, router, host, oracle, filt, path, *batch))
+        after_route = dict(path)
         if after_route["semantic_match"] != 2 * SEM_ROUTE_BATCHES \
                 or after_route["rule_masks"] != SEM_ROUTE_BATCHES:
             raise AssertionError(f"launches on the routed batches: {after_route}")
@@ -3397,9 +3490,9 @@ def semantic_path(torch, rng, router_1m):
                            "hot_capacity": sem._hcap, "live": len(sem),
                            "mirror_bytes_equal": check_sem_mirror(torch, args, sem)}
         host = SemHost(sem)
-        churn["route"] = sem_route_checked(torch, router, host, oracle, filt,
+        churn["route"] = sem_route_checked(torch, router, host, oracle, filt, path,
                                            *sem_batch(rng, cents, BATCH))
-        after = dict(kernels.LAUNCHES)
+        after = take_launches(path)
         path = ("tokenize", "shape_match", "semantic_match", "rule_masks", "segment_scatter")
         if not all(after[k] for k in path):
             raise AssertionError(f"a kernel never launched on the semantic path: {after}")
@@ -3599,6 +3692,7 @@ def broker_path(torch, rng):
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops import segments as G
     from emqx_tpu_torch.ops.csr_table import CSR_KEYS
 
     t0 = time.perf_counter()
@@ -3678,7 +3772,7 @@ def broker_path(torch, rng):
     c1, v1, e1 = state()
     moves = check_wave("broker churn", c0, c1, e0, e1, {m: v1[m] != v0[m] for m in v0})
     mirrors = check_mirrors(torch, dev)
-    if sync_launches != sum(moves["delta_launches"].values()) or \
+    if sync_launches != G.SCATTER_LAUNCHES * sum(moves["delta_launches"].values()) or \
             any(v > 1 for v in moves["delta_launches"].values()):
         raise AssertionError(f"churn sync: {sync_launches} scatters, moves {moves}")
     after = broker_publish(torch, broker, rec, timer, nxt, 9)
@@ -4589,7 +4683,8 @@ def mesh_twin(torch, mesh, router, args, topics) -> dict:
     return {"rows": int(got["matched"].shape[0]), "compared": list(keys) + ["stats"]}
 
 
-def mesh_sem_check(torch, mesh, srouter, sargs, res, topics, q, msgs, filt, oracle) -> dict:
+def mesh_sem_check(torch, mesh, srouter, sargs, res, topics, q, msgs, filt, oracle,
+                   path) -> dict:
     """One routed batch with embeddings and rules on the semantic mesh. On
     every rank: this rank's block (its dp rows x its tp shard's segment of
     kslot + topk slots) against the twin run on its shard's entries and
@@ -4598,12 +4693,16 @@ def mesh_sem_check(torch, mesh, srouter, sargs, res, topics, q, msgs, filt, orac
     band check on this shard; the qualifying counts, summed over 'tp',
     must equal the assembled sem_count (the single-device count). On the
     lead rank: the topic recipients (every shard's topic segment) against
-    the host oracle, the rule masks against the twin and the numpy masks."""
+    the host oracle, the rule masks against the twin and the numpy masks.
+    Called just after the route: the launch counts are added to `path`
+    first (`take_launches`), and the check's own launches dropped."""
+    from emqx_tpu_torch import kernels
     from emqx_tpu_torch.models.router_model import RouteResult
     from emqx_tpu_torch.ops import semantic_table as ST
     from emqx_tpu_torch.parallel import mesh as M
     from emqx_tpu_torch.rules import compile as RC
 
+    take_launches(path)
     per, lo = M.batch_rows(mesh, len(topics))
     tp = mesh.axis_index("tp")
     kslot, topk = sargs.kslot, sargs.sem_topk
@@ -4622,6 +4721,7 @@ def mesh_sem_check(torch, mesh, srouter, sargs, res, topics, q, msgs, filt, orac
         sel = torch.from_numpy(diff).to(dev)
         ks, kc = ST.semantic_match_step(sargs.sem_tables, qd[sel].contiguous(),
                                         md[sel].contiguous(), topk)
+        kernels.reset_launches()
         u = ST.union_semantic_slots_plain(torch.from_numpy(topic[diff]), ks.cpu()).numpy()
         if not np.array_equal(u, block[diff]):
             raise AssertionError("semantic mesh rows differ from the kernel's own winners")
@@ -4748,6 +4848,7 @@ def rank_mesh_1m(mesh, st) -> dict:
     out = {"rank": mesh.rank}
 
     kernels.reset_launches()
+    path = {}  # the launches, added up around the semantic checks
     M.reset_collectives()
     routed = [mesh_route(router, t, oracle, args.kslot)[0] for t in batches]
     out["collectives_per_batch"] = per_batch(M.COLLECTIVES, len(batches))
@@ -4806,7 +4907,7 @@ def rank_mesh_1m(mesh, st) -> dict:
         res = srouter.route(topics, embeds=q, rules=(filt.progs, *filt.features(msgs)))
         wall = 1e3 * (time.perf_counter() - t0)
         semantic.append({"route_ms": wall, **mesh_sem_check(
-            torch, mesh, srouter, sargs, res, topics, q, msgs, filt, oracle)})
+            torch, mesh, srouter, sargs, res, topics, q, msgs, filt, oracle, path)})
     out["sem_collectives"] = {k: dict(v) for k, v in M.COLLECTIVES.items()}
     if lead:
         phase("mesh_route_semantic", batches=semantic, upload_seconds=sem_upload_s,
@@ -4845,8 +4946,8 @@ def rank_mesh_1m(mesh, st) -> dict:
     topics, q, msgs = sem_batch(rng, cents, BATCH)
     res = srouter.route(topics, embeds=q, rules=(filt.progs, *filt.features(msgs)))
     sem_after = mesh_sem_check(torch, mesh, srouter, srouter.prepare(), res, topics, q, msgs,
-                               filt, oracle)
-    out["launches"] = dict(kernels.LAUNCHES)
+                               filt, oracle, path)
+    out["launches"] = take_launches(path)
     path = ("tokenize", "shape_match", "fanout_bitmaps", "compact_fanout_slots",
             "row_lengths", "narrow_i16", "semantic_match", "rule_masks", "segment_scatter")
     if not all(out["launches"][k] for k in path) or out["launches"]["sparse_fanout_slots"]:

@@ -62,8 +62,10 @@ _SIGNATURES = {
     "emqx_nfa_walk": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P,
     ),
-    # buf (A pointers + ids, indices, values), A, n, stream
-    "emqx_segment_scatter": (_P, _I, _L, _P),
+    # buf (A pointers, widths, offsets; indices; value bits), A, n, hash
+    # table, cap, stream
+    "emqx_scatter_claim": (_P, _I, _L, _P, _L, _P),
+    "emqx_scatter_store": (_P, _I, _L, _P, _L, _P),
     # csr_off, csr_len, F, csr_slots, P, hot_fid, hot_slot, H, matched,
     # slots, count, overflow, live, B, K, kslot, kg, stream
     "emqx_sparse_fanout_slots": (
@@ -95,12 +97,12 @@ _SIGNATURES = {
     # slot, state, ts, cap, expiry, scap, now, retry, counts, offsets,
     # totals, due, expired, sweep_k, stream
     "emqx_sweep_write": (_P, _P, _P, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
-    # q, vec_p, P, vec_h, H, bf16, fid_p, slot_p, th_p, fid_h, slot_h, th_h,
-    # matched, B, K, D, topk, S, tiles_per_split, cand_s, cand_i, part,
-    # stream
+    # q, q_bf16 scratch, vec_p, P, vec_h, H, bf16, fid_p, slot_p, th_p,
+    # fid_h, slot_h, th_h, matched, B, K, D, topk, S, tiles_per_split,
+    # cand_s, cand_i, part, stream
     "emqx_semantic_scores": (
-        _P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        _L, _P, _P, _P, _P,
+        _P, _P, _P, _L, _P, _L, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+        _I, _L, _P, _P, _P, _P,
     ),
     # cand_s, cand_i, part, S, slot_p, P, slot_h, topic slots, kslot, B,
     # topk, out, count, stream

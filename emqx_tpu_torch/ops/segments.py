@@ -13,9 +13,9 @@ rehash, salt change, a full op-log) bumps its `epoch` and clears the log.
 
 - a full upload (`convert.upload`) when the epoch moved;
 - otherwise the op-log suffix since the last sync, replayed by ONE
-  `segment_scatter` launch over every touched array (kernel
-  `kernels/csrc/segment_scatter.cu`), which first reduces each array's
-  writes on the host to the last write per slot;
+  `segment_scatter` call over every touched array (kernel
+  `kernels/csrc/segment_scatter.cu`), which keeps the last write per slot
+  on the card;
 - a ``(RESYNC, name, 0)`` marker re-uploads only that array from the live
   host table (which already holds every logged write to it).
 
@@ -97,6 +97,60 @@ def segment_scatter_plain(flats, idxs, vals):
 
 # element width in bytes of each array type the kernel writes
 _WIDTHS = {torch.int32: 4, torch.uint8: 1, torch.float32: 4, torch.bfloat16: 2}
+# kernel launches of one scatter call that has entries: the claim pass,
+# then the store pass
+SCATTER_LAUNCHES = 2
+# the most entries one call takes: the kernel's positions and hash slots
+# are 32-bit
+SCATTER_MAX_ENTRIES = 1 << 30
+
+
+def pack_entries(flats, idxs, vals):
+    """The scatter's entries in program order, as the kernel reads them:
+    array by array (in `flats`' order), each array's flat indices and the
+    bits of its values (`_value_bits`), with NO reduction to the last
+    write per slot. -> ``(names, offsets int64 [A + 1], idx int64 [n],
+    bits int32 [n])``: the entries of array ``names[a]`` are
+    ``offsets[a]:offsets[a + 1]``. Raises TypeError for an array type the
+    kernel does not write, ValueError for a non-contiguous array or
+    unequal index and value counts, IndexError for an index outside its
+    array."""
+    names = list(flats)
+    ix_parts, bit_parts = [], []
+    for k in names:
+        flat = flats[k]
+        if not isinstance(flat, torch.Tensor) or flat.dtype not in _WIDTHS:
+            raise TypeError(f"{k}: expected an int32, uint8, float32 or bfloat16 tensor")
+        if not flat.is_contiguous():
+            raise ValueError(f"{k}: must be contiguous")
+        ix = np.asarray(idxs[k], dtype=np.int64).reshape(-1)
+        bits = _value_bits(vals[k], flat.dtype).reshape(-1)
+        if ix.shape != bits.shape:
+            raise ValueError(f"{k}: {ix.shape[0]} indices but {bits.shape[0]} values")
+        if len(ix) and (ix.min() < 0 or ix.max() >= flat.numel()):
+            raise IndexError(f"{k}: index outside [0, {flat.numel()})")
+        ix_parts.append(ix)
+        bit_parts.append(bits)
+    offsets = np.zeros(len(names) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(ix) for ix in ix_parts])
+    idx = np.concatenate(ix_parts) if ix_parts else np.zeros(0, np.int64)
+    bits = np.concatenate(bit_parts) if bit_parts else np.zeros(0, np.int32)
+    return names, offsets, idx, bits
+
+
+def last_write_mask_plain(offsets, idx) -> torch.Tensor:
+    """Plain twin of the kernel's deduplication, which the tests hold
+    against `_last_writes`: True for each entry that is the last one in
+    program order to write its (array, flat index) slot (the claim pass's
+    `atomicMax` of positions, then the store pass's test)."""
+    idx = torch.as_tensor(idx, dtype=torch.int64)
+    counts = torch.as_tensor(np.diff(np.asarray(offsets, np.int64)))
+    arr = torch.repeat_interleave(torch.arange(len(counts)), counts)
+    _, inv = torch.unique(arr * (1 << 40) + idx, return_inverse=True)
+    pos = torch.arange(len(idx))
+    last = torch.full((int(inv.max()) + 1 if len(idx) else 0,), -1, dtype=torch.int64)
+    last.scatter_reduce_(0, inv, pos, "amax")
+    return last[inv] == pos
 
 
 def segment_scatter(
@@ -106,54 +160,66 @@ def segment_scatter(
 ) -> Dict[str, torch.Tensor]:
     """The O(delta) update (kernel `segment_scatter`): for every array k,
     a FRESH tensor equal to flats[k] with ``flat[idxs[k]] = vals[k]``, every
-    array in one launch. The counterpart of `segment_scatter_impl`
+    array in one call. The counterpart of `segment_scatter_impl`
     (emqx_tpu/ops/segments.py:73).
 
     flats: contiguous int32 tensors (uint32 tables hold their bits), uint8
     tensors (byte tables), float32 or bfloat16 tensors (the semantic
     table's lanes and vectors) of any shape, all on one device; idxs/vals:
     host arrays or lists of flat indices and values in program order; a
-    float value travels as its bits (`_value_bits`). A
-    repeated index keeps its last value: the host reduces each array to
-    one write per slot before the launch, so no two threads of the kernel
-    touch one element. The inputs are never written: a snapshot a caller
-    still holds stays as it was.
+    float value travels as its bits (`_value_bits`). A repeated index
+    keeps its last value. The host only converts and concatenates the
+    entries (`pack_entries`) into one pinned buffer and copies it once,
+    without waiting; on the card the claim pass keeps, per slot, the
+    latest program-order position in a hash table and the store pass
+    writes that entry alone (`SCATTER_LAUNCHES` launches), so no host
+    sort runs and no two threads store to one element. On the CPU the
+    twin `segment_scatter_plain` runs, after the same checks. The inputs
+    are never written: a snapshot a caller still holds stays as it was.
     """
-    names = list(flats)
-    for k in names:
-        if not isinstance(flats[k], torch.Tensor) or flats[k].dtype not in _WIDTHS:
-            raise TypeError(f"{k}: expected an int32, uint8, float32 or bfloat16 tensor")
-        if not flats[k].is_contiguous():
-            raise ValueError(f"{k}: must be contiguous")
-    writes = {k: _last_writes(idxs[k], vals[k], flats[k].dtype) for k in names}
-    for k, (ix, _) in writes.items():
-        if len(ix) and (ix.min() < 0 or ix.max() >= flats[k].numel()):
-            raise IndexError(f"{k}: index outside [0, {flats[k].numel()})")
+    names, offsets, idx, bits = pack_entries(flats, idxs, vals)
+    n = len(idx)
     if not names or not kernels.on_cuda(*(flats[k] for k in names)):
-        return _apply_plain(flats, writes)
+        return segment_scatter_plain(flats, idxs, vals)
+    if n > SCATTER_MAX_ENTRIES:
+        raise ValueError(f"{n} entries: one scatter takes at most {SCATTER_MAX_ENTRIES}")
     dev = flats[names[0]].device
     out = {k: flats[k].clone() for k in names}
-    n = sum(len(ix) for ix, _ in writes.values())
     if n == 0:
         return out
-    A = len(names)
-    # one host buffer, one copy:
-    # [A base pointers | A element widths | ids | indices | values]
-    buf = np.empty(2 * A + 3 * n, dtype=np.int64)
-    buf[:A] = [out[k].data_ptr() for k in names]
-    buf[A : 2 * A] = [_WIDTHS[out[k].dtype] for k in names]
-    o = 2 * A
-    for a, k in enumerate(names):
-        ix, vv = writes[k]
-        m = len(ix)
-        buf[o : o + m] = a
-        buf[o + n : o + n + m] = ix
-        buf[o + 2 * n : o + 2 * n + m] = vv
-        o += m
-    dbuf = torch.from_numpy(buf).to(dev)
-    kernels.launch("segment_scatter", "emqx_segment_scatter", dev,
-                   dbuf.data_ptr(), A, n)
+    host = pinned_entries([out[k] for k in names], offsets, idx, bits)
+    launch_scatter(host.to(dev, non_blocking=True), len(names), n)
     return out
+
+
+def pinned_entries(outs, offsets, idx, bits) -> torch.Tensor:
+    """The kernel's one int64 buffer in pinned host memory: [A base
+    pointers | A element widths | A + 1 offsets | n indices | n int32
+    value bits, two a word]. The caching host allocator keeps the block
+    until the copy that reads it has run, so a `non_blocking` copy needs
+    no wait here."""
+    A, n = len(outs), len(idx)
+    head = 3 * A + 1
+    host = torch.empty(head + n + (n + 1) // 2, dtype=torch.int64, pin_memory=True)
+    hb = host.numpy()
+    hb[:A] = [t.data_ptr() for t in outs]
+    hb[A : 2 * A] = [_WIDTHS[t.dtype] for t in outs]
+    hb[2 * A : head] = offsets
+    hb[head : head + n] = idx
+    hb[head + n :].view(np.int32)[:n] = bits
+    return host
+
+
+def launch_scatter(dbuf: torch.Tensor, A: int, n: int) -> None:
+    """The claim and store launches over the device copy of
+    `pinned_entries`, with a hash table of 2 next_pow2(n) slots: keys (8
+    B) and positions (4 B), zeroed by the claim launch, then each entry's
+    slot (4 B)."""
+    cap = 2 << max(0, (n - 1).bit_length())
+    table = torch.empty(cap + cap // 2 + (n + 1) // 2, dtype=torch.int64, device=dbuf.device)
+    for launcher in ("emqx_scatter_claim", "emqx_scatter_store"):
+        kernels.launch("segment_scatter", launcher, dbuf.device,
+                       dbuf.data_ptr(), A, n, table.data_ptr(), cap)
 
 
 # -- the mirror ------------------------------------------------------------

@@ -80,7 +80,9 @@ def normalize(vec, dim: int) -> np.ndarray:
 # the most winners a row keeps on the card: one per lane of a warp
 TOPK_MAX = 32
 # rows and entries of one tile of the score kernel (semantic_match.cu)
-SEM_TILE = 64
+SEM_TILE = 128
+# the most column splits of one call (the merge walks S lists a row)
+SPLITS_MAX = 64
 
 
 def _lanes(sem: Dict[str, torch.Tensor]):
@@ -167,16 +169,26 @@ def _check_sem(sem, q_vecs, matched, topk: int, *extra) -> bool:
 
 
 def semantic_splits(B: int, E: int, sms: int) -> int:
-    """Column splits of the score kernel: enough blocks for four waves of
-    `sms` multiprocessors, at least one tile of entries per split."""
+    """Column splits of the score kernel: the S (at most `SPLITS_MAX` and
+    the tile count) that finishes the row blocks x tiles of work in the
+    fewest tile-times on `sms` multiprocessors, a block resident on each
+    (waves ``ceil(row_blocks S / sms)`` of ``ceil(tiles / S)`` tiles); a
+    tie takes the smaller S, which leaves the merge less to do."""
     row_blocks = max(1, -(-B // SEM_TILE))
     tiles = max(1, -(-E // SEM_TILE))
-    return max(1, min(tiles, 64, -(-4 * sms // row_blocks)))
+    best = None
+    for S in range(1, min(tiles, SPLITS_MAX) + 1):
+        cost = -(-row_blocks * S // sms) * -(-tiles // S)
+        if best is None or cost < best[0]:
+            best = (cost, S)
+    return best[1]
 
 
-def _launch(sem, q_vecs, matched, topk: int, slots: Optional[torch.Tensor]):
-    """The two launches: scores + per-split top-k, then the merge (and the
-    union with `slots` [B, kslot] when given)."""
+def _scores(sem, q_vecs, matched, topk: int):
+    """Launch (a), the scores and each split's top-k: -> ``(cand_s f32
+    [B, S, topk], cand_i int32 [B, S, topk], part int32 [B, S])``, a
+    split's candidates in (score desc, index asc) order, -inf / -1 past
+    its qualifying entries, and its uncapped count."""
     if topk > TOPK_MAX:
         raise ValueError(f"topk {topk}: the semantic_match kernel keeps at most {TOPK_MAX}")
     vp, vh = sem["sem_vec"], sem["sem_hot_vec"]
@@ -188,19 +200,35 @@ def _launch(sem, q_vecs, matched, topk: int, slots: Optional[torch.Tensor]):
     dev = q_vecs.device
     S = semantic_splits(B, E, torch.cuda.get_device_properties(dev).multi_processor_count)
     tiles = -(-E // SEM_TILE)
+    bf16 = vp.dtype == torch.bfloat16
     cand_s = torch.empty((B, S, topk), dtype=torch.float32, device=dev)
     cand_i = torch.empty((B, S, topk), dtype=torch.int32, device=dev)
     part = torch.empty((B, S), dtype=torch.int32, device=dev)
+    # bf16: scratch for the query rows rounded to bf16, which the kernel
+    # streams from beside the table; whole row blocks, D padded to its
+    # 64-dimension chunks
+    qb = (torch.empty((-(-B // SEM_TILE) * SEM_TILE, -(-D // 64) * 64),
+                      dtype=torch.bfloat16, device=dev) if bf16 else None)
     kernels.launch(
         "semantic_match", "emqx_semantic_scores", dev,
-        q_vecs.data_ptr(), vp.data_ptr(), P, vh.data_ptr(), H,
-        1 if vp.dtype == torch.bfloat16 else 0,
+        q_vecs.data_ptr(), qb.data_ptr() if bf16 else None, vp.data_ptr(), P,
+        vh.data_ptr(), H, 1 if bf16 else 0,
         sem["sem_fid"].data_ptr(), sem["sem_slot"].data_ptr(),
         sem["sem_thresh"].data_ptr(), sem["sem_hot_fid"].data_ptr(),
         sem["sem_hot_slot"].data_ptr(), sem["sem_hot_thresh"].data_ptr(),
         matched.data_ptr(), B, K, D, topk, S, -(-tiles // S),
         cand_s.data_ptr(), cand_i.data_ptr(), part.data_ptr(),
     )
+    return cand_s, cand_i, part
+
+
+def _launch(sem, q_vecs, matched, topk: int, slots: Optional[torch.Tensor]):
+    """The two launches: scores + per-split top-k, then the merge (and the
+    union with `slots` [B, kslot] when given)."""
+    cand_s, cand_i, part = _scores(sem, q_vecs, matched, topk)
+    B, S = part.shape
+    P = sem["sem_vec"].shape[1]
+    dev = q_vecs.device
     kslot = 0 if slots is None else slots.shape[1]
     out = torch.empty((B, kslot + topk), dtype=torch.int32, device=dev)
     count = torch.empty(B, dtype=torch.int32, device=dev)

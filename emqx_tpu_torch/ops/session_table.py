@@ -184,7 +184,7 @@ def session_ack(tables: Dict, idxs: Dict, vals: Dict, clock, *,
 
     tables: {lane: int32 tensor} (the rider's mirror generation, never
     written); idxs/vals: {lane: int32 write indices and values}, applied
-    as ``tables[k][idxs[k]] = vals[k]`` by ONE `segment_scatter` launch
+    as ``tables[k][idxs[k]] = vals[k]`` by ONE `segment_scatter` call
     into fresh tensors (lanes without writes pass through by reference);
     clock: ``(now_ds, retry_ds)`` int32, a host array. Returns ``{"tables": ...}`` and,
     when ``sweep_k > 0``, ``due``, ``due_count``, ``expired`` and

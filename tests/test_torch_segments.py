@@ -14,6 +14,7 @@ import random
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -118,6 +119,111 @@ def test_segment_scatter_keeps_the_last_write_per_slot():
     # float32 and bfloat16 arrays are the semantic table's; float64 is no table's
     with pytest.raises(TypeError, match="int32"):
         P_seg.segment_scatter({"x": torch.zeros(4, dtype=torch.float64)}, {"x": [0]}, {"x": [1]})
+
+
+def dup_heavy_delta(rng, case):
+    """Seeded deltas where one slot is written many times: arrays of the
+    four types the kernel writes, in program order. `case`: "one_slot" (a
+    few slots, hundreds of writes each), "across" (the same flat indices
+    in every array), "bytes" (byte writes into shared 4-byte words, every
+    byte of some words), "empty" (no entries; one array with none)."""
+    flats = {
+        "w": rng.integers(-(1 << 31), 1 << 31, size=300, dtype=np.int64).astype(np.int32),
+        "b": rng.integers(0, 256, size=(64, 8), dtype=np.uint8),
+        "f": rng.normal(size=200).astype(np.float32),
+        "h": rng.normal(size=96).astype(np.float32),  # a bfloat16 array
+    }
+    if case == "empty":
+        return flats, {k: [] for k in flats}, {k: [] for k in flats}
+    if case == "one_slot":
+        idxs = {k: rng.choice([3, 7, 11], size=400) for k in flats}
+    elif case == "across":
+        common = rng.integers(0, 96, size=150)
+        idxs = {k: np.concatenate([common, common[::-1]]) for k in flats}
+    else:
+        words = rng.choice(128, size=20, replace=False)
+        ib = (4 * words[:, None] + np.arange(4)).reshape(-1)
+        ib = np.concatenate([ib, rng.permutation(ib), rng.integers(0, 512, 100)])
+        idxs = {"b": ib, "w": rng.integers(0, 300, 50), "f": np.array([5, 5, 5]),
+                "h": np.array([], np.int64)}
+    vals = {
+        "w": [int(v) for v in rng.integers(-(1 << 31), 1 << 32, size=len(idxs["w"]))],
+        "b": [int(v) for v in rng.integers(0, 256, size=len(idxs["b"]))],
+        "f": rng.normal(size=len(idxs["f"])).tolist(),
+        "h": rng.normal(size=len(idxs["h"])).tolist(),
+    }
+    return flats, {k: [int(i) for i in v] for k, v in idxs.items()}, vals
+
+
+def torch_flats(flats, device="cpu"):
+    out = {k: torch.from_numpy(v.copy()) for k, v in flats.items()}
+    out["h"] = out["h"].to(torch.bfloat16)
+    return {k: t.to(device) for k, t in out.items()}
+
+
+def as_bits(t):
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype)
+    return (t.view(view) if view is not None else t).cpu().numpy().reshape(-1)
+
+
+@pytest.mark.parametrize("case", ["one_slot", "across", "bytes", "empty"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_packed_entries_and_device_dedup_twin(case, seed):
+    """`pack_entries` keeps every entry in program order, and
+    `last_write_mask_plain` (the twin of the claim/store passes) keeps
+    exactly the entries `_last_writes` keeps; the wrapper's result equals
+    `segment_scatter_plain` and JAX's `segment_scatter_impl` (bf16 lanes
+    as their bits) in all four types."""
+    rng = np.random.default_rng(seed)
+    flats, idxs, vals = dup_heavy_delta(rng, case)
+    tf = torch_flats(flats)
+    names, offsets, idx, bits = P_seg.pack_entries(tf, idxs, vals)
+    assert names == list(tf) and offsets[0] == 0 and offsets[-1] == len(idx) == len(bits)
+    keep = P_seg.last_write_mask_plain(offsets, idx).numpy()
+    for a, k in enumerate(names):
+        lo, hi = offsets[a], offsets[a + 1]
+        np.testing.assert_array_equal(idx[lo:hi], np.asarray(idxs[k], np.int64))
+        np.testing.assert_array_equal(bits[lo:hi], P_seg._value_bits(vals[k], tf[k].dtype))
+        want_ix, want_bits = P_seg._last_writes(idxs[k], vals[k], tf[k].dtype)
+        sel = np.nonzero(keep[lo:hi])[0]
+        order = np.argsort(idx[lo:hi][sel])
+        np.testing.assert_array_equal(idx[lo:hi][sel][order], want_ix)
+        np.testing.assert_array_equal(bits[lo:hi][sel][order], want_bits)
+    got = P_seg.segment_scatter(tf, idxs, vals)
+    plain = P_seg.segment_scatter_plain(tf, idxs, vals)
+    # JAX's scatter takes one write a slot (its manager keeps the last in
+    # a dict): hand it the entries the twin kept
+    jflats = {k: jnp.asarray(v.reshape(-1)) for k, v in flats.items()}
+    jflats["h"] = jnp.asarray(flats["h"].astype(ml_dtypes.bfloat16))
+    as_type = {"w": lambda b: b.view(np.int32), "b": lambda b: b.astype(np.uint8),
+               "f": lambda b: b.view(np.float32),
+               "h": lambda b: b.astype(np.uint16).view(ml_dtypes.bfloat16)}
+    jidx, jvals = {}, {}
+    for a, k in enumerate(names):
+        sel = slice(offsets[a], offsets[a + 1])
+        kept = keep[sel]
+        jidx[k] = jnp.asarray(idx[sel][kept].astype(np.int32))
+        jvals[k] = jnp.asarray(as_type[k](bits[sel][kept]))
+    want = jax.jit(J_seg.segment_scatter_impl)(jflats, jidx, jvals)
+    for k in flats:
+        assert got[k].dtype == tf[k].dtype and got[k].shape == tf[k].shape
+        np.testing.assert_array_equal(as_bits(got[k]), as_bits(plain[k]), err_msg=k)
+        jbits = np.asarray(want[k]).reshape(-1)
+        jbits = jbits.view({4: np.int32, 2: np.int16, 1: np.uint8}[jbits.itemsize])
+        np.testing.assert_array_equal(as_bits(got[k]), jbits, err_msg=k)
+
+
+def test_pack_entries_refuses_bad_deltas():
+    x = {"x": torch.zeros(8, dtype=torch.int32)}
+    with pytest.raises(IndexError, match="outside"):
+        P_seg.pack_entries(x, {"x": [1, 8]}, {"x": [0, 0]})
+    with pytest.raises(IndexError, match="outside"):
+        P_seg.pack_entries(x, {"x": [-1]}, {"x": [0]})
+    with pytest.raises(ValueError, match="2 indices but 1 values"):
+        P_seg.pack_entries(x, {"x": [1, 2]}, {"x": [0]})
+    with pytest.raises(ValueError, match="contiguous"):
+        P_seg.pack_entries({"x": torch.zeros((4, 4), dtype=torch.int32).T}, {"x": [0]},
+                           {"x": [0]})
 
 
 class ScatterSpy:
@@ -339,4 +445,27 @@ def test_segment_scatter_kernel_matches_twin_on_card(cuda_device):
     want = P_seg.segment_scatter_plain(flats, idxs, vals)
     for k in flats:
         assert torch.equal(got[k], want[k]) and torch.equal(flats[k], before[k])
-    assert kernels.LAUNCHES["segment_scatter"] == 1
+    assert kernels.LAUNCHES["segment_scatter"] == P_seg.SCATTER_LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_slot", "across", "bytes", "empty"])
+def test_dup_heavy_scatter_matches_twin_on_card(case, cuda_device):
+    """The claim/store passes on duplicate-heavy deltas: bit for bit the
+    twin's result in all four types, the inputs untouched, and the launch
+    count (none for an empty delta)."""
+    rng = np.random.default_rng(17)
+    for _ in range(3):
+        flats, idxs, vals = dup_heavy_delta(rng, case)
+        tf = torch_flats(flats, cuda_device)
+        before = {k: t.clone() for k, t in tf.items()}
+        kernels.reset_launches()
+        got = P_seg.segment_scatter(tf, idxs, vals)
+        torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["segment_scatter"]
+        want = P_seg.segment_scatter_plain(tf, idxs, vals)
+        for k in tf:
+            assert got[k].dtype == tf[k].dtype
+            np.testing.assert_array_equal(as_bits(got[k]), as_bits(want[k]), err_msg=k)
+            assert torch.equal(tf[k], before[k])
+        assert launched == (0 if case == "empty" else P_seg.SCATTER_LAUNCHES)

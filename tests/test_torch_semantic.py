@@ -611,6 +611,28 @@ def test_manager_float_deltas_match_jax(dtype):
     assert seen[2][2] > 0 and seen[3][1] == seen[2][1] + 1 and seen[5][0] == 2
 
 
+def test_score_splits_fill_the_card_in_whole_waves():
+    """`semantic_splits` takes the S with the fewest tile-times (waves of
+    one block a multiprocessor, each ceil(tiles / S) tiles), the smaller S
+    on a tie, within [1, min(tiles, SPLITS_MAX)]; and the tile it counts
+    in is the kernel's (`kBM` = `kBN` = SEM_TILE in semantic_match.cu)."""
+    src = (P_sem.__file__.rsplit("/ops/", 1)[0] + "/kernels/csrc/semantic_match.cu")
+    text = open(src).read()
+    for name in ("kBM", "kBN"):
+        assert f"constexpr int {name} = {P_sem.SEM_TILE};" in text
+    T = P_sem.SEM_TILE
+    for B, E, sms in ((8192, 262208, 132), (8191, 1333, 132), (4096, 131072, 132),
+                      (64, 512, 132), (1, 1, 132), (8192, 262208, 114), (100, 10**6, 8)):
+        S = P_sem.semantic_splits(B, E, sms)
+        rb, tiles = -(-B // T), -(-E // T)
+        cost = lambda s: -(-rb * s // sms) * -(-tiles // s)  # noqa: E731
+        assert 1 <= S <= min(tiles, P_sem.SPLITS_MAX)
+        best = min(cost(s) for s in range(1, min(tiles, P_sem.SPLITS_MAX) + 1))
+        assert cost(S) == best and all(cost(s) > best for s in range(1, S))
+    # semantic_256k on an H100: 64 row blocks x 41 splits, 20 waves of 50 tiles
+    assert P_sem.semantic_splits(8192, 262208, 132) == 41
+
+
 # -- on the card: the kernels against their twins (skips without CUDA) -----
 
 
@@ -645,6 +667,67 @@ def test_semantic_kernels_match_twin_on_card(case, cuda_device):
     assert torch.equal(P_sem.union_semantic_slots(topic, gs),
                        P_sem.union_semantic_slots_plain(topic, gs))
     assert kernels.LAUNCHES["semantic_match"] == 5
+
+
+def ragged_table(rng, dim, dtype, P, H, device):
+    """A one-shard table of P packed and H hot entries built directly (no
+    capacity rounding), tie-heavy: 12 distinct vectors, so most scores tie
+    exactly; a quarter of the entries dead, half scoped to fids 0-7."""
+    cents = centroids(rng, 12, dim)
+    E = P + H
+    vecs = cents[rng.integers(0, 12, E)]
+    fids = np.where(rng.random(E) < 0.5, -1, rng.integers(0, 8, E)).astype(np.int32)
+    slots = np.where(rng.random(E) < 0.25, -1, np.arange(E)).astype(np.int32)
+    ths = rng.uniform(0.2, 0.9, E).astype(np.float32)
+    ths[::5] = -1.0
+    vt = torch.from_numpy(vecs)
+    if dtype == "bfloat16":
+        vt = vt.to(torch.bfloat16)
+    split = {"vec": vt, "fid": torch.from_numpy(fids), "slot": torch.from_numpy(slots),
+             "thresh": torch.from_numpy(ths)}
+    sem = {}
+    for k, v in split.items():
+        sem[f"sem_{k}"] = v[:P][None].contiguous().to(device)
+        sem[f"sem_hot_{k}"] = v[P:][None].contiguous().to(device)
+    return sem, cents
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [99, 100, 384, 640])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_semantic_kernels_at_ragged_shapes_on_card(dim, dtype, cuda_device):
+    """Shapes that are no multiple of the 128 x 128 tile (B = 8,191, E =
+    1,000 + 333, D = 99, 100, 384 or 640: rows copied element by element,
+    in 16-byte pieces in the f32 lane only, or in 16-byte pieces in both;
+    the bf16 query streamed from its scratch), a tie-heavy table and thresholds set to within tau of
+    queries' own similarities: every row equal to the twin's or both
+    passing the f64 band check, in both lanes."""
+    rng = np.random.default_rng(dim)
+    B, P, H, topk = 8191, 1000, 333, 16
+    sem, cents = ragged_table(rng, dim, dtype, P, H, cuda_device)
+    q = chip_smoke.sem_vectors(rng, cents, rng.integers(0, 12, B))
+    snap = {k: v.cpu().numpy() if v.dtype != torch.bfloat16
+            else v.cpu().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+            for k, v in sem.items()}
+    s64 = sims64(snap, q, dtype)
+    th = np.concatenate([sem["sem_thresh"][0].cpu().numpy(), sem["sem_hot_thresh"][0].cpu().numpy()])
+    near = rng.choice(P + H, 200, replace=False)
+    th[near] = (s64[rng.integers(0, B, 200), near]
+                + rng.uniform(-0.5, 0.5, 200) * tau(dim)).astype(np.float32)
+    sem["sem_thresh"] = torch.from_numpy(th[:P][None].copy()).to(cuda_device)
+    sem["sem_hot_thresh"] = torch.from_numpy(th[P:][None].copy()).to(cuda_device)
+    snap["sem_thresh"], snap["sem_hot_thresh"] = th[:P][None], th[P:][None]
+    matched = np.full((B, 3), -1, np.int32)
+    matched[:, :2] = rng.integers(0, 8, (B, 2))
+    qd, md = torch.from_numpy(q).to(cuda_device), torch.from_numpy(matched).to(cuda_device)
+    kernels.reset_launches()
+    gs, gc = P_sem.semantic_match_step(sem, qd, md, topk)
+    ws, wc = P_sem.semantic_match_step_plain(sem, qd, md, topk)
+    assert kernels.LAUNCHES["semantic_match"] == 2
+    got = (gs.cpu().numpy(), gc.cpu().numpy())
+    want = (ws.cpu().numpy(), wc.cpu().numpy())
+    assert (got[1] > topk).mean() > 0.5  # most rows offer more than topk
+    band_rows(snap, q, matched, topk, dtype, got, want, tau(dim))
 
 
 @pytest.mark.cuda

@@ -782,4 +782,4 @@ def test_session_sweep_matches_twin_on_card(cuda_device):
             assert torch.equal(fused["tables"][name], plain["tables"][name])
         calls += 1
     assert kernels.LAUNCHES["session_sweep"] == 3 * calls
-    assert kernels.LAUNCHES["segment_scatter"] == 5
+    assert kernels.LAUNCHES["segment_scatter"] == 5 * P_seg.SCATTER_LAUNCHES
