@@ -1058,6 +1058,39 @@ def kernel_report(torch, kinds, plain_reps=TIMING_REPS) -> dict:
     return report
 
 
+def launch_path_costs(torch, n: int = 2000) -> dict:
+    """Host microseconds a call of the launch path's parts, the mean of `n`
+    calls (host clock): the two ways to read the current stream's handle,
+    `on_cuda` of one tensor, a resolved launcher's lookup, a whole
+    `narrow_i16` call at [2^20, 1] beside `.to(torch.int16)`, and the
+    device time of either (`queued_ms`)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.models import retained_index as RI
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = torch.zeros((1 << 20, 1), dtype=torch.int32, device=dev)
+    parts = {
+        "current_stream_cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "on_cuda_one": lambda: kernels.on_cuda(m),
+        "launcher_cached": lambda: kernels.launcher("emqx_narrow_i16"),
+        "narrow_i16_call": lambda: RI.narrow_i16(m),
+        "to_int16_call": lambda: m.to(torch.int16),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[f"{name}_us"] = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+    out["narrow_i16_device_ms"] = queued_ms(torch, parts["narrow_i16_call"])
+    out["to_int16_device_ms"] = queued_ms(torch, parts["to_int16_call"])
+    return out
+
+
 def serving_work(name: str, *, B: int, L: int = 0, MB: int = 0, nbytes: int = 0, P: int = 0,
                  in_vocab: int = 0, K: int = 0, visits: int = 0, final: int = 0,
                  lanes: int = 0, hits: int = 0, fids: int = 0, W: int = 0, kslot: int = 0,
@@ -1138,8 +1171,11 @@ def match_kinds(torch, tables, m_active, bm, ln, salt, L=MAX_LEVELS):
     return kinds, tok, matched, {"valid_lanes": n_valid, "shape_hits": n_hit}
 
 
-def serving_kinds(torch, args, topics, nfa_cfg=None):
-    """The six serving kernels on one batch: inputs, outputs and work."""
+def serving_kinds(torch, args, topics, nfa_cfg=None, ragged=False):
+    """The six serving kernels on one batch: inputs, outputs and work. With
+    `ragged`, one more fan-out case: the same lanes over the table's first
+    W - 1 words, copied to a base 4 bytes off a 16-byte boundary (the
+    kernel's scalar words)."""
     from emqx_tpu_torch.models import router_model as R
     from emqx_tpu_torch.ops import matcher as Mt
     from emqx_tpu_torch.ops import tokenizer as T
@@ -1212,6 +1248,22 @@ def serving_kinds(torch, args, topics, nfa_cfg=None):
             **serving_work("compact_fanout_slots", B=B, W=W, kslot=kslot, pop=int(pop.sum())),
         ),
     })
+    if ragged:
+        sub = tables["sub_bitmaps"]
+        fcap = sub.shape[0]
+        rag = torch.empty(fcap * (W - 1) + 1, dtype=torch.int32, device=dev)[1:]
+        rag = rag.view(fcap, W - 1)
+        rag.copy_(sub[:, :W - 1])
+        rag_out = R.fanout_bitmaps(rag, matched_all)
+        kinds["fanout_bitmaps/ragged"] = dict(
+            name="fanout_bitmaps",
+            kernel=lambda: R.fanout_bitmaps(rag, matched_all),
+            plain=lambda: R.fanout_bitmaps_plain(rag, matched_all),
+            out=rag_out,
+            **serving_work("fanout_bitmaps", B=B, lanes=Mall, hits=hits, fids=fids, W=W - 1),
+        )
+        inputs["ragged_width_words"] = W - 1
+        inputs["ragged_base_mod_16"] = rag.data_ptr() % 16
     return kinds, inputs
 
 
@@ -1380,7 +1432,7 @@ def mixed_1m_path(torch, rng):
           upload_seconds=upload_s,
           device_bytes={k: t.numel() * t.element_size() for k, t in args.tables.items()})
 
-    kinds, inputs = serving_kinds(torch, args, topic_batch_1m(rng, BATCH))
+    kinds, inputs = serving_kinds(torch, args, topic_batch_1m(rng, BATCH), ragged=True)
     report = kernel_report(torch, kinds)
     phase("kernel_inputs", **inputs)
 
@@ -4066,6 +4118,31 @@ def plus_kinds(torch, tables, bits, topics, salt, cfg, kslot):
     return kinds, inputs
 
 
+def store_policies(torch, bits, matched, kslot) -> dict:
+    """`fanout_bitmaps` alone, and followed by the `compact_fanout_slots`
+    that reads its bitmaps, under default and streaming stores, in turns
+    (default, streaming, streaming, default): the call (`time_ms`) and the
+    device time (`queued_ms`), ms, each turn's sample."""
+    from emqx_tpu_torch.models import router_model as R
+
+    def alone(s):
+        return lambda: R.fanout_bitmaps(bits, matched, streaming=s)
+
+    def pair(s):
+        return lambda: R.compact_fanout_slots(alone(s)()[0], kslot)
+
+    out = {}
+    for s in (False, True, True, False):
+        r = out.setdefault("streaming" if s else "default",
+                           {"fanout_ms": [], "fanout_device_ms": [], "with_compact_ms": [],
+                            "with_compact_device_ms": []})
+        r["fanout_ms"].append(time_ms(alone(s), torch))
+        r["fanout_device_ms"].append(queued_ms(torch, alone(s)))
+        r["with_compact_ms"].append(time_ms(pair(s), torch))
+        r["with_compact_device_ms"].append(queued_ms(torch, pair(s)))
+    return out
+
+
 def plus_path(torch, rng):
     """plus_100k: TpuMatcher and route_step (dense with kslot 0 and 64, and
     CSR) against the trie, churn through the NFA mirror, the five kernels
@@ -4213,6 +4290,8 @@ def plus_path(torch, rng):
     report = kernel_report(torch, kinds)
     comp = sum(r["bound_ms"] for r in report.values())
     phase("kernel_inputs_plus", **inputs, composite_bound_ms=comp)
+    phase("fanout_store_policy_plus",
+          **store_policies(torch, bits, kinds["nfa_walk"]["out"][0], KSLOT))
 
     # -- where one NFA-only batch's time goes
     from emqx_tpu_torch.models.router_model import route_step
@@ -5371,6 +5450,7 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
           torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_version(),
           build_seconds=time.perf_counter() - t0)
 
+    phase("launch_path", **launch_path_costs(torch))
     rng = np.random.default_rng(SEED)
     report_1m = mixed_1m_path(torch, rng)
     phase("kernels_1m", kernels=list(report_1m.values()))
@@ -5400,9 +5480,13 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     t0 = time.perf_counter()
     ret_report, ret_launches, router_1m = retained_path(torch, rng)
     phase("retained_seconds", seconds=time.perf_counter() - t0)
-    # and the retained path's two
+    # and the retained path's two; tokenize gains its storm case (its
+    # launches: one a chunk of every storm, and the fused calls' route half)
     for k in ("row_lengths", "narrow_i16"):
         report[k] = {**ret_report[k], "launches": ret_launches[k]}
+    report["tokenize"]["retained"] = {**ret_report["tokenize/chunk"],
+                                      "launches": ret_launches["tokenize"]}
+    phase("launches_retained", **ret_launches)
     del ret_report
     gc.collect()
     torch.cuda.empty_cache()

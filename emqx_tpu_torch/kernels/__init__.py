@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from emqx_tpu_torch.kernels import build
+
 LAUNCHES = {
     "tokenize": 0,
     "shape_match": 0,
@@ -64,15 +66,32 @@ def check_tensor(t, name: str, dtype: torch.dtype, ndim: int) -> None:
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when every one
     lies on the CPU; raises on a mix or on any other device."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type == "cuda":
+    first = tensors[0]
+    if len(tensors) > 1:
+        dev = first.device
+        for t in tensors[1:]:
+            if t.device != dev:
+                devs = sorted({str(t.device) for t in tensors})
+                raise ValueError(f"tensors on several devices: {devs}")
+    if first.is_cuda:
         return True
-    if dev.type == "cpu":
+    if first.is_cpu:
         return False
-    raise ValueError(f"unsupported device {dev}")
+    raise ValueError(f"unsupported device {first.device}")
+
+
+_launchers: dict = {}  # C launcher name -> its bound ctypes function
+_raw_stream = None  # the current stream's handle by device index, bound at first use
+
+
+def launcher(c_launcher: str):
+    """-> the C launcher `c_launcher` of the kernel library, with its
+    argument types bound (`build._SIGNATURES`); the library is built and
+    loaded at the first call, and each launcher resolved once."""
+    fn = _launchers.get(c_launcher)
+    if fn is None:
+        fn = _launchers[c_launcher] = getattr(build.load(), c_launcher)
+    return fn
 
 
 def launch(name: str, c_launcher: str, device: torch.device, *args) -> None:
@@ -80,12 +99,16 @@ def launch(name: str, c_launcher: str, device: torch.device, *args) -> None:
     `device` and count its one kernel launch under `name`.
 
     The launcher returns the `cudaGetLastError()` code read right after
-    its launch; anything but 0 raises, with the CUDA runtime's message."""
-    from emqx_tpu_torch.kernels import build
-
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(build.load(), c_launcher)(*args, stream)
-    if rc != 0:
+    its launch; anything but 0 raises, with the CUDA runtime's message.
+    The stream's raw handle comes from `torch._C._cuda_getCurrentRawStream`,
+    which builds no `torch.cuda.Stream` object."""
+    global _raw_stream
+    fn = _launchers.get(c_launcher) or launcher(c_launcher)
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    index = device.index
+    rc = fn(*args, _raw_stream(torch.cuda.current_device() if index is None else index))
+    if rc:
         raise RuntimeError(
             f"{name}: CUDA launch failed ({rc}: {build.error_string(rc)})"
         )

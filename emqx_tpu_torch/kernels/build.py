@@ -50,8 +50,8 @@ _SIGNATURES = {
     "emqx_shape_match": (
         _P, _P, _P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P,
     ),
-    # sub_bitmaps, fcap, matched, out, popcount, B, K, W, stream
-    "emqx_fanout_bitmaps": (_P, _L, _P, _P, _P, _I, _I, _I, _P),
+    # sub_bitmaps, fcap, matched, out, popcount, B, K, W, streaming, stream
+    "emqx_fanout_bitmaps": (_P, _L, _P, _P, _P, _I, _I, _I, _I, _P),
     # bitmaps, slots, count, overflow, pair, B, W, kslot, lane_base, stream
     "emqx_compact_fanout_slots": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # h1, h2, vocab_h1, vocab_h2, vocab_sym, V, sym, n, probes, stream

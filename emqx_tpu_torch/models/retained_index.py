@@ -103,7 +103,7 @@ def narrow_i16(matched):
     kernels.check_tensor(matched, "matched", torch.int32, 2)
     if not kernels.on_cuda(matched):
         return narrow_i16_plain(matched)
-    out = torch.empty(matched.shape, dtype=torch.int16, device=matched.device)
+    out = torch.empty_like(matched, dtype=torch.int16)  # contiguous, as matched is
     kernels.launch("narrow_i16", "emqx_narrow_i16", matched.device,
                    matched.data_ptr(), out.data_ptr(), matched.numel())
     return out

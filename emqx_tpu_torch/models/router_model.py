@@ -102,13 +102,14 @@ def fanout_bitmaps_plain(sub_bitmaps, matched):
     return out, bits.sum(dim=(1, 2)).to(torch.int32)
 
 
-def fanout_bitmaps(sub_bitmaps, matched):
+def fanout_bitmaps(sub_bitmaps, matched, *, streaming: bool = False):
     """OR the bitmap rows of each topic's matched filters (kernel 3).
 
     sub_bitmaps int32 [Fcap, W] (uint32 bits); matched int32 [B, K] fids
     (-1 holes skipped; every fid must be < Fcap) -> (bitmaps int32 [B, W],
     popcount int32 [B]). The counterpart of `fanout_bitmaps` and
-    `popcount32` (emqx_tpu/models/router_model.py:52, :44).
+    `popcount32` (emqx_tpu/models/router_model.py:52, :44). `streaming`
+    makes the kernel store its output with streaming (evict-first) stores.
     """
     kernels.check_tensor(sub_bitmaps, "sub_bitmaps", torch.int32, 2)
     kernels.check_tensor(matched, "matched", torch.int32, 2)
@@ -116,21 +117,12 @@ def fanout_bitmaps(sub_bitmaps, matched):
         return fanout_bitmaps_plain(sub_bitmaps, matched)
     B, K = matched.shape
     fcap, W = sub_bitmaps.shape
-    out = torch.empty((B, W), dtype=torch.int32, device=matched.device)
-    popcount = torch.zeros(B, dtype=torch.int32, device=matched.device)
-    kernels.launch(
-        "fanout_bitmaps",
-        "emqx_fanout_bitmaps",
-        matched.device,
-        sub_bitmaps.data_ptr(),
-        fcap,
-        matched.data_ptr(),
-        out.data_ptr(),
-        popcount.data_ptr(),
-        B,
-        K,
-        W,
-    )
+    dev = matched.device
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    popcount = torch.empty(B, dtype=torch.int32, device=dev)
+    kernels.launch("fanout_bitmaps", "emqx_fanout_bitmaps", dev, sub_bitmaps.data_ptr(),
+                   fcap, matched.data_ptr(), out.data_ptr(), popcount.data_ptr(), B, K, W,
+                   int(streaming))
     return out, popcount
 
 

@@ -125,11 +125,9 @@ def session_sweep(sess_slot, sess_state, sess_ts, slot_expiry, now: int,
             raise ValueError(f"{v} is not an int32")
     if not kernels.on_cuda(*lanes):
         return session_sweep_plain(*lanes, now, retry, sweep_k)
-    from emqx_tpu_torch.kernels import build
-
     dev = sess_slot.device
     if _span is None:
-        _span = int(build.load().emqx_sweep_block_span())
+        _span = int(kernels.build.load().emqx_sweep_block_span())
     blocks = -(-cap // _span) + -(-scap // _span)
     scratch = torch.empty(2 * blocks + 2, dtype=torch.int32, device=dev)
     counts, offsets, totals = scratch[:blocks], scratch[blocks:-2], scratch[-2:]

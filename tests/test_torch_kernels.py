@@ -9,6 +9,9 @@ and `compact_fanout_slots` on the same seeded numpy inputs. Tolerance:
 EXACT equality — every output is an integer.
 """
 
+import re
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,14 +136,18 @@ def test_shape_match_plain_matches_jax(seed, max_levels):
     assert (want >= 0).sum() > 50  # the batch really matches
 
 
-@pytest.mark.parametrize("W,K", [(2, 1), (8, 4), (16, 6)])
+@pytest.mark.parametrize("W,K", [(2, 1), (8, 4), (16, 6), (1, 3), (3, 64), (5, 17),
+                                 (33, 64), (4096, 64)])
 def test_fanout_plain_matches_jax(W, K):
     rng = np.random.default_rng(W * 10 + K)
+    B = 200 if W <= 64 else 4  # the twin expands every bit: B x W x 32 int64
     sub = rng.integers(0, 1 << 32, size=(64, W), dtype=np.uint64).astype(np.uint32)
     sub[::3] = 0  # all-zero bitmap rows
     sub[1, 0] = 0xFFFFFFFF
-    matched = rng.integers(-1, 64, size=(200, K)).astype(np.int32)
-    matched[:10] = -1  # rows with no match at all
+    matched = rng.integers(-1, 64, size=(B, K)).astype(np.int32)
+    holes = max(1, B // 20)
+    matched[:holes] = -1  # rows with no match at all
+    matched[holes] = np.arange(K) % 5 + 1  # every lane valid, fids repeated
     want, want_pop = j_fanout(jnp.asarray(sub), jnp.asarray(matched))
     got, pop = P_router.fanout_bitmaps(cpu(sub.view(np.int32)), cpu(matched))
     np.testing.assert_array_equal(as_u32(got), np.asarray(want))
@@ -193,6 +200,58 @@ def test_wrappers_check_their_inputs():
         kernels.on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
 
 
+def test_launch_path_raises_counts_and_resolves_every_launcher(monkeypatch):
+    """`kernels.launch` through a stand-in library: a nonzero launch code
+    raises with the kernel's name and the runtime's message and counts
+    nothing; a zero code counts one; every C launcher of the signature
+    table resolves once, into the cache that later launches use."""
+    from emqx_tpu_torch.kernels import build
+
+    calls, rc = [], [700]
+    lib = types.SimpleNamespace(emqx_cuda_error_string=lambda code: b"an illegal access")
+    for name in build._SIGNATURES:
+        setattr(lib, name, lambda *a, _n=name: calls.append((_n, a)) or rc[0])
+    streams = []
+    monkeypatch.setattr(build, "_lib", lib)
+    monkeypatch.setattr(kernels, "_launchers", {})
+    monkeypatch.setattr(kernels, "_raw_stream", lambda index: streams.append(index) or 4321)
+    kernels.reset_launches()
+    dev = torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match=r"^narrow_i16: .*\(700: an illegal access\)"):
+        kernels.launch("narrow_i16", "emqx_narrow_i16", dev, 11, 22, 3)
+    assert calls == [("emqx_narrow_i16", (11, 22, 3, 4321))] and streams == [0]
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+    rc[0] = 0
+    kernels.launch("fanout_bitmaps", "emqx_fanout_bitmaps", dev, *range(9))
+    assert calls[-1] == ("emqx_fanout_bitmaps", (*range(9), 4321))
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"fanout_bitmaps": 1}
+    for name in build._SIGNATURES:
+        assert kernels.launcher(name) is getattr(lib, name)
+    assert set(kernels._launchers) == set(build._SIGNATURES)
+    # resolved once: later launches never go back to the library
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "library_path", lambda: pytest.fail("library reloaded"))
+    kernels.launch("narrow_i16", "emqx_narrow_i16", dev, 1, 2, 3)
+    assert kernels.LAUNCHES["narrow_i16"] == 1
+    kernels.reset_launches()
+
+
+def test_every_c_launcher_matches_its_ctypes_signature():
+    """Each `build._SIGNATURES` entry names an exported launcher of
+    `csrc/` with as many parameters (a ctypes call with too few or too
+    many arguments would reach the card unchecked)."""
+    from emqx_tpu_torch.kernels import build
+
+    exported = {}
+    for src in build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for m in re.finditer(r"EMQX_EXPORT\s+\w+\s+(emqx_\w+)\s*\(([^)]*)\)", text):
+            params = [p for p in m.group(2).split(",") if p.strip()]
+            exported[m.group(1)] = len(params)
+    for name, argtypes in build._SIGNATURES.items():
+        assert exported.get(name) == len(argtypes), name
+
+
 # -- on the card: each kernel against its twin (skips without CUDA) -------
 
 
@@ -236,3 +295,35 @@ def test_kernels_match_twins_on_card(cuda_device):
                                 "occurrence_index": 0, "row_lengths": 0, "narrow_i16": 0,
                                 "session_sweep": 0, "semantic_match": 0, "rule_masks": 0,
                                 "group_counts": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("K", [1, 4, 64])
+@pytest.mark.parametrize("W", [1, 3, 4, 8, 33, 2048, 4096])
+def test_fanout_kernel_matches_twin_on_card(cuda_device, W, K, offset):
+    """Both teams (a warp a row up to W = 128, a block past it), both store
+    policies, 16-byte and scalar words: a table whose base lies 4 bytes off
+    a 16-byte boundary (offset 1) takes the scalar words at every W."""
+    dev = cuda_device
+    rng = np.random.default_rng(W * 1000 + K * 10 + offset)
+    F = 300
+    B = 512 if W <= 128 else 64  # the twin expands every bit: B x W x 32 int64
+    sub = rng.integers(0, 1 << 32, size=(F, W), dtype=np.uint64).astype(np.uint32)
+    sub[::3] = 0
+    base = torch.empty(F * W + offset, dtype=torch.int32, device=dev)
+    table = base[offset:].view(F, W)
+    table.copy_(torch.from_numpy(sub.view(np.int32)))
+    dens = rng.choice([0.0, 0.01, 0.3, 1.0], size=B)
+    matched = np.where(rng.random((B, K)) < dens[:, None],
+                       rng.integers(0, F, size=(B, K)), -1).astype(np.int32)
+    matched[1] = np.arange(K) % 5 + 1  # every lane valid, fids repeated
+    m = torch.from_numpy(matched).to(dev)
+    kernels.reset_launches()
+    want = P_router.fanout_bitmaps_plain(table, m)
+    for streaming in (False, True):
+        got = P_router.fanout_bitmaps(table, m, streaming=streaming)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert kernels.LAUNCHES["fanout_bitmaps"] == 2

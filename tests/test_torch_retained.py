@@ -405,3 +405,20 @@ def test_retained_kernels_match_twins_on_card(cuda_device):
         assert got[k].dtype == flats[k].dtype and torch.equal(got[k], want[k])
     assert kernels.LAUNCHES["row_lengths"] == 4 and kernels.LAUNCHES["narrow_i16"] == 1
     assert kernels.LAUNCHES["segment_scatter"] == P_seg.SCATTER_LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 7, 8, (1 << 20) + 3])
+def test_narrow_i16_matches_twin_on_card(cuda_device, n, offset):
+    """8 elements a thread with a scalar tail: counts off a multiple of 8,
+    and (offset 1) an input 4 bytes off a 16-byte boundary."""
+    dev = cuda_device
+    vals = np.random.default_rng(n + offset).integers(
+        -(1 << 31), 1 << 31, size=n + offset, dtype=np.int64).astype(np.int32)
+    m = torch.from_numpy(vals).to(dev)[offset:].view(n, 1)
+    kernels.reset_launches()
+    got = P_ret.narrow_i16(m)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int16 and torch.equal(got, P_ret.narrow_i16_plain(m))
+    assert kernels.LAUNCHES["narrow_i16"] == 1
