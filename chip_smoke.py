@@ -17,7 +17,9 @@ The `mixed_1m` path (the shape-only step):
 3. `kernel` x4: tokenize, shape_match, fanout_bitmaps and
    compact_fanout_slots against their plain PyTorch twins on the card at
    the path's shapes (B = 8192 Zipf topics, MAX_BYTES 64, max_levels 8,
-   kslot 64): outputs must be EQUAL (all integers);
+   kslot 64), plus the ragged cases `fanout_bitmaps/ragged` (W = 7 on a
+   base 4 bytes off) and `tokenize/ragged` (MB = 33 on a base 1 byte
+   off): outputs must be EQUAL (all integers);
 4. `route`: DeviceRouter.route over 3 batches plus edge topics, every
    row's recipient set held against a host oracle, then churn that pushes
    rows past kslot onto the dense-row path; launch counters are zeroed
@@ -99,9 +101,10 @@ site/+/dev/{d}/ch/# for d < 8,192 (filter d matches 50 rows):
     storm equal to `match_many`, one device->host copy (profiler), and
     its times beside the unfused route and the standalone storm;
 17. `kernel` for row_lengths and narrow_i16, tokenize and shape_match at
-    the chunk's shape (2^20 rows) and the byte scatter on the churn's own
-    deltas, each against its twin (plain twins from RET_PLAIN_REPS
-    samples);
+    the chunk's shape (2^20 rows; shape_match also at the wide storm's 64
+    table shapes, `shape_match/wide_chunk`) and the byte scatter on the
+    churn's own deltas, each against its twin (plain twins from
+    RET_PLAIN_REPS samples);
 18. `retained_seconds`: the path's time;
 The `session_1m` path (the device session store): bench.py's
 `session_storm` as `bench_session_storm` builds it: 1,000,000 sessions
@@ -1161,10 +1164,15 @@ def match_kinds(torch, tables, m_active, bm, ln, salt, L=MAX_LEVELS):
             kernel=lambda: S.shape_match(tables, M, h1, h2, nw, dl),
             plain=lambda: S.shape_match_plain(tables, M, h1, h2, nw, dl),
             out=matched,
-            # inputs + one packed row and tombstone word per hit, one
-            # packed and one hot row per valid lane that misses, output
+            # inputs + the table bytes read (a packed row and tombstone
+            # word per valid lane, a hot row per valid lane that misses;
+            # each table counted at most once whole, as a lane that reads
+            # a row another lane read moves nothing new) + output
             bytes=2 * 4 * B * L + 5 * B + 3 * 4 * M
-            + 20 * n_hit + 36 * (n_valid - n_hit) + 4 * B * M,
+            + min(16 * n_valid, tables["shape_tab"].numel() * 4)
+            + min(4 * n_valid, tables["shape_tomb"].numel() * 4)
+            + min(16 * (n_valid - n_hit), tables["shape_hot"].numel() * 4)
+            + 4 * B * M,
             ops=B * M * 12 + n_valid * (6 * L + 30),
         ),
     }
@@ -1173,9 +1181,10 @@ def match_kinds(torch, tables, m_active, bm, ln, salt, L=MAX_LEVELS):
 
 def serving_kinds(torch, args, topics, nfa_cfg=None, ragged=False):
     """The six serving kernels on one batch: inputs, outputs and work. With
-    `ragged`, one more fan-out case: the same lanes over the table's first
-    W - 1 words, copied to a base 4 bytes off a 16-byte boundary (the
-    kernel's scalar words)."""
+    `ragged`, two more cases: the fan-out over the table's first W - 1
+    words, copied to a base 4 bytes off a 16-byte boundary (the kernel's
+    scalar words), and tokenize over the rows' first 33 bytes on a base 1
+    byte off (its byte path)."""
     from emqx_tpu_torch.models import router_model as R
     from emqx_tpu_torch.ops import matcher as Mt
     from emqx_tpu_torch.ops import tokenizer as T
@@ -1264,6 +1273,19 @@ def serving_kinds(torch, args, topics, nfa_cfg=None, ragged=False):
         )
         inputs["ragged_width_words"] = W - 1
         inputs["ragged_base_mod_16"] = rag.data_ptr() % 16
+        rmb = 33
+        raw = torch.empty(B * rmb + 1, dtype=torch.uint8, device=dev)
+        rbm = raw[1:].view(B, rmb)
+        rbm.copy_(bm[:, :rmb])
+        rln = ln.clamp(max=rmb)
+        kinds["tokenize/ragged"] = dict(
+            name="tokenize",
+            kernel=lambda: T.tokenize(rbm, rln, salt, L),
+            plain=lambda: T.tokenize_plain(rbm, rln, salt, L),
+            out=T.tokenize(rbm, rln, salt, L),
+            **serving_work("tokenize", B=B, MB=rmb, L=L, nbytes=int(rln.sum())),
+        )
+        inputs["ragged_tokenize"] = {"max_bytes": rmb, "base_mod_16": rbm.data_ptr() % 16}
     return kinds, inputs
 
 
@@ -2301,9 +2323,11 @@ def storms_equal(a: dict, b: dict) -> bool:
     return list(a) == list(b) and all(np.array_equal(a[f], b[f]) for f in a)
 
 
-def retained_kinds(torch, chunks, tables, kw, scatter_call):
+def retained_kinds(torch, chunks, tables, kw, scatter_call, wide):
     """The storm's kernels on the store's chunks (uint8 [CHUNK, 32]) and its
-    8,192-filter table, and the byte scatter on a churn's deltas.
+    8,192-filter table, shape_match on the wide storm's table (`wide`: its
+    shape tables and launch kwargs; 64 table shapes, the other four in the
+    residual lane), and the byte scatter on a churn's deltas.
     row_lengths is timed over the chunks in turn, as a storm reads them:
     each read once, cold in the 50 MB L2 (the other kernels on chunk 0)."""
     from emqx_tpu_torch.models import retained_index as RI
@@ -2314,6 +2338,10 @@ def retained_kinds(torch, chunks, tables, kw, scatter_call):
     turn = itertools.cycle(chunks)
     match, _tok, matched, counts = match_kinds(torch, tables, kw["m_active"], bm, ln,
                                                kw["salt"], kw["max_levels"])
+    wide_tables, wide_kw = wide
+    wide_match, _wtok, _wm, wide_counts = match_kinds(
+        torch, wide_tables, wide_kw["m_active"], bm, ln, wide_kw["salt"],
+        wide_kw["max_levels"])
     narrow = RI.narrow_i16(matched)
     n = matched.numel()
     kinds = {
@@ -2327,6 +2355,7 @@ def retained_kinds(torch, chunks, tables, kw, scatter_call):
         ),
         "tokenize/chunk": {**match["tokenize"], "name": "tokenize"},
         "shape_match/chunk": {**match["shape_match"], "name": "shape_match"},
+        "shape_match/wide_chunk": {**wide_match["shape_match"], "name": "shape_match"},
         "narrow_i16": dict(
             kernel=lambda: RI.narrow_i16(matched),
             plain=lambda: RI.narrow_i16_plain(matched),
@@ -2340,7 +2369,8 @@ def retained_kinds(torch, chunks, tables, kw, scatter_call):
     kinds["segment_scatter/uint8"]["name"] = "segment_scatter"
     inputs = {"rows": N, "bucket": MB, "row_lengths_chunks": len(chunks),
               "m_active": kw["m_active"], "narrow": kw["narrow"],
-              "topic_bytes": int(ln.sum()), **counts, "segment_scatter": scatter_info}
+              "topic_bytes": int(ln.sum()), **counts, "segment_scatter": scatter_info,
+              "wide": {"m_active": wide_kw["m_active"], **wide_counts}}
     return kinds, inputs
 
 
@@ -2592,7 +2622,7 @@ def retained_path(torch, rng):
 
     # -- kernels on the store's first chunk, at its first generation's shape
     kinds, inputs = retained_kinds(torch, first_chunks, storm_tables, storm_kw,
-                                   scatter_calls[0])
+                                   scatter_calls[0], (wide_tables, wide_kw))
     # and one whole storm launch against the plain twins' composition, for
     # both storms (the wide one through the residual lane at 2^20 rows)
     for what, tabs, nfa_tabs, kw in (("storm", storm_tables, None, storm_kw),
@@ -5480,12 +5510,19 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     t0 = time.perf_counter()
     ret_report, ret_launches, router_1m = retained_path(torch, rng)
     phase("retained_seconds", seconds=time.perf_counter() - t0)
-    # and the retained path's two; tokenize gains its storm case (its
-    # launches: one a chunk of every storm, and the fused calls' route half)
+    # and the retained path's two; tokenize and shape_match gain their storm
+    # cases (their launches: one a chunk of every storm, and the fused
+    # calls' route half), shape_match also the wide storm's
     for k in ("row_lengths", "narrow_i16"):
         report[k] = {**ret_report[k], "launches": ret_launches[k]}
     report["tokenize"]["retained"] = {**ret_report["tokenize/chunk"],
                                       "launches": ret_launches["tokenize"]}
+    report["shape_match"]["retained"] = {**ret_report["shape_match/chunk"],
+                                         "launches": ret_launches["shape_match"]}
+    # the wide storm's chunk: the path's count only (both storms' chunks
+    # and the fused route halves), not this case's own launches
+    report["shape_match"]["retained_wide"] = {**ret_report["shape_match/wide_chunk"],
+                                              "path_launches": ret_launches["shape_match"]}
     phase("launches_retained", **ret_launches)
     del ret_report
     gc.collect()

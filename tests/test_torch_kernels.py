@@ -6,7 +6,10 @@ plain twins, which the card run (chip_smoke.py, and the `cuda`-marked
 tests below) holds the kernels against. Here the twins are held against
 `tokenize_device`, `shape_match_device`, `fanout_bitmaps` + `popcount32`
 and `compact_fanout_slots` on the same seeded numpy inputs. Tolerance:
-EXACT equality — every output is an integer.
+EXACT equality — every output is an integer. The `shape_match` kernel
+ends a probe chain at its first never-written row; the chain tests walk
+both packages' host tables after churn for the invariant that makes
+that exact.
 """
 
 import re
@@ -32,6 +35,7 @@ from emqx_tpu_torch.ops import tokenizer as P_tok
 # compiles every primitive separately and is several times slower)
 j_tokenize = jax.jit(J_tok.tokenize_device, static_argnums=(2, 3))
 j_shape_match = jax.jit(J_shape.shape_match_device, static_argnums=(1,))
+j_shape_match_probes = jax.jit(J_shape.shape_match_device, static_argnums=(1, 6))
 j_compact = jax.jit(J_router.compact_fanout_slots, static_argnums=(1,))
 
 
@@ -97,11 +101,11 @@ def seeded_filters(rng, n):
     return out
 
 
-def churned_index(seed):
+def churned_index(seed, max_shapes=J_ri.MAX_SHAPES):
     """A JAX RouteIndex whose shape tables carry packed rows, packed
     tombstones, hot-overlay rows and hot tombstones."""
     rng = np.random.default_rng(seed)
-    j = J_ri.RouteIndex()
+    j = J_ri.RouteIndex(max_shapes=max_shapes)
     cold = seeded_filters(rng, 500)
     j.bulk_add(cold)
     for f in cold[::5]:
@@ -134,6 +138,191 @@ def test_shape_match_plain_matches_jax(seed, max_levels):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want >= 0).sum() > 50  # the batch really matches
+
+
+# -- the probe chains the shape_match kernel walks -------------------------
+#
+# The kernel ends a chain at its first never-written row (fid -1). That is
+# exact only while no live key sits behind such a row in its own chain;
+# the tests below walk every live key's chain after seeded churn.
+
+M32 = 0xFFFFFFFF
+
+
+def chain_walk(tab, probes=P_shape.MAX_PROBES):
+    """Each live row of a [cap, 4] int32 table (fid >= 0) -> (its position
+    in its own probe chain, or -1 when it sits off the chain's first
+    `probes` rows; whether a never-written row (fid -1) precedes it)."""
+    cap = tab.shape[0]
+    live = np.nonzero(tab[:, 2] >= 0)[0]
+    c1 = tab[live, 0].view(np.uint32).astype(np.uint64)
+    c2 = tab[live, 1].view(np.uint32).astype(np.uint64)
+    home = (c1 * P_shape.SLOT_MUL) & M32
+    home ^= home >> P_shape.SLOT_SHIFT
+    step = c2 | 1
+    pos = np.full(len(live), -1)
+    empty_before = np.zeros(len(live), bool)
+    for p in range(probes):
+        idx = ((home + p * step) & (cap - 1)).astype(np.int64)
+        here = (idx == live) & (pos < 0)
+        pos[here] = p
+        empty_before |= (tab[idx, 2] == -1) & (pos < 0)
+    return pos, empty_before
+
+
+def assert_chains_unbroken(shapes):
+    """Every live packed and hot row of a ShapeIndex (either package's)
+    sits on its chain with no fid -1 row before it."""
+    for name, tab in (("packed", shapes.arr_table), ("hot", shapes.arr_hot)):
+        pos, empty_before = chain_walk(tab)
+        assert (pos >= 0).all(), f"{name}: {(pos < 0).sum()} rows off their chain"
+        assert not empty_before.any(), (
+            f"{name}: {empty_before.sum()} live rows behind a never-written row")
+
+
+def churn_shapes(index_cls, seed):
+    """A RouteIndex of either package through seeded churn: a cold bulk
+    load, a warm bulk load into the hot overlay, single adds, packed and
+    hot removals (hot tombstones up to a hot rebuild), hot slot reuse, a
+    compaction cycle with journaled mutations, and a salt rebuild. The
+    chains are checked after every stage. -> the index."""
+    rng = np.random.default_rng(seed)
+    ri = index_cls()
+    cold = list(dict.fromkeys(seeded_filters(rng, 3000)))
+    ri.bulk_add(cold)
+    assert_chains_unbroken(ri.shapes)
+    warm = [f"w/{k}/+/{int(x)}/#" for k, x in enumerate(rng.integers(0, 50, size=600))]
+    ri.bulk_add(warm)
+    assert_chains_unbroken(ri.shapes)
+    singles = [f"q/{k}/x" for k in range(300)] + [f"$SYS/{k}/+" for k in range(100)]
+    for f in singles:
+        ri.add(f)
+    for f in cold[::4] + warm[::3] + singles[::2]:
+        ri.remove(f)  # packed and hot tombstones (and a hot rebuild)
+    assert ri.shapes.packed_tombstones > 0
+    assert_chains_unbroken(ri.shapes)
+    for f in singles[::2]:
+        ri.add(f)  # hot slots reused over tombstones
+    assert_chains_unbroken(ri.shapes)
+    cap = ri.shapes.begin_compact()
+    for f in warm[1::3][:50]:
+        ri.remove(f)  # journaled: replayed at apply
+    for k in range(60):
+        ri.add(f"late/{k}/+")
+    built = ri.shapes.build_compact(cap)
+    assert ri.shapes.apply_compact(built) is not None
+    assert_chains_unbroken(ri.shapes)
+    for k in range(200):
+        ri.add(f"after/{k}/#")
+    for k in range(0, 200, 3):
+        ri.remove(f"after/{k}/#")
+    assert_chains_unbroken(ri.shapes)
+    ri.shapes.rebuild(ri.shapes.salt + 1)
+    assert_chains_unbroken(ri.shapes)
+    for f in singles[1::2]:
+        ri.remove(f)
+    for k in range(100):
+        ri.add(f"final/{k}/+/+")
+    assert_chains_unbroken(ri.shapes)
+    return ri
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("package", ["torch", "jax"])
+def test_shape_chains_hold_no_empty_row_before_a_live_key(package, seed):
+    """The host tables of both packages (the port's mirrors, and the JAX
+    tables the card tests upload) keep every live key's chain free of
+    never-written rows through every kind of churn."""
+    from emqx_tpu_torch.ops import route_index as P_ri
+
+    ri = churn_shapes(P_ri.RouteIndex if package == "torch" else J_ri.RouteIndex, seed)
+    assert ri.shapes.hot_live > 0 and len(ri.shapes) > 1000
+
+
+@pytest.mark.parametrize("load", [0.5, 0.8, 0.95])
+def test_build_table_kicks_keep_chains_unbroken(load):
+    """`_build_table` at a load that forces cuckoo kicks (and, at 0.95,
+    table doublings) still leaves no never-written row before a key."""
+    rng = np.random.default_rng(int(load * 100))
+    T_cap = 1 << 12
+    n = int(load * T_cap)
+    c1 = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    c2 = rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+    sid = rng.integers(0, 64, size=n).astype(np.int64)
+    fid = np.arange(n, dtype=np.int64)
+    tab, cap = P_shape.ShapeIndex._build_table(sid, c1, c2, fid, T_cap)
+    pos, empty_before = chain_walk(tab)
+    assert len(pos) == n and (pos >= 0).all() and not empty_before.any()
+    if load >= 0.8:
+        assert (pos >= 4).any()  # deep placements: kicks and late rounds ran
+
+
+def early_stop_match(snap, M, h1, h2, nw, dl, probes):
+    """numpy model of the kernel's chains: each ends at its first fid -1
+    row; the first live hit in probe order wins, packed before hot."""
+    from emqx_tpu_torch.ops.shape_index import FOLD1, FOLD2, _mix32_np, level_mul
+
+    B, L = h1.shape
+    mask = snap["shape_mask"][:M].astype(np.int64)
+    plen = snap["shape_len"][:M].astype(np.int64)
+    flags = snap["shape_flags"][:M].astype(np.int64)
+    s1 = np.zeros((B, M), np.uint64)
+    s2 = np.zeros((B, M), np.uint64)
+    for l in range(L):
+        bit = ((mask >> l) & 1).astype(np.uint64)
+        s1 = (s1 + h1[:, l : l + 1].astype(np.uint64) * (bit * level_mul(l, 1))) & M32
+        s2 = (s2 + h2[:, l : l + 1].astype(np.uint64) * (bit * level_mul(l, 2))) & M32
+    sid = np.arange(M, dtype=np.uint64)
+    c1 = _mix32_np((s1 ^ ((sid * FOLD1) & M32)).astype(np.uint32)).astype(np.uint64)
+    c2 = _mix32_np((s2 ^ ((sid * FOLD2) & M32)).astype(np.uint32)).astype(np.uint64)
+    nwc = nw.astype(np.int64)[:, None]
+    ok_len = np.where((flags & 1 != 0)[None, :], nwc >= plen, nwc == plen)
+    valid = ok_len & (plen >= 0)[None, :] & ~(dl[:, None] & (flags & 2 != 0)[None, :])
+    home = (c1 * P_shape.SLOT_MUL) & M32
+    home ^= home >> P_shape.SLOT_SHIFT
+    step = c2 | 1
+    out = np.full((B, M), -1, np.int64)
+    found = np.zeros((B, M), bool)
+    tomb = snap["shape_tomb"].view(np.uint32)
+    for key, masked in (("shape_tab", True), ("shape_hot", False)):
+        tab = snap[key].reshape(-1, 4)
+        probing = valid & ~found
+        for p in range(probes):
+            idx = ((home + p * step) & (tab.shape[0] - 1)).astype(np.int64)
+            row = tab[idx]
+            hit = (probing & (row[..., 2] >= 0)
+                   & (row[..., 0].view(np.uint32) == c1) & (row[..., 1].view(np.uint32) == c2)
+                   & (row[..., 3] == sid.astype(np.int64)))
+            if masked:
+                hit &= ((tomb[idx >> 5] >> (idx & 31).astype(np.uint32)) & 1) == 0
+            out[hit] = row[..., 2][hit]
+            found |= hit
+            probing &= ~hit & (row[..., 2] != -1)
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed,probes", [(3, 8), (4, 8), (5, 1)])
+def test_early_stop_chains_match_jax_on_churned_tables(seed, probes):
+    """The kernel's chain rule, modelled in numpy on the port's churned
+    tables, equals JAX's `shape_match_device` (which walks every probe)
+    lane for lane."""
+    from emqx_tpu_torch.ops import route_index as P_ri
+
+    ri = churn_shapes(P_ri.RouteIndex, seed)
+    rng = np.random.default_rng(seed + 20)
+    topics = seeded_topics(rng, 300) + [f"after/{k}/x/y" for k in range(0, 200, 2)] \
+        + [f"final/{k}/a/b" for k in range(50)] + [f"q/{k}/x" for k in range(60)]
+    mat, lens, _ = J_tok.encode_topics(topics, 64)
+    h1, h2, nw, dl = (np.asarray(x) for x in j_tokenize(
+        jnp.asarray(mat), jnp.asarray(lens), ri.salt, 8))
+    snap = {k: v.copy() for k, v in ri.shapes.device_snapshot().items()}
+    m = ri.shapes.m_active()
+    want = np.asarray(j_shape_match_probes({k: jnp.asarray(v) for k, v in snap.items()}, m,
+                                    jnp.asarray(h1), jnp.asarray(h2), jnp.asarray(nw),
+                                    jnp.asarray(dl), probes))
+    got = early_stop_match(snap, m, h1, h2, nw, dl, probes)
+    np.testing.assert_array_equal(got, want)
+    assert (want >= 0).sum() > 100
 
 
 @pytest.mark.parametrize("W,K", [(2, 1), (8, 4), (16, 6), (1, 3), (3, 64), (5, 17),
@@ -327,3 +516,86 @@ def test_fanout_kernel_matches_twin_on_card(cuda_device, W, K, offset):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
     assert kernels.LAUNCHES["fanout_bitmaps"] == 2
+
+
+def ragged_topic_rows(rng, B, MB):
+    """B topic rows for a width MB, with their lengths: edge topics, `$`
+    topics, rows deeper than any L, rows cut short of their bytes (so
+    '/' and word bytes lie past the length), and lengths below 0 and past
+    MB; bytes past each topic are seeded noise, '/' among them."""
+    topics = EDGE_TOPICS + ["$", "$a/b", "/" * 40, "a" * 200, ""] \
+        + ["/".join(str(k) for k in range(d)) for d in range(1, 40)]
+    topics += seeded_topics(rng, B - len(topics))
+    mat, lens, _ = P_tok.encode_topics(topics[:B], MB)
+    noise = rng.choice(np.frombuffer(b"ab/$x/", np.uint8), size=mat.shape)
+    past = np.arange(MB)[None, :] >= lens[:, None]
+    mat = np.where(past, noise, mat).astype(np.uint8)
+    lens = lens.astype(np.int32)
+    cut = rng.random(B) < 0.15
+    lens[cut] = (lens[cut] * rng.random(cut.sum())).astype(np.int32)
+    lens[5::41] = -int(rng.integers(1, 9))
+    lens[7::43] = MB + int(rng.integers(1, 9))
+    return mat, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 4, 8, 16, 17])
+@pytest.mark.parametrize("MB", [16, 32, 33, 64, 128])
+def test_tokenize_kernel_at_ragged_shapes_on_card(cuda_device, MB, L):
+    """Every instance of the kernel (L = 4, 8, 16 and the generic L; whole
+    rows preloaded at MB = 32 and 64 on an aligned base, bytes at any other
+    width or base) against the twin, on an aligned base and on one 1-15
+    bytes off a 16-byte boundary (the byte path at every MB)."""
+    dev = cuda_device
+    rng = np.random.default_rng(MB * 100 + L)
+    B = 700
+    mat, lens = ragged_topic_rows(rng, B, MB)
+    ln = torch.from_numpy(lens).to(dev)
+    kernels.reset_launches()
+    for off in (0, 1 + (MB * 7 + L) % 15):
+        raw = torch.empty(B * MB + off + 16, dtype=torch.uint8, device=dev)
+        bm = raw[off : off + B * MB].view(B, MB)
+        bm.copy_(torch.from_numpy(mat))
+        assert (bm.data_ptr() % 16 == 0) == (off == 0)
+        got = P_tok.tokenize(bm, ln, 3, L)
+        want = P_tok.tokenize_plain(bm, ln, 3, L)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert kernels.LAUNCHES["tokenize"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 17])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("probes", [1, 8])
+@pytest.mark.parametrize("M", [1, 4, 64, 68])
+def test_shape_match_kernel_on_churned_tables_on_card(cuda_device, M, probes, offset, L):
+    """The kernel against its twin on `churned_index` tables (packed and
+    hot tombstones, hot rows), M past the live shapes (dead shapes), one
+    probe and eight, h1/h2 on a base 4 bytes off a 16-byte boundary
+    (offset 1: the word path)."""
+    dev = cuda_device
+    j = churned_index(11, max_shapes=128)
+    topics = seeded_topics(np.random.default_rng(M + probes), 900)
+    mat, lens, _ = P_tok.encode_topics(topics, 64)
+    tok = P_tok.tokenize_plain(cpu(mat), cpu(lens), j.salt, L)
+    B = len(topics)
+    hs = []
+    for h in tok[:2]:
+        raw = torch.empty(B * L + offset + 4, dtype=torch.int32, device=dev)
+        v = raw[offset : offset + B * L].view(B, L)
+        v.copy_(h)
+        hs.append(v)
+    nw, dl = tok[2].to(dev), tok[3].to(dev)
+    tables = tables_to_device(j.shapes.device_snapshot(), np.zeros((64, 2), np.uint32),
+                              device=dev)
+    assert j.shapes.m_active() < 68 <= tables["shape_len"].shape[0]
+    kernels.reset_launches()
+    got = P_shape.shape_match(tables, M, *hs, nw, dl, probes)
+    want = P_shape.shape_match_plain(tables, M, *hs, nw, dl, probes)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert kernels.LAUNCHES["shape_match"] == 1
+    if M >= 4 and probes == 8:
+        assert (want >= 0).sum() > 50
