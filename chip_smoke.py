@@ -875,12 +875,12 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "vocab_lookup": "vocab_lookup_kernel",
     "nfa_walk": "nfa_walk_kernel",
     "segment_scatter": ("scatter_claim_kernel", "scatter_store_kernel"),
-    "sparse_fanout_slots": "sparse_fanout_kernel",
+    "sparse_fanout_slots": "sparse_fanout_",  # sparse_fanout_warp<E, KR> or _block
     "share_pick": "share_pick_kernel",
     "occurrence_index": ("occ_tile_sort", "occ_merge", "occ_finalize"),
     "row_lengths": "row_lengths_kernel",
     "narrow_i16": "narrow_i16_kernel",
-    "session_sweep": ("sweep_count", "sweep_scan", "sweep_write"),
+    "session_sweep": "sweep_kernel",
     "semantic_match": ("scores_", "semantic_merge_kernel"),  # scores_f32_ or scores_bf16_
     "rule_masks": "rule_masks_kernel",
     "group_counts": "group_counts_kernel",

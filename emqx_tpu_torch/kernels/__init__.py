@@ -16,7 +16,7 @@ the kernel (built at first use by `build.load`) and raises on any failure
 after each CUDA kernel launched, and nowhere else, so a run can show that
 its path went through the kernels. A wrapper call may launch several
 (`share_pick` under round_robin two, `occurrence_index` one per sort pass,
-`session_sweep` three, `semantic_match` two: the scores and the merge,
+`semantic_match` two: the scores and the merge,
 `segment_scatter` two: the claim and the store).
 """
 
@@ -94,20 +94,26 @@ def launcher(c_launcher: str):
     return fn
 
 
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of the current stream of CUDA `device`, from
+    `torch._C._cuda_getCurrentRawStream` (bound at the first call), which
+    builds no `torch.cuda.Stream` object."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    index = device.index
+    return _raw_stream(torch.cuda.current_device() if index is None else index)
+
+
 def launch(name: str, c_launcher: str, device: torch.device, *args) -> None:
     """Call one C launcher of the kernel library on the current stream of
     `device` and count its one kernel launch under `name`.
 
     The launcher returns the `cudaGetLastError()` code read right after
     its launch; anything but 0 raises, with the CUDA runtime's message.
-    The stream's raw handle comes from `torch._C._cuda_getCurrentRawStream`,
-    which builds no `torch.cuda.Stream` object."""
-    global _raw_stream
+    It runs on the stream of `stream_handle(device)`."""
     fn = _launchers.get(c_launcher) or launcher(c_launcher)
-    if _raw_stream is None:
-        _raw_stream = torch._C._cuda_getCurrentRawStream
-    index = device.index
-    rc = fn(*args, _raw_stream(torch.cuda.current_device() if index is None else index))
+    rc = fn(*args, stream_handle(device))
     if rc:
         raise RuntimeError(
             f"{name}: CUDA launch failed ({rc}: {build.error_string(rc)})"

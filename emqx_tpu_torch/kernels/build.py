@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
 _L = ctypes.c_longlong
+_Q = ctypes.c_ulonglong
 
 # C launcher -> argument types; every launcher returns the cudaError_t
 # read right after its launch
@@ -90,13 +91,11 @@ _SIGNATURES = {
     "emqx_row_lengths": (_P, _P, _L, _I, _P),
     # in, out, n, stream
     "emqx_narrow_i16": (_P, _P, _L, _P),
-    # slot, state, ts, cap, expiry, scap, now, retry, counts, stream
-    "emqx_sweep_count": (_P, _P, _P, _L, _P, _L, _I, _I, _P, _P),
-    # counts, offsets, cap, scap, totals, stream
-    "emqx_sweep_scan": (_P, _P, _L, _L, _P, _P),
-    # slot, state, ts, cap, expiry, scap, now, retry, counts, offsets,
-    # totals, due, expired, sweep_k, stream
-    "emqx_sweep_write": (_P, _P, _P, _L, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P),
+    # slot, state, ts, cap, expiry, scap, now, retry, scratch, base, epoch,
+    # due, expired, counts, sweep_k, stream
+    "emqx_session_sweep": (
+        _P, _P, _P, _L, _P, _L, _I, _I, _P, _Q, _Q, _P, _P, _P, _I, _P,
+    ),
     # q, q_bf16 scratch, vec_p, P, vec_h, H, bf16, fid_p, slot_p, th_p,
     # fid_h, slot_h, th_h, matched, B, K, D, topk, S, tiles_per_split,
     # cand_s, cand_i, part, stream
@@ -205,8 +204,8 @@ def load():
         fn.restype = ctypes.c_int
     lib.emqx_cuda_error_string.argtypes = [ctypes.c_int]
     lib.emqx_cuda_error_string.restype = ctypes.c_char_p
-    lib.emqx_sweep_block_span.argtypes = []
-    lib.emqx_sweep_block_span.restype = _L
+    lib.emqx_sweep_blocks.argtypes = [_L, _L]
+    lib.emqx_sweep_blocks.restype = _L
     _lib = lib
     return lib
 

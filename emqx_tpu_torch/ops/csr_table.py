@@ -76,7 +76,7 @@ def sparse_fanout_slots_plain(csr: Dict, matched, kslot: int, kg: int = 0):
     B, K = matched.shape
     dev = matched.device
     has = matched >= 0
-    safe = matched.clamp(min=0).to(torch.int64)
+    safe = matched.clamp(0, off.shape[0] - 1).to(torch.int64)  # as JAX's gathers clamp
     fl = torch.where(has, ln[safe], torch.zeros_like(safe))  # [B, K]
     fo = off[safe]
     starts = torch.cumsum(fl, dim=1) - fl  # exclusive
@@ -119,7 +119,8 @@ def sparse_fanout_slots(csr: Dict, matched, kslot: int, kg: int = 0):
 
     csr: the five `CSR_KEYS` int32 tensors of one shard, ``[1, ...]`` (a
     single device's table, or a mesh rank's 'tp' slice of it);
-    matched: int32 [B, K] sparse fids (-1 holes), every fid < Fcap. Returns
+    matched: int32 [B, K] sparse fids (-1 holes; a fid past Fcap gathers
+    Fcap - 1's region, as JAX's clamped gathers do). Returns
     (slots int32 [B, kslot], count int32 [B], overflow bool [B], live int32
     [B]). The counterpart of `sparse_fanout_slots`
     (emqx_tpu/ops/csr_table.py:84).

@@ -94,13 +94,35 @@ def session_sweep_plain(sess_slot, sess_state, sess_ts, slot_expiry, now: int,
     return due, due_count, expired, expired_count
 
 
-_span = None  # rows or slots per block of session_sweep.cu
+class _SweepScratch:
+    """The look-back state of `session_sweep` on one (device, stream): the
+    64-bit ticket counter, a word of each half's blocks done and hits (each
+    call's last blocks leave them zero) and one status word a block, zeroed
+    once;
+    the tickets the earlier calls took (`base`) and the last call's epoch.
+    A status word is valid only under its call's epoch, so nothing is
+    cleared between calls; when the epochs run out the buffer is zeroed
+    once."""
+
+    __slots__ = ("buf", "base", "epoch", "shape", "blocks")
+
+    def __init__(self, blocks: int, device):
+        self.buf = torch.zeros(_SWEEP_WORDS + blocks, dtype=torch.int64, device=device)
+        self.base = 0
+        self.epoch = 0
+        self.shape = None
+        self.blocks = 0
+
+
+_sweep_scratch: Dict = {}  # (device index, stream handle) -> _SweepScratch
+_SWEEP_WORDS = 3  # the ticket counter and the halves' words
+_EPOCHS = (1 << 32) - 1  # the kernel keeps an epoch in 32 bits; 0 is never used
 
 
 def session_sweep(sess_slot, sess_state, sess_ts, slot_expiry, now: int,
                   retry: int, sweep_k: int):
-    """The retransmit and expiry sweep (kernel `session_sweep`, three
-    launches: block counts, one-block scan, ordered write).
+    """The retransmit and expiry sweep (kernel `session_sweep`, one launch:
+    an ordered compaction with decoupled look-back).
 
     sess_slot, sess_state, sess_ts int32 [cap]; slot_expiry int32 [scap];
     `now`, `retry` int32 deciseconds; sweep_k >= 1 ->
@@ -109,8 +131,8 @@ def session_sweep(sess_slot, sess_state, sess_ts, slot_expiry, now: int,
     whose int32 age ``now - ts`` (with wraparound) is at least `retry`, and
     the ascending slots with ``0 < slot_expiry <= now``, each -1 padded,
     beside its uncapped count. The counterpart of the sweep of
-    `session_ack_impl` (emqx_tpu/ops/session_table.py:107-131)."""
-    global _span
+    `session_ack_impl` (emqx_tpu/ops/session_table.py:107-131). The four
+    outputs are views of one allocation."""
     names = ("sess_slot", "sess_state", "sess_ts", "slot_expiry")
     lanes = (sess_slot, sess_state, sess_ts, slot_expiry)
     for name, t in zip(names, lanes):
@@ -120,28 +142,33 @@ def session_sweep(sess_slot, sess_state, sess_ts, slot_expiry, now: int,
         raise ValueError("the row lanes differ in length")
     if cap < 1 or scap < 1 or sweep_k < 1:
         raise ValueError(f"cap {cap}, scap {scap}, sweep_k {sweep_k}: each must be >= 1")
+    if max(cap, scap) >= 1 << 31:
+        raise ValueError(f"cap {cap}, scap {scap}: ids must fit int32")
     for v in (now, retry):
         if not -(1 << 31) <= int(v) < (1 << 31):
             raise ValueError(f"{v} is not an int32")
     if not kernels.on_cuda(*lanes):
         return session_sweep_plain(*lanes, now, retry, sweep_k)
     dev = sess_slot.device
-    if _span is None:
-        _span = int(kernels.build.load().emqx_sweep_block_span())
-    blocks = -(-cap // _span) + -(-scap // _span)
-    scratch = torch.empty(2 * blocks + 2, dtype=torch.int32, device=dev)
-    counts, offsets, totals = scratch[:blocks], scratch[blocks:-2], scratch[-2:]
-    due = torch.empty(sweep_k, dtype=torch.int32, device=dev)
-    expired = torch.empty(sweep_k, dtype=torch.int32, device=dev)
-    ptrs = (sess_slot.data_ptr(), sess_state.data_ptr(), sess_ts.data_ptr(), cap,
-            slot_expiry.data_ptr(), scap, int(now), int(retry))
-    kernels.launch("session_sweep", "emqx_sweep_count", dev, *ptrs, counts.data_ptr())
-    kernels.launch("session_sweep", "emqx_sweep_scan", dev, counts.data_ptr(),
-                   offsets.data_ptr(), cap, scap, totals.data_ptr())
-    kernels.launch("session_sweep", "emqx_sweep_write", dev, *ptrs, counts.data_ptr(),
-                   offsets.data_ptr(), totals.data_ptr(), due.data_ptr(),
-                   expired.data_ptr(), sweep_k)
-    return due, totals[0], expired, totals[1]
+    key = (dev.index, kernels.stream_handle(dev))
+    sc = _sweep_scratch.get(key)
+    if sc is None or sc.shape != (cap, scap):
+        blocks = int(kernels.build.load().emqx_sweep_blocks(cap, scap))
+        if sc is None or sc.buf.numel() < _SWEEP_WORDS + blocks:
+            sc = _sweep_scratch[key] = _SweepScratch(blocks, dev)
+        sc.shape, sc.blocks = (cap, scap), blocks
+    if sc.epoch == _EPOCHS:
+        sc.buf.zero_()
+        sc.base = sc.epoch = 0
+    sc.epoch += 1
+    out = torch.empty(2 * sweep_k + 2, dtype=torch.int32, device=dev)
+    ptr = out.data_ptr()  # due, then expired, then the two counts
+    kernels.launch("session_sweep", "emqx_session_sweep", dev,
+                   sess_slot.data_ptr(), sess_state.data_ptr(), sess_ts.data_ptr(), cap,
+                   slot_expiry.data_ptr(), scap, int(now), int(retry), sc.buf.data_ptr(),
+                   sc.base, sc.epoch, ptr, ptr + 4 * sweep_k, ptr + 8 * sweep_k, sweep_k)
+    sc.base += sc.blocks
+    return out[:sweep_k], out[2 * sweep_k], out[sweep_k : 2 * sweep_k], out[2 * sweep_k + 1]
 
 
 # -- the fused session stage ---------------------------------------------------

@@ -9,8 +9,9 @@ arrays, op-logs and counters must be byte-identical, and the device
 mirrors of the CSR and group tables must track churn as the JAX mirrors
 do. Then the plain twin
 of `sparse_fanout_slots` against the JAX function on seeded tables with
-holes, tombstones, zero-length regions, a hot segment, kslot overflow and
-gather-window overflow, and (`cuda` marker, skipped without a card) the
+holes, tombstones, zero-length regions, a hot segment, kslot overflow,
+gather-window overflow and fids at and past Fcap (clamped, as JAX's
+gathers clamp), and (`cuda` marker, skipped without a card) the
 CUDA kernel against the twin. Tolerance: EXACT equality everywhere — every
 output is an integer.
 """
@@ -336,6 +337,56 @@ def test_sparse_fanout_twin_matches_jax(seed, K, kslot, kg):
         assert (row[1:] < 0).any() and (row[np.argmax(row >= 0):] < 0).any()
 
 
+def hot_heavy_csr(seed, table, hot=1024):
+    """A CsrTable of `table`'s class whose hot segment holds `hot` pairs: a
+    quarter of them on one fid (6), the rest on random fids, every third
+    then tombstoned; its packed part leaves the odd fids empty, so their
+    zero-length regions tie their successor's start."""
+    rng = np.random.default_rng(seed)
+    t = table()
+    fids = np.repeat(np.arange(0, 200, 2, dtype=np.int64), 3)
+    t.bulk_add(fids, rng.integers(0, 1 << 20, len(fids)))
+    hf = np.concatenate([np.full(hot // 4, 6), rng.integers(0, 220, hot - hot // 4)])
+    hs = rng.choice(1 << 20, hot, replace=False)
+    for f, s_ in zip(hf, hs):
+        assert t.add(int(f), int(s_))
+    for f, s_ in zip(hf[::3], hs[::3]):
+        assert t.remove(int(f), int(s_))
+    return t, rng
+
+
+def hot_heavy_matched(rng, B, K, fcap):
+    """Rows that pair an empty (odd) fid with its successor, hold fid 6 (the
+    repeated hot fid), holes, and fids at and past fcap."""
+    m = rng.integers(0, 220, size=(B, K)).astype(np.int32)
+    m[rng.random((B, K)) < 0.2] = -1
+    m[0::7, 0] = 2 * rng.integers(0, 100, len(m[0::7])) + 1  # empty, ties the next
+    m[0::7, 1 % K] = m[0::7, 0] + 1
+    m[1::5, K - 1] = 6
+    m[2::11, 0] = fcap
+    m[3::13, K - 1] = fcap + 1 + rng.integers(0, 1 << 20, len(m[3::13]))
+    m[4, :] = np.int32(2**31 - 1)
+    return m
+
+
+@pytest.mark.parametrize("seed,K,kslot,kg", [(5, 4, 64, 128), (6, 4, 8, 0), (7, 2, 32, 16)])
+def test_sparse_fanout_twin_matches_jax_on_a_hot_heavy_table(seed, K, kslot, kg):
+    """A hot segment of 1,024 pairs with one fid repeated and tombstones,
+    zero-length regions tying their successor and fids at and past fcap
+    (both gathers clamp, as JAX's do)."""
+    t, rng = hot_heavy_csr(seed, J_csr.CsrTable)
+    snap = t.device_snapshot()
+    assert snap["hot_fid"].shape[1] == 1024 and (snap["hot_fid"] == -1).sum() >= 1024 // 3
+    fcap = snap["csr_off"].shape[1]
+    matched = hot_heavy_matched(rng, 300, K, fcap)
+    want = jax.jit(lambda c, m: J_csr.sparse_fanout_slots(c, m, kslot, kg))(snap, matched)
+    got = twin(snap, matched, kslot, kg)
+    for name, g, w in zip(("slots", "count", "overflow", "live"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    holds6 = (matched == 6).any(axis=1)
+    assert holds6.sum() > 30 and got[3].numpy()[holds6].min() > 0  # fid 6's hot pairs
+
+
 def test_sparse_fanout_wrapper_checks():
     t, rng = seeded_csr(0)
     csr = {k: torch.from_numpy(v.copy()) for k, v in t.device_snapshot().items()}
@@ -364,6 +415,53 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def serving_csr(rng, H, n_fids=1 << 17, per_fid=3):
+    """A port CsrTable at the serving path's widths: `per_fid` slots a fid
+    over 2^20 slots, packed tombstones, and H hot pairs (a quarter of them
+    tombstoned, some fids repeated)."""
+    t = P_csr.CsrTable()
+    fids = np.repeat(np.arange(n_fids, dtype=np.int64), per_fid)
+    slots = rng.integers(0, 1 << 20, len(fids))
+    t.bulk_add(fids, slots)
+    for f, s_ in zip(fids[::17], slots[::17]):
+        t.remove(int(f), int(s_))
+    hf = rng.integers(0, n_fids, H)
+    hf[: H // 8] = 7
+    hs = rng.choice(1 << 20, H, replace=False)
+    for f, s_ in zip(hf, hs):
+        t.add(int(f), int(s_))
+    for f, s_ in zip(hf[::4], hs[::4]):
+        t.remove(int(f), int(s_))
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 1024])
+def test_sparse_fanout_kernel_at_serving_shapes_on_card(cuda_device, H):
+    """B = 8,192 rows, K = 4, kslot 64, kg 128 (the routers' window), over
+    a hot segment of H pairs; matched fids draw from the hot fids often."""
+    rng = np.random.default_rng(H)
+    t = serving_csr(rng, H)
+    snap = t.device_snapshot()
+    assert snap["hot_fid"].shape[1] == H
+    B, K = 8192, 4
+    m = rng.integers(0, 1 << 17, size=(B, K)).astype(np.int32)
+    hot = snap["hot_fid"][0][snap["hot_fid"][0] >= 0]
+    pick = rng.random((B, K)) < 0.3
+    m[pick] = rng.choice(hot, int(pick.sum()))
+    m[rng.random((B, K)) < 0.2] = -1
+    m[::97, :2] = [4, 4]  # one fid twice: duplicates become -1
+    csr = {k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in snap.items()}
+    md = torch.from_numpy(m).to(cuda_device)
+    kernels.reset_launches()
+    got = P_csr.sparse_fanout_slots(csr, md, 64, 128)
+    want = P_csr.sparse_fanout_slots_plain(csr, md, 64, 128)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[3].sum()) > B and kernels.LAUNCHES["sparse_fanout_slots"] == 1
+
+
 @pytest.mark.cuda
 def test_sparse_fanout_kernel_matches_twin_on_card(cuda_device):
     kernels.reset_launches()
@@ -379,4 +477,16 @@ def test_sparse_fanout_kernel_matches_twin_on_card(cuda_device):
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert kernels.LAUNCHES["sparse_fanout_slots"] == 5
+    for seed, K, kslot, kg in ((5, 4, 64, 128), (6, 4, 8, 0), (7, 2, 32, 16), (8, 40, 128, 0),
+                               (9, 12, 100, 0)):
+        t, rng = hot_heavy_csr(seed, P_csr.CsrTable)
+        snap = t.device_snapshot()
+        matched = hot_heavy_matched(rng, 300, K, snap["csr_off"].shape[1])
+        csr = {k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in snap.items()}
+        m = torch.from_numpy(matched).to(cuda_device)
+        got = P_csr.sparse_fanout_slots(csr, m, kslot, kg)
+        want = P_csr.sparse_fanout_slots_plain(csr, m, kslot, kg)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert kernels.LAUNCHES["sparse_fanout_slots"] == 10

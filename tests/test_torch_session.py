@@ -24,6 +24,8 @@ The port runs with ``device="cpu"`` (the kernels' plain twins). The
 twin on a card. Tolerance: EXACT equality (all integers), dtypes included.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -223,6 +225,83 @@ def test_session_ack_twin_matches_jax(sweep_k, now):
     kernels.reset_launches()
     assert_ack_equal(P_tab.session_ack(p_tabs, *args, sweep_k=sweep_k), got)
     assert not any(kernels.LAUNCHES.values())
+
+
+def sweep_case(case, rng):
+    """Lanes for one edge of the sweep: cap 3 x 4,096 + 37 rows (a multiple
+    of no block span), 2 x 4,096 + 5 slots."""
+    cap, scap = 3 * 4096 + 37, 2 * 4096 + 5
+    t = seeded_lanes(rng, cap, scap)
+    now, k = 50, 64
+    if case == "last_block_only":  # hits only in the last (ragged) block
+        t["sess_state"][: cap - 30] = P_tab.FREE
+        t["slot_expiry"][: scap - 3] = 0
+    elif case == "none_due":
+        t["sess_state"][:] = P_tab.ST_AWAIT_REL
+        t["slot_expiry"][:] = 0
+    elif case == "k_past_hits":
+        t["sess_state"][::5] = P_tab.FREE
+        t["slot_expiry"][100:] = 0
+        k = cap + 1000
+    elif case == "now_wraps":  # now - ts wraps int32 for most rows
+        now = -(2**31) + 7
+        t["sess_ts"][::3] = 2**31 - 1 - rng.integers(0, 100, len(t["sess_ts"][::3]))
+    return t, now, k
+
+
+@pytest.mark.parametrize("case", ["last_block_only", "none_due", "k_past_hits", "now_wraps",
+                                  "dense"])
+def test_session_sweep_edges_match_jax(case):
+    rng = np.random.default_rng(len(case))
+    t, now, k = sweep_case(case, rng)
+    clock = np.array([now, 10], np.int32)
+    got = P_tab.session_ack_plain({n: torch.from_numpy(v) for n, v in t.items()}, {}, {}, clock,
+                                  sweep_k=k)
+    assert_ack_equal(got, jax_ack(t, {}, {}, clock, k))
+    due, n_due = host(got["due"]), int(got["due_count"])
+    if case == "last_block_only":
+        assert 0 < n_due <= 30 and due[0] >= len(t["sess_slot"]) - 30
+        assert int(got["expired_count"]) <= 3
+    if case == "none_due":
+        assert n_due == int(got["expired_count"]) == 0 and (due == -1).all()
+    if case == "k_past_hits":
+        assert n_due < k and (due[n_due:] == -1).all() and (due[:n_due] >= 0).all()
+
+
+def test_session_sweep_wrapper_launches_once_a_call(monkeypatch):
+    """The CUDA path's host side through stand-ins: one launch a call, one
+    output allocation (the four results are views of it), the look-back
+    scratch zeroed once and reused, tickets counted on, a fresh epoch each
+    call, and the buffer zeroed again only when the epochs run out."""
+    calls = []
+    lib = types.SimpleNamespace(emqx_sweep_blocks=lambda cap, scap: -(-cap // 4096)
+                                + -(-scap // 4096))
+    monkeypatch.setattr(kernels.build, "load", lambda: lib)
+    monkeypatch.setattr(kernels, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(kernels, "stream_handle", lambda dev: 77)
+    monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(P_tab, "_sweep_scratch", {})
+    z = torch.zeros(5000, dtype=torch.int32)
+    e = torch.zeros(9000, dtype=torch.int32)
+    due, n_due, exp, n_exp = P_tab.session_sweep(z, z, z, e, 0, 1, 16)
+    assert [c[:2] for c in calls] == [("session_sweep", "emqx_session_sweep")]
+    assert due.shape == exp.shape == (16,) and n_due.shape == n_exp.shape == ()
+    assert due.untyped_storage().data_ptr() == n_exp.untyped_storage().data_ptr()
+    (sc,) = P_tab._sweep_scratch.values()
+    assert sc.buf.numel() == 3 + 2 + 3 and not sc.buf.any()
+    args = calls[-1][3:]
+    assert args[8] == sc.buf.data_ptr() and args[9:11] == (0, 1) and sc.base == 5
+    P_tab.session_sweep(z[:100], z[:100], z[:100], e[:10], 0, 1, 16)  # fewer blocks: reused
+    assert P_tab._sweep_scratch[(None, 77)] is sc and calls[-1][3:][9:11] == (5, 2)
+    sc.epoch = P_tab._EPOCHS
+    sc.buf.fill_(3)
+    P_tab.session_sweep(z, z, z, e, 0, 1, 16)
+    assert calls[-1][3:][9:11] == (0, 1) and not sc.buf.any() and sc.base == 5
+    big = torch.zeros(5 * 4096, dtype=torch.int32)
+    P_tab.session_sweep(big, big, big, e, 0, 1, 16)  # more blocks: a new scratch
+    (sc2,) = P_tab._sweep_scratch.values()
+    assert sc2 is not sc and sc2.buf.numel() == 3 + 5 + 3 and calls[-1][3:][9:11] == (0, 1)
+    assert len(calls) == 4
 
 
 def test_session_sweep_reads_the_scattered_lanes():
@@ -781,5 +860,47 @@ def test_session_sweep_matches_twin_on_card(cuda_device):
         for name in t:
             assert torch.equal(fused["tables"][name], plain["tables"][name])
         calls += 1
-    assert kernels.LAUNCHES["session_sweep"] == 3 * calls
+    assert kernels.LAUNCHES["session_sweep"] == calls  # one launch a call
     assert kernels.LAUNCHES["segment_scatter"] == 5 * P_seg.SCATTER_LAUNCHES
+
+
+@pytest.mark.cuda
+def test_session_sweep_at_the_flood_table_on_card(cuda_device):
+    """The flood's shape (2^22 rows, 2^20 slots, sweep_k 16,384) with a
+    dense due set, the edge cases of the CPU tests, and lanes that are views
+    whose base is 4 bytes past a 16-byte boundary (the scalar path)."""
+    dev = cuda_device
+    rng = np.random.default_rng(13)
+    cap, scap, k = 1 << 22, 1 << 20, 16384
+    lanes = {
+        "sess_slot": rng.integers(-2, 1 << 20, cap + 1).astype(np.int32),
+        "sess_state": rng.integers(0, 3, cap + 1).astype(np.int32),
+        "sess_ts": rng.integers(0, 400, cap + 1).astype(np.int32),
+        "slot_expiry": rng.integers(0, 4000, scap + 1).astype(np.int32),
+    }
+    t = {n: torch.from_numpy(v).to(dev) for n, v in lanes.items()}
+    kernels.reset_launches()
+    calls = 0
+    for off in (0, 1):
+        args = [t[n][off : off + (scap if n == "slot_expiry" else cap)] for n in t]
+        assert all(a.is_contiguous() for a in args)
+        assert all((a.data_ptr() % 16 == 0) == (off == 0) for a in args)
+        for now, kk in ((600, k), (600, 3), (-(2**31) + 5, k), (100, 1 << 21)):
+            got = P_tab.session_sweep(*args, now, 300, kk)
+            want = P_tab.session_sweep_plain(*args, now, 300, kk)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape
+                assert torch.equal(a, b)
+            calls += 1
+        assert int(P_tab.session_sweep_plain(*args, 600, 300, k)[1]) > cap // 4
+    for case in ("last_block_only", "none_due", "k_past_hits", "now_wraps", "dense"):
+        lanes, now, kk = sweep_case(case, np.random.default_rng(len(case)))
+        args = [torch.from_numpy(lanes[n]).to(dev) for n in
+                ("sess_slot", "sess_state", "sess_ts", "slot_expiry")]
+        got = P_tab.session_sweep(*args, now, 10, kk)
+        want = P_tab.session_sweep_plain(*args, now, 10, kk)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        calls += 1
+    assert kernels.LAUNCHES["session_sweep"] == calls
