@@ -198,11 +198,12 @@ subscriber id):
     subscribers of the router's exact and trie matches, every matched
     group's one delivery to the member `pick_oracle` names, the bases
     written back as `advance_rr` would, no row on the CPU; tokenize,
-    shape_match, sparse_fanout_slots, occurrence_index and share_pick
-    launched a batch, nfa_walk, fanout_bitmaps and compact_fanout_slots
-    not; churn (1,000 plain unsubscribes on filters the next batch hits,
-    1,000 subscribes on fresh filters of the table's shape, one member
-    leaving each of 10 groups) synced with at most one scatter a mirror,
+    shape_match and sparse_fanout_slots launched once a batch, share_pick
+    twice and occurrence_index three times (one round-robin pick),
+    nfa_walk, fanout_bitmaps and compact_fanout_slots not; churn (1,000
+    plain unsubscribes on filters the next batch hits, 1,000 subscribes
+    on fresh filters of the table's shape, one member leaving each of 10
+    groups) synced with at most one scatter a mirror,
     a full upload only where an epoch moved, every mirror equal to its
     host table, and the next batch, checked the same way, showing each
     change; `Router.match_batch` (the match-only router: tokenize and
@@ -877,7 +878,7 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "segment_scatter": ("scatter_claim_kernel", "scatter_store_kernel"),
     "sparse_fanout_slots": "sparse_fanout_",  # sparse_fanout_warp<E, KR> or _block
     "share_pick": "share_pick_kernel",
-    "occurrence_index": ("occ_tile_sort", "occ_merge", "occ_finalize"),
+    "occurrence_index": ("occ_count_kernel", "occ_scan_kernel", "occ_add_kernel"),
     "row_lengths": "row_lengths_kernel",
     "narrow_i16": "narrow_i16_kernel",
     "session_sweep": "sweep_kernel",
@@ -2004,15 +2005,14 @@ def share_kinds(torch, router, args, topics):
     lanes, _ = R._group_lanes(gt, matched)
     flat = lanes.reshape(-1).contiguous()
     live_lanes = int((lanes >= 0).sum())
-    occ = R.occurrence_index(flat)
-    merges = len(R.occurrence_merge_runs(n))
+    gcap = gt["group_len"].shape[0]
+    occ = R.occurrence_index(flat, gcap=gcap)
     kinds["occurrence_index"] = dict(
-        per_call={"occ_tile_sort": 1, "occ_merge": merges, "occ_finalize": 1},
-        kernel=lambda: R.occurrence_index(flat),
+        kernel=lambda: R.occurrence_index(flat, gcap=gcap),
         plain=lambda: R.occurrence_index_plain(flat),
         out=occ,
         bytes=8 * n,  # a gid in and a rank out per lane
-        ops=n * int(np.ceil(np.log2(max(n, 2)))),  # one compare per level
+        ops=4 * n,  # a range check, a count, a prefix and an add per lane
     )
     rng = np.random.default_rng(SEED + 1)
     pick_in = [torch.from_numpy(rng.integers(0, 1 << 32, B, dtype=np.uint64)
@@ -2184,7 +2184,7 @@ def share_path(torch, rng):
     launches = dict(kernels.LAUNCHES)
     path = ("tokenize", "shape_match", "sparse_fanout_slots", "share_pick", "occurrence_index")
     if not all(launches[k] for k in path) or launches["fanout_bitmaps"] \
-            or launches["compact_fanout_slots"]:
+            or launches["compact_fanout_slots"] or launches["occurrence_index"] % 3:
         raise AssertionError(f"share_10m_csr launches: {launches}")
     phase("churn_share", **churn, launches=launches, segment_status=mirror_counts(router))
 
@@ -3758,9 +3758,9 @@ def broker_publish(torch, broker, rec, timer, topics, tag: int) -> dict:
     if fell:
         raise AssertionError(f"{fell} rows fell back to the CPU")
     want_launch = {"tokenize": 1, "shape_match": 1, "sparse_fanout_slots": 1,
-                   "share_pick": 2, "nfa_walk": 0, "fanout_bitmaps": 0,
-                   "compact_fanout_slots": 0}
-    if any(launches[k] != v for k, v in want_launch.items()) or not launches["occurrence_index"]:
+                   "share_pick": 2, "occurrence_index": 3, "nfa_walk": 0,
+                   "fanout_bitmaps": 0, "compact_fanout_slots": 0}
+    if any(launches[k] != v for k, v in want_launch.items()):
         raise AssertionError(f"broker batch launches {launches}")
     return {"messages": len(msgs), "deliveries": n, "plain": plain_n, "group": group_n,
             "groups_matched": len(counts), "publish_batch_ms": wall,

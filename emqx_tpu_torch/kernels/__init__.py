@@ -15,7 +15,7 @@ the kernel (built at first use by `build.load`) and raises on any failure
 `LAUNCHES` counts kernel launches per wrapper: `launch` adds one right
 after each CUDA kernel launched, and nowhere else, so a run can show that
 its path went through the kernels. A wrapper call may launch several
-(`share_pick` under round_robin two, `occurrence_index` one per sort pass,
+(`share_pick` under round_robin two, `occurrence_index` three,
 `semantic_match` two: the scores and the merge,
 `segment_scatter` two: the claim and the store).
 """

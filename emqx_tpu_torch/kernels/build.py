@@ -81,12 +81,12 @@ _SIGNATURES = {
     ),
     # gids, n, counts, gcap, stream
     "emqx_group_counts": (_P, _L, _P, _L, _P),
-    # gids, keys (n uint64), n, stream
-    "emqx_occ_tile_sort": (_P, _P, _L, _P),
-    # keys in, keys out, n, run, stream
-    "emqx_occ_merge": (_P, _P, _L, _L, _P),
-    # keys, occ, n, stream
-    "emqx_occ_finalize": (_P, _P, _L, _P),
+    # gids, n, gcap, sub-tiles a tile, counts, counts' words, occ, stream
+    "emqx_occ_count": (_P, _L, _L, _I, _P, _L, _P, _P),
+    # n, gcap, sub-tiles a tile, counts, counts' words, stream
+    "emqx_occ_scan": (_L, _L, _I, _P, _L, _P),
+    # gids, n, gcap, sub-tiles a tile, counts, counts' words, occ, stream
+    "emqx_occ_add": (_P, _L, _L, _I, _P, _L, _P, _P),
     # bytes, out, N, MB, stream
     "emqx_row_lengths": (_P, _P, _L, _I, _P),
     # in, out, n, stream

@@ -239,46 +239,62 @@ def occurrence_index_plain(flat_gids):
     return out
 
 
-OCC_TILE = 2048  # keys per tile of occurrence_index.cu's first kernel
+OCC_SUB = 2048  # lanes of a sub-tile of occurrence_index.cu (its kSub)
+# the per-tile count matrix of `occurrence_index` (int32 words) and the
+# depth of its scan over tiles: a tile takes more sub-tiles
+# (`occurrence_plan`) rather than pass either
+OCC_MAX_COUNTS = 1 << 23
+OCC_MAX_TILES = 1024
 
 
-def occurrence_merge_runs(n: int):
-    """Sorted-run lengths that the merge passes of `occurrence_index`
-    double, one launch each: 2048, 4096, ... below n."""
-    runs, run = [], OCC_TILE
-    while run < n:
-        runs.append(run)
-        run *= 2
-    return runs
+def occurrence_plan(n: int, gcap: int):
+    """-> (sub-tiles a tile, tiles, scratch int32 words) of an
+    `occurrence_index` call over n lanes of gids below gcap: one tile a
+    sub-tile, doubling the sub-tiles a tile while the tiles pass
+    `OCC_MAX_TILES` or their count rows (gcap + 1 words, rounded up to 4)
+    pass `OCC_MAX_COUNTS`. The kernel checks the scratch against the same
+    rule and refuses a call that does not fit."""
+    stride = (gcap + 4) & ~3
+    subs = -(-n // OCC_SUB)
+    sub = 1
+    while True:
+        tiles = -(-subs // sub)
+        if tiles == 1 or (tiles <= OCC_MAX_TILES and tiles * stride <= OCC_MAX_COUNTS):
+            return sub, tiles, tiles * stride
+        sub *= 2
 
 
-def occurrence_index(flat_gids):
+def occurrence_index(flat_gids, *, gcap: Optional[int] = None):
     """occ[i] = #{j < i : g[j] == g[i]} in flat order (kernel 10).
 
     flat_gids int32 [n] -> int32 [n]. The counterpart of `_occurrence_index`
     (emqx_tpu/models/router_model.py:885): round-robin's per-batch offset
-    of each pick from its group's synced base. On CUDA it launches
-    `2 + len(occurrence_merge_runs(n))` kernels: a tile sort, the merge
-    passes and the rank scatter (`kernels/csrc/occurrence_index.cu`)."""
+    of each pick from its group's synced base. On CUDA it needs `gcap`
+    (every gid is -1 or below it; a gid outside [-1, gcap) is the caller's
+    error and is ranked as -1) and launches 3 kernels: the in-tile ranks
+    and per-tile counts, their prefix over tiles, and the add
+    (`kernels/csrc/occurrence_index.cu`). On the CPU the twin needs no
+    range and `gcap` is not read."""
     kernels.check_tensor(flat_gids, "flat_gids", torch.int32, 1)
     n = flat_gids.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"occurrence_index: {n} lanes, at most 2^31 - 1")
     if not kernels.on_cuda(flat_gids):
         return occurrence_index_plain(flat_gids)
+    if gcap is None or not 0 <= gcap < (1 << 31) - 1:
+        raise ValueError(f"occurrence_index on CUDA needs gcap in [0, 2^31 - 1), got {gcap}")
     dev = flat_gids.device
     occ = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return occ
-    keys, spare = torch.empty((2, n), dtype=torch.int64, device=dev).unbind(0)
-    kernels.launch("occurrence_index", "emqx_occ_tile_sort", dev,
-                   flat_gids.data_ptr(), keys.data_ptr(), n)
-    for run in occurrence_merge_runs(n):
-        kernels.launch("occurrence_index", "emqx_occ_merge", dev,
-                       keys.data_ptr(), spare.data_ptr(), n, run)
-        keys, spare = spare, keys
-    kernels.launch("occurrence_index", "emqx_occ_finalize", dev,
-                   keys.data_ptr(), occ.data_ptr(), n)
+    sub, _tiles, words = occurrence_plan(n, gcap)
+    counts = torch.empty(words, dtype=torch.int32, device=dev)
+    kernels.launch("occurrence_index", "emqx_occ_count", dev, flat_gids.data_ptr(), n,
+                   gcap, sub, counts.data_ptr(), words, occ.data_ptr())
+    kernels.launch("occurrence_index", "emqx_occ_scan", dev, n, gcap, sub,
+                   counts.data_ptr(), words)
+    kernels.launch("occurrence_index", "emqx_occ_add", dev, flat_gids.data_ptr(), n,
+                   gcap, sub, counts.data_ptr(), words, occ.data_ptr())
     return occ
 
 
@@ -444,7 +460,7 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     occ = all_c = None
     if strategy == 1:
         run(None, 0)  # the raw group lanes, into pick_gid
-        occ = occurrence_index(pick_gid.reshape(-1))
+        occ = occurrence_index(pick_gid.reshape(-1), gcap=gcap)
         if dp_gather is not None:
             all_c = dp_gather(group_counts(pick_gid, gcap)).contiguous()
             _dp_check(all_c, dp_rank, gcap)

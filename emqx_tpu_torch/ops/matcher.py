@@ -214,8 +214,8 @@ def check_nfa_tables(tables) -> None:
         raise ValueError("vocab_h1, vocab_h2 and vocab_sym disagree in length")
 
 
-# frontier states live in shared memory, two buffers of F per warp; the
-# launcher shrinks its block until they fit in 48 KB
+# frontier states live in shared memory, two buffers of F per row (a warp
+# a row past F = 64); the launcher shrinks its block until they fit in 48 KB
 MAX_FRONTIER = 6144
 
 

@@ -5,9 +5,15 @@
 tables (an `emqx_tpu` `NfaBuilder`'s `device_snapshot()`, uploaded with
 `convert.upload`) and the same topic bytes. The cases are those of
 `tests/test_matcher.py`. The port runs on the CPU (the kernels' plain
-twins); the `cuda`-marked test at the end holds the kernels against the
+twins); the `cuda`-marked tests at the end hold the kernels against the
 twins on a card. Tolerance: EXACT equality of every output, the order of
 `matched` included — all are integers.
+
+The chain tests walk every live edge's probe chain in both packages' NFA
+builders through seeded churn (growth, a tombstone-heavy phase, an
+in-place compaction): no never-written slot (-1) may lie before a live
+edge within `MAX_PROBES` slots. `nfa_walk.cu` ends a chain at its first
+-1 slot, which is exact only while that holds.
 """
 
 import random
@@ -19,12 +25,14 @@ import pytest
 import torch
 
 from emqx_tpu.ops import matcher as J_matcher
+from emqx_tpu.ops import nfa as J_nfa
 from emqx_tpu.ops import tokenizer as J_tok
 from emqx_tpu.ops import topics as J_topics
 from emqx_tpu.ops.nfa import NfaBuilder
 from emqx_tpu_torch import kernels
 from emqx_tpu_torch.convert import upload
 from emqx_tpu_torch.ops import matcher as P_matcher
+from emqx_tpu_torch.ops import nfa as P_nfa
 from emqx_tpu_torch.ops import tokenizer as P_tok
 
 j_tokenize = jax.jit(J_tok.tokenize_device, static_argnums=(2, 3))
@@ -220,6 +228,144 @@ def test_nfa_wrappers_check_their_inputs_and_count_no_cpu_launch():
         P_matcher.batch_match_syms(tables, syms, nw[:1].contiguous(), dl)
 
 
+# -- probe chains under churn: the early exit's precondition ---------------
+
+
+def churn_filters(seed, n):
+    rng = random.Random(seed)
+    words = [f"w{i}" for i in range(40)] + ["a", "b", "c", "d"]
+    out = set()
+    while len(out) < n:
+        ws = ["+" if rng.random() < 0.2 else rng.choice(words)
+              for _ in range(rng.randint(1, 6))]
+        if rng.random() < 0.15:
+            ws.append("#")
+        out.add("/".join(ws))
+    return sorted(out)
+
+
+def churn_steps(seed):
+    """Both packages' `NfaBuilder`s through the same seeded churn: 1,200
+    filters added (the edge table grows), eight rounds that remove the 300
+    oldest and add 300 new ones (tombstones left and reused; a growth
+    rehash on the way), then removals 50 at a time down to 100 live
+    filters (tombstone-heavy, up to the in-place compaction), and 300
+    added back. Yields (label, jax builder, port builder, the port
+    builder's edge rehashes) after each step."""
+    builders = (J_nfa.NfaBuilder(), P_nfa.NfaBuilder())
+    rehash = {"grow": 0, "compact": 0, "tombstones_dropped": 0}
+    port = builders[1]
+    orig = port._edge_rehash
+
+    def counted(newE):
+        rehash["grow" if newE > port._E else "compact"] += 1
+        rehash["tombstones_dropped"] += int((port.arr_edge_node == P_nfa.EDGE_TOMB).sum())
+        orig(newE)
+
+    port._edge_rehash = counted
+
+    def apply(op, filters):
+        for f in filters:
+            for b in builders:
+                getattr(b, op)(f)
+
+    pool = churn_filters(seed, 6000)
+    live, nxt = pool[:1200], 1200
+    apply("add", live)
+    yield "added", builders[0], port, rehash
+    for r in range(8):
+        apply("remove", live[:300])
+        yield f"round {r} removed", builders[0], port, rehash
+        apply("add", pool[nxt:nxt + 300])
+        live, nxt = live[300:] + pool[nxt:nxt + 300], nxt + 300
+        yield f"round {r} added", builders[0], port, rehash
+    while len(live) > 100:
+        apply("remove", live[:50])
+        live = live[50:]
+        yield f"{len(live)} live", builders[0], port, rehash
+    apply("add", pool[:150] + pool[nxt:nxt + 150])
+    yield "added back", builders[0], port, rehash
+
+
+def chain_breaks(builder, hash_fn):
+    """The live edges (node, sym) whose probe chain meets a never-written
+    slot (-1) before the edge's own slot, or misses it, within
+    `MAX_PROBES` slots."""
+    E = builder._E
+    en, es = builder.arr_edge_node, builder.arr_edge_sym
+    bad = []
+    for node, sym in builder._edges:
+        slot = hash_fn(node, sym) & (E - 1)
+        for p in range(P_nfa.MAX_PROBES):
+            idx = (slot + p) & (E - 1)
+            if en[idx] == node and es[idx] == sym:
+                break
+            if en[idx] == -1:
+                bad.append((node, sym))
+                break
+        else:
+            bad.append((node, sym))
+    return bad
+
+
+def tombstones(builder) -> float:
+    return float((builder.arr_edge_node == P_nfa.EDGE_TOMB).mean())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_edge_chains_hold_no_empty_slot_before_a_live_edge(seed):
+    most = 0.0
+    for label, j, p, rehash in churn_steps(seed):
+        assert chain_breaks(j, J_nfa.edge_slot_hash) == [], label
+        assert chain_breaks(p, P_nfa.edge_slot_hash) == [], label
+        js, ps = j.device_snapshot(), p.device_snapshot()
+        for k in ("edge_node", "edge_sym", "edge_child"):
+            np.testing.assert_array_equal(ps[k], js[k], err_msg=f"{label}: {k}")
+        most = max(most, tombstones(p))
+    assert rehash["grow"] >= 1 and rehash["compact"] >= 1, rehash
+    assert rehash["tombstones_dropped"] > 0 and most > 0.2, (rehash, most)
+
+
+def walk_topics(seed, n):
+    """Topics over the churn's words: `$` topics, rows deeper than 8
+    levels, and the all-`a` topics that open the widest frontiers."""
+    rng = random.Random(seed)
+    words = [f"w{i}" for i in range(40)] + ["a", "b", "c", "d", "zz"]
+    topics = []
+    for _ in range(n):
+        ws = [rng.choice(words) for _ in range(rng.randint(1, 10))]
+        if rng.random() < 0.1:
+            ws[0] = "$" + ws[0]
+        topics.append("/".join(ws))
+    return topics + ["/".join("a" * k) for k in range(1, 10)] + ["$a/a", "a/a/a/a/a/a/a"]
+
+
+def tombstone_heavy(seed):
+    """The churn's (jax, port) builders at the first step past 18%
+    tombstones (before the compaction), then wide-frontier filters: every
+    7-level filter over {a, +}, a frontier of 2^k states at level k of
+    a/a/a/a/a/a/a."""
+    for _label, j, p, _rehash in churn_steps(seed):
+        if tombstones(p) > 0.18:
+            break
+    else:
+        raise AssertionError("the churn never passed 18% tombstones")
+    for m in range(1 << 7):
+        f = "/".join("+" if m >> i & 1 else "a" for i in range(7))
+        j.add(f)
+        p.add(f)
+    assert tombstones(p) > 0.15
+    return j, p
+
+
+@pytest.mark.parametrize("cfg", [{}, {"frontier": 4, "max_matches": 6, "probes": 1},
+                                 {"frontier": 200, "max_matches": 64}])
+def test_batch_match_syms_matches_jax_on_a_tombstone_heavy_table(cfg):
+    j, _p = tombstone_heavy(2)
+    got = run_both(j, walk_topics(3, 300), max_levels=8, **cfg)
+    assert bool(got[3]["too_deep"].any()) and int(got[1].sum()) > 0
+
+
 # -- on the card: each kernel against its twin (skips without CUDA) -------
 
 
@@ -252,3 +398,36 @@ def test_nfa_kernels_match_twins_on_card(cuda_device):
         for name in want[3]:
             assert torch.equal(got[3][name], want[3][name])
     assert kernels.LAUNCHES["vocab_lookup"] == 1 and kernels.LAUNCHES["nfa_walk"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probes", [1, 8])
+def test_nfa_walk_matches_twin_on_card_at_every_width(cuda_device, probes):
+    """Both instances (a team of 8 lanes a row up to F = 64, a warp past
+    it) on a tombstone-heavy table: `$` topics, rows deeper than L, rows
+    that overflow F and K."""
+    dev = cuda_device
+    _j, p = tombstone_heavy(4)
+    tables = upload(p.device_snapshot(), device=dev)
+    mat, lens, _ = P_tok.encode_topics(walk_topics(5, 2000), 64)
+    h1, h2, nw, dl = P_tok.tokenize(cpu(mat).to(dev), cpu(lens).to(dev), p.salt, 8)
+    syms = P_tok.vocab_lookup(tables, h1, h2, probes)
+    kernels.reset_launches()
+    seen = dict.fromkeys(P_matcher.CAUSES, False)
+    calls = 0
+    for frontier in (1, 2, 4, 32, 33, 40, 65, 200):
+        for k in (2, 6, 64):
+            got = P_matcher.batch_match_syms(tables, syms, nw, dl, frontier=frontier,
+                                             max_matches=k, probes=probes)
+            want = P_matcher.batch_match_syms_plain(tables, syms, nw, dl,
+                                                    frontier=frontier, max_matches=k,
+                                                    probes=probes)
+            torch.cuda.synchronize()
+            for a, b, name in zip(got[:3], want[:3], ("matched", "mcount", "flags")):
+                assert torch.equal(a, b), (frontier, k, name)
+            for name in want[3]:
+                assert torch.equal(got[3][name], want[3][name]), (frontier, k, name)
+                seen[name] |= bool(want[3][name].any())
+            calls += 1
+    assert all(seen.values()), seen
+    assert kernels.LAUNCHES["nfa_walk"] == calls  # one launch a call

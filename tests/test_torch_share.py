@@ -4,8 +4,9 @@
 seeded operations), `stable_hash`, the plain twins of `share_pick` against
 `share_pick_device` under all five strategies (with `group_rr` near 2^31,
 empty groups, out-of-range sticky indices and -1 holes) and of
-`occurrence_index` against `_occurrence_index`; then (`cuda` marker,
-skipped without a card) both CUDA kernels against their twins.
+`occurrence_index` against `_occurrence_index` (with and without the
+`gcap` range the CUDA kernel needs); then (`cuda` marker, skipped without
+a card) both CUDA kernels against their twins.
 Tolerance: EXACT equality — every output is an integer.
 """
 
@@ -138,6 +139,17 @@ def test_occurrence_index_twin_matches_jax(seed, n, space):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("seed,n,space", [(5, 20000, 16384), (6, 4096, 1)])
+def test_occurrence_index_twin_with_gcap_matches_jax(seed, n, space):
+    """Every gid -1 or below gcap = space, as `share_pick` calls it."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(-1, space, size=n).astype(np.int32)
+    g[100:400] = space - 1  # a long run of the last gid
+    got = P_router.occurrence_index(torch.from_numpy(g), gcap=space)
+    want = np.asarray(J_router._occurrence_index(jnp.asarray(g)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_share_pick_wrapper_checks():
     p, _j, matched, ch, th, rand = pick_inputs(0, B=10)
     snap = {k: torch.from_numpy(v.copy()) for k, v in p.device_snapshot().items()}
@@ -183,10 +195,79 @@ def test_share_kernels_match_twins_on_card(cuda_device):
     sizes = (1, 2047, 2048, 2049, 131_072, 300_001)
     for n, space in zip(sizes, (3, 5, 5, 7, 11_000, 50)):
         g = torch.from_numpy(rng.integers(-1, space, size=n).astype(np.int32)).to(dev)
-        assert torch.equal(P_router.occurrence_index(g), P_router.occurrence_index_plain(g))
+        assert torch.equal(P_router.occurrence_index(g, gcap=space),
+                           P_router.occurrence_index_plain(g))
     assert kernels.LAUNCHES["share_pick"] == 6  # round_robin launches it twice
-    # a tile sort, the merge passes and the rank scatter per call; the
-    # round_robin pick ranks its B * K * GPF lanes
-    lanes = matched.size * snap["filter_groups"].shape[1]
-    assert kernels.LAUNCHES["occurrence_index"] == sum(
-        2 + len(P_router.occurrence_merge_runs(n)) for n in (lanes,) + sizes)
+    # 3 launches a call (in-tile ranks and counts, the prefix over tiles,
+    # the add): the round_robin pick's and the six above
+    assert kernels.LAUNCHES["occurrence_index"] == 3 * (1 + len(sizes))
+
+
+OCC_CASES = ("space-1", "space-3", "space-50", "space-11000", "gcap-16384-all-live",
+             "all-none", "one-gid")
+
+
+def occ_case(case, n, rng):
+    """-> (gids, gcap) of one `occurrence_index` case at n lanes."""
+    if case.startswith("space-"):
+        space = int(case.split("-")[1])
+        return rng.integers(-1, space, size=n).astype(np.int32), max(space, 16_384)
+    if case == "gcap-16384-all-live":
+        g = rng.integers(0, 16_384, size=n).astype(np.int32)
+        g[:min(n, 16_384)] = rng.permutation(16_384)[:min(n, 16_384)]
+        return g, 16_384
+    if case == "all-none":
+        return np.full(n, -1, np.int32), 16_384
+    return np.full(n, 7, np.int32), 8  # one gid in every lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OCC_CASES)
+def test_occurrence_index_matches_twin_on_card(cuda_device, case):
+    dev = cuda_device
+    sub = P_router.OCC_SUB
+    sizes = sorted({1, 2047, 2048, 2049, sub - 1, sub, sub + 1, 65_536, 131_072, 300_001})
+    rng = np.random.default_rng(OCC_CASES.index(case))
+    for n in sizes:
+        g, gcap = occ_case(case, n, rng)
+        gt = torch.from_numpy(g).to(dev)
+        kernels.reset_launches()
+        got = P_router.occurrence_index(gt, gcap=gcap)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["occurrence_index"] == 3, n
+        assert torch.equal(got, P_router.occurrence_index_plain(gt)), (case, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4097, 100_000, 300_001])
+def test_occurrence_index_tiles_of_several_sub_tiles_on_card(cuda_device, monkeypatch, n):
+    """A count matrix capped at two rows: each of the two tiles takes
+    several sub-tiles and carries its running counts across them."""
+    dev = cuda_device
+    monkeypatch.setattr(P_router, "OCC_MAX_COUNTS", 2 * 4100)
+    sub, tiles, _ = P_router.occurrence_plan(n, 4096)
+    assert sub > 1 and tiles == 2
+    g = np.random.default_rng(n).integers(-1, 4096, size=n).astype(np.int32)
+    g[: n // 3] = 5  # a gid heavy across sub-tiles
+    gt = torch.from_numpy(g).to(dev)
+    assert torch.equal(P_router.occurrence_index(gt, gcap=4096),
+                       P_router.occurrence_index_plain(gt))
+
+
+@pytest.mark.cuda
+def test_occurrence_index_range_rule_on_card(cuda_device):
+    """On CUDA a call needs gcap; a gid below -1 or at or past gcap (the
+    caller's error) is ranked as -1, and nothing is read or written out of
+    bounds."""
+    dev = cuda_device
+    rng = np.random.default_rng(11)
+    g = rng.integers(-5, 40, size=50_000).astype(np.int32)
+    g[::7] = np.iinfo(np.int32).max
+    g[::11] = np.iinfo(np.int32).min
+    gt = torch.from_numpy(g).to(dev)
+    with pytest.raises(ValueError, match="gcap"):
+        P_router.occurrence_index(gt)
+    got = P_router.occurrence_index(gt, gcap=30)
+    as_none = torch.from_numpy(np.where((g >= -1) & (g < 30), g, -1).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, P_router.occurrence_index_plain(as_none))
