@@ -19,7 +19,10 @@ The `mixed_1m` path (the shape-only step):
    the path's shapes (B = 8192 Zipf topics, MAX_BYTES 64, max_levels 8,
    kslot 64), plus the ragged cases `fanout_bitmaps/ragged` (W = 7 on a
    base 4 bytes off) and `tokenize/ragged` (MB = 33 on a base 1 byte
-   off): outputs must be EQUAL (all integers);
+   off): outputs must be EQUAL (all integers); every compact_fanout_slots
+   case also prints `lanes_over_8`, the share of the kernel's lanes that
+   place more than 8 bits (past 8 in a warp it deals positions round the
+   lanes: mixed_10m's Zipf rows do, mixed_1m's and plus_100k's do not);
 4. `route`: DeviceRouter.route over 3 batches plus edge topics, every
    row's recipient set held against a host oracle, then churn that pushes
    rows past kslot onto the dense-row path; launch counters are zeroed
@@ -1053,12 +1056,12 @@ def kernel_report(torch, kinds, plain_reps=TIMING_REPS) -> dict:
             "bound_by": bound_by, "library_ms": lib_ms,
             # the kernel alone on the device, without the launch path that
             # `ms` includes
-            "device_ms": dev_ms, "device_via": dev_via,
+            "device_ms": dev_ms, "device_via": dev_via, **k.get("notes", {}),
         }
         phase("kernel", kernel=kname, case=name, equal=True, ms=ms, device_ms=dev_ms,
               device_via=dev_via,
               plain_ms=plain_ms, plain_samples=plain_reps, library_ms=lib_ms,
-              bound_ms=bound_ms, bytes=k["bytes"], ops=k["ops"])
+              bound_ms=bound_ms, bytes=k["bytes"], ops=k["ops"], **k.get("notes", {}))
     return report
 
 
@@ -1093,6 +1096,26 @@ def launch_path_costs(torch, n: int = 2000) -> dict:
     out["narrow_i16_device_ms"] = queued_ms(torch, parts["narrow_i16_call"])
     out["to_int16_device_ms"] = queued_ms(torch, parts["to_int16_call"])
     return out
+
+
+def lanes_over_8(torch, bits, kslot: int) -> float:
+    """The share of compact.cu's lanes (a row's 4-word groups) that place
+    more than 8 bits (its kSerialMax) in this input: bits within the row's
+    first kslot. Past 8 in any lane of a warp, the kernel deals the
+    warp's positions round its lanes; a case with 0 takes only the path
+    where each lane places its own."""
+    lut = torch.tensor([bin(i).count("1") for i in range(256)], device=bits.device)
+    B, W = bits.shape
+    G = (W + 3) // 4
+    over = 0
+    for lo in range(0, B, 1024):
+        x = bits[lo:lo + 1024]
+        pad = torch.zeros((x.shape[0], 4 * G), dtype=torch.int32, device=bits.device)
+        pad[:, :W] = x
+        c = lut[pad.view(torch.uint8).view(x.shape[0], G, 16).long()].sum(-1)
+        mine = torch.clamp(torch.minimum(c, kslot - (torch.cumsum(c, 1) - c)), min=0)
+        over += int((mine > 8).sum())
+    return over / (B * G)
 
 
 def serving_work(name: str, *, B: int, L: int = 0, MB: int = 0, nbytes: int = 0, P: int = 0,
@@ -1255,6 +1278,7 @@ def serving_kinds(torch, args, topics, nfa_cfg=None, ragged=False):
             kernel=lambda: R.compact_fanout_slots(bits, kslot),
             plain=lambda: R.compact_fanout_slots_plain(bits, kslot),
             out=comp,
+            notes=dict(lanes_over_8=lanes_over_8(torch, bits, kslot)),
             **serving_work("compact_fanout_slots", B=B, W=W, kslot=kslot, pop=int(pop.sum())),
         ),
     })
@@ -4137,7 +4161,8 @@ def plus_kinds(torch, tables, bits, topics, salt, cfg, kslot):
             plain=lambda: R.fanout_bitmaps_plain(bits, matched), out=fb),
         "compact_fanout_slots": dict(
             kernel=lambda: R.compact_fanout_slots(fb[0], kslot),
-            plain=comp_plain, out=comp),
+            plain=comp_plain, out=comp,
+            notes=dict(lanes_over_8=lanes_over_8(torch, fb[0], kslot))),
     }
     for name, k in kinds.items():
         k.update(serving_work(name, **n))
@@ -4884,6 +4909,7 @@ def mesh_compact_kind(torch, mesh, router, args, topics):
         kernel=lambda: R.compact_fanout_slots_shard(bits, kslot, base),
         plain=lambda: R.compact_fanout_slots_shard_plain(bits, kslot, base),
         out=R.compact_fanout_slots_shard(bits, kslot, base),
+        notes=dict(lanes_over_8=lanes_over_8(torch, bits, kslot)),
         bytes=4 * B * W + 4 * B * kslot + 8 * B,  # words in; slots and the pair out
         ops=B * W * 32,
     )}, {"rows": B, "words": W, "lane_base": base, "kslot": kslot}

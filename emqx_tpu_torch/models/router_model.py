@@ -350,7 +350,8 @@ def group_counts(gids, gcap: int):
 
 def _dp_check(all_counts, dp_rank: int, gcap: int) -> None:
     kernels.check_tensor(all_counts, "all_counts", torch.int32, 2)
-    if all_counts.shape[1] != gcap or not 0 <= dp_rank < all_counts.shape[0]:
+    if all_counts.shape[1] != gcap or not 0 <= dp_rank < all_counts.shape[0] \
+            or all_counts.numel() >= 1 << 31:
         raise ValueError(f"all_counts {tuple(all_counts.shape)} against gcap "
                          f"{gcap}, dp rank {dp_rank}")
 
@@ -410,7 +411,9 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
 
     On CUDA, round_robin launches the pick kernel twice: first for the raw
     group lanes, whose per-group ranks `occurrence_index` computes, then
-    for the picks.
+    for the picks, which reads those lanes back from ``pick_gid``. The
+    kernel indexes in 32 bits: B x K x GPF and Fcap x GPF at or past 2^31
+    raise, on either device.
 
     The mesh branch (``dp_axis``, emqx_tpu/models/router_model.py:942-962):
     with the batch split over 'dp', ``dp_gather`` maps this shard's
@@ -433,6 +436,12 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
         kernels.check_tensor(t, name, torch.int32, 1)
         if t.shape[0] != B:
             raise ValueError(f"{name}: expected [{B}], got {tuple(t.shape)}")
+    fcap, gpf = group_tables["filter_groups"].shape
+    if fcap < 1 or gcap < 1:
+        raise ValueError(f"share_pick: empty group tables (Fcap {fcap}, Gcap {gcap})")
+    if B * K * gpf >= 1 << 31 or fcap * gpf >= 1 << 31:
+        raise ValueError(f"share_pick: B x K x GPF ({B * K * gpf}) and Fcap x GPF "
+                         f"({fcap * gpf}) must stay below 2^31 (32-bit lane indices)")
     if not kernels.on_cuda(matched, client_hash, topic_hash, rand,
                            *(group_tables[k] for k in GROUP_KEYS)):
         return share_pick_plain(group_tables, matched, client_hash, topic_hash,
@@ -440,7 +449,6 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
                                 dp_rank=dp_rank)
     fg = group_tables["filter_groups"]
     glen = group_tables["group_len"]
-    gpf = fg.shape[1]
     dev = matched.device
     pick_gid = torch.empty((B, K * gpf), dtype=torch.int32, device=dev)
     pick_idx = torch.empty((B, K * gpf), dtype=torch.int32, device=dev)
@@ -448,7 +456,7 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     def run(occ_ptr, phase, all_c=None):
         kernels.launch(
             "share_pick", "emqx_share_pick", dev,
-            fg.data_ptr(), fg.shape[0], gpf, glen.data_ptr(),
+            fg.data_ptr(), fcap, gpf, glen.data_ptr(),
             group_tables["group_rr"].data_ptr(),
             group_tables["group_sticky"].data_ptr(), glen.shape[0],
             matched.data_ptr(), occ_ptr, client_hash.data_ptr(),

@@ -343,7 +343,15 @@ def test_fanout_plain_matches_jax(W, K):
     np.testing.assert_array_equal(pop.numpy(), np.asarray(want_pop))
 
 
-@pytest.mark.parametrize("W,kslot", [(2, 1), (8, 7), (8, 64), (8, 256), (4, 200), (64, 64)])
+# the kernel's regime edges: teams of 1-32 lanes up to W = 128 words, a
+# warp a row past it, rounds of 128 x 4 words; kslot under, at and past a
+# 16-byte group of slots
+COMPACT_EDGES = [(W, kslot) for W in (1, 3, 4, 5, 31, 32, 33, 128, 129, 512)
+                 for kslot in (1, 64, 300)]
+
+
+@pytest.mark.parametrize("W,kslot", [(2, 1), (8, 7), (8, 64), (8, 256), (4, 200), (64, 64)]
+                         + COMPACT_EDGES)
 def test_compact_plain_matches_jax(W, kslot):
     rng = np.random.default_rng(W + kslot)
     B = 120
@@ -352,6 +360,8 @@ def test_compact_plain_matches_jax(W, kslot):
     bm = np.packbits(bits, axis=1, bitorder="little").view(np.uint32).copy()
     bm[0] = 0
     bm[1] = 0xFFFFFFFF  # W*32 set bits: past any kslot < W*32
+    bm[2] = 0
+    bm[2, -1] = 0x80000001  # set only in the last word
     want = j_compact(jnp.asarray(bm), kslot)
     got = P_router.compact_fanout_slots(cpu(bm.view(np.int32)), kslot)
     for g, w in zip(got, want):
@@ -516,6 +526,45 @@ def test_fanout_kernel_matches_twin_on_card(cuda_device, W, K, offset):
         for a, b in zip(got, want):
             assert a.dtype == b.dtype and torch.equal(a, b)
     assert kernels.LAUNCHES["fanout_bitmaps"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("W", [1, 3, 4, 7, 8, 33, 128, 129, 4096])
+def test_compact_kernel_matches_twin_on_card(cuda_device, W, offset):
+    """Both regimes (a team of T lanes a row up to W = 128, a warp a row
+    past it), 16-byte and scalar words (a base 4 bytes off a 16-byte
+    boundary, offset 1, takes the scalar words at every W), slots padded
+    with 16-byte stores (kslot 64) and scalar ones (1, 300), lane bases 0
+    and W x 32 through the shard form; one launch a call."""
+    dev = cuda_device
+    rng = np.random.default_rng(W * 10 + offset)
+    B = 1000 if W <= 128 else 64  # the twin expands every bit: B x W x 32 int64
+    dens = rng.choice([0.0, 0.0005, 0.01, 0.3], size=B)
+    bits = rng.random((B, W * 32)) < dens[:, None]
+    bm = np.packbits(bits, axis=1, bitorder="little").view(np.uint32).copy()
+    bm[1] = 0xFFFFFFFF
+    bm[2] = 0
+    bm[2, -1] = 0x80000001
+    base = torch.empty(B * W + offset, dtype=torch.int32, device=dev)
+    table = base[offset:].view(B, W)
+    table.copy_(torch.from_numpy(bm.view(np.int32)))
+    kernels.reset_launches()
+    calls = 0
+    for kslot in (1, 64, 300):
+        got = P_router.compact_fanout_slots(table, kslot)
+        want = P_router.compact_fanout_slots_plain(table, kslot)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        for lane_base in (0, W * 32):
+            got = P_router.compact_fanout_slots_shard(table, kslot, lane_base)
+            want = P_router.compact_fanout_slots_shard_plain(table, kslot, lane_base)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        calls += 3
+    assert kernels.LAUNCHES["compact_fanout_slots"] == calls
 
 
 def ragged_topic_rows(rng, B, MB):

@@ -5,8 +5,9 @@ seeded operations), `stable_hash`, the plain twins of `share_pick` against
 `share_pick_device` under all five strategies (with `group_rr` near 2^31,
 empty groups, out-of-range sticky indices and -1 holes) and of
 `occurrence_index` against `_occurrence_index` (with and without the
-`gcap` range the CUDA kernel needs); then (`cuda` marker, skipped without
-a card) both CUDA kernels against their twins.
+`gcap` range the CUDA kernel needs); the twin at GPF 1-5 and 8 (raw tables)
+and the 32-bit size rule; then (`cuda` marker, skipped without a card)
+both CUDA kernels against their twins.
 Tolerance: EXACT equality — every output is an integer.
 """
 
@@ -118,6 +119,72 @@ def test_share_pick_twin_matches_jax(strategy, seed):
         assert (rr[gid >= 0] > (1 << 31) - 200).any()
 
 
+# jitted once per shape and strategy (eager dispatch of round robin's
+# occurrence index runs its scan primitive by primitive, several times slower)
+j_share_pick = jax.jit(J_router.share_pick_device, static_argnames=("strategy",))
+
+
+def raw_group_tables(rng, gpf, fcap=90, gcap=200):
+    """Group tables of any GPF written directly (a `GroupTable` only
+    doubles its GPF): about a third of the fids carry groups in some of
+    their slots, fid 5's row is all -1, bases near 2^31 on every third
+    group, empty groups, sticky indices in and out of range."""
+    fg = np.full((fcap, gpf), -1, np.int32)
+    live = rng.random((fcap, gpf)) < 0.35
+    fg[live] = rng.integers(0, gcap, int(live.sum()))
+    fg[5] = -1
+    glen = rng.integers(0, 9, gcap).astype(np.int32)
+    rr = rng.integers(0, 1000, gcap).astype(np.int32)
+    rr[::3] = (1 << 31) - 1 - rng.integers(0, 8, rr[::3].size)
+    sticky = rng.integers(-2, 10, gcap).astype(np.int32)
+    return {"filter_groups": fg, "group_len": glen, "group_rr": rr, "group_sticky": sticky}
+
+
+@pytest.mark.parametrize("strategy", sorted(J_router.STRATEGY_IDS.values()))
+@pytest.mark.parametrize("K", [1, 4, 64])
+@pytest.mark.parametrize("gpf", [1, 2, 3, 4, 5, 8])
+def test_share_pick_twin_matches_jax_at_every_gpf(gpf, K, strategy):
+    """The kernel's instances: a thread a pair with 16-byte filter_groups
+    words (GPF 4 and 8, the widths `GroupTable` grows through), a thread a
+    lane (any other GPF); rows of fid 5 (all -1), of
+    fids past Fcap (clamped) and -1 holes, one fid repeated down a column
+    (long round-robin runs)."""
+    rng = np.random.default_rng(gpf * 100 + K * 10 + strategy)
+    tabs = raw_group_tables(rng, gpf)
+    B = max(8, 1200 // K)
+    matched = rng.integers(-1, 100, size=(B, K)).astype(np.int32)  # 90-99 past Fcap
+    matched[::7, 0] = 5
+    matched[:30, -1] = 11
+    ch, th, rand = u32(rng, B), u32(rng, B), u32(rng, B)
+    want = j_share_pick(
+        {k: jnp.asarray(v) for k, v in tabs.items()}, jnp.asarray(matched),
+        jnp.asarray(ch), jnp.asarray(th), jnp.asarray(rand), strategy=strategy)
+    got = P_router.share_pick({k: torch.from_numpy(v) for k, v in tabs.items()},
+                              torch.from_numpy(matched), as_t(ch), as_t(th), as_t(rand),
+                              strategy=strategy)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and tuple(g.shape) == (B, K * gpf)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got[0] >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("what", ["lanes", "fcap"])
+def test_share_pick_refuses_indices_past_int32(what):
+    """The kernel indexes in 32 bits: B x K x GPF or Fcap x GPF at 2^31
+    raises before anything runs, on either device (meta tensors hold no
+    memory)."""
+    meta = torch.device("meta")
+    fcap = 1 << 29 if what == "fcap" else 64
+    B = 1 << 27 if what == "lanes" else 8
+    tabs = {"filter_groups": torch.empty((fcap, 4), dtype=torch.int32, device=meta)}
+    for k in ("group_len", "group_rr", "group_sticky"):
+        tabs[k] = torch.empty(64, dtype=torch.int32, device=meta)
+    matched = torch.empty((B, 4), dtype=torch.int32, device=meta)
+    hashes = [torch.empty(B, dtype=torch.int32, device=meta) for _ in range(3)]
+    with pytest.raises(ValueError, match="2\\^31"):
+        P_router.share_pick(tabs, matched, *hashes, strategy=1)
+
+
 def test_share_pick_unknown_strategy_picks_as_random():
     p, j, matched, ch, th, rand = pick_inputs(2)
     snap = {k: torch.from_numpy(v.copy()) for k, v in p.device_snapshot().items()}
@@ -201,6 +268,58 @@ def test_share_kernels_match_twins_on_card(cuda_device):
     # 3 launches a call (in-tile ranks and counts, the prefix over tiles,
     # the add): the round_robin pick's and the six above
     assert kernels.LAUNCHES["occurrence_index"] == 3 * (1 + len(sizes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gpf", [1, 2, 3, 4, 5, 8])
+def test_share_pick_kernel_at_every_gpf_on_card(cuda_device, gpf):
+    """Every instance of the pick kernel (a thread a pair with 16-byte
+    words at GPF 4 and 8, a thread a lane otherwise, and a filter_groups
+    base 4 bytes off, which takes the thread-a-lane form at every GPF) under all five
+    strategies and an unknown id, K 1 / 4 / 64, up to 2^20 lanes; round
+    robin with dp ranks 0-3 over a seeded `all_counts` (counts near 2^31
+    in rank 0's row); launches counted."""
+    dev = cuda_device
+    rng = np.random.default_rng(40 + gpf)
+    kernels.reset_launches()
+    picks = occs = 0
+    for K, B, offset in ((1, 3000, 0), (4, (1 << 20) // (4 * gpf), 0), (64, 500, 1)):
+        tabs = raw_group_tables(rng, gpf, fcap=5000, gcap=3000)
+        fg = tabs["filter_groups"]
+        base = torch.empty(fg.size + offset, dtype=torch.int32, device=dev)
+        snap = {k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}
+        snap["filter_groups"] = base[offset:].view(fg.shape)
+        snap["filter_groups"].copy_(torch.from_numpy(fg))
+        matched = rng.integers(-1, 5100, size=(B, K)).astype(np.int32)
+        matched[:40, 0] = 11
+        ins = [torch.from_numpy(matched).to(dev)] + [
+            as_t(u32(rng, B)).to(dev) for _ in range(3)]
+        for strategy in range(6):
+            got = P_router.share_pick(snap, *ins, strategy=strategy)
+            want = P_router.share_pick_plain(snap, *ins, strategy=strategy)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            picks += 2 if strategy == 1 else 1
+            occs += 3 if strategy == 1 else 0
+        gcap = snap["group_len"].shape[0]
+        for dp in range(1, 5):
+            all_c = torch.from_numpy(rng.integers(0, 1 << 16, (dp, gcap)).astype(np.int32))
+            all_c[0, :9] = (1 << 31) - 5
+            all_c = all_c.to(dev)
+            for rank in range(dp):
+                kw = dict(strategy=1, dp_gather=lambda c, a=all_c: a, dp_rank=rank)
+                got = P_router.share_pick(snap, *ins, **kw)
+                want = P_router.share_pick_plain(snap, *ins, **kw)
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+                picks += 2
+                occs += 3
+    assert kernels.LAUNCHES["share_pick"] == picks
+    assert kernels.LAUNCHES["occurrence_index"] == occs
+    # one group_counts launch a dp call (its histogram goes to dp_gather)
+    assert kernels.LAUNCHES["group_counts"] == 3 * 10
 
 
 OCC_CASES = ("space-1", "space-3", "space-50", "space-11000", "gcap-16384-all-live",
