@@ -159,8 +159,12 @@ main path) and a bf16 table (201 MB instead of 402 MB):
     row chunks; integer outputs must be equal outside the tau band (tau =
     D x 2^-23): the rows that differ, and 64 sampled rows, are recomputed
     in f64 on the host and must pass `semantic_row_ok`; the band census is
-    printed. rule_masks must equal its twin and the numpy host masks. Its
-    times: the call (7 samples of 3), CUPTI device time and the TFLOP/s
+    printed. rule_masks must equal its twin and the numpy host masks, and
+    its programs must be uploaded 0, 0, 1, 0 times by a repeated call, a
+    refresh over the same rules, a changed rule set and its repeat
+    (`call_uploads`); its call finds them on the card, and
+    `uncached_call_ms` times one that encodes and uploads them.
+    semantic_match's times: the call (7 samples of 3), CUPTI device time and the TFLOP/s
     it makes, the twin (3 samples), torch.matmul with TF32 off alone and
     with torch.topk (5 samples each), and the bound (operations: 2 B E D
     flops at 67 TFLOP/s in f32, at 989 TFLOP/s for bf16); and the largest
@@ -238,7 +242,9 @@ card) and a CSR one; `MatcherConfig(max_bytes=64, max_levels=8)`:
     the launches a batch (`launches_per_batch_plus`);
 33. `kernel` for tokenize, vocab_lookup, nfa_walk, fanout_bitmaps and
     compact_fanout_slots at plus_100k's shapes, each against its twin
-    (their `plus_100k` cases), the composite's bound, and
+    (their `plus_100k` cases; vocab_lookup's, here and at mixed_10m, with
+    `in_vocab_lanes`, `past_depth_share` and the table's slots, live words
+    and tombstones), the composite's bound, and
     `route_breakdown_plus` (encode, h2d, launches, readback, route, and a
     `TpuMatcher` batch);
 The mesh paths (`emqx_tpu_torch.parallel`): a 2 x 2 ('dp', 'tp') mesh of
@@ -1048,6 +1054,10 @@ def kernel_report(torch, kinds, plain_reps=TIMING_REPS) -> dict:
         plain_ms = time_ms(k["plain"], torch, inner=PLAIN_INNER, reps=plain_reps)
         lib_ms = time_ms(k["library"], torch) if k.get("library") else None
         dev_ms, dev_via = device_ms(torch, kname, k["kernel"], k.get("per_call"))
+        # a cross-check a trace cannot lose records of: CUDA events around
+        # 20 calls queued behind a spin, the launches' gaps included (an
+        # aged process's trace printed rule_masks below its launch floor)
+        ev_ms = queued_ms(torch, k["kernel"])
         bound_ms, bound_by = bound(k["bytes"], k["ops"])
         src, replaces = SOURCES[kname]
         report[name] = {
@@ -1056,10 +1066,11 @@ def kernel_report(torch, kinds, plain_reps=TIMING_REPS) -> dict:
             "bound_by": bound_by, "library_ms": lib_ms,
             # the kernel alone on the device, without the launch path that
             # `ms` includes
-            "device_ms": dev_ms, "device_via": dev_via, **k.get("notes", {}),
+            "device_ms": dev_ms, "device_via": dev_via, "events_ms": ev_ms,
+            **k.get("notes", {}),
         }
         phase("kernel", kernel=kname, case=name, equal=True, ms=ms, device_ms=dev_ms,
-              device_via=dev_via,
+              device_via=dev_via, events_ms=ev_ms,
               plain_ms=plain_ms, plain_samples=plain_reps, library_ms=lib_ms,
               bound_ms=bound_ms, bytes=k["bytes"], ops=k["ops"], **k.get("notes", {}))
     return report
@@ -1116,6 +1127,18 @@ def lanes_over_8(torch, bits, kslot: int) -> float:
         mine = torch.clamp(torch.minimum(c, kslot - (torch.cumsum(c, 1) - c)), min=0)
         over += int((mine > 8).sum())
     return over / (B * G)
+
+
+def vocab_notes(torch, syms, nwords, tables) -> dict:
+    """What a vocab_lookup case's time depends on: the lanes found, the
+    share of lanes past their row's depth (hash pair (0, 0)), and the
+    table's slots and fill."""
+    B, L = syms.shape
+    past = int((torch.arange(L, device=syms.device)[None, :] >= nwords[:, None]).sum())
+    vsym = tables["vocab_sym"]
+    return {"in_vocab_lanes": int((syms >= 0).sum()), "past_depth_share": past / (B * L),
+            "vocab_slots": int(vsym.numel()), "vocab_live": int((vsym >= 0).sum()),
+            "vocab_tombstones": int((vsym == -3).sum())}
 
 
 def serving_work(name: str, *, B: int, L: int = 0, MB: int = 0, nbytes: int = 0, P: int = 0,
@@ -1240,6 +1263,7 @@ def serving_kinds(torch, args, topics, nfa_cfg=None, ragged=False):
             kernel=lambda: T.vocab_lookup(nfa_tables, h1, h2, P),
             plain=lambda: T.vocab_lookup_plain(nfa_tables, h1, h2, P),
             out=syms,
+            notes=vocab_notes(torch, syms, nw, nfa_tables),
             **serving_work("vocab_lookup", B=B, L=L, P=P, in_vocab=in_vocab),
         )
         kinds["nfa_walk"] = dict(
@@ -3447,11 +3471,29 @@ def sem_candidate_err(torch, sem_t, q, matched, topk, dtype, rows=64) -> float:
     return worst / SEM_TAU
 
 
+def rule_uploads(torch, RC, calls) -> list:
+    """-> the `rule_code` uploads (each after one `encode_progs`) that each
+    of `calls` (zero-argument calls of `eval_rule_masks`) made, in order."""
+    out = []
+    for call in calls:
+        before = RC.RULE_CODE_COUNTS["uploads"]
+        call()
+        out.append(RC.RULE_CODE_COUNTS["uploads"] - before)
+    torch.cuda.synchronize()
+    return out
+
+
 def rule_kind(torch, filt, msgs, dev):
     """rule_masks at the path's batch: against its twin and the numpy host
     masks, EQUAL; bound by bytes (features and validity read once, masks
-    written)."""
+    written). The call (`ms`) finds the programs on the device; a repeated
+    call must upload nothing, and one after a refresh that changes the
+    rule set (the same rules in another order) exactly once. Notes: the
+    uploads of those calls, and the call's time when the
+    programs are not cached (encoded and uploaded every call, as before
+    `rule_code` kept them)."""
     from emqx_tpu_torch.rules import compile as RC
+    from emqx_tpu_torch.rules import sql as RS
 
     progs = filt.progs
     f_np, v_np = filt.features(msgs)
@@ -3459,6 +3501,24 @@ def rule_kind(torch, filt, msgs, dev):
     out = RC.eval_rule_masks(progs, feats, valid)
     if not np.array_equal(out.cpu().numpy(), filt.host_masks(msgs)):
         raise AssertionError("rule_masks != the numpy host masks")
+    refreshed = rule_filter(RULES_SQL, RS, RC)  # a refresh over the same rules
+    changed = rule_filter(RULES_SQL[::-1], RS, RC)
+    cf, cv = (torch.from_numpy(x).to(dev) for x in changed.features(msgs))
+    counts = rule_uploads(torch, RC, [
+        lambda: RC.eval_rule_masks(filt.progs, feats, valid),
+        lambda: RC.eval_rule_masks(refreshed.progs, feats, valid),
+        lambda: RC.eval_rule_masks(changed.progs, cf, cv),
+        lambda: RC.eval_rule_masks(changed.progs, cf, cv)])
+    if counts != [0, 0, 1, 0]:
+        raise AssertionError(f"rule_code uploads {counts}: want a repeated call to "
+                             "upload nothing and a changed rule set once")
+
+    def uncached():
+        RC._rule_code.clear()
+        return RC.eval_rule_masks(progs, feats, valid)
+
+    uncached_ms = time_ms(uncached, torch)
+    RC.eval_rule_masks(progs, feats, valid)
     B, F = feats.shape
     n_ops = sum(len(p) for p in progs)
     return dict(
@@ -3467,8 +3527,9 @@ def rule_kind(torch, filt, msgs, dev):
         out=out,
         bytes=5 * B * F + len(progs) * B,
         ops=B * n_ops * 4,
+        notes=dict(call_uploads=counts, uncached_call_ms=uncached_ms),
     ), {"rules": len(progs), "features": F, "ops": n_ops, "device": str(dev),
-        "passes": out.sum(dim=1).tolist()}
+        "depth": RC.rule_code(progs, dev)[0].depth, "passes": out.sum(dim=1).tolist()}
 
 
 def sem_churn(rng, sem, cents, index, n_add, n_replace, n_remove, base):
@@ -4149,7 +4210,8 @@ def plus_kinds(torch, tables, bits, topics, salt, cfg, kslot):
             plain=lambda: T.tokenize_plain(bm, ln, salt, L), out=tok),
         "vocab_lookup": dict(
             kernel=lambda: T.vocab_lookup(tables, h1, h2, P),
-            plain=lambda: T.vocab_lookup_plain(tables, h1, h2, P), out=syms),
+            plain=lambda: T.vocab_lookup_plain(tables, h1, h2, P), out=syms,
+            notes=vocab_notes(torch, syms, nw, tables)),
         "nfa_walk": dict(
             kernel=lambda: Mt.batch_match_syms(tables, syms, nw, dl, frontier=F,
                                                max_matches=K, probes=P),

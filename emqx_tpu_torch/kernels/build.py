@@ -108,8 +108,9 @@ _SIGNATURES = {
     "emqx_semantic_merge": (_P, _P, _P, _I, _P, _L, _P, _P, _I, _I, _I, _P, _P, _P),
     # slots, kslot, sem_slots, topk, B, out, stream
     "emqx_semantic_union": (_P, _I, _P, _I, _I, _P, _P),
-    # code, offsets, lits, R, feats, valid, B, F, out, stream
-    "emqx_rule_masks": (_P, _P, _P, _I, _P, _P, _I, _I, _P, _P),
+    # words (codes, offsets, rule order, literals), code words, R, words,
+    # depth, feats, valid, B, F, out, stream
+    "emqx_rule_masks": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P),
 }
 
 _lib = None  # the loaded library (the port's one extension handle)

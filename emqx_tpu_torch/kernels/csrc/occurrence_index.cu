@@ -9,12 +9,14 @@
 // Bound: bytes. The function reads n gids and writes n ranks (8n bytes),
 // with a range check, a count, a prefix and an add a lane.
 //
-// Design: no sort. The caller knows the range: every gid is -1 or below
-// `gcap` (share_pick passes the group arrays' length), so a gid is one of
-// gcap + 1 columns (column gid + 1; a gid outside [-1, gcap) is the
-// caller's error and is ranked as -1, so nothing is read or written out of
-// bounds). A lane's rank is its stable rank inside its tile plus the count
-// of its column in all earlier tiles. Three launches:
+// Design: no sort. The caller knows the range: a gid is -1 or below `gcap`
+// (share_pick passes the group arrays' length), so a gid is one of gcap + 1
+// columns (column gid + 1). A lane's rank is its stable rank inside its
+// tile plus the count of its column in all earlier tiles. A gid outside
+// [-1, gcap) (a group table that names a group past its arrays, which a
+// `GroupTable` never uploads) takes no column: occ_add ranks it exactly by
+// counting its equals among the lanes before it, O(i) reads for lane i,
+// so the result is the reference's on every input. Three launches:
 //   1. occ_count_kernel, one block a tile of `sub` x 2048 lanes, each
 //      2048-lane sub-tile ranked in shared memory by 8 warps of 256 lanes:
 //      - column 0 (no group; most lanes of a batch) is ranked by ballots: a
@@ -36,7 +38,8 @@
 //   2. occ_scan_kernel: the exclusive prefix of each column over the tiles,
 //      in place; a block takes 32 columns (coalesced rows), its 8 warps a
 //      segment of tiles each, loads in flight together.
-//   3. occ_add_kernel, a thread a lane: occ[i] += prefix[tile][column].
+//   3. occ_add_kernel, a thread a lane: occ[i] += prefix[tile][column], or
+//      for a gid without a column the count of its equals before lane i.
 // The count matrix is the wrapper's scratch, tiles x stride int32 (stride
 // gcap + 1 rounded up to 4 words); the wrapper picks `sub` so that it
 // stays a few MB at share's gcap of 16,384 (64 tiles of 2,048 lanes at
@@ -53,6 +56,7 @@ constexpr int kWarpSpan = 32 * kRounds;         // lanes a warp a sub-tile
 constexpr int kSub = kWarps * kWarpSpan;        // lanes a sub-tile (OCC_SUB)
 constexpr int kSlots = 2 * kSub;                // hash slots: at most half full
 constexpr int kNone = -1;                       // a lane past n
+constexpr int kOut = -2;                        // a gid outside [-1, gcap)
 constexpr int kScanChunk = 8;                   // tiles a scan thread loads at once
 
 static_assert(kWarpSpan < 65536, "a warp's count must fit 16 bits");
@@ -74,9 +78,9 @@ __host__ __device__ constexpr long long row_stride(long long gcap) {
   return (gcap + 4) & ~3LL;  // gcap + 1 columns, rounded up to 16 bytes
 }
 
-// column of a gid: gid + 1 in [0, gcap]; out-of-range gids rank as -1
+// column of a gid: gid + 1 in [0, gcap]; kOut past that range
 __device__ __forceinline__ int32_t column(int32_t g, long long gcap) {
-  return g >= 0 && g < gcap ? g + 1 : 0;
+  return g >= -1 && g < gcap ? g + 1 : kOut;
 }
 
 // the slot of column k (>= 1), inserting it; `fresh` when this call did
@@ -216,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < kRounds; ++r) {
-      if (col[r] == kNone) continue;
+      if (col[r] < 0) continue;  // past n, or ranked by occ_add
       const int32_t before = col[r] > 0 ? static_cast<int32_t>(sh.cnt[slot[r]].x)
                                         : sh.none_before;
       occ[first + r * 32] = rank[r] + before;
@@ -273,8 +277,21 @@ __global__ void occ_add_kernel(const int32_t* __restrict__ gids, long long n,
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (i >= n) return;
-  const int32_t c = column(gids[i], gcap);
-  occ[i] += __ldg(prefix + (i / span) * row_stride(gcap) + c);
+  const int32_t g = gids[i];
+  const int32_t c = column(g, gcap);
+  if (c >= 0) {
+    occ[i] += __ldg(prefix + (i / span) * row_stride(gcap) + c);
+    return;
+  }
+  // no column: count the equal gids before this lane, four reads in flight
+  int32_t k[4] = {0, 0, 0, 0};
+  long long j = 0;
+  for (; j + 4 <= i; j += 4) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) k[u] += __ldg(gids + j + u) == g;
+  }
+  for (; j < i; ++j) k[0] += __ldg(gids + j) == g;
+  occ[i] = k[0] + k[1] + k[2] + k[3];
 }
 
 // the tiles of a call, or -1 when the arguments do not fit the scratch

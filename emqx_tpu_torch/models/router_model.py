@@ -269,12 +269,14 @@ def occurrence_index(flat_gids, *, gcap: Optional[int] = None):
 
     flat_gids int32 [n] -> int32 [n]. The counterpart of `_occurrence_index`
     (emqx_tpu/models/router_model.py:885): round-robin's per-batch offset
-    of each pick from its group's synced base. On CUDA it needs `gcap`
-    (every gid is -1 or below it; a gid outside [-1, gcap) is the caller's
-    error and is ranked as -1) and launches 3 kernels: the in-tile ranks
-    and per-tile counts, their prefix over tiles, and the add
-    (`kernels/csrc/occurrence_index.cu`). On the CPU the twin needs no
-    range and `gcap` is not read."""
+    of each pick from its group's synced base. On CUDA it needs `gcap` and
+    launches 3 kernels: the in-tile ranks and per-tile counts of the gids
+    in [-1, gcap), their prefix over tiles, and the add
+    (`kernels/csrc/occurrence_index.cu`). A gid outside [-1, gcap) is
+    ranked exactly too, by the add launch counting its equals among the
+    lanes before it (O(n) reads a lane: the path for group tables that
+    name a group past their arrays, which a `GroupTable` never uploads).
+    On the CPU the twin needs no range and `gcap` is not read."""
     kernels.check_tensor(flat_gids, "flat_gids", torch.int32, 1)
     n = flat_gids.shape[0]
     if n >= 1 << 31:
@@ -413,7 +415,11 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     group lanes, whose per-group ranks `occurrence_index` computes, then
     for the picks, which reads those lanes back from ``pick_gid``. The
     kernel indexes in 32 bits: B x K x GPF and Fcap x GPF at or past 2^31
-    raise, on either device.
+    raise, on either device. A `filter_groups` gid at or past Gcap (raw
+    tables only: a `GroupTable` grows Gcap with its gids) picks as JAX
+    does on either device: its member count, base and sticky index are
+    group Gcap - 1's (JAX's gathers clamp), and round robin ranks it
+    among the lanes of the same gid (`occurrence_index`'s exact path).
 
     The mesh branch (``dp_axis``, emqx_tpu/models/router_model.py:942-962):
     with the batch split over 'dp', ``dp_gather`` maps this shard's

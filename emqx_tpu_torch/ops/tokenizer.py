@@ -256,6 +256,11 @@ def vocab_lookup(tables, h1, h2, probes: int):
     [B, L] from `tokenize` -> sym int32 [B, L] (-1 = out of vocabulary).
     Every lane is looked up, those past a row's depth included, as in the
     counterpart `vocab_lookup_device` (emqx_tpu/ops/tokenizer.py:294).
+    On CUDA a lane reads each probe's three words together and stops at
+    its first hit or at its first never-written slot (vocab_sym -1), which
+    equals the twin on every table an `NfaBuilder` makes: none holds a
+    live word behind a -1 within its probe window
+    (`kernels/csrc/vocab_lookup.cu`).
     """
     for k in ("vocab_h1", "vocab_h2", "vocab_sym"):
         kernels.check_tensor(tables[k], k, torch.int32, 1)

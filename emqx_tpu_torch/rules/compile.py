@@ -9,10 +9,15 @@ unrolling:
   int32 opcode/argument array, per-rule offsets and an f32 literal pool
   (`RuleCode`), with each program's stack depth checked against the
   kernel's `STACK_MAX`;
+- `rule_code`: the encoded programs as one int32 buffer on a device,
+  cached by the programs' value and the device, so `encode_progs` and the
+  copy run once a rule set (after `DeviceRuleFilter.refresh` changes it),
+  never once a batch;
 - `eval_rule_masks`: every rule's WHERE mask over one feature batch in ONE
-  launch of the `rule_masks` kernel (`kernels/csrc/rule_masks.cu`), one
-  thread per (rule, row) interpreting the encoded program. A rule-set
-  change is a new upload of a few hundred bytes, never a rebuild;
+  launch of the `rule_masks` kernel (`kernels/csrc/rule_masks.cu`): a
+  block stages a tile of rows' features, then its warps interpret a group
+  of 8 programs over them, a warp a program. A rule-set change is a new
+  upload of a few hundred bytes, never a rebuild;
 - `eval_rule_masks_plain`, its plain PyTorch twin, which follows the JAX
   trace's arithmetic (`jnp.floor_divide` and `jnp.mod` on floats, null
   semantics) op for op.
@@ -34,7 +39,9 @@ Not in the port yet: the rule engine's device attach and settle path
 
 from __future__ import annotations
 
+import collections
 import json
+import threading
 import zlib
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
@@ -508,15 +515,75 @@ def eval_prog_plain(prog: Sequence[tuple], feats: torch.Tensor,
     return va & (a != 0)
 
 
-def _check_inputs(progs, feats, valid) -> RuleCode:
+# the encoded rule sets kept on their devices, the last used last
+RULE_CODE_CACHE_MAX = 4
+_rule_code: "collections.OrderedDict[tuple, Tuple[RuleCode, torch.Tensor]]" = (
+    collections.OrderedDict())
+_rule_code_lock = threading.Lock()
+# buffers `rule_code` encoded and placed on a device (each after one
+# `encode_progs`)
+RULE_CODE_COUNTS = {"uploads": 0}
+
+
+def rule_code_key(progs, device) -> tuple:
+    """The key `rule_code` caches under: the programs by value (the tuple
+    of op tuples `compile_where` makes, as it is; any other sequence turned
+    into one) and the device. Equal programs share an entry: Python's ==
+    merges literals such as 1, 1.0 and True, which encode alike, and 0.0
+    with -0.0, whose sign reaches no mask (a division by a zero of either
+    sign is invalid, and every other op keeps or drops a zero's sign only)."""
+    if isinstance(progs, tuple):
+        try:
+            hash(progs)
+            return progs, torch.device(device)
+        except TypeError:
+            pass
+    return tuple(tuple(tuple(op) for op in p) for p in progs), torch.device(device)
+
+
+def rule_code(progs, device) -> Tuple[RuleCode, torch.Tensor]:
+    """-> (the programs' `RuleCode`, its one int32 buffer on `device`: the
+    codes, the offsets, the rules longest program first, then the
+    literals' bits), cached by
+    `rule_code_key`. `encode_progs` and the copy run only for programs not
+    seen on that device among the `RULE_CODE_CACHE_MAX` last used, so a
+    serving loop pays them once after each `DeviceRuleFilter.refresh` that
+    changes the rule set. The copy to a card goes through pinned memory on
+    the current stream and does not block the host."""
+    key = rule_code_key(progs, device)
+    with _rule_code_lock:
+        hit = _rule_code.get(key)
+        if hit is not None:
+            _rule_code.move_to_end(key)
+            return hit
+    rc = encode_progs(key[0])
+    # the kernel's groups of 8 rules take them longest program first
+    order = np.argsort(-np.diff(rc.offsets), kind="stable").astype(np.int32)
+    words = np.concatenate([rc.code, rc.offsets, order, rc.lits.view(np.int32)])
+    dev = key[1]
+    if dev.type == "cuda":
+        host = torch.empty(words.size, dtype=torch.int32, pin_memory=True)
+        host.numpy()[:] = words
+        buf = host.to(dev, non_blocking=True)
+    else:
+        buf = torch.from_numpy(words).to(dev)
+    with _rule_code_lock:
+        RULE_CODE_COUNTS["uploads"] += 1
+        _rule_code[key] = (rc, buf)
+        while len(_rule_code) > RULE_CODE_CACHE_MAX:
+            _rule_code.popitem(last=False)
+    return rc, buf
+
+
+def _check_inputs(progs, feats, valid) -> Tuple[RuleCode, torch.Tensor]:
     kernels.check_tensor(feats, "feats", torch.float32, 2)
     kernels.check_tensor(valid, "valid", torch.bool, 2)
     if feats.shape != valid.shape:
         raise ValueError(f"feats {tuple(feats.shape)} != valid {tuple(valid.shape)}")
-    rc = encode_progs(progs)
+    rc, buf = rule_code(progs, feats.device)
     if rc.lanes > feats.shape[1]:
         raise ValueError(f"a program reads lane {rc.lanes - 1} of {feats.shape[1]} features")
-    return rc
+    return rc, buf
 
 
 def eval_rule_masks_plain(progs, feats: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -533,26 +600,24 @@ def eval_rule_masks(progs, feats: torch.Tensor, valid: torch.Tensor) -> torch.Te
     feats f32 [B, F] and valid bool [B, F] from `extract_features` ->
     bool [R, B]. The counterpart of `eval_rule_masks`
     (emqx_tpu/rules/compile.py:318), which unrolls `eval_prog` into the
-    serving jit. One launch, one thread per (rule, row); the encoded
-    programs (a few hundred bytes) travel with the call as one int32
-    buffer: the codes, the offsets, then the literals' bits."""
-    rc = _check_inputs(progs, feats, valid)
+    serving jit. One launch: a block stages a tile of 32 rows, and its 8
+    warps interpret a group of 8 rules over them, longest programs first
+    (`kernels/csrc/rule_masks.cu`); any R fits (the 65,535-rule limit of
+    the earlier grid is lifted). The encoded programs come from
+    `rule_code`: a call with a rule set already on the device encodes and
+    copies nothing."""
+    rc, buf = _check_inputs(progs, feats, valid)
     if not kernels.on_cuda(feats, valid):
         return eval_rule_masks_plain(progs, feats, valid)
     B, F = feats.shape
-    R = len(progs)
+    R = len(rc.offsets) - 1
     dev = feats.device
     out = torch.empty((R, B), dtype=torch.bool, device=dev)
     if R == 0 or B == 0:
         return out
-    if R > 65535:
-        raise ValueError(f"{R} rules: the kernel's grid holds at most 65,535")
-    buf = torch.from_numpy(np.concatenate(
-        [rc.code, rc.offsets, rc.lits.view(np.int32)])).to(dev)
-    base = buf.data_ptr()
-    kernels.launch("rule_masks", "emqx_rule_masks", dev,
-                   base, base + 4 * rc.code.size, base + 4 * (rc.code.size + rc.offsets.size),
-                   R, feats.data_ptr(), valid.data_ptr(), B, F, out.data_ptr())
+    kernels.launch("rule_masks", "emqx_rule_masks", dev, buf.data_ptr(), rc.code.size, R,
+                   buf.numel(), rc.depth, feats.data_ptr(), valid.data_ptr(), B, F,
+                   out.data_ptr())
     return out
 
 

@@ -326,6 +326,90 @@ def test_edge_chains_hold_no_empty_slot_before_a_live_edge(seed):
     assert rehash["tombstones_dropped"] > 0 and most > 0.2, (rehash, most)
 
 
+def vocab_chain_breaks(builder):
+    """The live words whose vocab probe chain meets a never-written slot
+    (vocab_sym -1) before the word's own slot, or misses it, within
+    `MAX_PROBES` slots."""
+    V = builder._V
+    h1a, h2a, syma = builder.arr_vocab_h1, builder.arr_vocab_h2, builder.arr_vocab_sym
+    bad = []
+    for word, (sym, _refs, h1, h2) in builder._vocab.items():
+        slot = P_nfa.vocab_slot_hash(h1) & (V - 1)
+        for p in range(P_nfa.MAX_PROBES):
+            idx = (slot + p) & (V - 1)
+            if syma[idx] == sym and h1a[idx] == np.uint32(h1) and h2a[idx] == np.uint32(h2):
+                break
+            if syma[idx] == -1:
+                bad.append(word)
+                break
+        else:
+            bad.append(word)
+    return bad
+
+
+def vocab_churn_steps(seed):
+    """Both packages' `NfaBuilder`s through seeded word churn: filters of
+    two fresh words each (`w{i}/x{i}`) and a shared tail word, 900 added
+    (the vocab grows past 1,024 slots), then twelve rounds that remove 150
+    random live filters and add 150 new ones (their words' last filter
+    goes: tombstones, reused by later inserts, and the tombstone-clearing
+    rehash), then removals down to 40 live filters. Yields (label, jax
+    builder, port builder) after each step."""
+    rng = random.Random(seed)
+    builders = (J_nfa.NfaBuilder(), P_nfa.NfaBuilder())
+    nxt = 0
+
+    def fresh(n):
+        nonlocal nxt
+        out = [f"w{i}/x{i}/{rng.choice('abc')}" for i in range(nxt, nxt + n)]
+        nxt += n
+        return out
+
+    def apply(op, filters):
+        for f in filters:
+            for b in builders:
+                getattr(b, op)(f)
+
+    yield "empty", builders[0], builders[1]
+    live = fresh(900)
+    apply("add", live)
+    yield "added", builders[0], builders[1]
+    for r in range(12):
+        gone = set(rng.sample(range(len(live)), 150))
+        apply("remove", [live[i] for i in sorted(gone)])
+        live = [f for i, f in enumerate(live) if i not in gone]
+        yield f"round {r} removed", builders[0], builders[1]
+        new = fresh(150)
+        apply("add", new)
+        live += new
+        yield f"round {r} added", builders[0], builders[1]
+    while len(live) > 40:
+        apply("remove", live[:60])
+        live = live[60:]
+        yield f"{len(live)} live", builders[0], builders[1]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_vocab_chains_hold_no_empty_slot_before_a_live_word(seed):
+    """`vocab_lookup.cu` ends a lane's probe chain at its first
+    never-written slot: exact only while no live word sits behind a -1
+    within `MAX_PROBES` slots. Both packages' builders through word churn
+    (tombstones, their reuse, growth and the tombstone-clearing rehash),
+    every live word walked after every step."""
+    tombs = 0
+    grown = set()
+    for label, j, p in vocab_churn_steps(seed):
+        assert J_nfa.vocab_slot_hash(12345) == P_nfa.vocab_slot_hash(12345)
+        assert vocab_chain_breaks(j) == [], label
+        assert vocab_chain_breaks(p) == [], label
+        for k in ("vocab_h1", "vocab_h2", "vocab_sym"):
+            np.testing.assert_array_equal(p.device_snapshot()[k], j.device_snapshot()[k],
+                                          err_msg=f"{label}: {k}")
+        tombs = max(tombs, int((p.arr_vocab_sym == P_nfa.VOCAB_TOMB).sum()))
+        grown.add(p._V)
+    assert tombs > 0 and len(grown) > 1, (tombs, grown)
+
+
 def walk_topics(seed, n):
     """Topics over the churn's words: `$` topics, rows deeper than 8
     levels, and the all-`a` topics that open the widest frontiers."""
@@ -431,3 +515,128 @@ def test_nfa_walk_matches_twin_on_card_at_every_width(cuda_device, probes):
             calls += 1
     assert all(seen.values()), seen
     assert kernels.LAUNCHES["nfa_walk"] == calls  # one launch a call
+
+
+# -- vocab_lookup on the card at the edges of its probe window -------------
+
+M32 = 0xFFFFFFFF
+
+
+def slots_of(a, V):
+    """`vocab_slot_hash(a) & (V - 1)` over a uint32 array."""
+    h = (a.astype(np.uint64) * P_nfa.VOCAB_H_MUL) & M32
+    return ((h ^ (h >> P_nfa.VOCAB_H_SHIFT)) & (V - 1)).astype(np.int64)
+
+
+def key_at(rng, V, slot):
+    """A random h1 whose chain starts at `slot`."""
+    while True:
+        a = rng.integers(1, 1 << 32, size=1 << 16, dtype=np.uint64).astype(np.uint32)
+        hit = np.nonzero(slots_of(a, V) == slot)[0]
+        if hit.size:
+            return int(a[hit[0]])
+
+
+class VocabSim:
+    """A vocab table kept as the `NfaBuilder` keeps it (insert at the first
+    -1 or tombstone of the chain, delete to a tombstone), so no live word
+    sits behind a -1 within its window, plus slots written directly."""
+
+    def __init__(self, V):
+        self.V = V
+        self.h1 = np.zeros(V, np.uint32)
+        self.h2 = np.zeros(V, np.uint32)
+        self.sym = np.full(V, -1, np.int32)
+
+    def insert(self, a, b, s) -> bool:
+        start = int(slots_of(np.array([a], np.uint32), self.V)[0])
+        for p in range(P_nfa.MAX_PROBES):
+            i = (start + p) % self.V
+            if self.sym[i] in (-1, P_nfa.VOCAB_TOMB):
+                self.put(i, a, b, s)
+                return True
+        return False
+
+    def put(self, i, a, b, s):
+        self.h1[i % self.V], self.h2[i % self.V], self.sym[i % self.V] = a, b, s
+
+    def delete(self, a, b):
+        hit = np.nonzero((self.h1 == a) & (self.h2 == b) & (self.sym >= 0))[0]
+        self.sym[hit] = P_nfa.VOCAB_TOMB
+
+    def tables(self, dev):
+        return {"vocab_h1": torch.from_numpy(self.h1.view(np.int32).copy()).to(dev),
+                "vocab_h2": torch.from_numpy(self.h2.view(np.int32).copy()).to(dev),
+                "vocab_sym": torch.from_numpy(self.sym.copy()).to(dev)}
+
+
+def vocab_edge_case(name, rng):
+    """-> (VocabSim, query pairs [n, 2] uint32): one edge of the probe
+    window a case; each table stays one an NfaBuilder could make."""
+    if name in ("wrap", "tombstone_before_hit", "hit_at_probe_7", "past_probe_8"):
+        V = 64
+        sim = VocabSim(V)
+        start = V - 2 if name == "wrap" else 5
+        a = key_at(rng, V, start)
+        at = {"wrap": 3, "tombstone_before_hit": 2, "hit_at_probe_7": 7, "past_probe_8": 8}[name]
+        for p in range(at):  # the slots before: stale copies, or live words of the same chain
+            if name == "tombstone_before_hit":
+                sim.put(start + p, a, 77, P_nfa.VOCAB_TOMB)
+            else:
+                sim.put(start + p, key_at(rng, V, start), rng.integers(1, 1 << 32), 100 + p)
+        sim.put(start + at, a, 77, 42)
+        queries = [(a, 77), (a, 78), (a + 1, 77)]
+        queries += [(int(sim.h1[i]), int(sim.h2[i])) for i in range(V) if sim.sym[i] >= 0]
+        return sim, np.array(queries, np.uint32)
+    if name == "all_past_depth":  # every lane asks for (0, 0); one table holds it
+        sim = VocabSim(8)
+        sim.insert(0, 0, 5)
+        sim.insert(3, 4, 6)
+        return sim, np.zeros((40, 2), np.uint32)
+    V = int(name.split("_")[1])  # "V_1", "V_2", "V_8": windows that wrap round
+    sim = VocabSim(V)
+    pairs = rng.integers(1, 1 << 32, size=(3 * V + 4, 2), dtype=np.uint64).astype(np.uint32)
+    placed = [p for i, p in enumerate(pairs) if sim.insert(int(p[0]), int(p[1]), i)]
+    for p in placed[::3]:
+        sim.delete(p[0], p[1])
+    if placed:
+        sim.insert(int(placed[0][0]), int(placed[0][1]), 99)  # a re-add into a tombstone
+    queries = np.concatenate([pairs, np.zeros((2, 2), np.uint32)])
+    return sim, queries
+
+
+VOCAB_EDGES = ["wrap", "tombstone_before_hit", "hit_at_probe_7", "past_probe_8",
+               "all_past_depth", "V_1", "V_2", "V_8"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VOCAB_EDGES)
+def test_vocab_lookup_kernel_at_the_window_edges_on_card(cuda_device, name):
+    """The kernel against its twin at the edges of a lane's probe window: a
+    window wrapping past V - 1, tombstones (stale copies of the pair) before
+    the hit, a hit at probe 7, a pair only past probe 8 (found with 9 or
+    more probes), every lane asking for (0, 0), V = 1, 2 and 8; each over
+    ragged B x L shapes of the same queries and probes 1, 3, 8, 9, 16."""
+    rng = np.random.default_rng(VOCAB_EDGES.index(name))
+    sim, queries = vocab_edge_case(name, rng)
+    tables = sim.tables(cuda_device)
+    kernels.reset_launches()
+    calls = 0
+    for B, L in ((1, 1), (3, 5), (len(queries), 1), (257, 7), (1000, 8)):
+        pick = rng.integers(0, len(queries), size=B * L)
+        q = torch.from_numpy(queries[pick].view(np.int32)).to(cuda_device)
+        h1, h2 = q[:, 0].reshape(B, L).contiguous(), q[:, 1].reshape(B, L).contiguous()
+        for probes in (1, 3, 8, 9, 16):
+            got = P_tok.vocab_lookup(tables, h1, h2, probes)
+            want = P_tok.vocab_lookup_plain(tables, h1, h2, probes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, B, L, probes)
+            calls += 1
+    assert kernels.LAUNCHES["vocab_lookup"] == calls
+    if name in ("wrap", "tombstone_before_hit", "hit_at_probe_7", "past_probe_8"):
+        at = {"wrap": 3, "tombstone_before_hit": 2, "hit_at_probe_7": 7, "past_probe_8": 8}[name]
+        one = torch.from_numpy(queries[:1].view(np.int32)).to(cuda_device)
+        for probes in (at, at + 1):
+            got = P_tok.vocab_lookup(tables, one[:, :1].contiguous(), one[:, 1:].contiguous(),
+                                     probes)
+            assert int(got[0, 0]) == (42 if probes > at else -1), (name, probes)

@@ -236,10 +236,12 @@ def test_empty_program_and_numeric_top():
     assert P_comp.eval_rule_masks_plain([], feats, valid).shape == (0, 3)
 
 
-def test_depth_limit_raises_and_never_runs_elsewhere():
-    def nested(n):
-        return "payload.a" + " + (payload.a" * (n - 1) + ")" * (n - 1) + " > 0"
+def nested(n):
+    """A WHERE clause whose program needs a stack of n entries."""
+    return "payload.a" + " + (payload.a" * (n - 1) + ")" * (n - 1) + " > 0"
 
+
+def test_depth_limit_raises_and_never_runs_elsewhere():
     ok_prog = compile_both([nested(P_comp.STACK_MAX)])[0]
     assert P_comp.encode_progs(ok_prog).depth == P_comp.STACK_MAX
     deep = compile_both([nested(P_comp.STACK_MAX + 3)])[0]
@@ -265,6 +267,82 @@ def test_port_numpy_eval_prog_equals_jax_numpy_twin():
         np.testing.assert_array_equal(
             np.asarray(P_comp.eval_prog(p_progs[0], pf, pv, np)),
             np.asarray(J_comp.eval_prog(j_progs[0], pf, pv, np)))
+
+
+# -- the program cache: encoded once a rule set and device ------------------
+
+
+@pytest.fixture
+def fresh_rule_code(monkeypatch):
+    """An empty `rule_code` cache and zeroed counters; `encode_progs` calls
+    counted apart from the cache's own count."""
+    monkeypatch.setattr(P_comp, "_rule_code", type(P_comp._rule_code)())
+    monkeypatch.setattr(P_comp, "RULE_CODE_COUNTS", {"uploads": 0})
+    calls = []
+    real = P_comp.encode_progs
+
+    def counted(progs):
+        calls.append(len(progs))
+        return real(progs)
+
+    monkeypatch.setattr(P_comp, "encode_progs", counted)
+    return calls
+
+
+def test_rule_code_key_is_the_programs_value_and_the_device():
+    progs, _j, _pl, _jl = compile_both(list(chip_smoke.RULES_SQL))
+    key = P_comp.rule_code_key(tuple(progs), "cpu")
+    rebuilt = tuple(tuple(tuple(op) for op in p) for p in progs)
+    assert rebuilt is not key[0]
+    assert P_comp.rule_code_key(rebuilt, "cpu") == key
+    assert P_comp.rule_code_key([list(map(list, p)) for p in progs], "cpu") == key
+    assert P_comp.rule_code_key(tuple(progs), torch.device("cuda", 0)) != key
+    assert P_comp.rule_code_key(tuple(progs[:-1]), "cpu") != key
+    # literals that compare equal share an entry and encode alike
+    a = P_comp.rule_code_key(((("lit", 1), ("truthy",)),), "cpu")
+    b = P_comp.rule_code_key(((("lit", 1.0), ("truthy",)),), "cpu")
+    assert a == b
+    np.testing.assert_array_equal(P_comp.encode_progs(a[0]).lits,
+                                  P_comp.encode_progs(b[0]).lits)
+
+
+def test_rule_code_encodes_once_a_rule_set(fresh_rule_code):
+    """Equal programs (a new tuple each call, as `DeviceRuleFilter.progs`
+    makes, or a refresh over the same rules) reuse one buffer: no
+    `encode_progs` and no new buffer; a refresh that changes the rule set
+    encodes and places one more; the cache keeps the `RULE_CODE_CACHE_MAX`
+    last used; the masks stay the twin's."""
+    calls = fresh_rule_code
+    rng = np.random.default_rng(72)
+    filt = chip_smoke.rule_filter(chip_smoke.RULES_SQL, P_sql, P_comp)
+    ctxs = chip_smoke.rule_messages(rng, ["device/1/a"] * 64)
+    f, v = (torch.from_numpy(x) for x in filt.features(ctxs))
+    first = P_comp.eval_rule_masks(filt.progs, f, v)
+    _rc, buf = P_comp.rule_code(filt.progs, "cpu")
+    again = chip_smoke.rule_filter(chip_smoke.RULES_SQL, P_sql, P_comp)  # the same rules
+    for progs in (filt.progs, filt.progs, again.progs):
+        assert torch.equal(P_comp.eval_rule_masks(progs, f, v), first)
+        assert torch.equal(P_comp.eval_rule_masks_plain(progs, f, v), first)
+    assert P_comp.rule_code(again.progs, "cpu")[1] is buf
+    assert len(calls) == 1 and P_comp.RULE_CODE_COUNTS == {"uploads": 1}
+    changed = chip_smoke.rule_filter(chip_smoke.RULES_SQL[:5], P_sql, P_comp)
+    cf, cv = (torch.from_numpy(x) for x in changed.features(ctxs))
+    got = P_comp.eval_rule_masks(changed.progs, cf, cv)
+    np.testing.assert_array_equal(got.numpy(), changed.host_masks(ctxs))
+    assert len(calls) == 2 and P_comp.RULE_CODE_COUNTS == {"uploads": 2}
+    for k in range(P_comp.RULE_CODE_CACHE_MAX + 2):
+        P_comp.rule_code(((("lit", float(k)), ("truthy",)),), "cpu")
+        assert len(P_comp._rule_code) <= P_comp.RULE_CODE_CACHE_MAX
+    assert len(calls) == 4 + P_comp.RULE_CODE_CACHE_MAX
+    P_comp.eval_rule_masks(filt.progs, f, v)  # evicted by now: encoded again
+    assert len(calls) == 5 + P_comp.RULE_CODE_CACHE_MAX
+    # a program the kernel refuses is refused on every call and never kept
+    deep = compile_both([nested(P_comp.STACK_MAX + 1)])[0]
+    for _ in range(2):
+        with pytest.raises(ValueError, match="at most 64"):
+            P_comp.eval_rule_masks(deep, torch.zeros((2, 1)),
+                                   torch.ones((2, 1), dtype=torch.bool))
+    assert len(P_comp._rule_code) == P_comp.RULE_CODE_CACHE_MAX
 
 
 # -- on the card: the kernel against its twin (skips without CUDA) ---------
@@ -301,3 +379,98 @@ def test_rule_masks_kernel_matches_twin_on_card(cuda_device):
                     np.stack([P_comp.eval_prog(p, pf, pv, np) for p in p_progs]))
             calls += 1
     assert kernels.LAUNCHES["rule_masks"] == calls
+
+
+def rule_kernel_case(name):
+    """-> (WHERE clauses, a context generator, whether the numpy host twin
+    must agree: not where a `div` or `mod` meets a fraction, whose
+    truncated zero numpy turns into inf where the device gives NaN)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "rule_set":
+        return list(chip_smoke.RULES_SQL), lambda r, n: chip_smoke.rule_messages(
+            r, [f"device/{i % 97}/x" for i in range(n)]), True
+    if name == "one_rule":
+        return ["payload.temp >= 20 AND payload.hum < 60"], lambda r, n: (
+            chip_smoke.rule_messages(r, ["device/1/x"] * n)), True
+    if name == "stack_max":  # a program at the kernel's STACK_MAX
+        return [nested(P_comp.STACK_MAX), "payload.a > 1"], lambda r, n: [
+            ctx(a=float(r.integers(-3, 4))) for _ in range(n)], True
+    if name == "past_a_tile":  # more rules than a block's 8 warps
+        return [_gen_bool(rng, 3) for _ in range(20)], lambda r, n: [
+            _gen_ctx(r) for _ in range(n)], True
+    if name == "fuzz":  # the programs of test_fuzz_masks_equal_jax
+        frng = np.random.default_rng(0xC1)
+        return [_gen_bool(frng, 3) for _ in range(25)], lambda r, n: [
+            _gen_ctx(r) for _ in range(n)], True
+    if name == "many_rules":  # programs past the 32 KB staged in shared memory
+        return [_gen_bool(rng, 3) for _ in range(700)], lambda r, n: [
+            _gen_ctx(r) for _ in range(n)], True
+    assert name == "idiv_truncated_zero"
+    return ["payload.a div payload.b > 1",
+            "NOT (payload.a div payload.b = payload.a div payload.b)",
+            "payload.a mod payload.b = payload.a mod payload.b",
+            "payload.a div payload.b = 3"], lambda r, n: [
+        [ctx(a=7, b=0.5), ctx(a=7, b=2), ctx(a=0, b=0.5), ctx(a=7, b=0)][i % 4]
+        for i in range(n)], False
+
+
+RULE_KERNEL_CASES = ["rule_set", "one_rule", "stack_max", "past_a_tile", "fuzz",
+                     "many_rules", "idiv_truncated_zero"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F_min", [1, 10, 17, 500])
+@pytest.mark.parametrize("name", RULE_KERNEL_CASES)
+def test_rule_masks_kernel_cases_on_card(cuda_device, name, F_min):
+    """The kernel against its twin (and the numpy host masks where they
+    agree) on: the chip rule set, one rule, a program at STACK_MAX, more
+    rules than a block's warps, the fuzz programs, a rule set whose
+    programs pass the shared-memory copy (read through L1), the
+    truncated-zero `idiv`; F widened with unread lanes to 1, 10, 17 and 500
+    (past the staged features: read through L1); B 1, 33, 4,101 (a ragged
+    last tile) and 8,192."""
+    wheres, gen, numpy_ok = rule_kernel_case(name)
+    p_progs, _j, pl, _jl = compile_both(wheres)
+    rng = np.random.default_rng(F_min)
+    kernels.reset_launches()
+    for B in (1, 33, 4101, 8192):
+        ctxs = gen(rng, B)
+        pf, pv, _ = P_comp.extract_features(ctxs, pl)
+        F = max(pf.shape[1], F_min)
+        wf = rng.normal(size=(B, F)).astype(np.float32)
+        wv = rng.random((B, F)) < 0.5
+        wf[:, :pf.shape[1]], wv[:, :pf.shape[1]] = pf, pv
+        ft = torch.from_numpy(wf).to(cuda_device)
+        vt = torch.from_numpy(wv).to(cuda_device)
+        got = P_comp.eval_rule_masks(p_progs, ft, vt)
+        want = P_comp.eval_rule_masks_plain(p_progs, ft, vt)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bool and torch.equal(got, want), (name, F, B)
+        if numpy_ok:
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), np.stack([P_comp.eval_prog(p, wf, wv, np) for p in p_progs]))
+    assert kernels.LAUNCHES["rule_masks"] == 4
+
+
+@pytest.mark.cuda
+def test_rule_code_uploads_once_a_rule_set_on_card(cuda_device, fresh_rule_code):
+    """On the card: repeated calls with equal programs encode and upload
+    nothing after the first; a changed rule set uploads once; the buffer
+    lies on the card and the masks equal the twin's."""
+    calls = fresh_rule_code
+    rng = np.random.default_rng(73)
+    filt = chip_smoke.rule_filter(chip_smoke.RULES_SQL, P_sql, P_comp)
+    ctxs = chip_smoke.rule_messages(rng, ["device/1/a"] * 300)
+    f, v = (torch.from_numpy(x).to(cuda_device) for x in filt.features(ctxs))
+    for _ in range(4):
+        got = P_comp.eval_rule_masks(filt.progs, f, v)
+        assert torch.equal(got, P_comp.eval_rule_masks_plain(filt.progs, f, v))
+    assert len(calls) == 1 and P_comp.RULE_CODE_COUNTS == {"uploads": 1}
+    assert P_comp.rule_code(filt.progs, f.device)[1].is_cuda
+    changed = chip_smoke.rule_filter(chip_smoke.RULES_SQL[::-1], P_sql, P_comp)
+    cf, cv = (torch.from_numpy(x).to(cuda_device) for x in changed.features(ctxs))
+    for _ in range(3):
+        got = P_comp.eval_rule_masks(changed.progs, cf, cv)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), changed.host_masks(ctxs))
+    assert len(calls) == 2 and P_comp.RULE_CODE_COUNTS == {"uploads": 2}

@@ -5,8 +5,8 @@ seeded operations), `stable_hash`, the plain twins of `share_pick` against
 `share_pick_device` under all five strategies (with `group_rr` near 2^31,
 empty groups, out-of-range sticky indices and -1 holes) and of
 `occurrence_index` against `_occurrence_index` (with and without the
-`gcap` range the CUDA kernel needs); the twin at GPF 1-5 and 8 (raw tables)
-and the 32-bit size rule; then (`cuda` marker, skipped without a card)
+`gcap` range the CUDA kernel needs); the twin at GPF 1-5 and 8 (raw tables),
+with `filter_groups` gids at and past Gcap, and the 32-bit size rule; then (`cuda` marker, skipped without a card)
 both CUDA kernels against their twins.
 Tolerance: EXACT equality — every output is an integer.
 """
@@ -166,6 +166,47 @@ def test_share_pick_twin_matches_jax_at_every_gpf(gpf, K, strategy):
         assert g.dtype == torch.int32 and tuple(g.shape) == (B, K * gpf)
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (got[0] >= 0).sum() > 50
+
+
+def tables_past_gcap(rng, gpf=4, gcap=200):
+    """`raw_group_tables` whose live lanes also name groups at and past
+    Gcap: gcap itself, gcap + 1, 4 * gcap and 2^31 - 1, each about 5% of
+    the live lanes, and one fid whose every lane is past Gcap."""
+    tabs = raw_group_tables(rng, gpf, gcap=gcap)
+    fg = tabs["filter_groups"]
+    past = (fg >= 0) & (rng.random(fg.shape) < 0.2)
+    fg[past] = rng.choice([gcap, gcap + 1, 4 * gcap, (1 << 31) - 1], int(past.sum()))
+    fg[7] = gcap + 3
+    return tabs
+
+
+def past_gcap_inputs(seed, K):
+    rng = np.random.default_rng(seed)
+    tabs = tables_past_gcap(rng)
+    B = max(8, 1200 // K)
+    matched = rng.integers(-1, 90, size=(B, K)).astype(np.int32)
+    matched[::5, 0] = 7  # a long run of the all-past-Gcap fid
+    ch, th, rand = u32(rng, B), u32(rng, B), u32(rng, B)
+    return tabs, matched, ch, th, rand
+
+
+@pytest.mark.parametrize("strategy", sorted(J_router.STRATEGY_IDS.values()))
+@pytest.mark.parametrize("K", [1, 4])
+def test_share_pick_twin_matches_jax_with_gids_past_gcap(K, strategy):
+    """A `filter_groups` gid at or past Gcap (raw tables; a `GroupTable`
+    never uploads one): JAX clamps the gathers of its group arrays and
+    ranks it among its own kind under round robin; the twin does the same."""
+    tabs, matched, ch, th, rand = past_gcap_inputs(70 + K, K)
+    want = j_share_pick(
+        {k: jnp.asarray(v) for k, v in tabs.items()}, jnp.asarray(matched),
+        jnp.asarray(ch), jnp.asarray(th), jnp.asarray(rand), strategy=strategy)
+    got = P_router.share_pick({k: torch.from_numpy(v) for k, v in tabs.items()},
+                              torch.from_numpy(matched), as_t(ch), as_t(th), as_t(rand),
+                              strategy=strategy)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    gid = got[0].numpy()
+    assert (gid >= 200).sum() > 20 and (gid == 203).sum() > 20
 
 
 @pytest.mark.parametrize("what", ["lanes", "fcap"])
@@ -375,9 +416,9 @@ def test_occurrence_index_tiles_of_several_sub_tiles_on_card(cuda_device, monkey
 
 @pytest.mark.cuda
 def test_occurrence_index_range_rule_on_card(cuda_device):
-    """On CUDA a call needs gcap; a gid below -1 or at or past gcap (the
-    caller's error) is ranked as -1, and nothing is read or written out of
-    bounds."""
+    """On CUDA a call needs gcap; a gid below -1 or at or past gcap takes
+    the add launch's scan and is ranked exactly, as the twin ranks it, and
+    nothing is read or written out of bounds."""
     dev = cuda_device
     rng = np.random.default_rng(11)
     g = rng.integers(-5, 40, size=50_000).astype(np.int32)
@@ -386,7 +427,39 @@ def test_occurrence_index_range_rule_on_card(cuda_device):
     gt = torch.from_numpy(g).to(dev)
     with pytest.raises(ValueError, match="gcap"):
         P_router.occurrence_index(gt)
-    got = P_router.occurrence_index(gt, gcap=30)
-    as_none = torch.from_numpy(np.where((g >= -1) & (g < 30), g, -1).astype(np.int32)).to(dev)
-    torch.cuda.synchronize()
-    assert torch.equal(got, P_router.occurrence_index_plain(as_none))
+    for gcap in (30, 0, 1):
+        got = P_router.occurrence_index(gt, gcap=gcap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, P_router.occurrence_index_plain(gt)), gcap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+def test_share_pick_kernel_with_gids_past_gcap_on_card(cuda_device, K):
+    """The tables of `test_share_pick_twin_matches_jax_with_gids_past_gcap`
+    (and at 2^20 lanes, several occurrence tiles) on the card: the kernel
+    equals the twin under every strategy, round robin with dp offsets too."""
+    dev = cuda_device
+    for seed, reps in ((70 + K, 1), (80 + K, 64)):
+        tabs, matched, ch, th, rand = past_gcap_inputs(seed, K)
+        matched = np.tile(matched, (reps, 1))
+        ch, th, rand = (np.tile(x, reps) for x in (ch, th, rand))
+        snap = {k: torch.from_numpy(v).to(dev) for k, v in tabs.items()}
+        ins = [torch.from_numpy(matched).to(dev)] + [as_t(x).to(dev) for x in (ch, th, rand)]
+        for strategy in range(5):
+            got = P_router.share_pick(snap, *ins, strategy=strategy)
+            want = P_router.share_pick_plain(snap, *ins, strategy=strategy)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (seed, strategy)
+        gcap = tabs["group_len"].shape[0]
+        counts = torch.from_numpy(
+            np.random.default_rng(seed).integers(0, 50, (3, gcap)).astype(np.int32)).to(dev)
+        for dp_rank in (0, 2):
+            got = P_router.share_pick(snap, *ins, strategy=1, dp_gather=lambda c: counts,
+                                      dp_rank=dp_rank)
+            want = P_router.share_pick_plain(snap, *ins, strategy=1,
+                                             dp_gather=lambda c: counts, dp_rank=dp_rank)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (seed, dp_rank)
