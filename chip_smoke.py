@@ -188,7 +188,7 @@ main path) and a bf16 table (201 MB instead of 402 MB):
     (float32 and bfloat16 lanes) against its twin, with its times and its
     split (as every recorded scatter's: host prep, pinned fill, copy,
     clones, launches; `kernel_inputs_*`);
-The `broker_1m` path (the broker's synchronous publish path): BASELINE
+The `broker_1m` path (the broker's publish paths): BASELINE
 config 3 loaded through `Broker.subscribe` into a port
 `Broker(Router(MatcherConfig(max_bytes=64, max_levels=8),
 min_tpu_batch=64), Hooks())`: one client a filter subscribing
@@ -218,7 +218,28 @@ subscriber id):
     the breakdown (prepare, route(), host dispatch, the whole call,
     messages/s and deliveries/s), and one more traced for the device's
     busy share of a publish_batch;
-30. `kernel` for tokenize, shape_match, sparse_fanout_slots,
+30. `ingest_broker`, the pipelined publish path: 6 more batches' worth
+    of seeded topics (49,152) through `publish_batch`, then the same
+    publishes from concurrent `Broker.apublish` tasks through
+    `BatchIngest(broker, max_batch=8192, pipeline=2)` and then
+    `pipeline=1`, each from the same round-robin bases and with the
+    launch counters zeroed before and read after: the `ingest.launch` /
+    `ingest.settle` schedule of full batches (at depth 2 batch N + 1
+    launches before batch N settles), 1 tokenize, shape_match and
+    sparse_fanout_slots, 2 share_pick and 3 occurrence_index launches a
+    batch; every message's plain recipients equal to the synchronous
+    path's, each matched group delivering each message once, and at
+    depth 1 every delivery, members included, the synchronous path's; a
+    delta `prepare()` returning while a spin kernel still runs. One full
+    garbage collection of the broker's heap is timed first, and the heap
+    is frozen for the three runs (a full collection of it takes seconds
+    and would land in whichever run crosses the threshold). Prints,
+    with the card's name and power limit: batches, how many batches
+    launched before the previous one's readback ended (CUDA events on
+    the stream, and the host clock), the device's idle gaps
+    (`ingest.device.idle.seconds`), messages/s and the p50/p99
+    enqueue->settle latency at each depth;
+31. `kernel` for tokenize, shape_match, sparse_fanout_slots,
     occurrence_index and share_pick (round_robin) at broker_1m's shapes,
     each against its twin (their `broker_1m` cases in the kernels line);
 The `plus_100k` path (the NFA-only step, `route_step`): BASELINE config 2
@@ -226,9 +247,9 @@ as bench.py builds it (100,000 filters, 95,480 distinct, 10% single-'+',
 8-level topics) in an `NfaBuilder`, one subscriber slot a distinct
 filter, in a dense `SubscriberTable` (W = 4,096 words, 2.1 GB on the
 card) and a CSR one; `MatcherConfig(max_bytes=64, max_levels=8)`:
-31. `tables_plus`: build seconds per stage, bytes on the card, `reduced`
+32. `tables_plus`: build seconds per stage, bytes on the card, `reduced`
     (none);
-32. `matcher_plus`, `route_step_plus` and `churn_plus`, the counters
+33. `matcher_plus`, `route_step_plus` and `churn_plus`, the counters
     zeroed before the first and read after the last: `TpuMatcher.match_batch`
     on 3 batches of bench.py's topics equal to `TopicTrie.match` per
     topic, flagged rows counted by cause; `route_step` dense with kslot 0
@@ -240,7 +261,7 @@ card) and a CSR one; `MatcherConfig(max_bytes=64, max_levels=8)`:
     a checked batch of their topics; tokenize, vocab_lookup, nfa_walk,
     fanout_bitmaps and compact_fanout_slots launched, shape_match not;
     the launches a batch (`launches_per_batch_plus`);
-33. `kernel` for tokenize, vocab_lookup, nfa_walk, fanout_bitmaps and
+34. `kernel` for tokenize, vocab_lookup, nfa_walk, fanout_bitmaps and
     compact_fanout_slots at plus_100k's shapes, each against its twin
     (their `plus_100k` cases; vocab_lookup's, here and at mixed_10m, with
     `in_vocab_lanes`, `past_depth_share` and the table's slots, live words
@@ -258,7 +279,7 @@ process runs the paths above, then, asked to, forks the ranks
 (`parallel.launch`); rank 0 prints the phases, every rank its counters.
 `python3 chip_smoke.py --mesh nccl 4 --now` runs the mesh paths alone on
 a four-GPU host (no kernels line, no last line):
-34. `mesh_share_2x2`: share_10m_csr as `share_path` builds it, the CSR
+35. `mesh_share_2x2`: share_10m_csr as `share_path` builds it, the CSR
     table in two slot-owner shards over 'tp', B = 8192 over 'dp' (4,096
     rows a rank): 3 round-robin batches and one hash_clientid batch, every
     recipient set against a per-shard host oracle (`MeshOracle`) and every
@@ -266,11 +287,13 @@ a four-GPU host (no kernels line, no last line):
     step's stats; a subscribe wave on shard 0's slots and an unsubscribe
     wave on shard 1's, each one scatter on the owning ranks and a skip on
     the others, every rank's mirrors equal to their host slices after
-    each; sparse_fanout_slots, occurrence_index, share_pick and
-    group_counts launched on every rank, compact_fanout_slots not;
-    group_counts and share_pick with rank offsets against their twins;
+    each; sparse_fanout_slots, occurrence_index and share_pick launched
+    on every rank, 2 + 3 a round-robin step (the group counts are the
+    occurrence call's totals), compact_fanout_slots not; occurrence_index
+    with its totals and share_pick with rank offsets against their twins,
+    a round-robin call with dp offsets making exactly 5 launches;
     the breakdown (encode, h2d, step, collectives, assembly, route);
-35. `mesh_1m_2x2`: mixed_1m dense (4 of 8 lane words a tp rank): 3
+36. `mesh_1m_2x2`: mixed_1m dense (4 of 8 lane words a tp rank): 3
     batches against the host oracle, the raw outputs against the same
     step run on CPU copies of each rank's tables (the twins, over gloo);
     the retained_5m store (chunk rows over 'dp') and its 8,192-filter
@@ -283,9 +306,9 @@ a four-GPU host (no kernels line, no last line):
     A), mirrors after each; compact_fanout_slots with its lane base
     against its twin; the composite bounds of the dense, semantic and
     fused steps on a rank (`composite_bounds_mesh_1m`); the breakdown;
-36. `mesh_1m_nccl1`: one NCCL rank, its MeshServingRouter equal to
+37. `mesh_1m_nccl1`: one NCCL rank, its MeshServingRouter equal to
     DeviceRouter.route on the same batches bit for bit;
-37. `mesh_plus_2x2`: plus_100k's dense table (2,048 of 4,096 lane words a
+38. `mesh_plus_2x2`: plus_100k's dense table (2,048 of 4,096 lane words a
     tp rank) through `dist_route_step`, B = 8192 over 'dp': 3 batches,
     every rank's blocks of matched, mcount, flags and bitmaps ([4,096,
     2,048] uint32) against the host oracle's slice, the reduced stats
@@ -293,14 +316,15 @@ a four-GPU host (no kernels line, no last line):
     rank 0 before the counters are zeroed), two all-reduces a batch (`COLLECTIVES['dist_step']`), tokenize,
     vocab_lookup, nfa_walk and fanout_bitmaps launched on every rank;
     the breakdown (encode, h2d, step, collectives, readback, route);
-38. one JSON line {"kernels": [...]}: the sixteen kernels, each with its
+39. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
     session_1m; semantic_match (f32 table) and rule_masks on
-    semantic_256k; group_counts on mesh_share_2x2, whose rank-offset
-    share_pick and mesh_1m_2x2's lane-based compact_fanout_slots are the
-    `mesh` cases of those two kernels' entries; the broker_1m and
+    semantic_256k; the `mesh` cases of occurrence_index (with the totals
+    mesh_share_2x2's round-robin branch all-gathers), of its rank-offset
+    share_pick and of mesh_1m_2x2's lane-based compact_fanout_slots; the
+    broker_1m and
     plus_100k cases of the kernels those paths launch, with their
     launches there),
     its wrapper-call, device (CUPTI; CUDA events around calls queued
@@ -893,7 +917,6 @@ KERNEL_SYMBOLS = {  # the CUDA kernels each wrapper launches
     "session_sweep": "sweep_kernel",
     "semantic_match": ("scores_", "semantic_merge_kernel"),  # scores_f32_ or scores_bf16_
     "rule_masks": "rule_masks_kernel",
-    "group_counts": "group_counts_kernel",
 }
 
 SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
@@ -927,8 +950,6 @@ SOURCES = {  # kernel -> (source in the repo, the JAX function it replaces)
                        "emqx_tpu/ops/semantic_table.py:104"),
     "rule_masks": ("emqx_tpu_torch/kernels/csrc/rule_masks.cu",
                    "emqx_tpu/rules/compile.py:222"),
-    "group_counts": ("emqx_tpu_torch/kernels/csrc/group_counts.cu",
-                     "emqx_tpu/models/router_model.py:944"),
 }
 
 
@@ -3778,6 +3799,297 @@ class BrokerTimer:
             v.clear()
         return out
 
+    def remove(self, broker) -> None:
+        """Take the wrappers (and their synchronizes) off the instances."""
+        dev = broker._device_router()
+        for obj, attr in ((dev, "_device_args"), (dev, "route"),
+                          (broker, "_dispatch_device_results")):
+            delattr(obj, attr)
+
+
+# -- the broker_1m ingest phase (the pipelined publish path) ----------------------
+
+INGEST_BATCHES = 6  # full batches a depth
+INGEST_MAX_BATCH = BATCH
+
+
+class OverlapProbe:
+    """CUDA events around each routed batch of the pipeline: one recorded
+    on the launching thread's stream right before the batch's first kernel
+    (`shape_route_step`), one right after its readback returned
+    (`DeviceRouter._readback`), with the host clock beside each. Batch
+    N+1's launches began before batch N's readback ended when its first
+    event precedes N's last one on the stream."""
+
+    def __init__(self, torch, dev):
+        import threading
+
+        from emqx_tpu_torch.models import router_model as R
+
+        self.torch, self.dev, self.R = torch, dev, R
+        self.rows = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        step, readback = R.shape_route_step, dev._readback
+
+        def probed_step(*a, **k):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.local.start = (time.perf_counter(), ev)
+            return step(*a, **k)
+
+        def probed_readback(*a, **k):
+            out = readback(*a, **k)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            with self.lock:
+                self.rows.append((*self.local.start, ev, time.perf_counter()))
+            return out
+
+        self.step = step
+        R.shape_route_step = probed_step
+        dev._readback = probed_readback
+
+    def close(self) -> dict:
+        """Unwrap; -> the overlap counts over consecutive batches."""
+        self.R.shape_route_step = self.step
+        del self.dev._readback
+        self.torch.cuda.synchronize()
+        rows = sorted(self.rows, key=lambda r: r[0])  # in launch order
+        ref = rows[0][1]
+        start = [ref.elapsed_time(r[1]) for r in rows]
+        end = [ref.elapsed_time(r[2]) for r in rows]
+        pairs = range(len(rows) - 1)
+        return {"routed_batches": len(rows),
+                "launch_before_prev_readback_end": sum(start[k + 1] < end[k] for k in pairs),
+                "launch_before_prev_readback_end_host": sum(rows[k + 1][0] < rows[k][3]
+                                                            for k in pairs)}
+
+
+def ingest_rr_state(broker) -> dict:
+    """{(filter, group): round-robin base} of every $share group."""
+    return {(real, gname): g.rr_index for real, groups in broker.shared._table.items()
+            for gname, g in groups.items()}
+
+
+def ingest_rr_restore(broker, state) -> None:
+    """Put every group's base back, on the host group and in the group
+    table (a delta the next prepare syncs)."""
+    for (real, gname), v in state.items():
+        broker.shared.group(real, gname).rr_index = v
+        broker.grouptab.set_rr(broker.grouptab.gid_of(real, gname), v)
+
+
+def ingest_drive(torch, broker, rec, topics, pipeline: int) -> dict:
+    """`topics` from concurrent `apublish` tasks through a running
+    `BatchIngest(broker, max_batch=INGEST_MAX_BATCH, pipeline=pipeline)`,
+    the launch counters zeroed before and read after. -> the run's
+    deliveries [(message index, subscriber)], its schedule and figures."""
+    import asyncio
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.ingest import BatchIngest
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.utils.tracepoints import TraceCollector
+
+    msgs = [Message(topic=t, payload=b"%d" % k, from_client="ingest")
+            for k, t in enumerate(topics)]
+    m = broker.metrics
+    raw = collections.defaultdict(list)
+    obs, obs_many = m.observe, m.observe_many
+    m.observe = lambda name, v: (raw[name].append(v), obs(name, v))[1]
+    m.observe_many = lambda name, vs: (raw[name].extend(vs), obs_many(name, vs))[1]
+    probe = OverlapProbe(torch, broker._device_router())
+    rec.log.clear()
+    gc0 = [g["collections"] for g in gc.get_stats()]
+
+    async def run():
+        ing = BatchIngest(broker, max_batch=INGEST_MAX_BATCH, pipeline=pipeline)
+        broker.ingest = ing
+        ing.start()
+        t0 = time.perf_counter()
+        counts = await asyncio.gather(*(broker.apublish(msg) for msg in msgs))
+        wall = time.perf_counter() - t0
+        await ing.stop()
+        broker.ingest = None
+        return counts, wall
+
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        with TraceCollector() as tc:
+            counts, wall = asyncio.run(run())
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        del m.observe, m.observe_many
+        overlap = probe.close()
+    gc_runs = [g["collections"] - c for g, c in zip(gc.get_stats(), gc0)]
+    if sum(counts) != len(rec.log):
+        raise AssertionError(f"pipeline {pipeline}: {sum(counts)} counted, "
+                             f"{len(rec.log)} deliveries recorded")
+    sched = [(e["kind"], e["batch"]) for e in tc.events
+             if e["kind"] in ("ingest.launch", "ingest.settle")]
+    settle = np.asarray(raw["ingest.settle.seconds"]) * 1e3
+    idle = np.asarray(raw["ingest.device.idle.seconds"]) * 1e3
+    sizes = raw["ingest.batch.size"]
+    return {
+        "deliveries": [(int(msg.payload), sid) for msg, sid in rec.log],
+        "schedule": sched,
+        "figures": {
+            "pipeline": pipeline, "messages": len(msgs), "batches": len(sizes),
+            "batch_sizes": sorted(set(sizes)), **overlap,
+            "messages_per_s": len(msgs) / wall, "wall_s": wall,
+            "deliveries_per_s": len(rec.log) / wall,
+            "settle_p50_ms": float(np.percentile(settle, 50)),
+            "settle_p99_ms": float(np.percentile(settle, 99)),
+            "device_idle": {"gaps": len(idle), "total_ms": float(idle.sum()),
+                            "p50_ms": float(np.percentile(idle, 50)) if len(idle) else None,
+                            "max_ms": float(idle.max()) if len(idle) else None},
+            "prepare_p50_ms": 1e3 * float(np.median(raw["profile.stage.prepare.seconds"])),
+            "host_dispatch_p50_ms": 1e3 * float(np.median(
+                raw["profile.stage.host_dispatch.seconds"])),
+            "launches": launches,
+            "gc_collections_by_generation": gc_runs,
+        },
+    }
+
+
+def pinned_schedule(batches: int, pipeline: int) -> list:
+    """The `ingest.launch` / `ingest.settle` tracepoints of a run of full
+    batches: batch N + pipeline - 1 launches before batch N settles, and no
+    later batch does (so at depth 2 batch N + 1 is prepared before batch
+    N's round-robin bases are written back, as in the reference)."""
+    out = []
+    for k in range(batches):
+        out.append(("ingest.launch", k))
+        if k >= pipeline - 1:
+            out.append(("ingest.settle", k - pipeline + 1))
+    return out + [("ingest.settle", k) for k in range(batches - pipeline + 1, batches)]
+
+
+def ingest_check(tag: str, got, want, members: bool) -> dict:
+    """The run's deliveries against the synchronous path's: every message's
+    plain recipients equal; each matched $share group delivering it once
+    (its member the same one too when `members`)."""
+    def per_message(log):
+        out = collections.defaultdict(lambda: ([], []))
+        for k, sid in log:
+            out[k][sid.startswith("g")].append(sid)
+        return out
+
+    g, w = per_message(got), per_message(want)
+    if set(g) != set(w):
+        raise AssertionError(f"{tag}: messages delivered differ from the synchronous path's")
+    shared = 0
+    for k, (plain, grp) in w.items():
+        gp, gg = g[k]
+        if sorted(gp) != sorted(plain):
+            raise AssertionError(f"{tag}: message {k} plain {sorted(gp)} != {sorted(plain)}")
+        groups = sorted(s.split("_")[0] for s in gg)
+        if groups != sorted(s.split("_")[0] for s in grp) or len(set(groups)) != len(groups):
+            raise AssertionError(f"{tag}: message {k} group deliveries {gg} against {grp}")
+        if members and sorted(gg) != sorted(grp):
+            raise AssertionError(f"{tag}: message {k} members {gg} != {grp}")
+        shared += len(gg)
+    return {"messages_delivered_to": len(w),
+            "plain_deliveries": sum(len(v[0]) for v in w.values()),
+            "group_deliveries": shared, "members_equal": sorted(got) == sorted(want)}
+
+
+def broker_ingest(torch, broker, rec, rng) -> tuple:
+    """The pipelined publish path on broker_1m: INGEST_BATCHES full batches
+    of seeded mixed_1m topics through `publish_batch` (the synchronous
+    path), then the same publishes from concurrent `apublish` tasks
+    through `BatchIngest` at pipeline 2 and at pipeline 1, each from the
+    same round-robin bases. Fails unless every message's plain recipients
+    equal the synchronous path's, each matched group delivers each message
+    once, and at depth 1 every delivery is the synchronous path's; and
+    unless a delta `prepare()` (the loop thread's half of a launch)
+    returns while a spin kernel still runs on the stream.
+
+    The broker's 1,000,100 subscriptions are millions of objects the
+    garbage collector tracks, and one full collection of them takes
+    seconds: it lands in whichever run crosses the oldest generation's
+    threshold. So the phase times one full collection, then freezes the
+    heap (`gc.freeze()`, every object so far out of the collector's
+    reach) for the three runs, which then compare the paths and not the
+    collector, and unfreezes it after; each run prints its collections
+    by generation. -> (the phase's record, its launches)."""
+    from emqx_tpu_torch.broker.message import Message
+
+    dev = broker._device_router()
+    topics = topic_batch_1m(rng, INGEST_BATCHES * INGEST_MAX_BATCH)
+    dev.prepare()
+    rr0 = ingest_rr_state(broker)
+    rec.log.clear()
+    gc.collect()
+    t0 = time.perf_counter()
+    gc.collect()
+    heap = {"full_collection_ms": 1e3 * (time.perf_counter() - t0),
+            "tracked_objects": len(gc.get_objects())}
+    gc.freeze()
+    try:
+        record, launches = ingest_runs(torch, broker, rec, dev, topics, rr0)
+    finally:
+        gc.unfreeze()
+    return {**record, "gc": heap}, launches
+
+
+def ingest_runs(torch, broker, rec, dev, topics, rr0) -> tuple:
+    """`broker_ingest`'s runs and checks on a frozen heap."""
+    from emqx_tpu_torch.broker.message import Message
+
+    gc0 = [g["collections"] for g in gc.get_stats()]
+    t0 = time.perf_counter()
+    for k in range(0, len(topics), INGEST_MAX_BATCH):
+        broker.publish_batch([Message(topic=t, payload=b"%d" % (k + j), from_client="ingest")
+                              for j, t in enumerate(topics[k:k + INGEST_MAX_BATCH])])
+    torch.cuda.synchronize()
+    sync_s = time.perf_counter() - t0
+    sync_gc = [g["collections"] - c for g, c in zip(gc.get_stats(), gc0)]
+    want = [(int(msg.payload), sid) for msg, sid in rec.log]
+    runs, checks = {}, {}
+    launches = collections.Counter()
+    for pipeline in (2, 1):
+        ingest_rr_restore(broker, rr0)
+        run = ingest_drive(torch, broker, rec, topics, pipeline)
+        n = INGEST_BATCHES
+        if run["schedule"] != pinned_schedule(n, pipeline):
+            raise AssertionError(f"pipeline {pipeline}: schedule {run['schedule']}")
+        got_l = run["figures"]["launches"]
+        want_l = {"tokenize": n, "shape_match": n, "sparse_fanout_slots": n,
+                  "share_pick": 2 * n, "occurrence_index": 3 * n}
+        if any(got_l.get(k, 0) != v for k, v in want_l.items()) or got_l.get("nfa_walk"):
+            raise AssertionError(f"pipeline {pipeline}: launches {got_l}")
+        launches.update(got_l)
+        checks[pipeline] = ingest_check(f"pipeline {pipeline}", run["deliveries"], want,
+                                        members=pipeline == 1)
+        runs[pipeline] = run["figures"]
+    # the loop thread's half of a launch must not wait for the stream: a
+    # delta prepare (the bases put back) while a spin kernel runs
+    ingest_rr_restore(broker, rr0)
+    c0 = dev.segment_status()["groups"]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    dev.prepare()
+    prep_ms = 1e3 * (time.perf_counter() - t0)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    c1 = dev.segment_status()["groups"]
+    if not busy or c1["delta_launches"] != c0["delta_launches"] + 1:
+        raise AssertionError(f"delta prepare waited for the stream ({prep_ms} ms) or "
+                             f"did not scatter ({c0} -> {c1})")
+    rec.log.clear()
+    record = {"card": card_line(), "max_batch": INGEST_MAX_BATCH,
+              "batches_per_depth": INGEST_BATCHES, "sync_publish_batch_s": sync_s,
+              "sync_messages_per_s": len(topics) / sync_s,
+              "sync_gc_collections_by_generation": sync_gc,
+              "depths": {str(p): {**runs[p], **checks[p]} for p in (2, 1)},
+              "delta_prepare_under_spin": {"ms": prep_ms, "stream_still_busy": busy}}
+    return record, dict(launches)
+
 
 def broker_publish(torch, broker, rec, timer, topics, tag: int) -> dict:
     """One checked `publish_batch` of `topics`: every message's plain
@@ -4000,6 +4312,13 @@ def broker_path(torch, rng):
                device_busy_share=busy / wall if busy > 0 else None, trace_attempts=attempt)
     phase("breakdown_broker", subscribe_seconds=secs, first_batch=published[0],
           **med)
+
+    # the pipelined publish path: BatchIngest at depths 2 and 1 against the
+    # synchronous path, from the same bases (the timer's synchronizes off)
+    timer.remove(broker)
+    ingest, ingest_launches = broker_ingest(torch, broker, rec, rng)
+    launches.update(ingest_launches)
+    phase("ingest_broker", **ingest)
 
     # the path's kernels at broker_1m shapes, against their twins
     args = dev.prepare()
@@ -4645,9 +4964,13 @@ def mesh_breakdown(torch, mesh, router, batches) -> dict:
 
 def mesh_share_kinds(torch, mesh, router, args, topics):
     """The mesh's own kernels at share_10m_csr shapes, on the lead rank's
-    rows (no collective): group_counts over the raw group lanes, and the
-    round-robin share_pick with rank offsets (the counts of a lower dp
-    rank taken as this rank's own, dp rank 1)."""
+    rows (no collective): occurrence_index with its totals (the per-group
+    counts the round-robin branch all-gathers over 'dp') over the raw
+    group lanes, and the round-robin share_pick with rank offsets (the
+    counts of a lower dp rank taken as this rank's own, dp rank 1), whose
+    call must make 5 launches: the raw lanes, the occurrence call's 3 and
+    the picks, no histogram launch of its own."""
+    from emqx_tpu_torch import kernels
     from emqx_tpu_torch.models import router_model as R
 
     per, lo, bm, ln, _tl = mesh_local_inputs(torch, mesh, router, topics)
@@ -4660,22 +4983,40 @@ def mesh_share_kinds(torch, mesh, router, args, topics):
     gcap = gt["group_len"].shape[0]
     gpf = gt["filter_groups"].shape[1]
     lanes = R._group_lanes(gt, matched)[0].contiguous()
+    flat = lanes.reshape(-1)
     n = lanes.numel()
     live = int((lanes >= 0).sum())
-    counts = R.group_counts(lanes, gcap)
-    all_c = torch.stack([counts, counts])
+    occ_tot = R.occurrence_index(flat, gcap=gcap, totals=True)
+    all_c = torch.stack([occ_tot[1], occ_tot[1]])
     B, K = matched.shape
     zeros = torch.zeros(B, dtype=torch.int32, device=mesh.device)
     pick = lambda f: f(gt, matched, zeros, zeros, zeros, strategy=1,  # noqa: E731
                        dp_gather=lambda _c: all_c, dp_rank=1)
+    kernels.reset_launches()
+    pick(R.share_pick)
+    torch.cuda.synchronize()
+    per_call = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if per_call != {"share_pick": 2, "occurrence_index": 3}:
+        raise AssertionError(f"a mesh round-robin share_pick call launched {per_call}")
     fids_live = int((matched >= 0).sum())
     kinds = {
-        "group_counts": dict(
-            kernel=lambda: R.group_counts(lanes, gcap),
-            plain=lambda: R.group_counts_plain(lanes, gcap),
-            out=counts,
-            bytes=4 * n + 4 * gcap,  # each lane read once, each count written once
-            ops=n,
+        "occurrence_index/mesh_totals": dict(
+            name="occurrence_index",
+            kernel=lambda: R.occurrence_index(flat, gcap=gcap, totals=True),
+            plain=lambda: (R.occurrence_index_plain(flat), R.group_counts_plain(lanes, gcap)),
+            out=occ_tot,
+            # a gid in and a rank out per lane, each group's total out once
+            bytes=8 * n + 4 * gcap,
+            ops=4 * n,  # a range check, a count, a prefix and an add per lane
+        ),
+        # the same call without the totals, for what they cost in one run
+        "occurrence_index/mesh_ranks_only": dict(
+            name="occurrence_index",
+            kernel=lambda: R.occurrence_index(flat, gcap=gcap),
+            plain=lambda: R.occurrence_index_plain(flat),
+            out=occ_tot[0],
+            bytes=8 * n,
+            ops=4 * n,
         ),
         "share_pick/mesh": dict(
             name="share_pick",
@@ -4689,7 +5030,8 @@ def mesh_share_kinds(torch, mesh, router, args, topics):
             ops=12 * n + live,
         ),
     }
-    return kinds, {"rows": B, "group_lanes": n, "live_group_lanes": live, "gcap": gcap}
+    return kinds, {"rows": B, "group_lanes": n, "live_group_lanes": live, "gcap": gcap,
+                   "round_robin_launches_per_call": per_call}
 
 
 def mesh_composite_bound(torch, mesh, router, args, topics, names, extra=0.0) -> float:
@@ -4814,9 +5156,14 @@ def rank_mesh_share(mesh, st) -> dict:
     launches = dict(kernels.LAUNCHES)
     coll = {k: dict(v) for k, v in M.COLLECTIVES.items()}
     path = ("tokenize", "shape_match", "sparse_fanout_slots", "share_pick",
-            "occurrence_index", "group_counts")
+            "occurrence_index")
+    # a round-robin step makes 2 share_pick and 3 occurrence_index launches
+    # (its group counts are the occurrence call's totals, with no launch of
+    # their own), the one hash_clientid batch 1 share_pick launch
+    rr_steps, occ_rest = divmod(launches["occurrence_index"], 3)
     if not all(launches[k] for k in path) or launches["fanout_bitmaps"] \
-            or launches["compact_fanout_slots"]:
+            or launches["compact_fanout_slots"] or occ_rest \
+            or launches["share_pick"] != 2 * rr_steps + 1:
         raise AssertionError(f"rank {mesh.rank}: mesh_share_2x2 launches {launches}")
     if lead:
         phase("mesh_churn_share", **{k: {kk: vv for kk, vv in v.items() if kk != "mirrors"}
@@ -4828,11 +5175,13 @@ def rank_mesh_share(mesh, st) -> dict:
         args = router.prepare()
         kinds, kinds_info = mesh_share_kinds(torch, mesh, router, args, batches[0])
         report = kernel_report(torch, kinds)
-        gc_bound = bound(kinds["group_counts"]["bytes"], kinds["group_counts"]["ops"])[0]
+        # the occurrence call's totals: 4 gcap bytes more than its
+        # single-device case
+        tot_bound = bound(4 * kinds_info["gcap"], 0)[0]
         comp = mesh_composite_bound(
             torch, mesh, router, args, batches[0],
             ("tokenize", "shape_match", "sparse_fanout_slots", "occurrence_index",
-             "share_pick/round_robin"), gc_bound)
+             "share_pick/round_robin"), tot_bound)
         phase("kernel_inputs_mesh_share", **kinds_info)
     mesh_barrier(torch, mesh)
     brk = mesh_breakdown(torch, mesh, router,
@@ -5650,15 +5999,16 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     del broker_report, plus_report
     gc.collect()
     torch.cuda.empty_cache()
-    # the mesh paths: group_counts joins the line; compact_fanout_slots and
-    # share_pick gain their mesh cases (lane base, rank offsets)
+    # the mesh paths: occurrence_index (with its totals, the round-robin
+    # branch's group counts), compact_fanout_slots and share_pick gain their
+    # mesh cases (totals, lane base, rank offsets)
     t0 = time.perf_counter()
     mesh = mesh_finish(torch, mesh_proc)
     phase("mesh_paths_seconds", seconds=time.perf_counter() - t0, backend=mesh["backend"],
           reduced=mesh["reduced"])
     share_mesh, launches_share = mesh["share"]["report"], mesh["share"]["launches"]
-    report["group_counts"] = {**share_mesh["group_counts"],
-                              "launches": launches_share["group_counts"]}
+    report["occurrence_index"]["mesh"] = {**share_mesh["occurrence_index/mesh_totals"],
+                                          "launches": launches_share["occurrence_index"]}
     report["share_pick"]["mesh"] = {**share_mesh["share_pick/mesh"],
                                     "launches": launches_share["share_pick"]}
     report["compact_fanout_slots"]["mesh"] = {

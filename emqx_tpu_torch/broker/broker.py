@@ -1,6 +1,8 @@
 """The pub/sub kernel: subscribe/unsubscribe/publish/dispatch, on the
-port's device engine. The port's copy of `Broker` and `Subscriber`
-(emqx_tpu/broker/broker.py), the synchronous publish path.
+port's device engine. The port's copy of `Broker`, `Subscriber`,
+`PendingDispatch` and `dispatch_pool` (emqx_tpu/broker/broker.py): the
+synchronous publish path and the pipelined one that `BatchIngest`
+(broker/ingest.py) drives.
 
 Parity with the reference kernel (apps/emqx/src/emqx_broker.erl):
 - subscribe/unsubscribe maintain the subscriber registry + route table
@@ -11,22 +13,33 @@ Parity with the reference kernel (apps/emqx/src/emqx_broker.erl):
   (`DeviceRouter.route`), then fans out from the subscriber slots and
   the device's $share picks.
 
+- apublish / apublish_enqueue fold a publish through the async hooks and
+  enqueue it on the attached `BatchIngest`, whose batches launch through
+  `adispatch_begin`: the table sync (`DeviceRouter.prepare`) on the event
+  loop's thread, the launches and readback (`route_prepared`) on the
+  bounded `dispatch_pool`, the host fan-out only when the ingest settles
+  the `PendingDispatch`, in launch order.
+
 Every plain subscription owns a subscriber slot in `SubscriberTable`
 (dense bitmaps or CSR, as `MatcherConfig.sub_table` says); $share groups
 are `GroupTable` lanes whose member the device picks. Batches smaller than
 `Router.min_tpu_batch` and rows the device flags take the authoritative
-CPU path. A failed launch raises: the degrade ladder is not ported.
+CPU path. A failed launch raises (out of `PendingDispatch.complete()` on
+the pipelined path): the degrade ladder is not ported.
 
-Not ported yet (ROADMAP item 3 queues them as the next slices):
-`BatchIngest` with `apublish`/`adispatch_begin` and the dispatch pool;
-the session store's broker half; `SemanticRouting` (a subscribe with an
-``embedding=`` raises NotImplementedError) and the rule engine's device
-attach; the broker on a mesh; and, with the app, the cluster forward,
-the degrade controller, span tracing and the retained feed.
+Not ported yet (ROADMAP item 3 queues them as the next slices): the
+session store's broker half (`adispatch_begin` takes no session rider);
+`SemanticRouting` (a subscribe with an ``embedding=`` raises
+NotImplementedError) and the rule engine's device attach; the broker on
+a mesh; and, with the app, the cluster forward, the degrade controller,
+span tracing and the retained feed (`adispatch_begin` takes the
+reference's path for each of them absent).
 """
 
 from __future__ import annotations
 
+import asyncio
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,12 +49,35 @@ from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.metrics import Metrics
 from emqx_tpu_torch.broker.router import Router
 from emqx_tpu_torch.broker.shared_sub import SharedSub, stable_hash
-from emqx_tpu_torch.models.router_model import DeviceRouter, GroupTable, SubscriberTable
+from emqx_tpu_torch.models.router_model import (
+    DeviceRouter,
+    GroupTable,
+    SubscriberTable,
+    on_stream,
+)
 from emqx_tpu_torch.mqtt import packet as pkt
 from emqx_tpu_torch.ops import topics as T
 
 # deliverer: called with (msg, subopts); a raise counts as not delivered
 Deliverer = Callable[[Message, pkt.SubOpts], None]
+
+
+_dispatch_pool_inst = None
+
+
+def dispatch_pool():
+    """Process-wide executor for device route launches (one device per
+    process). Bounded and dedicated, so launches never queue behind other
+    blocking work on the default executor. Two workers are the double
+    buffer: batch N+1's encode and launches run on the second worker while
+    batch N's worker waits for its readback."""
+    global _dispatch_pool_inst
+    if _dispatch_pool_inst is None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _dispatch_pool_inst = ThreadPoolExecutor(
+            max_workers=2, thread_name_prefix="torch-dispatch")
+    return _dispatch_pool_inst
 
 
 class Subscriber:
@@ -54,6 +90,28 @@ class Subscriber:
         self.opts = opts
         self.slot = -1  # subscriber-table slot (non-shared subs only)
         self.filter = ""  # the real (share-stripped) subscription filter
+
+
+class PendingDispatch:
+    """A launched-but-unsettled batch dispatch (`Broker.adispatch_begin`).
+
+    `ready`: side-effect-free future resolving when the device round
+    trip completes (never triggers fan-out — safe to race/poll).
+    `complete()`: coroutine performing the host fan-out + returning
+    per-message delivery counts; callers invoke it in launch order.
+    Awaiting the object is shorthand for awaiting complete()."""
+
+    __slots__ = ("ready", "_complete")
+
+    def __init__(self, ready, complete):
+        self.ready = ready
+        self._complete = complete
+
+    def complete(self):
+        return self._complete()
+
+    def __await__(self):
+        return self._complete().__await__()
 
 
 class Broker:
@@ -84,6 +142,7 @@ class Broker:
         self._slot_subs: List[Optional[Subscriber]] = []
         self._free_slots: List[int] = []
         self._device: Optional[DeviceRouter] = None  # lazy
+        self.ingest = None  # BatchIngest, attached by its owner
 
     # -- subscribe side ---------------------------------------------------
     def subscribe(
@@ -198,6 +257,30 @@ class Broker:
             return 0
         return self._dispatch_routed(msg)
 
+    async def apublish(self, msg: Message) -> int:
+        """Async `publish` for the connection path: awaits async hooks, so
+        a slow extension suspends only the publishing client's task. With
+        a running `BatchIngest` attached, the folded message rides the
+        batch window onto the device route path."""
+        r = await self.apublish_enqueue(msg)
+        return r if isinstance(r, int) else await r
+
+    async def apublish_enqueue(self, msg: Message):
+        """Pipelined publish: fold + enqueue WITHOUT awaiting dispatch.
+
+        Returns either an int (dispatched inline / dropped) or an
+        asyncio.Future resolving to the delivery count when the batch
+        settles, so a connection keeps parsing its next frames while
+        earlier publishes ride the batch window."""
+        msg = await self.hooks.arun_fold("message.publish", (), msg)
+        if msg is None or msg.headers.get("allow_publish") is False:
+            self.metrics.inc("messages.dropped")
+            return 0
+        ing = self.ingest
+        if ing is not None and ing.running:
+            return ing.enqueue(msg)
+        return self._dispatch_routed(msg)
+
     def _dispatch_routed(self, msg: Message) -> int:
         n = self._route_dispatch(msg, self.router.match(msg.topic))
         if n == 0:
@@ -234,6 +317,72 @@ class Broker:
         """The authoritative CPU path for a whole batch: per-message trie
         match + host fan-out. Never touches the device."""
         return [self._dispatch_routed(m) for m in msgs]
+
+    async def adispatch_batch_folded(self, msgs: Sequence[Message]) -> List[int]:
+        """`dispatch_batch_folded` with the kernel launches and readback on
+        the dispatch pool, so the event loop keeps serving every other
+        connection; the table sync and the delivery stay on the loop."""
+        return await self.adispatch_begin(msgs)
+
+    def adispatch_begin(self, msgs: Sequence[Message]) -> PendingDispatch:
+        """Launch the device dispatch of a batch NOW and return a
+        `PendingDispatch`: the ingest pipeline's seam, where batch N+1's
+        table sync, encode and launches overlap batch N's readback and
+        host fan-out.
+
+        On the calling (event loop) thread: `DeviceRouter.prepare()`, the
+        table sync (`profile.stage.prepare.seconds`). On a `dispatch_pool`
+        thread: `route_prepared`, the encode, the launches and the one
+        readback, on the stream of the calling thread (`launch_stream`,
+        `on_stream`), so every batch's work and the loop's scatters run in
+        the order they were enqueued. The host FAN-OUT runs only inside
+        `complete()`, never when the device work finishes, so callers
+        settling batches in launch order keep each publisher's delivery
+        order across batches (`profile.stage.host_dispatch.seconds`).
+        `ready` signals the end of the device round trip (pacing only).
+
+        A batch below `min_tpu_batch` (or with the device path off) is a
+        CPU batch: `ready` is already done and its dispatch, too, waits
+        for `complete()`, so it never overtakes an in-flight device batch.
+        A failed prepare raises here, a failed launch or readback out of
+        `complete()` (the reference's path without a degrade controller).
+        The session rider, the retained feed, embeddings, device rules and
+        spans are not ported: their hand-offs take the reference's path
+        for none attached."""
+        loop = asyncio.get_running_loop()
+        r = self.router
+        if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
+            ready = loop.create_future()
+            ready.set_result(None)
+
+            async def _cpu():
+                return self.dispatch_batch_folded(msgs)
+
+            return PendingDispatch(ready, _cpu)
+        dev = self._device_router()
+        t_prep = time.perf_counter()
+        args = dev.prepare()
+        # waterfall `prepare`: the table sync this launch paid before any
+        # device work
+        self.metrics.observe(
+            "profile.stage.prepare.seconds", time.perf_counter() - t_prep)
+        topics = [m.topic_key() for m in msgs]
+        hashes = self._client_hashes(msgs)
+        fut = loop.run_in_executor(
+            dispatch_pool(), on_stream, dev.launch_stream(), dev.route_prepared,
+            args, topics, hashes)
+
+        async def _complete():
+            results = await fut
+            # waterfall `host_dispatch`: the settle-time fan-out of this
+            # device batch (delivery resolution + writes)
+            t_hd = time.perf_counter()
+            res = self._dispatch_device_results(msgs, results)
+            self.metrics.observe(
+                "profile.stage.host_dispatch.seconds", time.perf_counter() - t_hd)
+            return res
+
+        return PendingDispatch(fut, _complete)
 
     def _device_router(self) -> DeviceRouter:
         if self._device is None:

@@ -4,7 +4,7 @@
 `SlabMessage` (a message whose topic and payload still live in a fabric
 read slab) is not ported: the slab fabric is not, so `topic_key()`
 always returns the topic string. The methods the port's broker does not
-call (`is_expired`, `is_sys`, the zero-copy accessors) are left out.
+call (`is_expired`, the zero-copy accessors) are left out.
 """
 
 from __future__ import annotations
@@ -33,3 +33,6 @@ class Message:
     def topic_key(self):
         """Tokenizer input: the topic string."""
         return self.topic
+
+    def is_sys(self) -> bool:
+        return self.topic.startswith("$SYS/")

@@ -1,9 +1,10 @@
 """Broker metrics: counters, gauges and fixed-bucket histograms.
 
 The port's copy of `emqx_tpu/broker/metrics.py`, trimmed to what the
-port's broker, `Router`, `TpuMatcher` and `DeviceRouter` call: `inc`,
-`get`, `gauge_set`, `observe`, `observe_many` and `histogram`, and
-`Histogram` with its p99. The registry declares
+port's broker, `BatchIngest`, `SloController`, `Router`, `TpuMatcher` and
+`DeviceRouter` call: `inc`, `get`, `gauge_set`, `observe`, `observe_many`
+and `histogram`, and `Histogram` with its percentiles and `snapshot` (the
+SLO controller's windowed p99 reads it). The registry declares
 only the histograms these callers record, because a histogram's buckets
 come from its declaration: `dispatch.fanout` keeps the reference's
 `FANOUT_BUCKETS`, whose p99 sizes the compact-slot cap (`DeviceRouter.
@@ -18,7 +19,7 @@ from __future__ import annotations
 import bisect
 import threading
 from collections import defaultdict
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # shared bucket ladders (upper bounds; +Inf is implicit)
 LATENCY_BUCKETS: Tuple[float, ...] = (
@@ -28,6 +29,9 @@ LATENCY_BUCKETS: Tuple[float, ...] = (
 SIZE_BUCKETS: Tuple[float, ...] = (
     1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096,
 )
+RATIO_BUCKETS: Tuple[float, ...] = (
+    0.01, 0.05, 0.1, 0.25, 0.5, 0.75, 0.9, 1.0,
+)
 FANOUT_BUCKETS: Tuple[float, ...] = (
     0, 1, 2, 4, 8, 16, 32, 64, 256, 1024, 4096,
 )
@@ -35,6 +39,8 @@ FANOUT_BUCKETS: Tuple[float, ...] = (
 # histogram name -> its bucket bounds (the reference's declarations)
 HISTOGRAM_BUCKETS: Dict[str, Tuple[float, ...]] = {
     "dispatch.fanout": FANOUT_BUCKETS,
+    "ingest.batch.size": SIZE_BUCKETS,
+    "ingest.batch.occupancy": RATIO_BUCKETS,
     "matcher.batch.size": SIZE_BUCKETS,
     "matcher.device.seconds": LATENCY_BUCKETS,
     "matcher.sync.seconds": LATENCY_BUCKETS,
@@ -102,6 +108,21 @@ class Histogram:
     @property
     def p99(self) -> float:
         return self.percentile(0.99)
+
+    def snapshot(self) -> Dict:
+        """-> {"count", "sum", "buckets": [(le, cumulative_count), ...]}
+        with a final (inf, count) entry — exactly the exposition shape."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self.count
+            s = self.sum
+        out: List[Tuple[float, int]] = []
+        cum = 0
+        for le, c in zip(self.bounds, counts):
+            cum += c
+            out.append((le, cum))
+        out.append((float("inf"), total))
+        return {"count": total, "sum": s, "buckets": out}
 
 
 class Metrics:

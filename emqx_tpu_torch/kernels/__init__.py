@@ -5,8 +5,8 @@ Each kernel lives beside its plain PyTorch twin in the module of its JAX
 counterpart (`ops/tokenizer.py`, `ops/shape_index.py`, `ops/matcher.py`,
 `ops/segments.py`, `ops/csr_table.py`, `ops/session_table.py`,
 `ops/semantic_table.py`, `rules/compile.py`, `models/router_model.py`,
-`models/retained_index.py`; the mesh's lane-based compaction, group
-counts and rank-offset picks sit beside their single-device forms in
+`models/retained_index.py`; the mesh's lane-based compaction and
+rank-offset picks sit beside their single-device forms in
 `models/router_model.py`). A
 wrapper given CPU tensors runs the twin; given CUDA tensors it launches
 the kernel (built at first use by `build.load`) and raises on any failure
@@ -17,10 +17,14 @@ after each CUDA kernel launched, and nowhere else, so a run can show that
 its path went through the kernels. A wrapper call may launch several
 (`share_pick` under round_robin two, `occurrence_index` three,
 `semantic_match` two: the scores and the merge,
-`segment_scatter` two: the claim and the store).
+`segment_scatter` two: the claim and the store). The pipelined publish
+path launches from the event loop's thread and from the dispatch pool's
+workers at once, so each count is taken under a lock and stays exact.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -42,13 +46,14 @@ LAUNCHES = {
     "session_sweep": 0,
     "semantic_match": 0,
     "rule_masks": 0,
-    "group_counts": 0,
 }
+_count_lock = threading.Lock()  # guards LAUNCHES across launching threads
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check_tensor(t, name: str, dtype: torch.dtype, ndim: int) -> None:
@@ -118,4 +123,5 @@ def launch(name: str, c_launcher: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"{name}: CUDA launch failed ({rc}: {build.error_string(rc)})"
         )
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1

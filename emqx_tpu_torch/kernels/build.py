@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -79,12 +80,11 @@ _SIGNATURES = {
         _P, _L, _I, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
         _P, _I, _P,
     ),
-    # gids, n, counts, gcap, stream
-    "emqx_group_counts": (_P, _L, _P, _L, _P),
     # gids, n, gcap, sub-tiles a tile, counts, counts' words, occ, stream
     "emqx_occ_count": (_P, _L, _L, _I, _P, _L, _P, _P),
-    # n, gcap, sub-tiles a tile, counts, counts' words, stream
-    "emqx_occ_scan": (_L, _L, _I, _P, _L, _P),
+    # n, gcap, sub-tiles a tile, counts, counts' words, totals (or null),
+    # stream
+    "emqx_occ_scan": (_L, _L, _I, _P, _L, _P, _P),
     # gids, n, gcap, sub-tiles a tile, counts, counts' words, occ, stream
     "emqx_occ_add": (_P, _L, _L, _I, _P, _L, _P, _P),
     # bytes, out, N, MB, stream
@@ -114,6 +114,7 @@ _SIGNATURES = {
 }
 
 _lib = None  # the loaded library (the port's one extension handle)
+_load_lock = threading.Lock()  # one build and load when threads race to it
 
 
 def nvcc_path() -> str:
@@ -195,9 +196,14 @@ def library_path() -> Path:
 
 def load():
     """-> the ctypes library with every launcher bound (built if needed)."""
-    global _lib
     if _lib is not None:
         return _lib
+    with _load_lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load():  # holds-lock: _load_lock
+    global _lib
     lib = ctypes.CDLL(str(library_path()))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -7,7 +7,8 @@
 // and a scatter back.
 //
 // Bound: bytes. The function reads n gids and writes n ranks (8n bytes),
-// with a range check, a count, a prefix and an add a lane.
+// with a range check, a count, a prefix and an add a lane; with the totals
+// it also writes gcap counts (4 gcap bytes more).
 //
 // Design: no sort. The caller knows the range: a gid is -1 or below `gcap`
 // (share_pick passes the group arrays' length), so a gid is one of gcap + 1
@@ -37,7 +38,15 @@
 //      It writes the in-tile ranks to `occ`.
 //   2. occ_scan_kernel: the exclusive prefix of each column over the tiles,
 //      in place; a block takes 32 columns (coalesced rows), its 8 warps a
-//      segment of tiles each, loads in flight together.
+//      segment of tiles each, loads in flight together. With `totals` set
+//      it also writes each group's count over all lanes, totals[gid] for
+//      gid in [0, gcap): the last warp's running sum ends at its column's
+//      total, so the histogram costs one store a group and no launch. It
+//      is the `dp_axis` histogram of `share_pick_device`
+//      (emqx_tpu/models/router_model.py:944-947),
+//        zeros(Gcap).at[max(gids, 0)].add(gids >= 0, mode="drop"):
+//      a gid outside [-1, gcap) takes no column and is not counted, as
+//      the histogram adds nothing below 0 and drops a gid past Gcap.
 //   3. occ_add_kernel, a thread a lane: occ[i] += prefix[tile][column], or
 //      for a gid without a column the count of its equals before lane i.
 // The count matrix is the wrapper's scratch, tiles x stride int32 (stride
@@ -231,7 +240,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 __global__ void __launch_bounds__(kThreads)
     occ_scan_kernel(int32_t* __restrict__ counts, long long tiles,
-                    long long gcap) {
+                    long long gcap, int32_t* __restrict__ totals) {
   __shared__ int32_t part[kWarps][32];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -268,6 +277,9 @@ __global__ void __launch_bounds__(kThreads)
       run += v[u];
     }
   }
+  // the last warp's segment ends the tiles (it may be empty): its run is
+  // the column's total
+  if (totals != nullptr && warp == kWarps - 1 && c >= 1) totals[c - 1] = run;
 }
 
 __global__ void occ_add_kernel(const int32_t* __restrict__ gids, long long n,
@@ -308,6 +320,7 @@ long long plan(long long n, long long gcap, int sub, long long words) {
 // The three launches of one call, in order, on one scratch of `words`
 // int32 (at least tiles x stride, see `plan`); each returns the launch's
 // cudaError_t, or cudaErrorInvalidValue when the arguments do not fit.
+// `totals` (int32 [gcap], or null) takes each group's count from the scan.
 
 EMQX_EXPORT int emqx_occ_count(const void* gids, long long n, long long gcap,
                                int sub, void* counts, long long words,
@@ -326,12 +339,14 @@ EMQX_EXPORT int emqx_occ_count(const void* gids, long long n, long long gcap,
 }
 
 EMQX_EXPORT int emqx_occ_scan(long long n, long long gcap, int sub,
-                              void* counts, long long words, void* stream) {
+                              void* counts, long long words, void* totals,
+                              void* stream) {
   const long long tiles = plan(n, gcap, sub, words);
   if (tiles < 0) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned blocks = static_cast<unsigned>((gcap + 32) / 32);
   occ_scan_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(counts), tiles, gcap);
+      static_cast<int32_t*>(counts), tiles, gcap,
+      static_cast<int32_t*>(totals));
   return static_cast<int>(cudaGetLastError());
 }
 

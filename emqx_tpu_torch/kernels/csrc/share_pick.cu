@@ -27,8 +27,8 @@
 // The mesh branch (`dp_axis`, emqx_tpu/models/router_model.py:942-962):
 // with the batch split over 'dp', a round-robin lane's rank within its
 // group must count the lanes of lower dp ranks too. `all_counts` [dp,
-// gcap] holds every dp rank's per-group lane counts (group_counts.cu,
-// then an all-gather); phase 1 adds prev[g], the sum of the rows below
+// gcap] holds every dp rank's per-group lane counts (the totals of
+// occurrence_index.cu's scan, then an all-gather); phase 1 adds prev[g], the sum of the rows below
 // `dp_rank`, to the local occurrence before the modulo, in the same
 // launch: dp_rank reads a lane, issued with the group words. A null
 // `all_counts` is the single-device kernel, bit for bit.

@@ -264,7 +264,7 @@ def occurrence_plan(n: int, gcap: int):
         sub *= 2
 
 
-def occurrence_index(flat_gids, *, gcap: Optional[int] = None):
+def occurrence_index(flat_gids, *, gcap: Optional[int] = None, totals: bool = False):
     """occ[i] = #{j < i : g[j] == g[i]} in flat order (kernel 10).
 
     flat_gids int32 [n] -> int32 [n]. The counterpart of `_occurrence_index`
@@ -276,28 +276,39 @@ def occurrence_index(flat_gids, *, gcap: Optional[int] = None):
     ranked exactly too, by the add launch counting its equals among the
     lanes before it (O(n) reads a lane: the path for group tables that
     name a group past their arrays, which a `GroupTable` never uploads).
-    On the CPU the twin needs no range and `gcap` is not read."""
+    On the CPU the twin needs no range and `gcap` is not read.
+
+    With ``totals=True`` it returns ``(occ, totals)``: totals int32
+    [gcap] is each group's count of lanes, the `dp_axis` histogram of
+    `share_pick_device` (emqx_tpu/models/router_model.py:944-947; a gid
+    outside [0, gcap) is not counted), which the prefix launch writes
+    from the column totals it already holds (twin: `group_counts_plain`).
+    It then needs `gcap` on either device."""
     kernels.check_tensor(flat_gids, "flat_gids", torch.int32, 1)
     n = flat_gids.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"occurrence_index: {n} lanes, at most 2^31 - 1")
-    if not kernels.on_cuda(flat_gids):
-        return occurrence_index_plain(flat_gids)
-    if gcap is None or not 0 <= gcap < (1 << 31) - 1:
-        raise ValueError(f"occurrence_index on CUDA needs gcap in [0, 2^31 - 1), got {gcap}")
+    cuda = kernels.on_cuda(flat_gids)
+    if (cuda or totals) and (gcap is None or not 0 <= gcap < (1 << 31) - 1):
+        raise ValueError(f"occurrence_index on CUDA or with totals needs gcap in "
+                         f"[0, 2^31 - 1), got {gcap}")
+    if not cuda:
+        occ = occurrence_index_plain(flat_gids)
+        return (occ, group_counts_plain(flat_gids, gcap)) if totals else occ
     dev = flat_gids.device
     occ = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
-        return occ
+        return (occ, torch.zeros(gcap, dtype=torch.int32, device=dev)) if totals else occ
+    tot = torch.empty(gcap, dtype=torch.int32, device=dev) if totals else None
     sub, _tiles, words = occurrence_plan(n, gcap)
     counts = torch.empty(words, dtype=torch.int32, device=dev)
     kernels.launch("occurrence_index", "emqx_occ_count", dev, flat_gids.data_ptr(), n,
                    gcap, sub, counts.data_ptr(), words, occ.data_ptr())
     kernels.launch("occurrence_index", "emqx_occ_scan", dev, n, gcap, sub,
-                   counts.data_ptr(), words)
+                   counts.data_ptr(), words, tot.data_ptr() if totals else None)
     kernels.launch("occurrence_index", "emqx_occ_add", dev, flat_gids.data_ptr(), n,
                    gcap, sub, counts.data_ptr(), words, occ.data_ptr())
-    return occ
+    return (occ, tot) if totals else occ
 
 
 # -- kernel 9: $share picks ----------------------------------------------------
@@ -326,28 +337,15 @@ def _group_lanes(group_tables, matched):
 
 
 def group_counts_plain(gids, gcap: int):
-    """Plain PyTorch twin of the `group_counts` kernel (any device)."""
+    """Per-group count of live $share lanes, the plain twin of the totals
+    of `occurrence_index` (any device): gids int32 (any shape; -1 = no
+    group) -> int32 [gcap], a gid at or past gcap dropped. One dp shard's
+    histogram of the mesh branch of `share_pick_device`
+    (emqx_tpu/models/router_model.py:944-947):
+    ``zeros(Gcap).at[max(gids, 0)].add(gids >= 0, mode="drop")``."""
     g = gids.reshape(-1).to(torch.int64)
     g = g[(g >= 0) & (g < gcap)]
     return torch.bincount(g, minlength=gcap)[:gcap].to(torch.int32)
-
-
-def group_counts(gids, gcap: int):
-    """Per-group count of live $share lanes (kernel `group_counts`).
-
-    gids int32 (any shape; -1 = no group) -> int32 [gcap], a gid at or
-    past gcap dropped. One dp shard's histogram of the mesh branch of
-    `share_pick_device` (emqx_tpu/models/router_model.py:944-947):
-    ``zeros(Gcap).at[max(gids, 0)].add(gids >= 0, mode="drop")``."""
-    if not isinstance(gids, torch.Tensor) or gids.dtype != torch.int32 \
-            or not gids.is_contiguous():
-        raise TypeError("gids: expected a contiguous int32 tensor")
-    if not kernels.on_cuda(gids):
-        return group_counts_plain(gids, gcap)
-    counts = torch.zeros(gcap, dtype=torch.int32, device=gids.device)
-    kernels.launch("group_counts", "emqx_group_counts", gids.device,
-                   gids.data_ptr(), gids.numel(), counts.data_ptr(), gcap)
-    return counts
 
 
 def _dp_check(all_counts, dp_rank: int, gcap: int) -> None:
@@ -425,10 +423,10 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     with the batch split over 'dp', ``dp_gather`` maps this shard's
     per-group lane counts int32 [Gcap] to every dp rank's, [dp, Gcap] (an
     all-gather over 'dp'), and ``dp_rank`` is this shard's rank. Under
-    round_robin the counts come from `group_counts` over the raw lanes, and
-    the pick launch adds the counts of the lower ranks to each lane's
-    occurrence, so the picks equal the single-device picks of the whole
-    batch. Other strategies ignore both."""
+    round_robin the counts are the totals of the `occurrence_index` call
+    over the raw lanes (no launch of their own), and the pick launch adds
+    the counts of the lower ranks to each lane's occurrence, so the picks
+    equal the single-device picks of the whole batch. Other strategies ignore both."""
     for k in GROUP_KEYS:
         kernels.check_tensor(group_tables[k], k, torch.int32,
                              2 if k == "filter_groups" else 1)
@@ -474,9 +472,11 @@ def share_pick(group_tables, matched, client_hash, topic_hash, rand, *,
     occ = all_c = None
     if strategy == 1:
         run(None, 0)  # the raw group lanes, into pick_gid
-        occ = occurrence_index(pick_gid.reshape(-1), gcap=gcap)
-        if dp_gather is not None:
-            all_c = dp_gather(group_counts(pick_gid, gcap)).contiguous()
+        if dp_gather is None:
+            occ = occurrence_index(pick_gid.reshape(-1), gcap=gcap)
+        else:
+            occ, counts = occurrence_index(pick_gid.reshape(-1), gcap=gcap, totals=True)
+            all_c = dp_gather(counts).contiguous()
             _dp_check(all_c, dp_rank, gcap)
     run(occ.data_ptr() if occ is not None else None, 1, all_c)
     return pick_gid, pick_idx
@@ -1529,8 +1529,28 @@ class DeviceRouter:
     def prepare(self) -> Prepared:
         """Sync the device mirrors with the current tables. MUST run on the
         thread that mutates the tables. The returned tuple is immutable
-        device state for `route_prepared`."""
+        device state for `route_prepared`.
+
+        Safe for the broker's pipeline (`Broker.adispatch_begin`), where
+        it runs on the event loop's thread while an earlier batch's
+        `route_prepared` still works on a pool thread: a sync writes no
+        tensor a held `Prepared` names (a scatter writes fresh clones, a
+        full or array resync uploads fresh tensors), and a delta sync
+        waits on nothing: its entries go up through pinned memory without
+        a wait, and it reads no device value back. Only a full or array
+        resync (an epoch change: table growth, a flip, a torn sync) copies
+        pageable host arrays, which waits for the stream."""
         return self._device_args()
+
+    def launch_stream(self):
+        """The CUDA stream this thread launches on (None on the CPU).
+        `Broker.adispatch_begin` hands it to the pool thread that runs
+        `route_prepared` (`on_stream`), so the loop thread's scatters and
+        every batch's launches and readback share one stream and run in
+        the order they were enqueued."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
 
     def segment_status(self) -> Dict[str, Dict[str, int]]:
         """Per mirror (`shapes`, `nfa`, `bitmaps` unless the router is
@@ -1760,7 +1780,7 @@ class DeviceRouter:
             K = session["due"].numel()
             parts += [session["due"], session["due_count"].reshape(1),
                       session["expired"], session["expired_count"].reshape(1)]
-        host = torch.cat(parts + storm_words).cpu().numpy()
+        host = _to_host(torch.cat(parts + storm_words))
         readback = host.nbytes
         o = 0
 
@@ -2118,6 +2138,32 @@ class MeshServingRouter(DeviceRouter):
         out["lane_fill_max"] = max(fills) if fills else 0.0
         out["lane_fill_min"] = min(fills) if fills else 0.0
         return out
+
+
+def on_stream(stream, fn, *args):
+    """fn(*args) with `stream` as this thread's current CUDA stream (as it
+    is when `stream` is None): how a dispatch pool thread launches on the
+    stream of the thread that prepared the batch."""
+    if stream is None:
+        return fn(*args)
+    with torch.cuda.stream(stream):
+        return fn(*args)
+
+
+def _to_host(buf: torch.Tensor) -> np.ndarray:
+    """A batch's packed outputs -> host numpy, in one device->host copy. On
+    CUDA the copy goes to pinned memory and the caller waits for an event
+    recorded right after it, not for the whole stream: with the pipeline's
+    threads on one stream, a later batch's launches enqueued meanwhile do
+    not hold this readback back."""
+    if not buf.is_cuda:
+        return buf.numpy()
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(buf.device))
+    done.synchronize()
+    return host.numpy()
 
 
 def _as_words(m: torch.Tensor) -> torch.Tensor:

@@ -237,6 +237,8 @@ def test_importing_the_port_loads_no_jax():
             "emqx_tpu_torch.broker.broker", "emqx_tpu_torch.broker.router",
             "emqx_tpu_torch.broker.trie", "emqx_tpu_torch.broker.hooks",
             "emqx_tpu_torch.broker.message", "emqx_tpu_torch.broker.metrics",
+            "emqx_tpu_torch.broker.ingest", "emqx_tpu_torch.broker.slo",
+            "emqx_tpu_torch.broker.degrade", "emqx_tpu_torch.utils.tracepoints",
             "emqx_tpu_torch.mqtt.packet"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
@@ -253,6 +255,10 @@ def test_importing_the_port_loads_no_jax():
 def test_no_jax_or_emqx_tpu_import_in_port_sources():
     files = sorted((ROOT / "emqx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # the pipelined publish path's modules are scanned too
+    assert {ROOT / "emqx_tpu_torch" / p for p in (
+        "broker/ingest.py", "broker/slo.py", "broker/degrade.py",
+        "utils/tracepoints.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -492,8 +492,7 @@ def test_kernels_match_twins_on_card(cuda_device):
                                 "vocab_lookup": 0, "nfa_walk": 0, "segment_scatter": 0,
                                 "sparse_fanout_slots": 0, "share_pick": 0,
                                 "occurrence_index": 0, "row_lengths": 0, "narrow_i16": 0,
-                                "session_sweep": 0, "semantic_match": 0, "rule_masks": 0,
-                                "group_counts": 0}
+                                "session_sweep": 0, "semantic_match": 0, "rule_masks": 0}
 
 
 @pytest.mark.cuda

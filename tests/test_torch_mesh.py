@@ -29,7 +29,8 @@ suite. JAX runs in this process, on the 2 x 2 slice of the virtual
   tau = D x 2^-23, `chip_smoke.semantic_row_ok`), `sem_count` equal to the
   single-device count, the rule masks equal;
 - (d) the three mesh kernels' twins (`compact_fanout_slots_shard`,
-  `group_counts`, `share_pick` with dp offsets) against the JAX
+  the group counts as `occurrence_index`'s totals, `share_pick` with dp
+  offsets) against the JAX
   expressions they replace, the offsets inside `shard_map` with
   `dp_axis="dp"`, and the dp picks equal to the single-device picks;
 - (e) backend/device mismatches, a failing rank and a hung collective;
@@ -766,6 +767,8 @@ def test_compact_shard_twin_matches_the_jax_rebase():
 
 
 def test_group_counts_twin_matches_the_jax_histogram():
+    """The histogram of the mesh branch, now the totals of the
+    `occurrence_index` call: its twin and the call's totals against JAX."""
     import jax.numpy as jnp
 
     rng = np.random.default_rng(2)
@@ -773,8 +776,12 @@ def test_group_counts_twin_matches_the_jax_histogram():
     gsafe = np.maximum(gids, 0)
     want = jnp.zeros(64, jnp.int32).at[gsafe.reshape(-1)].add(
         (gids >= 0).astype(np.int32).reshape(-1), mode="drop")
-    got = P_router.group_counts(torch.from_numpy(gids), 64)
+    got = P_router.group_counts_plain(torch.from_numpy(gids), 64)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    occ, tot = P_router.occurrence_index(torch.from_numpy(gids).reshape(-1), gcap=64,
+                                         totals=True)
+    np.testing.assert_array_equal(tot.numpy(), np.asarray(want))
+    assert torch.equal(occ, P_router.occurrence_index_plain(torch.from_numpy(gids).reshape(-1)))
 
 
 def test_dp_offset_picks_match_jax_dp_axis_and_single_device():
@@ -808,7 +815,8 @@ def test_dp_offset_picks_match_jax_dp_axis_and_single_device():
         halves = [torch.from_numpy(matched[d * per:(d + 1) * per]) for d in range(dp)]
         gcap = psnap["group_len"].shape[0]
         raw = [P_router._group_lanes(psnap, m)[0] for m in halves]
-        all_c = torch.stack([P_router.group_counts(g.contiguous(), gcap) for g in raw])
+        all_c = torch.stack([P_router.occurrence_index(g.reshape(-1).contiguous(), gcap=gcap,
+                                                       totals=True)[1] for g in raw])
         got = [P_router.share_pick(
             psnap, halves[d], *(torch.from_numpy(v[d * per:(d + 1) * per].view(np.int32))
                                 for v in (zeros, zeros, rand)),
@@ -968,7 +976,9 @@ def test_mesh_kernels_match_twins_on_card(cuda_device):
     matched = torch.from_numpy(rng.integers(-1, 120, size=(512, 6)).astype(np.int32)).to(cuda_device)
     lanes = P_router._group_lanes(gt, matched)[0].contiguous()
     gcap = gt["group_len"].shape[0]
-    assert torch.equal(P_router.group_counts(lanes, gcap), P_router.group_counts_plain(lanes, gcap))
+    occ, tot = P_router.occurrence_index(lanes.reshape(-1), gcap=gcap, totals=True)
+    assert torch.equal(tot, P_router.group_counts_plain(lanes, gcap))
+    assert torch.equal(occ, P_router.occurrence_index_plain(lanes.reshape(-1)))
     all_c = torch.stack([P_router.group_counts_plain(lanes, gcap)] * 3)
     z = torch.zeros(512, dtype=torch.int32, device=cuda_device)
     for rank in range(3):
@@ -977,7 +987,11 @@ def test_mesh_kernels_match_twins_on_card(cuda_device):
             got = P_router.share_pick(gt, matched, z, z, z + 77, **kw)
             want = P_router.share_pick_plain(gt, matched, z, z, z + 77, **kw)
             assert all(torch.equal(a, b) for a, b in zip(got, want)), (rank, strategy)
-    assert kernels.LAUNCHES["group_counts"] == 1 + 3  # the direct call, then round robin
+    # the direct call, then round robin on each rank: its histogram is the
+    # totals of the occurrence call (3 launches), with no launch of its own
+    assert kernels.LAUNCHES["occurrence_index"] == 3 + 3 * 3
+    assert kernels.LAUNCHES["share_pick"] == 3 * (5 + 1)
+    assert "group_counts" not in kernels.LAUNCHES
     assert kernels.LAUNCHES["compact_fanout_slots"] == 4
 
 

@@ -258,6 +258,50 @@ def test_occurrence_index_twin_with_gcap_matches_jax(seed, n, space):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+TOTALS_CASES = ("past-gcap", "below-minus-one", "single-tile", "gcap-not-32")
+
+
+def totals_case(case, rng):
+    """-> (gids int32 [n], gcap) of one case of `occurrence_index`'s totals
+    (the histogram of the mesh branch)."""
+    if case == "past-gcap":  # a fifth of the lanes at or past gcap
+        return rng.integers(-1, 5000, size=20_000).astype(np.int32), 4000
+    if case == "below-minus-one":
+        g = rng.integers(-40, 300, size=9000).astype(np.int32)
+        g[::13] = np.iinfo(np.int32).min
+        return g, 300
+    if case == "single-tile":  # one tile of the kernel's count matrix
+        return rng.integers(-1, 50, size=P_router.OCC_SUB - 5).astype(np.int32), 50
+    g = rng.integers(-1, 45, size=7000).astype(np.int32)  # 46 columns: 2 blocks
+    g[:200] = 44
+    return g, 45
+
+
+def jax_histogram(g, gcap):
+    """The `dp_axis` histogram of `share_pick_device`
+    (emqx_tpu/models/router_model.py:944-947)."""
+    return np.asarray(jnp.zeros(gcap, jnp.int32).at[jnp.maximum(g, 0)].add(
+        (g >= 0).astype(jnp.int32), mode="drop"))
+
+
+@pytest.mark.parametrize("case", TOTALS_CASES)
+def test_occurrence_totals_match_the_jax_histogram(case):
+    """``occurrence_index(..., totals=True)``: the ranks as without it,
+    and the per-group counts equal to `group_counts_plain` and to JAX's
+    histogram (a gid past gcap dropped, one below 0 adding nothing)."""
+    g, gcap = totals_case(case, np.random.default_rng(TOTALS_CASES.index(case)))
+    occ, tot = P_router.occurrence_index(torch.from_numpy(g), gcap=gcap, totals=True)
+    want = jax_histogram(jnp.asarray(g), gcap)
+    assert tot.dtype == torch.int32 and tot.shape == (gcap,)
+    np.testing.assert_array_equal(tot.numpy(), want)
+    np.testing.assert_array_equal(P_router.group_counts_plain(torch.from_numpy(g), gcap).numpy(),
+                                  want)
+    np.testing.assert_array_equal(occ.numpy(),
+                                  np.asarray(J_router._occurrence_index(jnp.asarray(g))))
+    with pytest.raises(ValueError, match="gcap"):
+        P_router.occurrence_index(torch.from_numpy(g), totals=True)
+
+
 def test_share_pick_wrapper_checks():
     p, _j, matched, ch, th, rand = pick_inputs(0, B=10)
     snap = {k: torch.from_numpy(v.copy()) for k, v in p.device_snapshot().items()}
@@ -359,8 +403,10 @@ def test_share_pick_kernel_at_every_gpf_on_card(cuda_device, gpf):
                 occs += 3
     assert kernels.LAUNCHES["share_pick"] == picks
     assert kernels.LAUNCHES["occurrence_index"] == occs
-    # one group_counts launch a dp call (its histogram goes to dp_gather)
-    assert kernels.LAUNCHES["group_counts"] == 3 * 10
+    # a dp call's histogram (for dp_gather) is the occurrence call's totals:
+    # 2 share_pick and 3 occurrence_index launches, and nothing else
+    assert "group_counts" not in kernels.LAUNCHES
+    assert sum(kernels.LAUNCHES.values()) == picks + occs
 
 
 OCC_CASES = ("space-1", "space-3", "space-50", "space-11000", "gcap-16384-all-live",
@@ -396,6 +442,24 @@ def test_occurrence_index_matches_twin_on_card(cuda_device, case):
         torch.cuda.synchronize()
         assert kernels.LAUNCHES["occurrence_index"] == 3, n
         assert torch.equal(got, P_router.occurrence_index_plain(gt)), (case, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TOTALS_CASES)
+def test_occurrence_totals_match_twin_on_card(cuda_device, case):
+    """The totals the prefix launch writes, at the CPU cases' inputs and
+    tiled to several tiles, and at no lanes: equal to the twin, with the
+    ranks, in the call's 3 launches."""
+    dev = cuda_device
+    g, gcap = totals_case(case, np.random.default_rng(TOTALS_CASES.index(case)))
+    for gg in (g, np.tile(g, 300_001 // len(g) + 1)[:300_001], g[:0]):
+        gt = torch.from_numpy(np.ascontiguousarray(gg)).to(dev)
+        kernels.reset_launches()
+        occ, tot = P_router.occurrence_index(gt, gcap=gcap, totals=True)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["occurrence_index"] == (3 if len(gg) else 0)
+        assert torch.equal(tot, P_router.group_counts_plain(gt, gcap)), (case, len(gg))
+        assert torch.equal(occ, P_router.occurrence_index_plain(gt)), (case, len(gg))
 
 
 @pytest.mark.cuda
