@@ -112,14 +112,15 @@ site/+/dev/{d}/ch/# for d < 8,192 (filter d matches 50 rows):
 The `session_1m` path (the device session store): bench.py's
 `session_storm` as `bench_session_storm` builds it: 1,000,000 sessions
 c{i}, each one QoS1 publish-phase row (pid i mod 65535 + 1, one shared
-message) bulk-loaded into SessionStore(capacity 2^21, sweep_slots 16,384,
-retry 1 s, a frozen clock; the bulk placement grows the table to 2^22
-rows), captured and installed into a fresh store,
-every slot bound to a batch resend sink, the clock 60 s on; each sweep
-rides a B = 64 batch of mixed_1m topics through the mixed_1m router (the
-retained path's):
-19. `tables_session`: build seconds per stage, the table's capacity and
-    bytes, `reduced`;
+message dev/offline) bulk-loaded into SessionStore(capacity 2^21,
+sweep_slots 16,384, retry 1 s, a frozen clock; the bulk placement grows
+the table to 2^22 rows) and captured. The capture is installed twice: into
+a fresh store whose sweeps ride B = 64 batches of mixed_1m topics straight
+through the mixed_1m router (the retained path's), and, as bench.py does,
+into the store of a fresh `Broker(router=Router(min_tpu_batch=32))` with
+one subscription on drive/#, whose sweeps ride the broker's own batches:
+19. `tables_session`: build seconds per stage (the broker's among them),
+    the table's capacity and bytes, `reduced` (none);
 20. `flood_session`, `churn_session` and `fused_session`, counters zeroed
     before the first and read after the last: request_sweep -> take_rider
     -> route_prepared(..., session=rider) -> commit until every session is
@@ -135,6 +136,30 @@ retained path's):
     and a second due overflow), the mirror equal to the host lanes after
     every commit; then one rider-carrying call under the profiler (one
     device->host copy);
+20b. `flood_broker_session` and `live_session_broker`, counters zeroed
+    before the first and read after the last (`launches_session_broker`):
+    the session store's broker half. The flood is bench.py's drive: the
+    state installed into the broker's store, every slot bound to a
+    `BatchSink` building the dup PUBLISH frames with `serialize_pub_slab`,
+    the clock 60 s on, a warm `submit`, then `request_sweep()` and 64
+    drive/{i} publishes through `BatchIngest(max_batch=256,
+    window_us=200)` until all are redelivered (each sweep rides its batch
+    through `adispatch_begin` and commits on the loop), and a flush
+    batch; each (slot, pid) exactly once, no scatter of the store's own,
+    one `session_sweep` launch a sweep ride and `segment_scatter`'s
+    launches in each ride with writes, the full uploads `flood_plan`
+    derives, one device->host copy a device batch, the mirror equal to the
+    host lanes. The live phase: 65,536 `Session`s (max_inflight 32) over a
+    broker with the store attached, each QoS1 on sess/{i}; 8 batches of
+    8,192 publishes through `BatchIngest(max_batch=8192)` at pipeline 1,
+    every window PUBACKed, then at pipeline 2, half PUBACKed, 2 no-match
+    batches to carry the acks; then the clocks 60 s on, a sweep and 2
+    batches: every publish delivered once, 32,768 rows live, the riders'
+    rows equal to the op-log's, the mirror equal to the host lanes, and
+    the 32,768 unacked (slot, pid) pairs redelivered exactly once, the set
+    `Session.retry()` picks on storeless sessions fed the same drive. Both
+    freeze the heap and print one full collection's time; both print
+    rates, the p50 `take_rider` and `commit` ms and the launches a ride;
 21. `kernel` for session_sweep at the flood's table (2^22 rows, 2^20
     slots) against its twin, with `torch.nonzero` of the precomputed masks
     as the nearest library call;
@@ -320,7 +345,7 @@ a four-GPU host (no kernels line, no last line):
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
-    session_1m; semantic_match (f32 table) and rule_masks on
+    session_1m, the direct rides' and the broker phases'; semantic_match (f32 table) and rule_masks on
     semantic_256k; the `mesh` cases of occurrence_index (with the totals
     mesh_share_2x2's round-robin branch all-gathers), of its rank-offset
     share_pick and of mesh_1m_2x2's lane-based compact_fanout_slots; the
@@ -406,9 +431,21 @@ RET_PLAIN_REPS = 5  # samples of a plain twin at a million rows
 SESS_N = 1_000_000
 SESS_SWEEP = 16384
 SESS_RETRY = 1.0  # seconds
-SESS_BATCH = 64  # topics of the routed batch each sweep rides
+SESS_BATCH = 64  # topics of the mixed_1m batch each direct sweep rides
 SESS_ACKS, SESS_RELS, SESS_AWAITS = 20000, 10000, 5000  # churn ride A
 SESS_EXPIRY = 100000  # churn ride B: sessions with an expiry deadline
+# the broker's drive (bench.py:2886-2965): Router(min_tpu_batch=32), one
+# subscription on drive/#, BatchIngest(max_batch=256, window_us=200), 64
+# drive/{i} publishes a sweep
+SESS_MIN_BATCH = 32
+SESS_DRIVE = 64
+SESS_INGEST = dict(max_batch=256, window_us=200)
+# live store-backed sessions: 65,536 Session objects (max_inflight 32), one
+# QoS1 subscription sess/{i} each, 8 batches of 8,192 publishes a depth
+LIVE_SESSIONS = 65536
+LIVE_BATCH = 8192
+LIVE_INFLIGHT = 32
+LIVE_FLUSH = 2  # no-match batches that carry the acks' writes
 
 # semantic_256k: 2^18 embedding filters at D = 384 (the output width of the
 # public sentence-embedding model all-MiniLM-L6-v2), top-16, over the
@@ -2887,10 +2924,482 @@ def session_ride(torch, store, router, args, topics, profile=False) -> dict:
     }
 
 
+class BatchSink:
+    """bench.py's BatchSink (bench.py:2894-2928): a channel-shaped resend
+    sink. The store hands it all of its sessions' due rows in one call
+    (`_store_resend_batch`), and it pays the real per-row serialization:
+    one `serialize` pass (the port's `mqtt.slab_serializer.
+    serialize_pub_slab`) building every dup PUBLISH frame. It records the
+    count, the frame bytes, the packet ids and the time of its first call."""
+
+    def __init__(self, serialize):
+        self.serialize = serialize
+        self.count = 0
+        self.bytes = 0
+        self.first = None
+        self.pids = []
+
+    def resend(self, pid, st, msg):  # bound per slot; the batch path is taken
+        raise AssertionError("the store must take the batch path")
+
+    def _store_resend_batch(self, items):
+        pubs = [(m.topic_bytes(), m.payload_view(), m.qos, m.retain, True, pid, None)
+                for pid, _st, m in items]
+        slab, _offs = self.serialize(pubs)
+        self.count += len(items)
+        self.bytes += len(slab)
+        self.pids.extend(pid for pid, _st, _m in items)
+        if self.first is None:
+            self.first = time.perf_counter()
+        return [True] * len(items)
+
+
+def copy_capture(state: dict) -> dict:
+    """A store capture with copies of its table, slab and registry:
+    `install` takes a capture's objects as its own, and a store installed
+    from one mutates them."""
+    import copy
+
+    table = copy.copy(state["table"])
+    for name in table.device_snapshot():
+        setattr(table, name, getattr(table, name).copy())
+    table.oplog = list(table.oplog)
+    return {**state, "table": table, "slab": list(state["slab"]),
+            "free_mids": list(state["free_mids"]), "slots": dict(state["slots"]),
+            "slot_cid": list(state["slot_cid"]), "free_slots": list(state["free_slots"])}
+
+
+async def storm_drive(broker, store, ingest, message, sink, n: int, max_sweeps: int) -> dict:
+    """bench.py's session_storm flood (bench.py:2938-2965) through a broker
+    with `store` attached: `ingest` (a `BatchIngest` of the broker, not yet
+    started) is attached and started, one `submit` warms (a one-message
+    batch, below `min_tpu_batch`: a CPU batch, which takes no rider, as in
+    bench.py; the first sweep's rider makes the full upload, the segment
+    replay), then until `sink` has seen n redeliveries:
+    `request_sweep()`, SESS_DRIVE drive/{i} enqueues, `gather`. One batch
+    of SESS_DRIVE more, with no sweep asked, then carries the last commit's
+    redelivery stamps, and the ingest stops. Takes either package's
+    objects. -> sweeps and the flood loop's wall seconds."""
+    import asyncio
+
+    broker.ingest = ingest
+    ingest.start()
+    await ingest.submit(message(topic="drive/warm", payload=b"w", qos=0))
+    t0 = time.perf_counter()
+    sweeps = 0
+    while sink.count < n:
+        if sweeps >= max_sweeps:
+            raise AssertionError(f"{sweeps} sweeps redelivered {sink.count} of {n}")
+        store.request_sweep()
+        await asyncio.gather(*[ingest.enqueue(message(topic=f"drive/{i}", payload=b"p"))
+                               for i in range(SESS_DRIVE)])
+        sweeps += 1
+    wall = time.perf_counter() - t0
+    await asyncio.gather(*[ingest.enqueue(message(topic=f"drive/{i}", payload=b"f"))
+                           for i in range(SESS_DRIVE)])
+    await ingest.stop()
+    broker.ingest = None
+    return {"sweeps": sweeps, "wall_s": wall}
+
+
+class RideProbe:
+    """Wraps a store's `take_rider` and `commit` (instance attributes over
+    the methods the broker calls): each call's milliseconds, and per ride
+    the rows and sweep it carried and the launches of the stage's kernels
+    between its take and its commit (`kernels.LAUNCHES` deltas, exact
+    while one batch is in flight); and the row writes of every rider
+    counted from the op-log suffix it takes (distinct (lane, index) pairs
+    since the mirror's position), to hold the rider's own count against."""
+
+    names = ("session_sweep", "segment_scatter")
+
+    def __init__(self, store):
+        from emqx_tpu_torch import kernels
+        from emqx_tpu_torch.ops.session_table import RESYNC
+
+        names = self.names
+        self.store = store
+        self.take_ms, self.commit_ms, self.rides = [], [], []
+        self.suffix_rows = 0
+        self._at = None
+        take, commit = store.take_rider, store.commit
+
+        def take_rider():
+            m, t = store.manager, store.table
+            suffix = t.oplog[m._pos:] if m._epoch == t.epoch else []
+            if any(name == RESYNC for name, _i, _v in suffix):
+                raise AssertionError("an array resync in a rider's suffix")
+            t0 = time.perf_counter()
+            rider = take()
+            self.take_ms.append(1e3 * (time.perf_counter() - t0))
+            if rider is not None:
+                # a take that resynced (an epoch moved) carries no writes
+                if rider.epoch == m._epoch and suffix:
+                    self.suffix_rows += len({(name, i) for name, i, _v in suffix})
+                self._at = {k: kernels.LAUNCHES[k] for k in names}
+            return rider
+
+        def commit_(rider, out):
+            self.rides.append({"rows": rider.rows, "sweep": bool(rider.sweep_k),
+                               **{k: kernels.LAUNCHES[k] - self._at[k] for k in names}})
+            t0 = time.perf_counter()
+            commit(rider, out)
+            self.commit_ms.append(1e3 * (time.perf_counter() - t0))
+
+        store.take_rider, store.commit = take_rider, commit_
+
+    def close(self) -> None:
+        del self.store.take_rider, self.store.commit
+
+    def per_ride(self) -> dict:
+        """{kernel: {launches in a ride: rides}}."""
+        out = {}
+        for k in self.names:
+            c = collections.Counter(r[k] for r in self.rides)
+            out[k] = {str(v): c[v] for v in sorted(c)}
+        return out
+
+    def p50(self) -> dict:
+        return {"take_rider_ms": float(np.median(self.take_ms)),
+                "commit_ms": float(np.median(self.commit_ms))}
+
+
+def session_broker(clock):
+    """bench.py's resumed broker (bench.py:2886-2891): `Broker(router=
+    Router(min_tpu_batch=32), hooks=Hooks())` with a fresh store attached
+    (capacity 64, sweep_k 16,384, retry 1 s, the frozen `clock`, the
+    broker's metrics) and one subscription, drv on drive/#.
+    -> (broker, store)."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.hooks import Hooks
+    from emqx_tpu_torch.broker.router import Router
+    from emqx_tpu_torch.broker.session_store import SessionStore
+    from emqx_tpu_torch.mqtt import packet as pkt
+
+    b = Broker(router=Router(min_tpu_batch=SESS_MIN_BATCH), hooks=Hooks())
+    store = SessionStore(capacity=64, sweep_slots=SESS_SWEEP, retry_interval=SESS_RETRY,
+                         metrics=b.metrics, clock=clock, device="cuda")
+    b.session_store = store
+    b.subscribe("drv", "drv", "drive/#", pkt.SubOpts(), lambda m, o: None)
+    return b, store
+
+
+class BatchLog:
+    """Wraps a broker's `adispatch_begin` and its metrics' `inc` (instance
+    attributes): the size of every batch it is handed, and how many times
+    `device.transfer.bytes` is counted (once a device readback)."""
+
+    def __init__(self, broker):
+        self.broker, self.sizes, self.transfers = broker, [], 0
+        begin, inc = broker.adispatch_begin, broker.metrics.inc
+
+        def adispatch_begin(msgs):
+            self.sizes.append(len(msgs))
+            return begin(msgs)
+
+        def inc_(name, n=1):
+            if name == "device.transfer.bytes":
+                self.transfers += 1
+            return inc(name, n)
+
+        broker.adispatch_begin, broker.metrics.inc = adispatch_begin, inc_
+
+    def close(self) -> None:
+        del self.broker.adispatch_begin, self.broker.metrics.inc
+
+    def device_batches(self) -> int:
+        return sum(1 for n in self.sizes if n >= self.broker.router.min_tpu_batch)
+
+
+def frozen_heap() -> dict:
+    """One full garbage collection timed, then the heap frozen (every object
+    so far out of the collector's reach): a full collection of a big heap
+    takes seconds and would land in whichever timed batch crosses the
+    oldest generation's threshold. The caller unfreezes (`gc.unfreeze`).
+    -> the collection's ms and the objects it tracked."""
+    gc.collect()
+    t0 = time.perf_counter()
+    gc.collect()
+    heap = {"full_collection_ms": 1e3 * (time.perf_counter() - t0),
+            "tracked_objects": len(gc.get_objects())}
+    gc.freeze()
+    return heap
+
+
+def flood_broker_session(torch, broker, store, state, mono, pids) -> None:
+    """`flood_broker_session`: bench.py's session_storm drive through the
+    port's broker. The captured 1,000,000-session state is installed into
+    the broker's store, every slot bound to a `BatchSink` that builds the
+    dup PUBLISH frames with `serialize_pub_slab`, the clock 60 s on; then
+    `storm_drive` (a `BatchIngest(max_batch=256, window_us=200)`: 64
+    drive/{i} publishes a sweep, the sweep riding their batch through
+    `adispatch_begin`, committed on the loop). Fails unless every (slot,
+    pid) is redelivered exactly once (the sink's count is n, its packet
+    ids are the loaded ones, and every row's stamp is the flood's), no
+    scatter of the store's own ran, each sweep launched `session_sweep`
+    once, the full uploads are `flood_plan`'s, no host sweep ran, one
+    device->host copy a device batch, and, after the flush batch, the
+    mirror equals the host lanes bit for bit."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.ingest import BatchIngest
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.mqtt.slab_serializer import serialize_pub_slab
+    from emqx_tpu_torch.ops import segments as SG
+
+    n = SESS_N
+    sweeps_want, uploads_want, _log = flood_plan(n, SESS_SWEEP, state["table"].OPLOG_MAX)
+    metrics = broker.metrics
+    sink = BatchSink(serialize_pub_slab)
+    heap = frozen_heap()
+    probe = batches = None
+    try:
+        t_install = time.perf_counter()
+        if store.install(state) != n:
+            raise AssertionError("install restored fewer sessions")
+        for slot in range(len(store._slot_cid)):
+            store.bind(slot, sink.resend)
+        install_ms = 1e3 * (time.perf_counter() - t_install)
+        mono[0] += 60.0  # every window is long past its retry interval
+        probe, batches = RideProbe(store), BatchLog(broker)
+        run = asyncio.run(storm_drive(broker, store, BatchIngest(broker, **SESS_INGEST),
+                                      Message, sink, n, sweeps_want))
+        torch.cuda.synchronize()
+    finally:
+        gc.unfreeze()
+        for p in (probe, batches):
+            if p is not None:
+                p.close()
+    sweeps = run["sweeps"]
+    table = store.table
+    live = table.sess_slot >= 0
+    stamped = int(np.count_nonzero(table.sess_ts[live] == store.now_ds()))
+    if sink.count != n or stamped != n or int(live.sum()) != n \
+            or not np.array_equal(np.sort(np.asarray(sink.pids)), np.sort(pids)):
+        raise AssertionError(f"{sink.count} redelivered, {stamped} of {int(live.sum())} rows "
+                             "stamped: not every (slot, pid) exactly once")
+    seg = store.manager.counters()
+    want = {"session.sweep.device": sweeps, "session.sweep.host": 0,
+            "session.redeliveries": n}
+    got = {k: metrics.get(k) for k in want}
+    sweep_launches = sum(r["session_sweep"] for r in probe.rides)
+    scatter_bad = [r for r in probe.rides
+                   if r["segment_scatter"] != (SG.SCATTER_LAUNCHES if r["rows"] else 0)]
+    if sweeps != sweeps_want or got != want or metrics.get("session.ack.rides") < sweeps \
+            or seg["delta_launches"] or seg["full_resyncs"] != uploads_want \
+            or sweep_launches != sweeps or scatter_bad:
+        raise AssertionError(f"{sweeps} sweeps (derived {sweeps_want}), {got}, {seg}, "
+                             f"{uploads_want} full uploads derived, {sweep_launches} sweep "
+                             f"launches, rides off the scatter rule {scatter_bad[:3]}")
+    device_batches = batches.device_batches()
+    if batches.transfers != device_batches or device_batches != sweeps + 1:
+        raise AssertionError(f"{batches.transfers} transfers for {device_batches} device "
+                             f"batches ({sweeps} sweeps and a flush)")
+    mirror = check_session_mirror(torch, store)
+    if mirror["pending_stamps"]:
+        raise AssertionError("the flush batch left redelivery stamps behind")
+    phase("flood_broker_session", card=card_line(), sessions=n, sweeps=sweeps,
+          redelivered=sink.count, redelivery_rps=n / run["wall_s"], loop_seconds=run["wall_s"],
+          resume_visibility_ms=1e3 * (sink.first - t_install), install_ms=install_ms,
+          redelivery_frame_bytes=sink.bytes,
+          batches=dict(sorted(collections.Counter(batches.sizes).items())),
+          device_batches=device_batches, transfers=batches.transfers,
+          rides=len(probe.rides), ride_p50_ms=probe.p50(),
+          ride_max_ms={"take_rider": max(probe.take_ms), "commit": max(probe.commit_ms)},
+          launches_per_ride=probe.per_ride(), full_resyncs_derived=uploads_want,
+          segment_status=seg, store_counters={k: metrics.get(k) for k in (
+              "session.ack.rides", "session.ack.rows", "session.sweep.device",
+              "session.sweep.due", "session.sweep.host", "session.redeliveries")},
+          mirror=mirror, gc=heap)
+
+
+def live_sessions(n: int, clock):
+    """A `Broker(router=Router(min_tpu_batch=32), hooks=Hooks())` with a
+    store attached (sweep_k 16,384, retry 1 s, `clock`, the broker's
+    metrics) and n `Session("s{i}", SessionConfig(max_inflight=32),
+    store=store)` objects, each subscribed QoS1 to sess/{i} with its
+    `deliver`; and n plain `Session`s (no store) fed the same messages by
+    `feed`. -> (broker, store, sessions, plain)."""
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.hooks import Hooks
+    from emqx_tpu_torch.broker.router import Router
+    from emqx_tpu_torch.broker.session import Session, SessionConfig
+    from emqx_tpu_torch.broker.session_store import SessionStore
+    from emqx_tpu_torch.mqtt import packet as pkt
+
+    b = Broker(router=Router(min_tpu_batch=SESS_MIN_BATCH), hooks=Hooks())
+    store = SessionStore(capacity=4 * n, sweep_slots=SESS_SWEEP, retry_interval=SESS_RETRY,
+                         metrics=b.metrics, clock=clock)
+    b.session_store = store
+    cfg = SessionConfig(max_inflight=LIVE_INFLIGHT)
+    sessions, plain = [], []
+    for i in range(n):
+        s = Session(f"s{i}", cfg, store=store)
+        b.subscribe(f"s{i}", f"s{i}", f"sess/{i}", pkt.SubOpts(qos=1), s.deliver)
+        sessions.append(s)
+        plain.append(Session(f"s{i}", cfg))
+    return b, store, sessions, plain
+
+
+def live_messages(n: int, tag: bytes, prefix: str = "sess") -> list:
+    """n QoS1 publishes, prefix/{i} for i < n (one a session)."""
+    from emqx_tpu_torch.broker.message import Message
+
+    return [Message(topic=f"{prefix}/{i}", payload=tag + b"%d" % i, qos=1) for i in range(n)]
+
+
+async def live_run(broker, msgs, batch: int, pipeline: int) -> dict:
+    """`msgs` from concurrent `apublish` tasks through a running
+    `BatchIngest(broker, max_batch=batch, pipeline=pipeline)`. -> the
+    delivery counts, the wall seconds and the enqueue->settle samples."""
+    import asyncio
+
+    from emqx_tpu_torch.broker.ingest import BatchIngest
+
+    m = broker.metrics
+    settle = []
+    obs_many = m.observe_many
+    m.observe_many = lambda name, vs: (
+        settle.extend(vs) if name == "ingest.settle.seconds" else None, obs_many(name, vs))[1]
+    try:
+        ing = BatchIngest(broker, max_batch=batch, pipeline=pipeline)
+        broker.ingest = ing
+        ing.start()
+        t0 = time.perf_counter()
+        counts = await asyncio.gather(*(broker.apublish(msg) for msg in msgs))
+        wall = time.perf_counter() - t0
+        await ing.stop()
+        broker.ingest = None
+    finally:
+        del m.observe_many
+    return {"counts": list(counts), "wall_s": wall, "settle_s": settle}
+
+
+def live_session_broker(torch) -> None:
+    """`live_session_broker`: write-through from live store-backed sessions
+    at scale. 65,536 `Session`s (max_inflight 32, each QoS1 on sess/{i})
+    over a broker with the store attached; at pipeline 1 and then at
+    pipeline 2, 8 batches of 8,192 QoS1 publishes (one a session) from
+    concurrent `apublish` tasks through `BatchIngest(max_batch=8192)`; the
+    depth 1 windows all PUBACKed between the runs, half the depth 2 ones
+    after, then 2 batches of 8,192 no-match publishes to carry the acks.
+    The inflight and session clocks (`time.monotonic` as those modules see
+    it) and the store's are frozen, the heap frozen. Fails unless every
+    publish is delivered once, 32,768 rows stay live, no scatter of the
+    store's own ran, `session.ack.rows` equals the row writes the riders
+    took from the op-log, one device->host copy a device batch, and the
+    mirror equals the host lanes bit for bit. Then the clocks move 60 s
+    on, a sweep is asked and 2 no-match batches ride: each of the 32,768
+    unacked (slot, pid) pairs must be redelivered exactly once, and their
+    set must be what `Session.retry()` picks on plain (storeless) sessions
+    fed the same messages and acks."""
+    import asyncio
+    import types
+
+    from emqx_tpu_torch.broker import inflight as INF
+    from emqx_tpu_torch.broker import session as SES
+    from emqx_tpu_torch.broker.session_store import PID_SPACE
+    from emqx_tpu_torch.mqtt import packet as pkt
+
+    n, B = LIVE_SESSIONS, LIVE_BATCH
+    opts = pkt.SubOpts(qos=1)
+    mono = [0.0]
+    clock = lambda: mono[0]  # noqa: E731 — the frozen clock of every party
+    frozen = types.SimpleNamespace(monotonic=clock, time=time.time)
+    saved = INF.time, SES.time
+    INF.time = SES.time = frozen
+    t0 = time.perf_counter()
+    broker, store, sessions, plain = live_sessions(n, clock)
+    build_s = time.perf_counter() - t0
+    heap = frozen_heap()
+    probe, batches = RideProbe(store), BatchLog(broker)
+    depths = {}
+    try:
+        for pipeline, tag in ((1, b"a"), (2, b"b")):
+            msgs = live_messages(n, tag)
+            for i, msg in enumerate(msgs):  # as the broker delivers it
+                plain[i].deliver(msg, opts)
+            r0 = len(probe.rides)
+            b0 = len(batches.sizes)
+            run = asyncio.run(live_run(broker, msgs, B, pipeline))
+            torch.cuda.synchronize()
+            if run["counts"] != [1] * n:
+                raise AssertionError(f"pipeline {pipeline}: deliveries {collections.Counter(run['counts'])}")
+            settle = np.asarray(run["settle_s"]) * 1e3
+            rides = probe.rides[r0:]
+            depths[pipeline] = {
+                "messages_per_s": n / run["wall_s"], "wall_s": run["wall_s"],
+                "batches": batches.sizes[b0:], "rides": len(rides),
+                "rider_rows": [r["rows"] for r in rides],
+                "settle_p50_ms": float(np.percentile(settle, 50)),
+                "settle_p99_ms": float(np.percentile(settle, 99))}
+            # the acks, on the loop's thread: depth 1's every window, depth
+            # 2's on the even sessions
+            for i in range(0, n, 1 if pipeline == 1 else 2):
+                for s in (sessions[i], plain[i]):
+                    pid = next(iter(s.inflight._d))
+                    if s.puback(pid)[0] is None:
+                        raise AssertionError(f"session {i}: PUBACK {pid} found nothing")
+        flush = asyncio.run(live_run(broker, live_messages(LIVE_FLUSH * B, b"f", "none"), B, 1))
+        torch.cuda.synchronize()
+        table = store.table
+        if flush["counts"] != [0] * (LIVE_FLUSH * B) or table.live != n // 2:
+            raise AssertionError(f"after the acks: {table.live} rows live")
+        seg = store.manager.counters()
+        rows, rows_taken = broker.metrics.get("session.ack.rows"), probe.suffix_rows
+        if seg["delta_launches"] or rows != rows_taken \
+                or batches.transfers != batches.device_batches():
+            raise AssertionError(f"{seg}, {rows} rows ridden against {rows_taken} "
+                                 f"taken, {batches.transfers} transfers for "
+                                 f"{batches.device_batches()} device batches")
+        mirror = check_session_mirror(torch, store)
+        if mirror["pending_stamps"]:
+            raise AssertionError("the flush left writes behind")
+        # -- the retry: both clocks 60 s on, a sweep, 2 batches to ride
+        mono[0] += 60.0
+        resent = []
+        for slot in range(n):
+            store.bind(slot, lambda pid, st, msg, slot=slot: resent.append((slot, pid, st)) or True)
+        store.request_sweep()
+        due = len(table.due_rows(store.now_ds(), store.retry_ds))
+        r0 = len(probe.rides)
+        retry = asyncio.run(live_run(broker, live_messages(2 * B, b"r", "none"), B, 1))
+        torch.cuda.synchronize()
+        want = sorted((i, p.packet_id) for i, s in enumerate(plain) for p in s.retry()
+                      if p.packet_id < PID_SPACE)
+        got = sorted((slot, pid) for slot, pid, _st in resent)
+        sweep_rides = [r for r in probe.rides[r0:] if r["sweep"]]
+        if due != n // 2 or len(got) != len(set(got)) or got != want \
+                or len(sweep_rides) != -(-due // store.sweep_slots) > 0 \
+                or any(r["session_sweep"] != 1 for r in sweep_rides) \
+                or retry["counts"] != [0] * (2 * B):
+            raise AssertionError(f"retry: {due} due, {len(got)} redelivered "
+                                 f"({len(set(got))} distinct), the plain sessions' retry "
+                                 f"{len(want)}, sweep rides {sweep_rides}")
+    finally:
+        INF.time, SES.time = saved
+        gc.unfreeze()
+        probe.close()
+        batches.close()
+    phase("live_session_broker", card=card_line(), sessions=n, batch=B,
+          build_seconds=build_s, depths={str(k): v for k, v in depths.items()},
+          live_after_acks=n // 2, rows_ridden=rows, rows_taken=rows_taken,
+          device_batches=batches.device_batches(), transfers=batches.transfers,
+          ride_p50_ms=probe.p50(), launches_per_ride=probe.per_ride(),
+          segment_status=seg, mirror=mirror,
+          retry={"due": due, "redelivered": len(got), "equal_to_plain_retry": True,
+                 "sweep_rides": len(sweep_rides)},
+          store_counters={k: broker.metrics.get(k) for k in (
+              "session.ack.rides", "session.ack.rows", "session.sweep.device",
+              "session.redeliveries", "session.sweep.host")}, gc=heap)
+
+
 def session_path(torch, rng, router=None):
-    """Phases 19-24: the device session store at bench.py's session_storm.
+    """Phases 19-22: the device session store at bench.py's session_storm,
+    ridden directly through `route_prepared` and then through the broker.
     -> (kernel report, launches on the path)."""
     from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.broker.session_store import PID_SPACE, SessionStore
     from emqx_tpu_torch.models.router_model import DeviceRouter
     from emqx_tpu_torch.ops import segments as SG
@@ -2906,14 +3415,20 @@ def session_path(torch, rng, router=None):
     t.append(time.perf_counter())
     store1 = SessionStore(capacity=_next_pow2(2 * n), sweep_slots=K,
                           retry_interval=SESS_RETRY, clock=clock, device="cuda")
-    # one shared message object; pids cycle the 16-bit space
+    # one shared message object (the slab stores references); pids cycle
+    # the 16-bit space
+    shared = Message(topic="dev/offline", payload=b"m", qos=1)
     pids = (np.arange(n) % 65535) + 1
-    rows = store1.bulk_load(cids, [object()] * n, pids=pids)
+    rows = store1.bulk_load(cids, [shared] * n, pids=pids)
     t.append(time.perf_counter())
     lost = int((rows < 0).sum())
     if lost:
         raise AssertionError(f"{lost} rows lost in bulk placement")
     state = store1.capture()  # the mass disconnect: the state IS the table
+    t.append(time.perf_counter())
+    # the broker's store installs the same state: a copy, as install takes
+    # the capture's objects as its own
+    state_b = copy_capture(state)
     t.append(time.perf_counter())
     metrics = Counters()
     store = SessionStore(capacity=64, sweep_slots=K, retry_interval=SESS_RETRY,
@@ -2945,14 +3460,15 @@ def session_path(torch, rng, router=None):
         )
     args = router.prepare()
     t.append(time.perf_counter())
+    broker, bstore = session_broker(clock)
+    t.append(time.perf_counter())
     phase("tables_session", sessions=n, table_capacity=cap, row_lanes=5,
           host_table_bytes=host_bytes, sweep_k=K, retry_ds=store.retry_ds,
-          oplog_max=table.OPLOG_MAX, batch=SESS_BATCH,
+          oplog_max=table.OPLOG_MAX, batch=SESS_BATCH, drive=SESS_DRIVE, ingest=SESS_INGEST,
           build_stage_seconds={k: b - a for k, a, b in zip(
-              ("client_ids", "bulk_load", "capture", "install", "bind", "router"), t, t[1:])},
-          reduced=["each sweep rides a B = 64 batch of mixed_1m topics through the mixed_1m "
-                   "DeviceRouter instead of a BatchIngest drive of 64 drive/{i} messages "
-                   "through a broker (the port has no broker yet)"])
+              ("client_ids", "bulk_load", "capture", "copy", "install", "bind", "router",
+               "broker"), t, t[1:])},
+          reduced=[])
 
     # -- flood_session: the counters are zeroed here and read after
     # fused_session
@@ -3128,6 +3644,19 @@ def session_path(torch, rng, router=None):
           readback_bytes=rf["readback_bytes"], route_readback_bytes=rf["route_readback_bytes"],
           mirror=check_session_mirror(torch, store), launches=launches)
 
+    # -- the broker's phases: counters zeroed before the first, read after
+    # the last
+    kernels.reset_launches()
+    flood_broker_session(torch, broker, bstore, state_b, mono, pids)
+    del broker, bstore, state_b
+    live_session_broker(torch)
+    broker_launches = dict(kernels.LAUNCHES)
+    for k in ("tokenize", "shape_match", "fanout_bitmaps", "segment_scatter",
+              "session_sweep"):
+        if not broker_launches.get(k):
+            raise AssertionError(f"the broker's session phases: launches {broker_launches}")
+    phase("launches_session_broker", **broker_launches)
+
     # -- the kernel at the flood's table (its rows, the 2^20-slot lane)
     lanes = store.manager._arrays
     now, retry = int(rf["rider"].clock[0]), store.retry_ds
@@ -3156,7 +3685,8 @@ def session_path(torch, rng, router=None):
           due_count=int(got[1]), expired_count=int(got[3]), now_ds=now, retry_ds=retry,
           library="torch.nonzero of the precomputed due and expiry masks (the nearest "
                   "single call: no cap, no padding)")
-    return report, launches
+    # the path's launches: the direct rides' and the broker phases'
+    return report, dict(collections.Counter(launches) + collections.Counter(broker_launches))
 
 
 # -- the semantic_256k path --------------------------------------------------
@@ -4023,12 +4553,7 @@ def broker_ingest(torch, broker, rec, rng) -> tuple:
     dev.prepare()
     rr0 = ingest_rr_state(broker)
     rec.log.clear()
-    gc.collect()
-    t0 = time.perf_counter()
-    gc.collect()
-    heap = {"full_collection_ms": 1e3 * (time.perf_counter() - t0),
-            "tracked_objects": len(gc.get_objects())}
-    gc.freeze()
+    heap = frozen_heap()
     try:
         record, launches = ingest_runs(torch, broker, rec, dev, topics, rr0)
     finally:

@@ -20,6 +20,14 @@ Parity with the reference kernel (apps/emqx/src/emqx_broker.erl):
   bounded `dispatch_pool`, the host fan-out only when the ingest settles
   the `PendingDispatch`, in launch order.
 
+- with a `SessionStore` attached (`Broker.session_store`), every device
+  batch of `adispatch_begin` carries the store's pending table writes and
+  a requested retry/expiry sweep as a `SessionRider`
+  (`SessionStore.take_rider`, on the loop thread) into `route_prepared`;
+  the commit (the mirror adopted, the due rows redelivered) runs back on
+  the loop, before the batch's fan-out, and a failed launch aborts the
+  rider, whose writes ride the next batch.
+
 Every plain subscription owns a subscriber slot in `SubscriberTable`
 (dense bitmaps or CSR, as `MatcherConfig.sub_table` says); $share groups
 are `GroupTable` lanes whose member the device picks. Batches smaller than
@@ -27,8 +35,7 @@ are `GroupTable` lanes whose member the device picks. Batches smaller than
 CPU path. A failed launch raises (out of `PendingDispatch.complete()` on
 the pipelined path): the degrade ladder is not ported.
 
-Not ported yet (ROADMAP item 3 queues them as the next slices): the
-session store's broker half (`adispatch_begin` takes no session rider);
+Not ported yet (ROADMAP item 3 queues them as the next slices):
 `SemanticRouting` (a subscribe with an ``embedding=`` raises
 NotImplementedError) and the rule engine's device attach; the broker on
 a mesh; and, with the app, the cluster forward, the degrade controller,
@@ -143,6 +150,11 @@ class Broker:
         self._free_slots: List[int] = []
         self._device: Optional[DeviceRouter] = None  # lazy
         self.ingest = None  # BatchIngest, attached by its owner
+        # SessionStore (broker/session_store.py), attached by its owner:
+        # pending inflight writes and retry/expiry sweeps ride the device
+        # batches as the fused session stage (no launch or readback of
+        # their own)
+        self.session_store = None
 
     # -- subscribe side ---------------------------------------------------
     def subscribe(
@@ -346,9 +358,18 @@ class Broker:
         for `complete()`, so it never overtakes an in-flight device batch.
         A failed prepare raises here, a failed launch or readback out of
         `complete()` (the reference's path without a degrade controller).
-        The session rider, the retained feed, embeddings, device rules and
-        spans are not ported: their hand-offs take the reference's path
-        for none attached."""
+
+        With a session store attached and a router that fuses sessions,
+        the store's pending writes (and a requested sweep) ride the batch:
+        `take_rider()` here on the loop thread after `prepare()`, the
+        rider into `route_prepared(..., session=)` on the pool thread, and
+        `complete()` commits it on the loop before the fan-out (whose
+        `Session.deliver` calls append to the op-log the next rider
+        takes), or aborts it when the launch or readback raised, then
+        re-raises. At most one rider is outstanding: with batch N's rider
+        in flight, batch N+1 takes none. The retained feed, embeddings,
+        device rules and spans are not ported: their hand-offs take the
+        reference's path for none attached."""
         loop = asyncio.get_running_loop()
         r = self.router
         if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
@@ -366,14 +387,33 @@ class Broker:
         # device work
         self.metrics.observe(
             "profile.stage.prepare.seconds", time.perf_counter() - t_prep)
+        store = self.session_store
+        rider = None
+        # the port has no retained feed, so no storm ever rides and the
+        # reference's `storm is None` condition always holds
+        if store is not None and dev.supports_session_fusion:
+            # pending session-table writes (+ a requested retry/expiry
+            # sweep) fuse into THIS launch as the session-ack stage
+            rider = store.take_rider()
         topics = [m.topic_key() for m in msgs]
         hashes = self._client_hashes(msgs)
         fut = loop.run_in_executor(
             dispatch_pool(), on_stream, dev.launch_stream(), dev.route_prepared,
-            args, topics, hashes)
+            args, topics, hashes, None, rider)
 
         async def _complete():
-            results = await fut
+            try:
+                results = await fut
+            except Exception:
+                if rider is not None:
+                    # the mirror never advanced: the rider's writes stay
+                    # in the op-log and ride a later launch
+                    store.abort(rider)
+                raise
+            if rider is not None:
+                # adopt the updated mirror + act on the sweep, on the loop
+                # (the single-writer discipline), before the fan-out
+                store.commit(rider, results.session)
             # waterfall `host_dispatch`: the settle-time fan-out of this
             # device batch (delivery resolution + writes)
             t_hd = time.perf_counter()

@@ -3,8 +3,11 @@
 
 `SlabMessage` (a message whose topic and payload still live in a fabric
 read slab) is not ported: the slab fabric is not, so `topic_key()`
-always returns the topic string. The methods the port's broker does not
-call (`is_expired`, the zero-copy accessors) are left out.
+always returns the topic string, `topic_bytes()` encodes it,
+`payload_view()` is the payload and `own_buffers()` (the ownership hook
+every long-lived store calls: inflight windows, queues, the session
+store's message slab) has nothing to take. `is_expired` is left out: the
+port's broker does not call it.
 """
 
 from __future__ import annotations
@@ -36,3 +39,16 @@ class Message:
 
     def is_sys(self) -> bool:
         return self.topic.startswith("$SYS/")
+
+    def topic_bytes(self):
+        """Topic as bytes-like (the slab serializer's input)."""
+        return self.topic.encode("utf-8", "surrogatepass")
+
+    def payload_view(self):
+        """Payload as a bytes-like view."""
+        return self.payload or b""
+
+    def own_buffers(self) -> "Message":
+        """A message about to outlive its dispatch must own its bytes;
+        this one always does."""
+        return self

@@ -1,31 +1,37 @@
-"""The session store's device half: the port's copy of
+"""The device session store: the port's copy of
 `emqx_tpu/broker/session_store.py` (`SessionRider`, `SessionStepOut`,
-`SessionStore`).
+`StoreInflight`, `SessionStore`).
 
 The store owns one `ops.session_table.SessionTable` (host-authoritative
 inflight rows), its device mirror (a `DeviceSegmentManager` named
 "sessions") and the message slab the rows point into:
 
-- **write-through**: every inflight mutation (`inflight_insert`,
-  `inflight_phase`, `inflight_delete`, `await_rel`, `release_rel`,
-  `set_expiry`) lands in the table and its op-log;
+- **write-through**: a store-backed `broker.session.Session` keeps its
+  dict semantics, but its window is a `StoreInflight` (`make_inflight`),
+  so every inflight mutation (`inflight_insert`, `inflight_phase`,
+  `inflight_delete`, `await_rel`, `release_rel`, `set_expiry`) also lands
+  in the table and its op-log;
 - **fused acks**: `take_rider()` packages the op-log suffix since the
   mirror (plus a pending sweep request) as a `SessionRider`;
+  `Broker.adispatch_begin` takes one for every device batch when the
+  store is attached (`Broker.session_store`), and
   `DeviceRouter.route_prepared(args, topics, session=rider)` scatters it
   and sweeps the scattered table in the launch the batch pays anyway, and
-  the sweep lists ride its one readback; `commit(rider, result.session)`
-  adopts the produced tensors as the mirror and redelivers every due row
-  after re-verifying it against the host arrays; `abort(rider)` drops a
-  failed launch's rider, whose writes then ride the next one;
+  the sweep lists ride its one readback; `commit(rider, result.session)`,
+  back on the event loop, adopts the produced tensors as the mirror and
+  redelivers every due row after re-verifying it against the host arrays;
+  `abort(rider)` drops a failed launch's rider, whose writes then ride the
+  next one;
 - **host sweeps**: `tick()` arms a device sweep, or, with no fused launch
   for a while, runs `host_sweep()`, the authoritative vectorised scan;
 - **mass resume**: `capture()`/`install()` swap the host state in, and the
   next sync is one full upload.
 
-At most one rider is outstanding. Not in the port yet: `StoreInflight` and
-`make_inflight` (they wrap the broker's `Inflight`, which comes with the
-broker slice), `compaction_owner` (background compaction) and the mesh
-placement (`mesh=` raises).
+Threading: every mutator runs on the event loop (single writer);
+`route_prepared` on the broker's dispatch pool only reads the rider's
+immutable arrays, so at most one rider is outstanding. Not in the port
+yet: `compaction_owner` (background compaction, ROADMAP item 13) and the
+mesh placement (`mesh=` raises, ROADMAP item 11).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 
+from emqx_tpu_torch.broker.inflight import Inflight
 from emqx_tpu_torch.ops.nfa import _next_pow2
 from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 from emqx_tpu_torch.ops.session_table import (
@@ -70,6 +77,36 @@ class SessionStepOut(NamedTuple):
     due_count: int  # uncapped due total (overflow => sweep again)
     expired: Optional[np.ndarray]  # [sweep_k] session slots, -1 pad
     expired_count: int
+
+
+class StoreInflight(Inflight):
+    """`Inflight` with write-through to the session table. The dict view
+    stays authoritative for the live channel (identical semantics to the
+    host-only path — the equivalence property the tests pin); the table
+    write-through is what makes the aggregate state device-resident."""
+
+    store_managed = True
+
+    def __init__(self, store: "SessionStore", slot: int, max_size: int = 32):
+        super().__init__(max_size)
+        self.store = store
+        self.slot = slot
+
+    def insert(self, packet_id: int, msg, phase: str = "publish"):
+        super().insert(packet_id, msg, phase)
+        self.store.inflight_insert(self.slot, packet_id, msg, phase)
+
+    def update(self, packet_id: int, phase: str) -> bool:
+        ok = super().update(packet_id, phase)
+        if ok:
+            self.store.inflight_phase(self.slot, packet_id, phase)
+        return ok
+
+    def delete(self, packet_id: int):
+        e = super().delete(packet_id)
+        if e is not None:
+            self.store.inflight_delete(self.slot, packet_id)
+        return e
 
 
 class SessionStore:
@@ -175,6 +212,9 @@ class SessionStore:
         self._gauges()
         return rows
 
+    def make_inflight(self, slot: int, max_size: int) -> StoreInflight:
+        return StoreInflight(self, slot, max_size)
+
     def bind(self, slot: int, resend: Callable) -> None:
         """Register a live channel's resend(pid, state, msg) callback —
         sweep hits on unbound (offline) slots are skipped, exactly like
@@ -217,11 +257,9 @@ class SessionStore:
     def _put_msg(self, msg) -> int:
         if msg is None:
             return -1
-        # the slab holds entries until ack: a message that borrows its
-        # bytes (the reference's SlabMessage) must own them before landing
-        own = getattr(msg, "own_buffers", None)
-        if own is not None:
-            own()
+        # the slab holds entries until ack: a message must own its bytes
+        # before landing here
+        msg.own_buffers()
         if self._free_mids:
             mid = self._free_mids.pop()
             self._slab[mid] = msg

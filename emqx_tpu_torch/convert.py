@@ -27,6 +27,10 @@ chunk rows over 'dp' on axis 0), the counterparts of the JAX placements
 write's global flat index to this rank's local one (`local_writes`), so a
 mirror replays only the writes it owns.
 
+`session_state_from_reference` carries a reference session store's capture
+across: the port's store installs it and redelivers what the reference's
+would.
+
 `resolve_device` is the one place an entry point turns its `device`
 argument into a torch device: CUDA unless the caller asks for the CPU, and
 an error — never a quiet move to the CPU — when CUDA is asked for and
@@ -191,3 +195,63 @@ def tables_to_device(
     snap = {k: shape_snapshot[k] for k in SHAPE_TABLE_KEYS}
     snap["sub_bitmaps"] = sub_bitmaps
     return upload(snap, device)
+
+
+# the lanes of a session table, row lanes then the per-slot lane
+SESSION_LANES = ("sess_slot", "sess_pid", "sess_state", "sess_ts", "sess_mid",
+                 "slot_expiry")
+# the fields of a message record (`broker.message.Message`)
+MESSAGE_FIELDS = ("topic", "payload", "qos", "retain", "dup", "from_client",
+                  "from_username", "mid", "headers", "properties", "timestamp")
+
+
+def session_state_from_reference(state: Dict) -> Dict:
+    """A reference `SessionStore.capture()` (emqx_tpu/broker/
+    session_store.py:563) -> the port's capture, for the port's
+    `SessionStore.install`: the session store's state carried across.
+
+    The table is read by attribute (its lanes as numpy arrays, counts,
+    epoch, version, op-log) into a port `SessionTable` holding copies of
+    identical lanes; each slab message is read by field into a port
+    `Message` (one per distinct object: a message the slab holds many
+    times stays one object), None kept; the registry lists and dicts are
+    copied. Nothing is shared with `state`, which may be installed too.
+    Duck-typed: nothing of the reference package is imported."""
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.ops.session_table import SessionTable
+
+    src = state["table"]
+    table = SessionTable.__new__(SessionTable)
+    for name in SESSION_LANES:
+        lane = np.asarray(getattr(src, name))
+        if lane.dtype != np.int32:
+            raise TypeError(f"{name}: expected int32, got {lane.dtype}")
+        setattr(table, name, lane.copy())
+    for name in ("_cap", "_scap", "live", "tombstones", "epoch", "version",
+                 "OPLOG_MAX", "_structure_gen"):
+        setattr(table, name, int(getattr(src, name)))
+    if getattr(src, "_journal", None) is not None:
+        raise ValueError("the captured table is mid-compaction")
+    table._journal = None
+    table.oplog = [tuple(e) for e in src.oplog]
+    memo: Dict[int, object] = {}
+
+    def port_msg(m):
+        if m is None:
+            return None
+        got = memo.get(id(m))
+        if got is None:
+            got = memo[id(m)] = Message(**{
+                f: (dict(getattr(m, f)) if f in ("headers", "properties")
+                    else getattr(m, f)) for f in MESSAGE_FIELDS})
+        return got
+
+    return {
+        "table": table,
+        "slab": [port_msg(m) for m in state["slab"]],
+        "free_mids": list(state["free_mids"]),
+        "slots": dict(state["slots"]),
+        "slot_cid": list(state["slot_cid"]),
+        "free_slots": list(state["free_slots"]),
+        "t0_age_ds": int(state.get("t0_age_ds", 0)),
+    }

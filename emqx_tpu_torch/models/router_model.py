@@ -1349,7 +1349,8 @@ class DeviceRouter:
         self.grouptab = grouptab  # None: no $share picks on the device
         self.semtab = semtab  # None: no semantic stage
         self.share_strategy = STRATEGY_IDS.get(share_strategy, 1)
-        # duck-typed: metrics.histogram(name) -> object with count, p99
+        # duck-typed: metrics.histogram(name) -> object with count, p99, and
+        # metrics.inc(name, n) (the `device.transfer.bytes` counter)
         self.metrics = metrics
         config = config or MatcherConfig()
         if config.probes < MAX_PROBES:
@@ -1820,10 +1821,10 @@ class DeviceRouter:
             mats = [_from_words(take(w.numel()), m) for m, w in zip(storm, storm_words)]
             retained_res = retained.decode(mats)
         if not kslot:
-            return RouteResult(matched, mcount, flags, bitmaps, picks,
-                               readback_bytes=readback, retained=retained_res,
-                               session=sess_res, sem_count=sem_count,
-                               rule_masks=rule_masks)
+            return self._count_transfer(RouteResult(
+                matched, mcount, flags, bitmaps, picks, readback_bytes=readback,
+                retained=retained_res, session=sess_res, sem_count=sem_count,
+                rule_masks=rule_masks))
         # holds on the CSR path too: the kernel forces count past kslot for
         # gather-window overflow rows
         overflow = slot_count > kslot
@@ -1840,13 +1841,21 @@ class DeviceRouter:
                 sel = torch.from_numpy(ovf_idx).to(out["bitmaps"].device)
                 dense_rows = out["bitmaps"][sel].cpu().numpy().view(np.uint32)
                 readback += dense_rows.nbytes
-        return RouteResult(
+        return self._count_transfer(RouteResult(
             matched, mcount, flags, None, picks,
             slots=slots, slot_count=slot_count, overflow=overflow,
             dense_rows=dense_rows, dense_index=dense_index,
             readback_bytes=readback, retained=retained_res, session=sess_res,
             sem_count=sem_count, rule_masks=rule_masks,
-        )
+        ))
+
+    def _count_transfer(self, res: RouteResult) -> RouteResult:
+        """Add a batch's device->host bytes to the `device.transfer.bytes`
+        counter, once a readback, as the JAX router's `route_prepared`
+        does (emqx_tpu/models/router_model.py:1943)."""
+        if self.metrics is not None:
+            self.metrics.inc("device.transfer.bytes", res.readback_bytes)
+        return res
 
 
     # -- the mesh ---------------------------------------------------------------
@@ -2035,9 +2044,9 @@ class DeviceRouter:
                 [np.concatenate([block(d * tp + t, "bitmaps").reshape(per, W_)
                                  for t in range(tp)], axis=1) for d in range(dp)]
             )[:B].view(np.uint32)
-            return RouteResult(matched, mcount, flags, bitmaps, picks,
-                               readback_bytes=readback, retained=retained_res,
-                               sem_count=sem_count, rule_masks=rule_masks)
+            return self._count_transfer(RouteResult(
+                matched, mcount, flags, bitmaps, picks, readback_bytes=readback,
+                retained=retained_res, sem_count=sem_count, rule_masks=rule_masks))
         SW = out["slots"].shape[1]
         slots = np.concatenate(
             [np.concatenate([block(d * tp + t, "slots").reshape(per, SW)
@@ -2057,13 +2066,13 @@ class DeviceRouter:
             else:
                 dense_rows = self._gather_dense_rows(out["bitmaps"], ovf_idx, per)
                 readback += dense_rows.nbytes
-        return RouteResult(
+        return self._count_transfer(RouteResult(
             matched, mcount, flags, None, picks,
             slots=slots, slot_count=slot_count, overflow=overflow,
             dense_rows=dense_rows, dense_index=dense_index,
             readback_bytes=readback, retained=retained_res,
             sem_count=sem_count, rule_masks=rule_masks,
-        )
+        ))
 
     def _gather_dense_rows(self, bitmaps, ovf_idx: np.ndarray, per: int) -> np.ndarray:
         """The dense rows of the overflow rows (global row ids, the same on

@@ -239,7 +239,9 @@ def test_importing_the_port_loads_no_jax():
             "emqx_tpu_torch.broker.message", "emqx_tpu_torch.broker.metrics",
             "emqx_tpu_torch.broker.ingest", "emqx_tpu_torch.broker.slo",
             "emqx_tpu_torch.broker.degrade", "emqx_tpu_torch.utils.tracepoints",
-            "emqx_tpu_torch.mqtt.packet"} <= set(port_modules())
+            "emqx_tpu_torch.mqtt.packet", "emqx_tpu_torch.mqtt.frame",
+            "emqx_tpu_torch.mqtt.slab_serializer", "emqx_tpu_torch.broker.inflight",
+            "emqx_tpu_torch.broker.mqueue", "emqx_tpu_torch.broker.session"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"
@@ -255,10 +257,12 @@ def test_importing_the_port_loads_no_jax():
 def test_no_jax_or_emqx_tpu_import_in_port_sources():
     files = sorted((ROOT / "emqx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    # the pipelined publish path's modules are scanned too
+    # the pipelined publish path's and the session half's modules are
+    # scanned too
     assert {ROOT / "emqx_tpu_torch" / p for p in (
         "broker/ingest.py", "broker/slo.py", "broker/degrade.py",
-        "utils/tracepoints.py")} <= set(files)
+        "utils/tracepoints.py", "broker/inflight.py", "broker/mqueue.py",
+        "broker/session.py", "mqtt/frame.py", "mqtt/slab_serializer.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

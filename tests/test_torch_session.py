@@ -646,11 +646,21 @@ def test_store_refuses_a_mesh():
 
 
 def test_put_msg_takes_any_object():
+    """The slab holds any object that can own its buffers, not only a
+    `Message`: the stand-in `Msg` is kept as it is, after one
+    `own_buffers` call, as the JAX store does. An object without
+    `own_buffers` (a bare str) is refused in both packages."""
     s = P_store.SessionStore(device="cpu")
     assert s._put_msg(None) == -1
-    assert s._put_msg("payload") == 0 and s._get_msg(0) == "payload"
+    owned = []
+    m = Msg("payload")
+    m.own_buffers = lambda: owned.append(m.tag)
+    assert s._put_msg(m) == 0 and s._get_msg(0) is m and owned == ["payload"]
     s._drop_mid(0)
-    assert s._put_msg(b"x") == 0
+    assert s._put_msg(Msg(b"x")) == 0
+    for store in (s, J_store.SessionStore()):
+        with pytest.raises(AttributeError):
+            store._put_msg("payload")
 
 
 # -- the fused route ---------------------------------------------------------
