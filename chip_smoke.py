@@ -267,6 +267,36 @@ subscriber id):
 31. `kernel` for tokenize, shape_match, sparse_fanout_slots,
     occurrence_index and share_pick (round_robin) at broker_1m's shapes,
     each against its twin (their `broker_1m` cases in the kernels line);
+31b. the semantic plane and the rule engine on the same broker, which
+    `broker_build` made with an empty `SemanticRouting(dim=384, topk=16,
+    threshold=0.90)` and a `RuleEngine` whose device plane is attached
+    (with the table empty and no rule, every phase above launches what it
+    launched without them: `broker_launches`), the heap frozen:
+    `tables_semantic_broker`: 65,536 of semantic_256k's filters (`reduced`
+    says why) through `Broker.subscribe(sid, ..., embedding=v,
+    sem_threshold=th)`, scoped `#` (half), device/{d}/# (3/8) or
+    device/{d}/+/{j}/# (1/8) for d < 100, and the eight RULES_SQL clauses
+    as rules over device/# with a recording `FunctionOutput` (all must
+    compile); the subscribe seconds, `status()`, the first prepare's full
+    semantic upload (one full resync, the mirror equal to the host table);
+    `publish_semantic_broker`: 2 batches of B = 8192 mixed_1m publishes,
+    each with an embedding in headers["semantic_embedding"] and a RULES_SQL
+    payload, through `publish_batch`: plain and $share deliveries against
+    the oracles, each message's semantic deliveries equal to its routed
+    row's winners and those against the plain twin on the card (a
+    differing row must pass the f64 band check), the fired rule rows equal
+    to a host `apply_query` replay, each once; one `rules.device.batches`
+    a batch, no `rules.host.batches`, 2 semantic_match and 1 rule_masks
+    launches a batch; messages/s, deliveries/s and the stages (prepare,
+    route(), rule firing, host fan-out); `ingest_semantic_broker`: the same
+    publishes through `BatchIngest(max_batch=8192)` at pipeline 2 and 1,
+    the deliveries and fired rows the synchronous pass's;
+    `agentic_fabric_broker`: bench.py's `bench_agentic_fabric` at its own
+    sizes on a broker of its own (D 32, topk 16, threshold 0.70, 1,024
+    plain and 384 semantic subscriptions, 8,192 messages, max_batch 2,048,
+    the rule WHERE payload.p = 1), fan_out and fan_in, the device pass
+    against the host-filter pass with bench.py's check (plain deliveries
+    equal, semantic within max(8, n // 200)), both passes' messages/s;
 The `plus_100k` path (the NFA-only step, `route_step`): BASELINE config 2
 as bench.py builds it (100,000 filters, 95,480 distinct, 10% single-'+',
 8-level topics) in an `NfaBuilder`, one subscriber slot a distinct
@@ -346,7 +376,8 @@ a four-GPU host (no kernels line, no last line):
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
     session_1m, the direct rides' and the broker phases'; semantic_match (f32 table) and rule_masks on
-    semantic_256k; the `mesh` cases of occurrence_index (with the totals
+    semantic_256k, with `broker_1m_launches` from the broker's semantic
+    phases; the `mesh` cases of occurrence_index (with the totals
     mesh_share_2x2's round-robin branch all-gathers), of its rank-offset
     share_pick and of mesh_1m_2x2's lane-based compact_fanout_slots; the
     broker_1m and
@@ -542,6 +573,12 @@ def rule_filter(sql_wheres, sql, compiler):
     f = compiler.DeviceRuleFilter()
     f.refresh(rules)
     return f
+
+
+def sem_centroids():
+    """semantic_256k's SEM_CENTROIDS unit centroids at SEM_DIM (seeded)."""
+    cents = np.random.default_rng(SEED + 7).normal(size=(SEM_CENTROIDS, SEM_DIM))
+    return (cents / np.linalg.norm(cents, axis=1, keepdims=True)).astype(np.float32)
 
 
 def sem_vectors(rng, cents, cluster):
@@ -3876,8 +3913,6 @@ def sem_route_checked(torch, router, host, oracle, filt, path, topics, q, msgs) 
     the twin and to `filt.host_masks` (numpy). The launch counts are added
     to `path` just after the route (`take_launches`); the check's own
     launches are dropped."""
-    from emqx_tpu_torch import kernels
-    from emqx_tpu_torch.ops import semantic_table as ST
     from emqx_tpu_torch.rules import compile as RC
 
     rules = (filt.progs, *filt.features(msgs))
@@ -3887,31 +3922,10 @@ def sem_route_checked(torch, router, host, oracle, filt, path, topics, q, msgs) 
     take_launches(path)
     args = router.prepare()
     kslot, topk = args.kslot, args.sem_topk
-    if res.slots.shape != (len(topics), kslot + topk):
-        raise AssertionError(f"slots {res.slots.shape}, kslot {kslot}, topk {topk}")
     topic_part = res._replace(slots=np.ascontiguousarray(res.slots[:, :kslot]))
     checked = check_batch(topic_part, topics, oracle)
-    dev = router.device
-    qd = torch.from_numpy(q).to(dev)
-    md = torch.from_numpy(np.ascontiguousarray(res.matched)).to(dev)
-    ws, wc, census = sem_twin(torch, args.sem_tables, qd, md, topk)
-    want = ST.union_semantic_slots_plain(torch.from_numpy(topic_part.slots), ws.cpu()).numpy()
-    wc = wc.cpu().numpy()
-    diff = np.nonzero((res.slots != want).any(axis=1) | (res.sem_count != wc))[0]
-    if len(diff):
-        sel = torch.from_numpy(diff).to(dev)
-        ks, kc = ST.semantic_match_step(args.sem_tables, qd[sel].contiguous(),
-                                        md[sel].contiguous(), topk)
-        kernels.reset_launches()
-        ks, kc = ks.cpu().numpy(), kc.cpu().numpy()
-        u = ST.union_semantic_slots_plain(torch.from_numpy(topic_part.slots[diff]),
-                                          torch.from_numpy(ks)).numpy()
-        if not (np.array_equal(u, res.slots[diff]) and np.array_equal(kc, res.sem_count[diff])):
-            raise AssertionError("routed semantic rows differ from the kernel's own winners")
-        full_ks = np.full((len(topics), topk), -1, np.int32)
-        full_kc = np.zeros(len(topics), np.int32)
-        full_ks[diff], full_kc[diff] = ks, kc
-        host.check(q, res.matched, diff, [(full_ks, full_kc), (ws.cpu().numpy(), wc)], topk)
+    half = sem_half_checked(torch, args, lambda: host, res, q)
+    ws, want, census, diff = half["twin"], half["want"], half["band"], half["diff"]
     progs, feats, valid = rules
     plain = RC.eval_rule_masks_plain(progs, torch.from_numpy(feats),
                                      torch.from_numpy(valid)).numpy()
@@ -3925,6 +3939,49 @@ def sem_route_checked(torch, router, host, oracle, filt, path, topics, q, msgs) 
             "sem_count_mean": float(res.sem_count.mean()),
             "rows_differing_from_twin": int(len(diff)), "band": census,
             "rule_passes": res.rule_masks.sum(axis=1).tolist()}
+
+
+def sem_half_checked(torch, args, host_of, res, q) -> dict:
+    """The semantic half of one routed batch `res` (query rows `q`, f32
+    [B, D]) against the twin on the card, on the `prepare()` snapshot
+    `args` it ran on: the slots after the union and sem_count must equal
+    the twin's, or a differing row must hold the kernel's own winners
+    (recomputed for its rows; the launches of that call are dropped) and
+    those, like the twin's, must pass the f64 band check of `host_of()`'s
+    `SemHost` (built only when a row differs). -> the twin's winners
+    (torch), the union it implies (numpy), the band census and the rows
+    that differ."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.ops import semantic_table as ST
+
+    kslot, topk = args.kslot, args.sem_topk
+    B = len(q)
+    if res.slots.shape != (B, kslot + topk):
+        raise AssertionError(f"slots {res.slots.shape}, kslot {kslot}, topk {topk}")
+    topic_slots = np.ascontiguousarray(res.slots[:, :kslot])
+    dev = args.sem_tables["sem_vec"].device
+    qd = torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev)
+    md = torch.from_numpy(np.ascontiguousarray(res.matched)).to(dev)
+    ws, wc, census = sem_twin(torch, args.sem_tables, qd, md, topk)
+    want = ST.union_semantic_slots_plain(torch.from_numpy(topic_slots), ws.cpu()).numpy()
+    wc = wc.cpu().numpy()
+    diff = np.nonzero((res.slots != want).any(axis=1) | (res.sem_count != wc))[0]
+    if len(diff):
+        sel = torch.from_numpy(diff).to(dev)
+        ks, kc = ST.semantic_match_step(args.sem_tables, qd[sel].contiguous(),
+                                        md[sel].contiguous(), topk)
+        kernels.reset_launches()
+        ks, kc = ks.cpu().numpy(), kc.cpu().numpy()
+        u = ST.union_semantic_slots_plain(torch.from_numpy(topic_slots[diff]),
+                                          torch.from_numpy(ks)).numpy()
+        if not (np.array_equal(u, res.slots[diff]) and np.array_equal(kc, res.sem_count[diff])):
+            raise AssertionError("routed semantic rows differ from the kernel's own winners")
+        full_ks = np.full((B, topk), -1, np.int32)
+        full_kc = np.zeros(B, np.int32)
+        full_ks[diff], full_kc[diff] = ks, kc
+        host_of().check(q, res.matched, diff, [(full_ks, full_kc), (ws.cpu().numpy(), wc)],
+                        topk)
+    return {"twin": ws, "want": want, "band": census, "diff": diff}
 
 
 def sem_kernel_report(torch, args, host, q, matched, topic, dtype) -> dict:
@@ -4119,8 +4176,7 @@ def semantic_path(torch, rng, router_1m):
     ops = {op[0] for p in filt.progs for op in p}
     if len(filt.progs) != len(RULES_SQL) or ops != set(RC.OPCODES):
         raise AssertionError(f"the rule set compiles to {len(filt.progs)} programs over {ops}")
-    cents = np.random.default_rng(SEED + 7).normal(size=(SEM_CENTROIDS, SEM_DIM))
-    cents = (cents / np.linalg.norm(cents, axis=1, keepdims=True)).astype(np.float32)
+    cents = sem_centroids()
     oracle = Oracle(index, subtab)
     report = {}
     launches = None
@@ -4271,16 +4327,29 @@ def broker_build(torch):
     """BASELINE config 3 through `Broker.subscribe`: one client a filter for
     device/{i}/+/{j}/# (i, j < 1000) and device/{i}/# (i < 100), 1,000,100
     plain subscriptions, then 16 members in each of 100 round-robin groups
-    $share/ingest/device/{i}/#. -> (broker, deliveries, seconds)."""
+    $share/ingest/device/{i}/#. Before any of it, as the reference's app
+    wires a broker (emqx_tpu/app.py:218-229, :392-401), an empty
+    `SemanticRouting` (semantic_256k's D, top-k and lowest threshold) and a
+    `RuleEngine` on the hooks with its device plane attached: the device
+    router binds the semantic table when it is built, and with the table
+    empty and no rule no batch carries a semantic or rule stage.
+    -> (broker, deliveries, seconds)."""
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.broker.hooks import Hooks
     from emqx_tpu_torch.broker.router import Router
+    from emqx_tpu_torch.broker.semantic import SemanticRouting
     from emqx_tpu_torch.mqtt.packet import SubOpts
     from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.rules.engine import RuleEngine
 
     rec = Deliveries()
     broker = Broker(Router(MatcherConfig(max_bytes=MAX_BYTES, max_levels=MAX_LEVELS),
                            min_tpu_batch=BROKER_MIN_BATCH), Hooks())
+    broker.semantic = SemanticRouting(dim=SEM_DIM, topk=SEM_TOPK, threshold=SEM_THRESH[0],
+                                      metrics=broker.metrics)
+    engine = RuleEngine(broker)
+    engine.attach(broker.hooks)
+    engine.attach_device()
     opts = SubOpts()
     t0 = time.perf_counter()
     for i in range(BROKER_IDS):
@@ -4303,14 +4372,18 @@ class BrokerTimer:
     """Host-clock spans of one `publish_batch` (each ending in a
     synchronize): the DeviceRouter's prepare and route() (which includes
     the prepare), and the broker's host dispatch
-    (`_dispatch_device_results`), wrapped on the instances."""
+    (`_dispatch_device_results`), wrapped on the instances; `extra`: more
+    (object, attribute, name) spans. `last[name]`: the latest span's
+    result (route(): the batch's `RouteResult`)."""
 
-    def __init__(self, torch, broker):
+    def __init__(self, torch, broker, extra=()):
         self.torch = torch
-        self.samples = {"prepare": [], "route": [], "host_dispatch": []}
         dev = broker._device_router()
-        for obj, attr, name in ((dev, "_device_args", "prepare"), (dev, "route", "route"),
-                                (broker, "_dispatch_device_results", "host_dispatch")):
+        self.spans = ((dev, "_device_args", "prepare"), (dev, "route", "route"),
+                      (broker, "_dispatch_device_results", "host_dispatch"), *extra)
+        self.samples = {name: [] for _o, _a, name in self.spans}
+        self.last = {}
+        for obj, attr, name in self.spans:
             setattr(obj, attr, self.wrap(getattr(obj, attr), name))
 
     def wrap(self, fn, name):
@@ -4320,6 +4393,7 @@ class BrokerTimer:
             r = fn(*a, **k)
             self.torch.cuda.synchronize()
             self.samples[name].append(1e3 * (time.perf_counter() - t0))
+            self.last[name] = r
             return r
         return run
 
@@ -4331,10 +4405,9 @@ class BrokerTimer:
 
     def remove(self, broker) -> None:
         """Take the wrappers (and their synchronizes) off the instances."""
-        dev = broker._device_router()
-        for obj, attr in ((dev, "_device_args"), (dev, "route"),
-                          (broker, "_dispatch_device_results")):
+        for obj, attr, _name in self.spans:
             delattr(obj, attr)
+        self.last.clear()
 
 
 # -- the broker_1m ingest phase (the pipelined publish path) ----------------------
@@ -4410,11 +4483,12 @@ def ingest_rr_restore(broker, state) -> None:
         broker.grouptab.set_rr(broker.grouptab.gid_of(real, gname), v)
 
 
-def ingest_drive(torch, broker, rec, topics, pipeline: int) -> dict:
-    """`topics` from concurrent `apublish` tasks through a running
-    `BatchIngest(broker, max_batch=INGEST_MAX_BATCH, pipeline=pipeline)`,
-    the launch counters zeroed before and read after. -> the run's
-    deliveries [(message index, subscriber)], its schedule and figures."""
+def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None) -> dict:
+    """`topics` (or the messages `msgs`) from concurrent `apublish` tasks
+    through a running `BatchIngest(broker, max_batch=INGEST_MAX_BATCH,
+    pipeline=pipeline)`, the launch counters zeroed before and read after.
+    -> the run's deliveries [(message index, subscriber)], its schedule
+    and figures."""
     import asyncio
 
     from emqx_tpu_torch import kernels
@@ -4422,8 +4496,10 @@ def ingest_drive(torch, broker, rec, topics, pipeline: int) -> dict:
     from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.utils.tracepoints import TraceCollector
 
-    msgs = [Message(topic=t, payload=b"%d" % k, from_client="ingest")
-            for k, t in enumerate(topics)]
+    if msgs is None:
+        msgs = [Message(topic=t, payload=b"%d" % k, from_client="ingest")
+                for k, t in enumerate(topics)]
+    index = {id(msg): k for k, msg in enumerate(msgs)}
     m = broker.metrics
     raw = collections.defaultdict(list)
     obs, obs_many = m.observe, m.observe_many
@@ -4464,7 +4540,7 @@ def ingest_drive(torch, broker, rec, topics, pipeline: int) -> dict:
     idle = np.asarray(raw["ingest.device.idle.seconds"]) * 1e3
     sizes = raw["ingest.batch.size"]
     return {
-        "deliveries": [(int(msg.payload), sid) for msg, sid in rec.log],
+        "deliveries": [(index[id(msg)], sid) for msg, sid in rec.log],
         "schedule": sched,
         "figures": {
             "pipeline": pipeline, "messages": len(msgs), "batches": len(sizes),
@@ -4616,19 +4692,24 @@ def ingest_runs(torch, broker, rec, dev, topics, rr0) -> tuple:
     return record, dict(launches)
 
 
-def broker_publish(torch, broker, rec, timer, topics, tag: int) -> dict:
-    """One checked `publish_batch` of `topics`: every message's plain
-    recipients against the CPU oracle (the subscribers of the router's
-    exact and trie matches), and every matched group's one delivery
-    against `pick_oracle` (taken before the batch, the bases it reads
-    advanced as `advance_rr` would after it). -> the batch's record."""
+def broker_publish(torch, broker, rec, timer, topics, tag: int, msgs=None, got_out=None,
+                   want_extra=None) -> dict:
+    """One checked `publish_batch` of `topics` (or of the messages `msgs`):
+    every message's plain recipients against the CPU oracle (the
+    subscribers of the router's exact and trie matches, embedding-filtered
+    ones apart), and every matched group's one delivery against
+    `pick_oracle` (taken before the batch, the bases it reads advanced as
+    `advance_rr` would after it). `got_out`: a list that receives each
+    message's recipients; `want_extra`: more exact launch counts. -> the
+    batch's record."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.message import Message
 
     r = broker.router
     gt = broker.grouptab
-    msgs = [Message(topic=t, payload=b"%d" % k, from_client=f"pub{tag}") for k, t in
-            enumerate(topics)]
+    if msgs is None:
+        msgs = [Message(topic=t, payload=b"%d" % k, from_client=f"pub{tag}") for k, t in
+                enumerate(topics)]
     gfid = np.full((len(topics), 1), -1, np.int64)
     for k, t in enumerate(topics):
         ws = t.split("/")
@@ -4654,9 +4735,18 @@ def broker_publish(torch, broker, rec, timer, topics, tag: int) -> dict:
         raise AssertionError(f"publish_batch returned {n}, {len(rec.log)} deliveries recorded")
     plain_n = group_n = 0
     counts = collections.Counter()
+    plain_of = {}  # filter -> its plain subscribers ('#' holds many semantic ones)
+
+    def plain_subs(f):
+        got_f = plain_of.get(f)
+        if got_f is None:
+            got_f = plain_of[f] = {sid for sid, sub in broker._subs.get(f, {}).items()
+                                   if not sub.semantic}
+        return got_f
+
     for k, t in enumerate(topics):
-        want = {sid for f in r.match(t) for sid in broker._subs.get(f, ())}
-        plain = [s for s in got[k] if not s.startswith("g")]
+        want = set().union(*(plain_subs(f) for f in r.match(t)))
+        plain = [s for s in got[k] if not s.startswith(("g", "e"))]
         grp = [s for s in got[k] if s.startswith("g")]
         if len(plain) != len(set(plain)) or set(plain) != want:
             raise AssertionError(f"message {k} {t!r}: plain {sorted(plain)} != {sorted(want)}")
@@ -4681,9 +4771,12 @@ def broker_publish(torch, broker, rec, timer, topics, tag: int) -> dict:
         raise AssertionError(f"{fell} rows fell back to the CPU")
     want_launch = {"tokenize": 1, "shape_match": 1, "sparse_fanout_slots": 1,
                    "share_pick": 2, "occurrence_index": 3, "nfa_walk": 0,
-                   "fanout_bitmaps": 0, "compact_fanout_slots": 0}
+                   "fanout_bitmaps": 0, "compact_fanout_slots": 0, "semantic_match": 0,
+                   "rule_masks": 0, **(want_extra or {})}
     if any(launches[k] != v for k, v in want_launch.items()):
         raise AssertionError(f"broker batch launches {launches}")
+    if got_out is not None:
+        got_out[:] = got
     return {"messages": len(msgs), "deliveries": n, "plain": plain_n, "group": group_n,
             "groups_matched": len(counts), "publish_batch_ms": wall,
             "launches": {k: v for k, v in launches.items() if v}, **timer.take()}
@@ -4749,12 +4842,15 @@ def broker_path(torch, rng):
         nxt[BATCH - 1 - k] = f"device/{i}/mid/{j}/leaf"
 
     def state():
-        idx = broker.router.index
+        # the semantic mirror too: the broker's router was built with the
+        # (still empty) semantic table, which the churn does not touch
+        idx, sem = broker.router.index, broker.semantic.table
         return (mirror_counts(dev),
                 {"shapes": idx.shapes.version, "nfa": idx.nfa.version,
-                 "bitmaps": subtab.version, "groups": broker.grouptab.version},
+                 "bitmaps": subtab.version, "groups": broker.grouptab.version,
+                 "semantic": sem.version},
                 {"shapes": idx.shapes.epoch, "nfa": idx.nfa.epoch, "bitmaps": subtab.epoch,
-                 "groups": broker.grouptab.epoch})
+                 "groups": broker.grouptab.epoch, "semantic": sem.epoch})
 
     dev.prepare()  # the last batch's round-robin bases reach the card
     c0, v0, e0 = state()
@@ -4853,10 +4949,468 @@ def broker_path(torch, rng):
     report = kernel_report(torch, {k: kinds[k] for k in keep})
     phase("kernel_inputs_broker", **inputs)
     phase("broker_launches", launches=dict(launches))
+
+    # the semantic plane and the rule engine's device attach on this broker
+    t0 = time.perf_counter()
+    sem_launches = semantic_broker(torch, broker, rec, rng)
+    launches.update(sem_launches)
+    phase("semantic_broker_seconds", seconds=time.perf_counter() - t0,
+          launches=dict(sem_launches))
     del broker, rec, dev, timer
     gc.collect()
     torch.cuda.empty_cache()
     return report, dict(launches)
+
+
+# -- the broker_1m semantic phases (the semantic plane and the rule engine) ------
+
+# semantic_256k's filters bound through Broker.subscribe, cut to a quarter:
+# a semantic subscribe costs 0.27-0.45 ms on the card's host CPU (this
+# phase at 262,144 took 71.3-117.2 s), which would take the whole script
+# past 1,100 s of its 1,200 s limit. The semantic_256k path keeps all
+# 262,144 entries, so both kernels are still held at full scale there.
+SEM_BROKER_N = 1 << 16
+SEM_BROKER_REDUCED = [
+    "semantic subscriptions 65,536 of semantic_256k's 262,144: a subscribe "
+    "takes 0.27-0.45 ms on the host (the table logs D = 384 op-log entries a "
+    "vector); 262,144 took 71.3-117.2 s and would take the script past 1,100 s"]
+SEM_BROKER_BATCHES = 2  # B = 8192 batches a pass
+# bench.py's agentic_fabric (`bench_agentic_fabric`) at its own sizes
+AF_DIM, AF_TOPK, AF_THRESH = 32, 16, 0.70
+AF_ROOMS, AF_PLAIN, AF_SEM, AF_MSGS, AF_MAX_BATCH = 8, 1024, 384, 8192, 2048
+
+
+def sem_broker_filters(rng, n):
+    """semantic_256k's generator as subscriptions: vectors `_near` the
+    path's centroids, thresholds in SEM_THRESH, scopes: half '#', 3/8
+    device/{d}/# and 1/8 device/{d}/+/{j}/# (d < 100, j < 1000: filters
+    broker_1m routes). -> (filters, vectors, thresholds)."""
+    vecs = sem_vectors(rng, sem_centroids(), rng.integers(0, SEM_CENTROIDS, n))
+    ths = rng.uniform(*SEM_THRESH, n).astype(np.float32)
+    d = rng.integers(0, SEM_SCOPE_DEVICES, n).tolist()
+    j = rng.integers(0, 1000, n).tolist()
+    kind = rng.random(n).tolist()
+    filters = ["#" if k < 0.5 else f"device/{a}/#" if k < 0.875 else f"device/{a}/+/{b}/#"
+               for a, b, k in zip(d, j, kind)]
+    return filters, vecs, ths
+
+
+def sem_broker_traffic(rng, n):
+    """n publishes of mixed_1m's Zipf topics device/{i}/mid/{j}/leaf, each
+    with an embedding near centroid (1000 i + j) mod 256 and a seeded
+    RULES_SQL payload and QoS (`rule_messages`). -> (topics, embeddings,
+    [(payload, qos)])."""
+    ids = zipf_ids(rng, n, 1000)
+    nums = rng.integers(0, 1000, size=n)
+    topics = [f"device/{i}/mid/{j}/leaf" for i, j in zip(ids, nums)]
+    q = sem_vectors(rng, sem_centroids(), (ids * 1000 + nums) % SEM_CENTROIDS)
+    return topics, q, [(c["payload"], c["qos"]) for c in rule_messages(rng, topics)]
+
+
+def sem_broker_messages(traffic, tag) -> list:
+    """Fresh `Message`s of `traffic`: the embedding in
+    headers["semantic_embedding"], the broker's copy-free intake."""
+    from emqx_tpu_torch.broker.message import Message
+
+    topics, q, pq = traffic
+    out = []
+    for k, t in enumerate(topics):
+        m = Message(topic=t, payload=pq[k][0], qos=pq[k][1], from_client=f"sem{tag}")
+        m.headers["semantic_embedding"] = q[k]
+        out.append(m)
+    return out
+
+
+def rule_replay(engine, msgs) -> collections.Counter:
+    """{(rule id, message index): 1} of every rule of `engine` that a host
+    replay through `apply_query` passes (the scalar evaluator on each
+    message's event context, as the hook path fires it)."""
+    from emqx_tpu_torch.ops import topics as T
+    from emqx_tpu_torch.rules import events as EV
+    from emqx_tpu_torch.rules.runtime import apply_query
+
+    want = collections.Counter()
+    for k, m in enumerate(msgs):
+        ctx = EV.message_publish(m)
+        for rule in engine.rules():
+            if not any(T.match(m.topic, t) for t in rule.query.topics):
+                continue
+            try:
+                rows = apply_query(rule.query, dict(ctx))
+            except Exception:  # noqa: BLE001 - the rule fails, as fire_settled counts it
+                continue
+            if rows:
+                want[(rule.id, k)] += 1
+    return want
+
+
+def semantic_broker(torch, broker, rec, rng) -> collections.Counter:
+    """The broker's semantic plane and the rule engine's device attach on
+    broker_1m's broker (`broker_build` attached both, empty):
+    `tables_semantic_broker`, `publish_semantic_broker`,
+    `ingest_semantic_broker` and `agentic_fabric_broker`. The heap is
+    frozen for the phases (as `broker_ingest` freezes it): a full
+    collection of broker_1m's objects takes seconds and would land in
+    whichever step crosses the threshold. -> the launches of the phases
+    on broker_1m's broker (the agentic_fabric broker's print in its
+    phase)."""
+    gc.freeze()
+    try:
+        launches, fired = sem_broker_tables(torch, broker, rec, rng)
+        traffic = [sem_broker_traffic(rng, BATCH) for _ in range(SEM_BROKER_BATCHES)]
+        rr0 = ingest_rr_state(broker)
+        sync, sync_launches = sem_broker_publish(torch, broker, rec, traffic, fired)
+        launches.update(sync_launches)
+        launches.update(sem_broker_ingest(torch, broker, rec, traffic, fired, rr0, sync))
+        # a broker of its own: its launches print in its phase, not here
+        agentic_fabric_broker(torch)
+    finally:
+        gc.unfreeze()
+    return launches
+
+
+def sem_broker_tables(torch, broker, rec, rng) -> collections.Counter:
+    """`tables_semantic_broker`: SEM_BROKER_N embedding-filter subscriptions
+    through `Broker.subscribe(sid, ..., embedding=v, sem_threshold=th)`;
+    the eight RULES_SQL clauses as rules ``SELECT * FROM "device/#" WHERE
+    ...`` with a recording `FunctionOutput`, which must all compile; then
+    the first `prepare()`: one full upload of the semantic mirror (no
+    scatter), its bytes equal to the host table's. -> (its launches, the
+    list the rules record their fired rows in)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.rules.engine import FunctionOutput
+
+    sem, dev = broker.semantic, broker._device_router()
+    n = SEM_BROKER_N
+    filters, vecs, ths = sem_broker_filters(rng, n)
+    opts = SubOpts()
+    subs0 = broker.subscription_count()
+    at = {}  # seconds after each 65,536 subscribes
+    t0 = time.perf_counter()
+    for i, f in enumerate(filters):
+        sid = f"e{i}"
+        broker.subscribe(sid, sid, f, opts, rec.sink(sid), embedding=vecs[i],
+                         sem_threshold=float(ths[i]))
+        if (i + 1) % 65536 == 0:
+            at[i + 1] = time.perf_counter() - t0
+    sub_s = time.perf_counter() - t0
+    if len(sem) != n or broker.subscription_count() != subs0 + n or \
+            broker.metrics.get("semantic.subscribe.rejected"):
+        raise AssertionError(f"{len(sem)} semantic entries for {n} subscribes")
+    fired = []  # (rule id, message id) a fired row
+    for i, w in enumerate(RULES_SQL):
+        broker.rule_hook.create_rule(f"sem{i}", f'SELECT * FROM "device/#" WHERE {w}', [
+            FunctionOutput(lambda row, ctx, r=f"sem{i}": fired.append((r, ctx["id"])))])
+    compiled = len(broker.rule_hook.device_filter.compiled)
+    if compiled != len(RULES_SQL):
+        raise AssertionError(f"{compiled} of the {len(RULES_SQL)} rules compiled")
+    c0 = dev.segment_status()["semantic"]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = dev.prepare()
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    launches = collections.Counter({k: v for k, v in kernels.LAUNCHES.items() if v})
+    c1 = dev.segment_status()["semantic"]
+    moved = {k: c1[k] - c0[k] for k in c0}
+    if moved != {"full_resyncs": 1, "delta_launches": 0, "array_resyncs": 0}:
+        raise AssertionError(f"the first semantic prepare moved {moved}")
+    sem_bytes = {k: t.numel() * t.element_size() for k, t in args.sem_tables.items()}
+    scopes = collections.Counter("#" if f == "#" else "device/{d}/#" if f.count("/") == 2
+                                 else "device/{d}/+/{j}/#" for f in filters)
+    phase("tables_semantic_broker", semantic_subscriptions=n,
+          subscriptions=broker.subscription_count(), subscribe_seconds=sub_s,
+          subscribe_us=1e6 * sub_s / n, subscribe_seconds_at=at, scopes=dict(scopes),
+          status=sem.status(),
+          first_prepare_seconds=prep_s, semantic_upload_bytes=sum(sem_bytes.values()),
+          device_bytes=sem_bytes, mirror=moved, oplog=len(sem.table.oplog),
+          mirror_bytes_equal=check_sem_mirror(torch, args, sem.table), kslot=args.kslot,
+          sem_topk=args.sem_topk, compiled_rules=compiled, launches=dict(launches),
+          card=card_line(), reduced=SEM_BROKER_REDUCED)
+    return launches, fired
+
+
+def sem_broker_publish(torch, broker, rec, traffic, fired) -> tuple:
+    """`publish_semantic_broker`: each batch of `traffic` through
+    `publish_batch`, checked three ways: plain and $share deliveries
+    against the host oracle (`broker_publish`); each message's semantic
+    deliveries equal to its routed row's winners, and those against the
+    plain twin on the card (`sem_half_checked`: a differing row must pass
+    the f64 band check); the fired rule rows equal to a host replay
+    through `apply_query` (`rule_replay`), each exactly once; one
+    `rules.device.batches` a batch, no `rules.host.batches`, 2
+    semantic_match and 1 rule_masks launches a batch. -> ({"log": the
+    deliveries, "fired": the fired rows, by global message index}, the
+    launches)."""
+    engine, sem, dev = broker.rule_hook, broker.semantic, broker._device_router()
+    m = broker.metrics
+    timer = BrokerTimer(torch, broker, extra=((engine, "fire_settled", "rule_fire"),))
+    host = []
+    launches = collections.Counter()
+    log, fired_all, out = [], collections.Counter(), []
+
+    def host_of():
+        if not host:
+            host.append(SemHost(sem.table))
+        return host[0]
+
+    try:
+        for b, tr in enumerate(traffic):
+            msgs = sem_broker_messages(tr, b)
+            index = {str(x.mid): k for k, x in enumerate(msgs)}
+            fired.clear()
+            d0, h0 = m.get("rules.device.batches"), m.get("rules.host.batches")
+            got = []
+            t0 = time.perf_counter()
+            brec = broker_publish(torch, broker, rec, timer, tr[0], 100 + b, msgs=msgs,
+                                  got_out=got, want_extra={"semantic_match": 2, "rule_masks": 1})
+            wall = time.perf_counter() - t0
+            launches.update(brec["launches"])
+            res = timer.last["route"]
+            args = dev.prepare()
+            kslot = res.slots.shape[1] - args.sem_topk
+            slot_subs = broker._slot_subs
+            sem_n = 0
+            for k in range(len(msgs)):
+                want = sorted(slot_subs[s].sid for s in res.slots[k, kslot:].tolist() if s >= 0)
+                gotk = sorted(x for x in got[k] if x.startswith("e"))
+                if gotk != want:
+                    raise AssertionError(f"message {k}: semantic deliveries {gotk} != {want}")
+                sem_n += len(gotk)
+            # the queries the batch carried: the broker's own intake
+            # (`embed_batch` normalises each embedding again, which may
+            # move a last bit)
+            half = sem_half_checked(torch, args, host_of, res, sem.embed_batch(msgs))
+            got_f = collections.Counter((r, index[i]) for r, i in fired)
+            want_f = rule_replay(engine, msgs)
+            if got_f != want_f or any(v != 1 for v in got_f.values()):
+                raise AssertionError(f"batch {b}: fired rows differ from the host replay "
+                                     f"({sum(got_f.values())} against {sum(want_f.values())})")
+            dd, dh = m.get("rules.device.batches") - d0, m.get("rules.host.batches") - h0
+            if (dd, dh) != (1, 0):
+                raise AssertionError(f"batch {b}: rules.device.batches +{dd}, host +{dh}")
+            log += [(b * BATCH + k, sid) for k, row in enumerate(got) for sid in row]
+            fired_all.update({(r, b * BATCH + k): v for (r, k), v in got_f.items()})
+            hd, rf = brec["host_dispatch_ms"], brec["rule_fire_ms"]
+            pub_s = brec["publish_batch_ms"] / 1e3
+            out.append({**brec, "checked_ms": 1e3 * wall, "messages_per_s": len(msgs) / pub_s,
+                        "deliveries_per_s": brec["deliveries"] / pub_s,
+                        "semantic_deliveries": sem_n, "rows_differing_from_twin": len(half["diff"]),
+                        "band": half["band"], "fired_rows": sum(got_f.values()),
+                        "host_fanout_ms": hd - rf, "sem_count_mean": float(res.sem_count.mean()),
+                        "readback_bytes": res.readback_bytes})
+    finally:
+        timer.remove(broker)
+    med = {k: float(np.median([r[k] for r in out])) for k in (
+        "publish_batch_ms", "prepare_ms", "route_ms", "rule_fire_ms", "host_fanout_ms",
+        "host_dispatch_ms", "messages_per_s", "deliveries_per_s")}
+    phase("publish_semantic_broker", batches=out, median=med, card=card_line(),
+          rules_device_batches=m.get("rules.device.batches"),
+          rules_host_batches=m.get("rules.host.batches"),
+          semantic_hits=m.get("semantic.hits"),
+          semantic_topk_truncated=m.get("semantic.topk.truncated"))
+    rec.log.clear()
+    return {"log": sorted(log), "fired": fired_all}, launches
+
+
+def sem_broker_ingest(torch, broker, rec, traffic, fired, rr0, sync) -> collections.Counter:
+    """`ingest_semantic_broker`: the same traffic from concurrent `apublish`
+    tasks through `BatchIngest(max_batch=8192)` at pipeline 2 and 1, each
+    from the same round-robin bases (`ingest_drive`): the schedule of full
+    batches, 1 rule_masks and 2 semantic_match launches a batch, every
+    message's plain and semantic recipients the synchronous pass's and
+    each matched group delivering it once (`ingest_check`), the fired rows
+    the synchronous pass's, one `rules.device.batches` a batch and no
+    `rules.host.batches`. The members are not compared: the traffic mixes
+    QoS 0-2 (a rule reads it), and the ingest's lanes put a batch's QoS 1
+    and 2 publishes first, so the round-robin order differs. -> the
+    launches."""
+    m = broker.metrics
+    n = len(traffic)
+    topics = [t for tr in traffic for t in tr[0]]
+    launches = collections.Counter()
+    runs = {}
+    for pipeline in (2, 1):
+        ingest_rr_restore(broker, rr0)
+        msgs = [x for b, tr in enumerate(traffic) for x in sem_broker_messages(tr, b)]
+        index = {str(x.mid): k for k, x in enumerate(msgs)}
+        fired.clear()
+        d0, h0 = m.get("rules.device.batches"), m.get("rules.host.batches")
+        run = ingest_drive(torch, broker, rec, topics, pipeline, msgs=msgs)
+        if run["schedule"] != pinned_schedule(n, pipeline):
+            raise AssertionError(f"pipeline {pipeline}: schedule {run['schedule']}")
+        got_l = run["figures"]["launches"]
+        want_l = {"tokenize": n, "shape_match": n, "sparse_fanout_slots": n,
+                  "semantic_match": 2 * n, "rule_masks": n}
+        if any(got_l.get(k, 0) != v for k, v in want_l.items()):
+            raise AssertionError(f"pipeline {pipeline}: launches {got_l}")
+        launches.update(got_l)
+        check = ingest_check(f"semantic pipeline {pipeline}", run["deliveries"], sync["log"],
+                             members=False)
+        got_f = collections.Counter((r, index[i]) for r, i in fired)
+        if got_f != sync["fired"]:
+            raise AssertionError(f"pipeline {pipeline}: fired rows differ from the "
+                                 "synchronous pass's")
+        dd, dh = m.get("rules.device.batches") - d0, m.get("rules.host.batches") - h0
+        if (dd, dh) != (n, 0):
+            raise AssertionError(f"pipeline {pipeline}: rules.device.batches +{dd}, host +{dh}")
+        runs[str(pipeline)] = {**run["figures"], **check, "fired_rows": sum(got_f.values())}
+    rec.log.clear()
+    phase("ingest_semantic_broker", depths=runs, card=card_line())
+    return launches
+
+
+def agentic_fabric_broker(torch) -> collections.Counter:
+    """`agentic_fabric_broker`: bench.py's `bench_agentic_fabric` at its own
+    sizes on a fresh broker (D 32, topk 16, threshold 0.70, 1,024 plain and
+    384 semantic subscriptions, 8,192 messages, `BatchIngest(max_batch=
+    2048, window_us=500)`, the rule WHERE payload.p = 1), both scenarios:
+    the device pass (embeddings and the rule's masks in the route launch)
+    against the host-filter pass (no plane; the host twin after dispatch),
+    with bench.py's check: plain deliveries equal, semantic deliveries
+    within max(8, n // 200). -> the device passes' launches."""
+    import asyncio
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.broker import Broker
+    from emqx_tpu_torch.broker.hooks import Hooks
+    from emqx_tpu_torch.broker.ingest import BatchIngest
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.router import Router
+    from emqx_tpu_torch.broker.semantic import SemanticRouting
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+    from emqx_tpu_torch.rules.engine import FunctionOutput, RuleEngine
+
+    rng = np.random.default_rng(2209)
+    cents = rng.normal(size=(AF_ROOMS, AF_DIM)).astype(np.float32)
+    cents /= np.linalg.norm(cents, axis=1, keepdims=True)
+
+    def near(c):
+        v = rng.normal(size=AF_DIM).astype(np.float32)
+        v = cents[c] + 0.25 * (v / np.linalg.norm(v))
+        return (v / np.linalg.norm(v)).astype(np.float32)
+
+    scen_msgs = {
+        "fan_out": [(f"agents/room/{i % AF_ROOMS}/evt", near(i % AF_ROOMS), i % 4)
+                    for i in range(AF_MSGS)],
+        "fan_in": [(f"agents/dev/{int(rng.integers(0, 4096))}/out", near(i % AF_ROOMS), i % 4)
+                   for i in range(AF_MSGS)],
+    }
+    sem_specs = {"fan_out": [(f"agents/room/{i % AF_ROOMS}/#", near(i % AF_ROOMS))
+                             for i in range(AF_SEM)],
+                 "fan_in": [("#", near(i % AF_ROOMS)) for i in range(AF_SEM)]}
+    plain_specs = {"fan_out": [f"agents/room/{i % AF_ROOMS}/#" for i in range(AF_PLAIN)],
+                   "fan_in": ["agents/dev/+/out" for _ in range(16)]}
+    rule_sql = 'SELECT qos FROM "agents/#" WHERE payload.p = 1'
+
+    def build(scen, semantic):
+        b = Broker(Router(MatcherConfig(), min_tpu_batch=64), Hooks())
+        counts = {"plain": 0, "sem": 0}
+
+        def mk(kind):
+            def deliver(_m, _o):
+                counts[kind] += 1
+            return deliver
+
+        if semantic:
+            b.semantic = SemanticRouting(dim=AF_DIM, topk=AF_TOPK, threshold=AF_THRESH,
+                                         metrics=b.metrics)
+        sid = 0
+        for f in plain_specs[scen]:
+            b.subscribe(f"p{sid}", f"p{sid}", f, SubOpts(), mk("plain"))
+            sid += 1
+        if semantic:
+            for f, vec in sem_specs[scen]:
+                b.subscribe(f"s{sid}", f"s{sid}", f, SubOpts(), mk("sem"), embedding=vec,
+                            sem_threshold=AF_THRESH)
+                sid += 1
+        eng = RuleEngine(b)
+        eng.attach(b.hooks)
+        fired = [0]
+        eng.create_rule("agentic", rule_sql, [FunctionOutput(
+            lambda row, ctx: fired.__setitem__(0, fired[0] + 1))])
+        return b, eng, counts, fired
+
+    def messages(scen):
+        out = []
+        for t, e, pv in scen_msgs[scen]:
+            msg = Message(topic=t, payload=b'{"p": %d}' % pv, from_client="pub")
+            msg.headers["semantic_embedding"] = e
+            out.append(msg)
+        return out
+
+    async def serve(b, msgs):
+        ing = BatchIngest(b, max_batch=AF_MAX_BATCH, window_us=500)
+        b.ingest = ing
+        ing.start()
+        await ing.submit(Message(topic="agents/room/0/warm"))
+        t0 = time.perf_counter()
+        futs = []
+        for msg in msgs:
+            r = await b.apublish_enqueue(msg)
+            if not isinstance(r, int):
+                futs.append(r)
+        cnt = await asyncio.gather(*futs)
+        return ing, cnt, t0
+
+    async def device_pass(scen):
+        b, eng, counts, fired = build(scen, semantic=True)
+        eng.attach_device()
+        msgs = messages(scen)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        ing, cnt, t0 = await serve(b, msgs)
+        wall = time.perf_counter() - t0
+        await ing.stop()
+        torch.cuda.synchronize()
+        lc = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        return {"msgs_per_s": AF_MSGS / wall, "deliveries": int(sum(cnt)),
+                "plain_deliveries": counts["plain"], "sem_deliveries": counts["sem"],
+                "sem_hits": b.metrics.get("semantic.hits"), "rule_fired": fired[0],
+                "rule_device_batches": b.metrics.get("rules.device.batches"),
+                "rule_host_batches": b.metrics.get("rules.host.batches"),
+                "device_batches": b.metrics.get("messages.routed.device"),
+                "launches": lc}
+
+    async def host_filter_pass(scen):
+        b, _eng, counts, fired = build(scen, semantic=False)
+        hostsem = SemanticRouting(dim=AF_DIM, topk=AF_TOPK, threshold=AF_THRESH)
+        for slot, (f, vec) in enumerate(sem_specs[scen]):
+            hostsem.attach(f"h{slot}", slot, vec, AF_THRESH, fid=-1, scope=f)
+        msgs = messages(scen)
+        ing, _cnt, t0 = await serve(b, msgs)
+        sem_n = sum(len(r) for lo in range(0, AF_MSGS, AF_MAX_BATCH)
+                    for r in hostsem.host_route(msgs[lo:lo + AF_MAX_BATCH]))
+        wall = time.perf_counter() - t0
+        await ing.stop()
+        return {"msgs_per_s": AF_MSGS / wall, "plain_deliveries": counts["plain"],
+                "sem_deliveries": sem_n, "rule_fired": fired[0]}
+
+    launches = collections.Counter()
+    out = {}
+    for scen in ("fan_out", "fan_in"):
+        dev = asyncio.run(device_pass(scen))
+        host = asyncio.run(host_filter_pass(scen))
+        tol = max(8, dev["sem_deliveries"] // 200)
+        if dev["plain_deliveries"] != host["plain_deliveries"] or \
+                abs(dev["sem_deliveries"] - host["sem_deliveries"]) > tol or \
+                dev["rule_fired"] != host["rule_fired"]:
+            raise AssertionError(f"agentic_fabric {scen}: device {dev} against host {host}")
+        lc, nb = dev["launches"], dev["rule_device_batches"]
+        if not nb or lc.get("semantic_match") != 2 * nb or lc.get("rule_masks") != nb:
+            raise AssertionError(f"agentic_fabric {scen}: launches {lc}, {nb} device batches")
+        launches.update(lc)
+        out[scen] = {"device": dev, "host_filter": host, "semantic_tolerance": tol}
+    rps = [out[s]["device"]["msgs_per_s"] for s in out]
+    hrps = [out[s]["host_filter"]["msgs_per_s"] for s in out]
+    phase("agentic_fabric_broker", scenarios=out, dim=AF_DIM, topk=AF_TOPK,
+          threshold=AF_THRESH, semantic_filters=AF_SEM, plain_subs=AF_PLAIN,
+          messages_per_scenario=AF_MSGS, semantic_routing_rps=sum(rps) / len(rps),
+          semantic_vs_host_filter_x=sum(rps) / sum(hrps), card=card_line())
+    return launches
 
 
 # -- the plus_100k path (the NFA-only step) ---------------------------------------
@@ -6293,8 +6847,7 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
     if ridx.bulk_add(retained_topics(range(RET_N))) != RET_N:
         raise AssertionError("bulk_add refused topics")
     t2 = time.perf_counter()
-    cents = np.random.default_rng(SEED + 7).normal(size=(SEM_CENTROIDS, SEM_DIM))
-    cents = (cents / np.linalg.norm(cents, axis=1, keepdims=True)).astype(np.float32)
+    cents = sem_centroids()
     sem, sem_stages = build_semantic(np.random.default_rng(SEED + 8), index1, "float32", cents,
                                      shards=MESH_TP)
     t3 = time.perf_counter()
@@ -6516,6 +7069,9 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     phase("broker_seconds", seconds=time.perf_counter() - t0)
     for case in broker_report.values():
         report[case["name"]]["broker_1m"] = {**case, "launches": broker_launches[case["name"]]}
+    # the broker's semantic phases launch the semantic path's two kernels
+    for k in ("semantic_match", "rule_masks"):
+        report[k]["broker_1m_launches"] = broker_launches[k]
     t0 = time.perf_counter()
     plus_report, plus_launches, plus_bound = plus_path(torch, np.random.default_rng(SEED + 70))
     phase("plus_seconds", seconds=time.perf_counter() - t0)

@@ -28,6 +28,19 @@ Parity with the reference kernel (apps/emqx/src/emqx_broker.erl):
   the loop, before the batch's fan-out, and a failed launch aborts the
   rider, whose writes ride the next batch.
 
+- with a `SemanticRouting` attached (`Broker.semantic`, broker/semantic.py)
+  a subscribe may carry an embedding: its slot then lives in the semantic
+  table, not the subscriber table, and it delivers on topic match AND
+  similarity. Every device batch carries its messages' embeddings into
+  the route launch (`semantic_match`), whose winners come back as slots;
+  the CPU path asks the numpy host twin (`SemanticRouting.host_route`).
+- with a `RuleEngine` device-attached (`Broker.rule_hook`,
+  rules/engine.py `attach_device`) both publish paths mark each message
+  for settle-time firing, every device batch carries the compiled WHERE
+  programs and the batch's features (`rule_masks`), and the rules fire
+  when the batch settles, before its fan-out (`RuleEngine.fire_settled`:
+  the readback's masks, or the numpy host ladder for a CPU batch).
+
 Every plain subscription owns a subscriber slot in `SubscriberTable`
 (dense bitmaps or CSR, as `MatcherConfig.sub_table` says); $share groups
 are `GroupTable` lanes whose member the device picks. Batches smaller than
@@ -35,12 +48,10 @@ are `GroupTable` lanes whose member the device picks. Batches smaller than
 CPU path. A failed launch raises (out of `PendingDispatch.complete()` on
 the pipelined path): the degrade ladder is not ported.
 
-Not ported yet (ROADMAP item 3 queues them as the next slices):
-`SemanticRouting` (a subscribe with an ``embedding=`` raises
-NotImplementedError) and the rule engine's device attach; the broker on
-a mesh; and, with the app, the cluster forward, the degrade controller,
-span tracing and the retained feed (`adispatch_begin` takes the
-reference's path for each of them absent).
+Not ported yet (ROADMAP items 3.4 and 10): the broker on a mesh; and,
+with the app, the cluster forward, the degrade controller, span tracing
+and the retained feed (`adispatch_begin` takes the reference's path for
+each of them absent).
 """
 
 from __future__ import annotations
@@ -88,7 +99,7 @@ def dispatch_pool():
 
 
 class Subscriber:
-    __slots__ = ("sid", "deliver", "opts", "client_id", "slot", "filter")
+    __slots__ = ("sid", "deliver", "opts", "client_id", "slot", "filter", "semantic")
 
     def __init__(self, sid: str, client_id: str, deliver: Deliverer, opts: pkt.SubOpts):
         self.sid = sid
@@ -97,6 +108,9 @@ class Subscriber:
         self.opts = opts
         self.slot = -1  # subscriber-table slot (non-shared subs only)
         self.filter = ""  # the real (share-stripped) subscription filter
+        # embedding-filtered: the slot lives in the semantic table, not
+        # the subscriber table, and delivery needs topic AND similarity
+        self.semantic = False
 
 
 class PendingDispatch:
@@ -155,6 +169,14 @@ class Broker:
         # batches as the fused session stage (no launch or readback of
         # their own)
         self.session_store = None
+        # SemanticRouting (broker/semantic.py), attached by its owner:
+        # embedding-filter subscriptions, matched inside the route launch
+        # (`semantic_match`); None = no semantic stage
+        self.semantic = None
+        # the RuleEngine's device seam (rules/engine.py `attach_device`):
+        # compiled WHERE masks run inside the route launch and fire at
+        # settle; None = hook-path rules only
+        self.rule_hook = None
 
     # -- subscribe side ---------------------------------------------------
     def subscribe(
@@ -167,13 +189,20 @@ class Broker:
         embedding=None,
         sem_threshold=None,
     ) -> None:
-        if embedding is not None:
-            raise NotImplementedError(
-                "embedding-filtered subscriptions need the broker's semantic "
-                "plane, not ported yet (ROADMAP item 3)")
+        """`embedding`/`sem_threshold`: an optional embedding filter; the
+        subscription then delivers on topic match AND similarity, its slot
+        bound into the semantic table instead of the subscriber table.
+        Ignored (a plain subscribe, counted in
+        `semantic.subscribe.rejected`) when no SemanticRouting is attached
+        or the filter is $shared."""
         group, real = T.parse_share(filter_)
         sub = Subscriber(sid, client_id, deliver, opts)
         sub.filter = real
+        if embedding is not None and (self.semantic is None or group is not None):
+            # no semantic plane, or a $share filter (resolved by a group
+            # pick, not by slots): degrade to a plain subscription
+            self.metrics.inc("semantic.subscribe.rejected")
+            embedding = None
         if group is not None:
             # one route ref per group (matched by delete on group-empty)
             if self.shared.subscribe(group, real, sub):
@@ -196,10 +225,25 @@ class Broker:
             else:
                 self._plain_subs += 1
                 sub.slot = self._alloc_slot(sub)
-                if fid is None:
-                    # route already existed: resolve its id (one probe)
-                    fid = self.router.filter_id(real)
-                if fid is not None:
+            if fid is None:
+                # route already existed: resolve its id (one probe)
+                fid = self.router.filter_id(real)
+            if embedding is not None:
+                # the slot binds into the semantic table, scoped to this
+                # filter's fid (a '#' scope matches every non-$ topic)
+                sub.semantic = True
+                if prev is not None and not prev.semantic and fid is not None:
+                    self.subtab.remove(fid, sub.slot)
+                th = (self.semantic.default_threshold if sem_threshold is None
+                      else float(sem_threshold))
+                self.semantic.attach(sid, sub.slot, embedding, th,
+                                     fid=-1 if fid is None else fid, scope=real)
+            else:
+                if prev is not None and prev.semantic:
+                    # the re-subscribe dropped the embedding: back to the
+                    # plain fan-out
+                    self.semantic.detach(sub.slot)
+                if (prev is None or prev.semantic) and fid is not None:
                     self.subtab.add(fid, sub.slot)
         self.metrics.gauge_set("subscriptions.count", self.subscription_count())
 
@@ -227,9 +271,12 @@ class Broker:
         sub = entry.pop(sid)
         self._plain_subs -= 1
         if sub.slot >= 0:
-            fid = self.router.filter_id(real)
-            if fid is not None:
-                self.subtab.remove(fid, sub.slot)
+            if sub.semantic and self.semantic is not None:
+                self.semantic.detach(sub.slot)
+            else:
+                fid = self.router.filter_id(real)
+                if fid is not None:
+                    self.subtab.remove(fid, sub.slot)
             self._free_slot(sub.slot)
         if not entry:
             del self._subs[real]
@@ -284,6 +331,12 @@ class Broker:
         asyncio.Future resolving to the delivery count when the batch
         settles, so a connection keeps parsing its next frames while
         earlier publishes ride the batch window."""
+        rh = self.rule_hook
+        ing = self.ingest
+        if rh is not None and rh.device_active() and ing is not None and ing.running:
+            # compiled rule WHEREs defer to settle time: the batch runs
+            # them in its launch (the hook path skips marked messages)
+            msg.headers["_batch_rules"] = True
         msg = await self.hooks.arun_fold("message.publish", (), msg)
         if msg is None or msg.headers.get("allow_publish") is False:
             self.metrics.inc("messages.dropped")
@@ -303,9 +356,14 @@ class Broker:
     def publish_batch(self, msgs: Sequence[Message]) -> int:
         """Batch publish: the publish fold per message, then one device
         step for the batch (`dispatch_batch_folded`); returns the total
-        delivery count."""
+        delivery count. With device-compiled rules, each message is marked
+        for settle-time firing before its fold."""
+        rh = self.rule_hook
+        defer = rh is not None and rh.device_active()
         msgs2: List[Message] = []
         for m in msgs:
+            if defer:
+                m.headers["_batch_rules"] = True
             m = self.hooks.run_fold("message.publish", (), m)
             if m is not None and m.headers.get("allow_publish") is not False:
                 msgs2.append(m)
@@ -322,12 +380,17 @@ class Broker:
         if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
             return self._dispatch_cpu_batch(msgs)
         dev = self._device_router()
-        results = dev.route([m.topic_key() for m in msgs], self._client_hashes(msgs))
+        results = dev.route([m.topic_key() for m in msgs], self._client_hashes(msgs),
+                            embeds=self._embeds(msgs), rules=self._rule_batch(msgs))
         return self._dispatch_device_results(msgs, results)
 
     def _dispatch_cpu_batch(self, msgs: Sequence[Message]) -> List[int]:
         """The authoritative CPU path for a whole batch: per-message trie
-        match + host fan-out. Never touches the device."""
+        match + host fan-out. Never touches the device. Deferred compiled
+        rules fire here through the numpy host ladder; semantic recipients
+        resolve per message in `_route_dispatch` through the host twin."""
+        if self.rule_hook is not None:
+            self.rule_hook.fire_settled(msgs)
         return [self._dispatch_routed(m) for m in msgs]
 
     async def adispatch_batch_folded(self, msgs: Sequence[Message]) -> List[int]:
@@ -367,8 +430,14 @@ class Broker:
         `Session.deliver` calls append to the op-log the next rider
         takes), or aborts it when the launch or readback raised, then
         re-raises. At most one rider is outstanding: with batch N's rider
-        in flight, batch N+1 takes none. The retained feed, embeddings,
-        device rules and spans are not ported: their hand-offs take the
+        in flight, batch N+1 takes none.
+
+        The batch's embeddings (`_embeds`) and the compiled rules'
+        features (`_rule_batch`) are built here on the loop thread too:
+        `extract_features` writes ``_rule_suspect`` into the message
+        headers. `complete()` fires the deferred rules from the readback's
+        masks before the fan-out (`_dispatch_device_results`). The
+        retained feed and spans are not ported: their hand-offs take the
         reference's path for none attached."""
         loop = asyncio.get_running_loop()
         r = self.router
@@ -397,9 +466,11 @@ class Broker:
             rider = store.take_rider()
         topics = [m.topic_key() for m in msgs]
         hashes = self._client_hashes(msgs)
+        embeds = self._embeds(msgs)
+        rules = self._rule_batch(msgs)
         fut = loop.run_in_executor(
             dispatch_pool(), on_stream, dev.launch_stream(), dev.route_prepared,
-            args, topics, hashes, None, rider)
+            args, topics, hashes, None, rider, embeds, rules)
 
         async def _complete():
             try:
@@ -433,9 +504,26 @@ class Broker:
                 grouptab=self.grouptab,
                 share_strategy=self.shared.strategy,
                 metrics=self.metrics,
+                semtab=self.semantic.table if self.semantic is not None else None,
                 device=self.router.device,
             )
         return self._device
+
+    def _embeds(self, msgs):
+        """[B, D] query embeddings for the semantic stage, or None (no
+        per-row cost) when no semantic plane is live."""
+        sem = self.semantic
+        if sem is None or not len(sem.table):
+            return None
+        return sem.embed_batch(msgs)
+
+    def _rule_batch(self, msgs):
+        """(progs, feats, valid) of the compiled rules for the in-launch
+        WHERE masks, or None when no rule compiled."""
+        rh = self.rule_hook
+        if rh is None:
+            return None
+        return rh.device_progs(msgs)
 
     def _client_hashes(self, msgs):
         """Publisher-id hashes for the device $share pick — skipped
@@ -451,10 +539,29 @@ class Broker:
         straight from their slot lists, overflow rows decode the dense rows
         of the second transfer (or, on a CSR table, rows built from the
         host table); with compaction off every row decodes
-        `results.bitmaps`. The match and fid memos are per batch."""
+        `results.bitmaps`. The match and fid memos are per batch.
+
+        The deferred compiled rules fire first (the reference's order:
+        rules run in the publish fold, before dispatch), from the batch's
+        masks. With the semantic stage in the batch its winners are in
+        the slot rows already; an overflow row unions them back into its
+        dense row, and every row's slots are deduplicated."""
         matched, flags = results.matched, results.flags
         picks = results.picks
         r = self.router
+        if self.rule_hook is not None:
+            self.rule_hook.fire_settled(msgs, masks=results.rule_masks)
+        sem = results.sem_count is not None
+        if sem:
+            counts = np.asarray(results.sem_count)
+            hits = int(counts.sum())
+            if hits:
+                self.metrics.inc("semantic.hits", hits)
+            topk = self.semantic.table.topk if self.semantic is not None else 0
+            if topk:
+                trunc = int(np.count_nonzero(counts > topk))
+                if trunc:
+                    self.metrics.inc("semantic.topk.truncated", trunc)
         out: List[int] = []
         fell_back = 0
         touched_gids: set = set()
@@ -480,14 +587,17 @@ class Broker:
                 if compact and not ovf_l[i]:
                     bits, slots = None, slots_ll[i]  # -1 pads skip below
                 elif compact:
-                    bits, slots = results.dense_rows[results.dense_index[i]], None
+                    # the dense row holds the topic fan-out only: the
+                    # semantic winners ride the slot row, union them back
+                    bits = results.dense_rows[results.dense_index[i]]
+                    slots = slots_ll[i] if sem else None
                 else:
                     bits, slots = results.bitmaps[i], None
                 # matched rows are SPARSE (-1 holes between engines)
                 fids = [f for f in matched_l[i] if f >= 0] if matched_l is not None else ()
                 n = self._dispatch_row(
                     m, bits, fids, msg_picks, touched_gids, slots=slots,
-                    match_memo=match_memo, fid_memo=fid_memo, stats=fanouts)
+                    match_memo=match_memo, fid_memo=fid_memo, stats=fanouts, dedup=sem)
             if n == 0:
                 self.hooks.run("message.dropped", m, "no_subscribers")
                 self.metrics.inc("messages.dropped.no_subscribers")
@@ -510,14 +620,16 @@ class Broker:
         self, msg: Message, bits: Optional[np.ndarray], fids, picks=None,
         touched_gids: Optional[set] = None, *, slots=None,
         match_memo: Optional[Dict] = None, fid_memo: Optional[Dict] = None,
-        stats: Optional[List] = None,
+        stats: Optional[List] = None, dedup: bool = False,
     ) -> int:
         """Deliver one routed message from its device outputs: the slot
         list (compact path) or the bitmap row (dense path) -> plain subs;
         the device's (gids, idxs) picks, or with no picks the matched
         filter ids, -> shared groups (host pick and failover). With
         `stats` given the fan-out lands there and the caller batches the
-        metric upkeep."""
+        metric upkeep. `bits` AND `slots` together are a semantic overflow
+        row: the dense row's topic fan-out plus the slot row's semantic
+        winners; `dedup` keeps a slot from delivering twice."""
         if stats is None:
             self.metrics.inc("messages.received")
         if match_memo is None:
@@ -529,17 +641,28 @@ class Broker:
         if bits is not None:
             if not bits.flags.c_contiguous:
                 bits = np.ascontiguousarray(bits)
-            slots = np.nonzero(
+            dense = np.nonzero(
                 np.unpackbits(bits.view(np.uint8), bitorder="little")
             )[0].tolist()
+            if slots is None:
+                slots = dense
+            else:
+                if not isinstance(slots, list):
+                    slots = np.asarray(slots).tolist()
+                slots = dense + slots
         elif not isinstance(slots, list):
             slots = np.asarray(slots).tolist()
         slot_subs = self._slot_subs
         nsubs = len(slot_subs)
+        seen = set() if dedup else None
         for slot in slots:
             # -1 pads (compact rows) and slots past the table skip here
             if slot < 0 or slot >= nsubs:
                 continue
+            if seen is not None:
+                if slot in seen:
+                    continue
+                seen.add(slot)
             sub = slot_subs[slot]
             if sub is None:
                 continue
@@ -621,6 +744,11 @@ class Broker:
 
     def _route_dispatch(self, msg: Message, filters: List[str]) -> int:
         self.metrics.inc("messages.received")
+        if msg.headers.get("_batch_rules") and self.rule_hook is not None:
+            # a deferred-rule message settling outside the batch paths (a
+            # device-flagged row of a batch that carried no masks): fire
+            # through the host ladder
+            self.rule_hook.fire_settled([msg])
         n = 0
         for f in filters:
             # one matched filter may carry plain subscribers AND shared groups
@@ -629,8 +757,22 @@ class Broker:
                 for sub in list(entry.values()):
                     if sub.opts.no_local and sub.client_id == msg.from_client:
                         continue
+                    if sub.semantic:
+                        continue  # needs similarity too: the host twin below
                     n += self._deliver_one(sub, msg)
             n += self.shared.dispatch_groups(f, msg)
+        sem = self.semantic
+        if sem is not None and len(sem.table):
+            # the authoritative host twin: topic scope AND similarity,
+            # global top-k
+            slot_subs = self._slot_subs
+            for slot in sem.host_route([msg])[0]:
+                sub = slot_subs[slot] if 0 <= slot < len(slot_subs) else None
+                if sub is None:
+                    continue
+                if sub.opts.no_local and sub.client_id == msg.from_client:
+                    continue
+                n += self._deliver_one(sub, msg)
         self.metrics.observe("dispatch.fanout", n)
         if n:
             self.metrics.inc("messages.delivered", n)

@@ -143,6 +143,10 @@ class Metrics:
         with self._lock:
             self._gauges[name] = value
 
+    def gauge(self, name: str) -> float:
+        with self._lock:
+            return self._gauges.get(name, 0.0)
+
     def _histogram(self, name: str) -> Histogram:
         h = self._histograms.get(name)
         if h is None:

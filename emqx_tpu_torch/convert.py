@@ -30,6 +30,11 @@ mirror replays only the writes it owns.
 `session_state_from_reference` carries a reference session store's capture
 across: the port's store installs it and redelivers what the reference's
 would.
+`semantic_state_from_reference` does the same for a reference
+`SemanticRouting`: its live entries, slot registry and default threshold
+become a port `SemanticRouting` whose table is the packed layout the
+reference's own fold builds. Rules carry across as their SQL strings: the
+port's `RuleEngine.create_rule` takes the reference rule's id and SQL.
 
 `resolve_device` is the one place an entry point turns its `device`
 argument into a torch device: CUDA unless the caller asks for the CPU, and
@@ -255,3 +260,41 @@ def session_state_from_reference(state: Dict) -> Dict:
         "free_slots": list(state["free_slots"]),
         "t0_age_ds": int(state.get("t0_age_ds", 0)),
     }
+
+
+def semantic_state_from_reference(entries, by_slot: Dict, default_threshold: float, *,
+                                  dim: int, topk: int, dtype: str = "float32"):
+    """A reference `SemanticRouting`'s state (emqx_tpu/broker/semantic.py:76)
+    -> a port `SemanticRouting` (broker/semantic.py) routing as it does.
+
+    Plain values only, nothing of the reference package imported:
+    `entries`, each live entry's (slot, vector, threshold, fid), as the
+    reference table's `_live_tuples()` lists them (vectors unit f32 [dim],
+    thresholds the table's f32 values); `by_slot`, its
+    ``{slot: (sid, scope filter or None, threshold)}`` registry;
+    `default_threshold`; `dim`, `topk` and `dtype` (the table's vector
+    type, "float32" or "bfloat16") as the reference routing was made. The
+    entries are installed as one packed build of
+    exactly these vectors (no renormalisation, so no bit moves), the layout
+    the reference table's own fold (`_rebuild`) makes of the same entries:
+    the port table's `device_snapshot()` is byte-identical to the folded
+    reference table's, and one epoch bump makes the next `prepare()` a
+    full upload."""
+    from emqx_tpu_torch.broker.semantic import SemanticRouting
+
+    routing = SemanticRouting(dim=dim, topk=topk, threshold=default_threshold, dtype=dtype)
+    ent = []
+    for slot, vec, th, fid in entries:
+        v = np.array(vec, np.float32)
+        if v.shape != (dim,):
+            raise ValueError(f"slot {slot}: vector of shape {v.shape}, want ({dim},)")
+        ent.append((int(slot), v, float(np.float32(th)),
+                    -1 if fid is None or fid < 0 else int(fid)))
+    if len({e[0] for e in ent}) != len(ent):
+        raise ValueError("two entries bind one slot")
+    table = routing.table
+    table._install(table._build(ent, table.shards, table.dim))
+    table._bump()
+    routing._by_slot = {int(s): (str(sid), scope, float(th))
+                        for s, (sid, scope, th) in by_slot.items()}
+    return routing

@@ -33,8 +33,9 @@ the kernels read both segments in place, and nothing of size [B, E] is
 ever stored (the JAX program materialises the [B, E] similarities and a
 [B, E] membership mask: 8.6 GB and 2.1 GB at B = 8,192, E = 2^18).
 
-Not in the port yet: `SemanticSegmentOwner` and the table's compaction
-cycle (ROADMAP item 13), and the broker's `SemanticRouting` (item 3).
+The broker binds subscriptions into this table through `SemanticRouting`
+(`broker/semantic.py`). Not in the port yet: `SemanticSegmentOwner` and
+the table's compaction cycle (ROADMAP item 13).
 """
 
 from __future__ import annotations

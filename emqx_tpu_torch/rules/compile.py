@@ -33,8 +33,10 @@ Null semantics (as rules/runtime.eval_expr): every numeric node carries a
 validity lane; invalid operands poison arithmetic, lose every ordering
 comparison, and compare equal only to each other.
 
-Not in the port yet: the rule engine's device attach and settle path
-(`rules/engine.py`), which need the broker (ROADMAP, item 3).
+The rule engine (`rules/engine.py`) owns a `DeviceRuleFilter` once
+`RuleEngine.attach_device` runs: the broker's batches carry its programs
+and features into the route launch, and `RuleEngine.fire_settled` consumes
+the masks.
 """
 
 from __future__ import annotations

@@ -179,13 +179,6 @@ def test_broker_deliveries_match_jax(low_flip, mode, strategy):
         key=repr)
 
 
-def test_subscribe_with_an_embedding_is_not_ported():
-    broker = P_broker.Broker(P_brouter.Router(device="cpu"), P_hooks.Hooks())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 3"):
-        broker.subscribe("s", "c", "a/#", P_packet.SubOpts(), lambda m, o: None,
-                         embedding=[0.0, 1.0])
-
-
 def test_publish_single_message_matches_jax():
     outs = []
     for mods in (PORT, JAX):
