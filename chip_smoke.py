@@ -371,7 +371,29 @@ a four-GPU host (no kernels line, no last line):
     rank 0 before the counters are zeroed), two all-reduces a batch (`COLLECTIVES['dist_step']`), tokenize,
     vocab_lookup, nfa_walk and fanout_bitmaps launched on every rank;
     the breakdown (encode, h2d, step, collectives, readback, route);
-39. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
+39. `tables_mesh_broker`: built with the other paths' tables, before any
+    fork: broker_1m's broker (`broker_build`, 1,000,100 subscriptions, 100
+    round-robin groups of 16, the CSR flip) and session_1m's 1,000,000
+    sessions bulk-loaded into 2^22 rows (host lanes only); build seconds,
+    flips, `residual_count`, the mirror bytes a rank will hold; then the
+    heap frozen (`mesh_heap`) and, asked, `mesh_build_overlap` (the build's
+    end against the time this process asked for the paths);
+    `mesh_broker_2x2` on every rank: `Broker.mesh` and `Router.mesh` set,
+    the first prepare (the CSR resharded over 'tp') timed, then broker_1m's
+    first ROUTE_BATCHES batches (the same draws of `default_rng(SEED)`)
+    through `publish_batch`, each checked as `broker_publish` checks it,
+    with its messages/s, prepare / route / host-dispatch ms, collectives
+    and their ms, peak RSS and a `delivery_digest`;
+    `mesh_ingest_broker_2x2`: the same batches through `adispatch_begin`
+    at depth 1 (the synchronous digests) and 2 (those of `depth2_members`),
+    messages/s and settle p50 / p99; `mesh_session_2x2`: a
+    `SessionStore(mesh=...)` installing the loaded sessions (its mirror
+    the rank's 'dp' block), its first full sync timed, a wave of 16,384
+    rows to the rel phase as one delta, `tick(fused_path=False)`
+    redelivering exactly the wave, each rank's mirror against its block
+    after every sync; `mesh_broker_digests` (this process): every rank's
+    digests equal to broker_1m's single-device `publish_batch` digests;
+40. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
     row_lengths and narrow_i16 on retained_5m; session_sweep on
@@ -379,7 +401,8 @@ a four-GPU host (no kernels line, no last line):
     semantic_256k, with `broker_1m_launches` from the broker's semantic
     phases; the `mesh` cases of occurrence_index (with the totals
     mesh_share_2x2's round-robin branch all-gathers), of its rank-offset
-    share_pick and of mesh_1m_2x2's lane-based compact_fanout_slots; the
+    share_pick and of mesh_1m_2x2's lane-based compact_fanout_slots;
+    `mesh_broker_launches` on the kernels the mesh broker launched; the
     broker_1m and
     plus_100k cases of the kernels those paths launch, with their
     launches there),
@@ -4323,7 +4346,7 @@ class Deliveries:
         return functools.partial(self.record, sid)
 
 
-def broker_build(torch):
+def broker_build():
     """BASELINE config 3 through `Broker.subscribe`: one client a filter for
     device/{i}/+/{j}/# (i, j < 1000) and device/{i}/# (i < 100), 1,000,100
     plain subscriptions, then 16 members in each of 100 round-robin groups
@@ -4332,8 +4355,9 @@ def broker_build(torch):
     `SemanticRouting` (semantic_256k's D, top-k and lowest threshold) and a
     `RuleEngine` on the hooks with its device plane attached: the device
     router binds the semantic table when it is built, and with the table
-    empty and no rule no batch carries a semantic or rule stage.
-    -> (broker, deliveries, seconds)."""
+    empty and no rule no batch carries a semantic or rule stage. Host work
+    only (no CUDA call, no torch operation), so the mesh process builds it
+    before it forks its ranks. -> (broker, deliveries, seconds)."""
     from emqx_tpu_torch.broker.broker import Broker
     from emqx_tpu_torch.broker.hooks import Hooks
     from emqx_tpu_torch.broker.router import Router
@@ -4782,10 +4806,20 @@ def broker_publish(torch, broker, rec, timer, topics, tag: int, msgs=None, got_o
             "launches": {k: v for k, v in launches.items() if v}, **timer.take()}
 
 
+def delivery_digest(got) -> str:
+    """One batch's deliveries as the sha256 of its sorted (subscriber id,
+    message index) pairs; `got[k]`: message k's recipients."""
+    import hashlib
+
+    pairs = sorted((sid, k) for k, sids in enumerate(got) for sid in sids)
+    return hashlib.sha256(repr(pairs).encode()).hexdigest()
+
+
 def broker_path(torch, rng):
     """broker_1m: BASELINE config 3 loaded through `Broker.subscribe`, with
     100 $share groups, published through `publish_batch`. -> (the path's
-    kernel cases, its launches)."""
+    kernel cases, its launches, the `delivery_digest`s of its first
+    ROUTE_BATCHES batches, which the mesh broker must reproduce)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.mqtt.packet import SubOpts
@@ -4793,7 +4827,7 @@ def broker_path(torch, rng):
     from emqx_tpu_torch.ops.csr_table import CSR_KEYS
 
     t0 = time.perf_counter()
-    broker, rec, secs = broker_build(torch)
+    broker, rec, secs = broker_build()
     build_s = time.perf_counter() - t0
     subtab = broker.subtab
     n_subs = BROKER_IDS * BROKER_NUMS + BROKER_HOT + BROKER_GROUPS * BROKER_MEMBERS
@@ -4822,11 +4856,14 @@ def broker_path(torch, rng):
     timer = BrokerTimer(torch, broker)
     batches = [topic_batch_1m(rng, BATCH) for _ in range(ROUTE_BATCHES)]
     launches = collections.Counter()
-    published = []
+    published, digests = [], []
     for k, topics in enumerate(batches):
-        published.append(broker_publish(torch, broker, rec, timer, topics, k))
+        got = []
+        published.append(broker_publish(torch, broker, rec, timer, topics, k, got_out=got))
+        digests.append(delivery_digest(got))
         launches.update(published[-1]["launches"])
-    phase("publish_broker", batches=published, sub_table="csr", kslot=dev.prepare().kslot)
+    phase("publish_broker", batches=published, sub_table="csr", kslot=dev.prepare().kslot,
+          digests=digests)
 
     # churn: 1,000 plain unsubscribes on filters the next batch hits, 1,000
     # subscribes on fresh filters (device/{i}/+/{j}/# for j >= 1000, of the
@@ -4959,7 +4996,7 @@ def broker_path(torch, rng):
     del broker, rec, dev, timer
     gc.collect()
     torch.cuda.empty_cache()
-    return report, dict(launches)
+    return report, dict(launches), digests
 
 
 # -- the broker_1m semantic phases (the semantic plane and the rule engine) ------
@@ -5848,7 +5885,8 @@ def plus_path(torch, rng):
 
 MESH_WORLD = 4  # a 2 x 2 ('dp', 'tp') mesh
 MESH_TP = 2
-MESH_TIMEOUT = {"share": 480, "1m": 420, "nccl1": 150, "plus": 300}  # s, each launch
+MESH_TIMEOUT = {"share": 480, "1m": 420, "nccl1": 150, "plus": 300,  # s, each launch
+                "broker": 420}
 MESH_DEADLINE = 900  # the whole mesh process
 
 
@@ -5886,6 +5924,34 @@ def mesh_route(router, topics, oracle, kslot, strategy=None, client_hashes=None)
 
 def per_batch(coll: dict, n: int) -> dict:
     return {b: {op: c / n for op, c in ops.items()} for b, ops in coll.items()}
+
+
+class CollectiveClock:
+    """Times every `Mesh` collective (each ending in a synchronize, so the
+    waits for the other ranks are in it) while installed."""
+
+    def __init__(self, torch):
+        from emqx_tpu_torch.parallel import mesh as M
+
+        self.M, self.torch, self.ms = M, torch, 0.0
+        self.real = (M.Mesh.all_reduce, M.Mesh.all_gather)
+
+    def wrap(self, f):
+        def run(mesh, *a, **k):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = f(mesh, *a, **k)
+            self.torch.cuda.synchronize()
+            self.ms += 1e3 * (time.perf_counter() - t)
+            return r
+        return run
+
+    def __enter__(self):
+        self.M.Mesh.all_reduce, self.M.Mesh.all_gather = (self.wrap(f) for f in self.real)
+        return self
+
+    def __exit__(self, *exc):
+        self.M.Mesh.all_reduce, self.M.Mesh.all_gather = self.real
 
 
 def mesh_barrier(torch, mesh) -> None:
@@ -5978,19 +6044,6 @@ def mesh_breakdown(torch, mesh, router, batches) -> dict:
     from emqx_tpu_torch.ops.tokenizer import encode_topics
     from emqx_tpu_torch.parallel import mesh as M
 
-    coll = [0.0]
-    real = (M.Mesh.all_reduce, M.Mesh.all_gather)
-
-    def timed(f):
-        def run(self, *a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            r = f(self, *a, **k)
-            torch.cuda.synchronize()
-            coll[0] += time.perf_counter() - t
-            return r
-        return run
-
     args = router.prepare()
     names = ("encode", "h2d", "step", "assembly", "route")
     samples = {k: [] for k in names + ("step_collectives", "assembly_collectives")}
@@ -6011,9 +6064,7 @@ def mesh_breakdown(torch, mesh, router, batches) -> dict:
                 for v in pick_np))
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        M.Mesh.all_reduce, M.Mesh.all_gather = (timed(f) for f in real)
-        try:
-            coll[0] = 0.0
+        with CollectiveClock(torch) as clock:
             out = M.dist_shape_route_step(
                 mesh, shape, args.nfa_tables, sub, bm, ln, *pick, m_active=args.m_active,
                 salt=args.salt, max_levels=cfg.max_levels, frontier=cfg.frontier,
@@ -6021,21 +6072,19 @@ def mesh_breakdown(torch, mesh, router, batches) -> dict:
                 share_strategy=router.share_strategy, kslot=args.kslot)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
-            step_coll = coll[0]
+            step_coll = clock.ms
             tl = np.zeros(per, bool)
             tl[:len(too_long)] = too_long
             out["flags"] = out["flags"] | torch.from_numpy(tl).to(mesh.device)
             router._readback_mesh(out, len(topics), per, args.kslot)
             t.append(time.perf_counter())
-            asm_coll = coll[0] - step_coll
-        finally:
-            M.Mesh.all_reduce, M.Mesh.all_gather = real
+            asm_coll = clock.ms - step_coll
         router.route(topics)
         t.append(time.perf_counter())
         for k, a, b in zip(names, t, t[1:]):
             samples[k].append(1e3 * (b - a))
-        samples["step_collectives"].append(1e3 * step_coll)
-        samples["assembly_collectives"].append(1e3 * asm_coll)
+        samples["step_collectives"].append(step_coll)
+        samples["assembly_collectives"].append(asm_coll)
     med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
     med["topics_per_s"] = len(batches[0]) / (med["route_ms"] / 1e3)
     return med
@@ -6668,17 +6717,6 @@ def mesh_plus_breakdown(torch, mesh, tables, sub, batches, salt, cfg) -> dict:
     from emqx_tpu_torch.ops.tokenizer import encode_topics
     from emqx_tpu_torch.parallel import mesh as M
 
-    coll = [0.0]
-    real = M.Mesh.all_reduce
-
-    def timed(self, *a, **k):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = real(self, *a, **k)
-        torch.cuda.synchronize()
-        coll[0] += time.perf_counter() - t
-        return r
-
     names = ("encode", "h2d", "step", "readback")
     samples = {k: [] for k in names + ("collectives", "route")}
     for topics in batches:
@@ -6690,19 +6728,15 @@ def mesh_plus_breakdown(torch, mesh, tables, sub, batches, salt, cfg) -> dict:
         bm, ln = torch.from_numpy(mat).to(mesh.device), torch.from_numpy(lens).to(mesh.device)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        M.Mesh.all_reduce = timed
-        try:
-            coll[0] = 0.0
+        with CollectiveClock(torch) as clock:
             out = M.dist_route_step(mesh, tables, sub, bm, ln, salt=salt, **cfg)
             torch.cuda.synchronize()
-        finally:
-            M.Mesh.all_reduce = real
         t.append(time.perf_counter())
         plus_readback(torch, out)
         t.append(time.perf_counter())
         for k, a, b in zip(names, t, t[1:]):
             samples[k].append(1e3 * (b - a))
-        samples["collectives"].append(1e3 * coll[0])
+        samples["collectives"].append(clock.ms)
         samples["route"].append(1e3 * (t[-1] - t[0]))
     med = {f"{k}_ms": float(np.median(v)) for k, v in samples.items()}
     med["topics_per_s"] = len(batches[0]) / (med["route_ms"] / 1e3)
@@ -6804,6 +6838,303 @@ def rank_mesh_plus(mesh, st) -> dict:
     return out
 
 
+# -- the mesh broker: broker_1m's broker and session_1m's store on 2 x 2 ---------
+
+MESH_SESS_WAVE = 16384  # mesh_session_2x2: rows moved to the rel phase in one wave
+
+
+def mesh_broker_tables() -> tuple:
+    """broker_1m's broker (`broker_build`: 1,000,100 plain subscriptions, 100
+    round-robin groups of 16, the CSR flip, the empty semantic plane and
+    the device-attached rule engine) and session_1m's store (1,000,000 QoS1
+    sessions bulk-loaded into 2^22 rows, as `session_path` loads them; its
+    host lanes only, `device="cpu"`, never synced), built in the mesh
+    process before any rank exists. -> (the ranks' state, its record)."""
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.session_store import SessionStore
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS
+    from emqx_tpu_torch.ops.nfa import _next_pow2
+
+    t0 = time.perf_counter()
+    broker, rec, secs = broker_build()
+    t1 = time.perf_counter()
+    n = SESS_N
+    store = SessionStore(capacity=_next_pow2(2 * n), sweep_slots=SESS_SWEEP,
+                         retry_interval=SESS_RETRY, clock=lambda: 0.0, device="cpu")
+    pids = (np.arange(n) % 65535) + 1
+    rows = store.bulk_load([f"c{i}" for i in range(n)],
+                           [Message(topic="dev/offline", payload=b"m", qos=1)] * n, pids=pids)
+    if int((rows < 0).sum()):
+        raise AssertionError("mesh session load lost rows")
+    t2 = time.perf_counter()
+    subtab, index = broker.subtab, broker.router.index
+    n_subs = BROKER_IDS * BROKER_NUMS + BROKER_HOT + BROKER_GROUPS * BROKER_MEMBERS
+    if not subtab.sparse or broker.subscription_count() != n_subs:
+        raise AssertionError(f"mesh broker: sparse {subtab.sparse}, "
+                             f"{broker.subscription_count()} subscriptions")
+    csr = subtab.device_snapshot()
+    shapes = sum(a.nbytes for a in index.shapes.device_snapshot().values())
+    nfa = sum(a.nbytes for a in index.nfa.device_snapshot().values()) \
+        if index.residual_count else 0
+    groups = sum(a.nbytes for a in broker.grouptab.device_snapshot().values())
+    lanes = sum(a.nbytes for a in store.table.device_snapshot().values())
+    record = {
+        "subscriptions": broker.subscription_count(), "filters": len(broker.router),
+        "groups": len(broker.grouptab), "flips": subtab.flips,
+        "residual_count": index.residual_count, "sessions": n,
+        "session_rows": store.table._cap,
+        "build_seconds": {"broker": t1 - t0, "broker_stages": secs, "sessions": t2 - t1},
+        # what a rank's mirrors will hold: the match and group tables whole,
+        # a half of the CSR arrays ('tp') and of the session lanes ('dp')
+        "rank_mirror_bytes": {"shapes": shapes, "nfa": nfa, "groups": groups,
+                              "csr_half": sum(csr[k].nbytes for k in CSR_KEYS) // MESH_TP,
+                              "session_lanes_half": lanes // (MESH_WORLD // MESH_TP)},
+    }
+    state = {"broker": broker, "rec": rec, "session_state": store.capture(),
+             "session_pids": pids}
+    return state, record
+
+
+def peak_rss_mb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+
+def mesh_broker_messages(batches) -> list:
+    """broker_publish's messages: payload the index, publisher pub{batch}."""
+    from emqx_tpu_torch.broker.message import Message
+
+    return [[Message(topic=t, payload=b"%d" % k, from_client=f"pub{b}")
+             for k, t in enumerate(topics)] for b, topics in enumerate(batches)]
+
+
+def depth2_members(broker, got_sync) -> list:
+    """The deliveries `adispatch_begin` makes at depth 2, predicted from the
+    synchronous path's: batch N + 1 is prepared before batch N's
+    round-robin bases are written back (`pinned_schedule`), so from the
+    second batch on each group's picks start as many members earlier as
+    that group delivered in the batch before; plain deliveries are the
+    same."""
+    members = {}
+    out = [got_sync[0]]
+    for b in range(1, len(got_sync)):
+        prev = collections.Counter(s.split("_")[0] for sids in got_sync[b - 1] for s in sids
+                                   if s.startswith("g"))
+        rows = []
+        for sids in got_sync[b]:
+            row = []
+            for sid in sids:
+                if sid.startswith("g"):
+                    g = sid.split("_")[0]
+                    if g not in members:
+                        grp = broker.shared.group(f"device/{g[1:]}/#", "ingest")
+                        members[g] = list(grp.members)
+                    ms = members[g]
+                    sid = ms[(ms.index(sid) - prev[g]) % len(ms)]
+                row.append(sid)
+            rows.append(row)
+        out.append(rows)
+    return out
+
+
+def mesh_broker_ingest(torch, broker, rec, batches, rr0, got_sync) -> dict:
+    """mesh_ingest_broker_2x2: the same batches through `adispatch_begin` at
+    depth 1 and 2 (at most that many `PendingDispatch` outstanding, each
+    settled in launch order), from the bases the synchronous pass started
+    at. Depth 1 must deliver the synchronous path's digests; depth 2 those
+    of `depth2_members`."""
+    import asyncio
+
+    from emqx_tpu_torch import kernels
+
+    want = {1: [delivery_digest(g) for g in got_sync],
+            2: [delivery_digest(g) for g in depth2_members(broker, got_sync)]}
+    out = {}
+    for depth in (1, 2):
+        ingest_rr_restore(broker, rr0)
+        msgs = mesh_broker_messages(batches)
+        where = {id(m): (b, k) for b, ms in enumerate(msgs) for k, m in enumerate(ms)}
+        settle = []
+        rec.log.clear()
+
+        async def drive():
+            pend = collections.deque()
+            for ms in msgs:
+                if len(pend) == depth:
+                    pd, t0 = pend.popleft()
+                    await pd.complete()
+                    settle.append(1e3 * (time.perf_counter() - t0))
+                pend.append((broker.adispatch_begin(ms), time.perf_counter()))
+            while pend:
+                pd, t0 = pend.popleft()
+                await pd.complete()
+                settle.append(1e3 * (time.perf_counter() - t0))
+
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asyncio.run(drive())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        got = [[[] for _ in ms] for ms in msgs]
+        for m, sid in rec.log:
+            b, k = where[id(m)]
+            got[b][k].append(sid)
+        digests = [delivery_digest(g) for g in got]
+        if digests != want[depth]:
+            raise AssertionError(f"mesh ingest depth {depth}: digests {digests} != {want[depth]}")
+        n = sum(len(ms) for ms in msgs)
+        out[str(depth)] = {"messages": n, "deliveries": len(rec.log), "wall_s": wall,
+                           "messages_per_s": n / wall,
+                           "settle_p50_ms": float(np.percentile(settle, 50)),
+                           "settle_p99_ms": float(np.percentile(settle, 99)),
+                           "launches": launches, "digests": digests}
+    rec.log.clear()
+    return out
+
+
+def mesh_session(torch, mesh, st) -> dict:
+    """mesh_session_2x2 on one rank: a `SessionStore(mesh=...)` installs the
+    loaded 1,000,000 sessions (its mirror this rank's 'dp' block); its first
+    full sync is timed; a wave of MESH_SESS_WAVE rows moved to the rel
+    phase (3 lane writes each) goes up as one delta, every write this rank
+    owns and no other; then `tick(fused_path=False)` with the clock past the
+    retry interval redelivers the wave's rows (their sessions bound to a
+    sink) through the host sweep, and the touches go up as one more delta.
+    The mirror is held against this rank's block after each sync."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.session_store import SessionStore
+
+    mono = [0.0]
+    metrics = Counters()
+    store = SessionStore(capacity=64, sweep_slots=SESS_SWEEP, retry_interval=SESS_RETRY,
+                         metrics=metrics, clock=lambda: mono[0], mesh=mesh)
+    if store.install(st["session_state"]) != SESS_N:
+        raise AssertionError("mesh session install restored fewer sessions")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = store.manager.sync(store.table)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    rank_bytes = sum(mirror_bytes(arrays).values())
+    mirrors = {"full": mesh_mirrors(torch, [(store.manager, store.table)])}
+    slots = np.linspace(0, SESS_N - 1, MESH_SESS_WAVE).astype(np.int64)
+    pids = st["session_pids"][slots]
+    for slot, pid in zip(slots.tolist(), pids.tolist()):
+        store.inflight_phase(slot, pid, "pubrel")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.manager.sync(store.table)
+    torch.cuda.synchronize()
+    wave_ms = 1e3 * (time.perf_counter() - t0)
+    wave_scatters = kernels.LAUNCHES["segment_scatter"]
+    mirrors["wave"] = mesh_mirrors(torch, [(store.manager, store.table)])
+    sink = FloodSink()
+    for slot in slots.tolist():
+        store.bind(slot, sink.resend)
+    mono[0] += 60.0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    store.tick(fused_path=False)
+    store.manager.sync(store.table)  # the sweep's touches
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0)
+    tick_scatters = kernels.LAUNCHES["segment_scatter"]
+    mirrors["tick"] = mesh_mirrors(torch, [(store.manager, store.table)])
+    if sorted(sink.pids) != sorted(pids.tolist()) or metrics.get("session.sweep.host") != 1:
+        raise AssertionError(f"mesh tick redelivered {len(sink.pids)} of {MESH_SESS_WAVE}")
+    return {"first_full_sync_s": full_s, "rank_mirror_bytes": rank_bytes,
+            "local_rows": int(arrays["sess_slot"].shape[0]), "table_rows": store.table._cap,
+            "wave_rows": MESH_SESS_WAVE, "wave_sync_ms": wave_ms,
+            "wave_scatter_launches": wave_scatters, "tick_ms": tick_ms,
+            "tick_scatter_launches": tick_scatters, "redeliveries": len(sink.pids),
+            "mirrors": mirrors, "manager": store.manager.counters()}
+
+
+def rank_mesh_broker(mesh, st) -> dict:
+    """mesh_broker_2x2, mesh_ingest_broker_2x2 and mesh_session_2x2 on one
+    rank. The broker was built in the mesh process (`mesh_broker_tables`);
+    here it takes the mesh (`Broker.mesh`, `Router.mesh`), its first
+    prepare reshards the CSR table over 'tp', and it publishes the batches
+    broker_1m's fresh broker publishes (the first ROUTE_BATCHES draws of
+    `default_rng(SEED)`), every one checked as `broker_publish` checks it
+    (plain recipients, each group's pick against `pick_oracle`, the
+    launches); every rank's fan-out delivers the whole batch, so every
+    rank's digests must equal the single-device broker's."""
+    import torch
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS
+    from emqx_tpu_torch.parallel import mesh as M
+
+    lead = mesh.rank == 0
+    broker, rec = st["broker"], st["rec"]
+    broker.mesh = mesh
+    broker.router.mesh = mesh
+    dev = broker._device_router()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = dev.prepare()
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    if type(dev).__name__ != "MeshServingRouter" or broker.subtab.shards != mesh.tp:
+        raise AssertionError(f"mesh broker: {type(dev).__name__}, shards {broker.subtab.shards}")
+    dev_bytes = {"shapes": sum(mirror_bytes({k: v for k, v in args.tables.items()
+                                             if k not in CSR_KEYS}).values()),
+                 "csr": sum(mirror_bytes({k: args.tables[k] for k in CSR_KEYS}).values()),
+                 "groups": sum(mirror_bytes(args.group_tables).values())}
+    if lead:
+        phase("mesh_broker_prepare", first_prepare_seconds=prep_s, shards=broker.subtab.shards,
+              kslot=args.kslot, kg=args.kg, rank_device_bytes=dev_bytes,
+              shard_status=dev.shard_status(), peak_rss_mb=peak_rss_mb())
+    rng = np.random.default_rng(SEED)  # broker_path's first draws
+    batches = [topic_batch_1m(rng, BATCH) for _ in range(ROUTE_BATCHES)]
+    rr0 = ingest_rr_state(broker)
+    timer = BrokerTimer(torch, broker)
+    launches = collections.Counter()
+    published, digests, got_sync = [], [], []
+    # the main path: counters zeroed per batch by broker_publish, summed here
+    for b, topics in enumerate(batches):
+        got = []
+        M.reset_collectives()
+        with CollectiveClock(torch) as clock:
+            pub = broker_publish(torch, broker, rec, timer, topics, b, got_out=got)
+        launches.update(pub["launches"])
+        coll = {k: dict(v) for k, v in M.COLLECTIVES.items()}
+        digests.append(delivery_digest(got))
+        got_sync.append(got)
+        published.append({**pub, "messages_per_s": len(topics) / (pub["publish_batch_ms"] / 1e3),
+                          "deliveries_per_s": pub["deliveries"] / (pub["publish_batch_ms"] / 1e3),
+                          "collectives": coll, "collectives_ms": clock.ms,
+                          "peak_rss_mb": peak_rss_mb(), "digest": digests[-1]})
+    if lead:
+        phase("mesh_broker_2x2", backend=mesh.backend, world=mesh.world, batches=published)
+    timer.remove(broker)
+    ingest = mesh_broker_ingest(torch, broker, rec, batches, rr0, got_sync)
+    for run in ingest.values():
+        launches.update(run["launches"])
+    if lead:
+        phase("mesh_ingest_broker_2x2", depths=ingest, peak_rss_mb=peak_rss_mb())
+    sess = mesh_session(torch, mesh, st)
+    launches["segment_scatter"] += sess["wave_scatter_launches"] + sess["tick_scatter_launches"]
+    if lead:
+        phase("mesh_session_2x2", **{k: v for k, v in sess.items() if k != "mirrors"},
+              peak_rss_mb=peak_rss_mb())
+    return {"rank": mesh.rank, "launches": dict(launches), "digests": digests,
+            "ingest_digests": {d: r["digests"] for d, r in ingest.items()},
+            "redeliveries": sess["redeliveries"], "peak_rss_mb": peak_rss_mb(),
+            "collectives_per_batch": published[-1]["collectives"],
+            "mirrors": {"publish": dev.segment_status(), **sess["mirrors"]},
+            "ingest": {d: {k: v for k, v in r.items() if k != "digests"}
+                       for d, r in ingest.items()},
+            "session": {k: v for k, v in sess.items() if k != "mirrors"}}
+
+
 def mesh_check_ranks(name: str, ranks: list) -> None:
     """Every rank took the same mirror decisions (a delta is a launch or a
     skip); the per-rank summary line."""
@@ -6866,8 +7197,22 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
           // MESH_TP, build_seconds=time.perf_counter() - t0,
           build_stage_seconds=plus["seconds"], backend=backend, ranks=MESH_WORLD, tp=MESH_TP,
           reduced=reduced)
-    if wait and not sys.stdin.readline():
-        return 3  # the calling process ended before it asked for the paths
+    t0 = time.perf_counter()
+    broker_state, broker_tables = mesh_broker_tables()
+    built_at = time.time()
+    phase("tables_mesh_broker", **broker_tables, seconds=time.perf_counter() - t0,
+          built_at=built_at, backend=backend, ranks=MESH_WORLD, tp=MESH_TP, reduced=[])
+    # the ranks share this heap copy-on-write: out of the collector's reach,
+    # a rank's collections never walk (and so never copy) its pages
+    phase("mesh_heap", **frozen_heap())
+    if wait:
+        line = sys.stdin.readline()
+        if not line:
+            return 3  # the calling process ended before it asked for the paths
+        asked = float(line.split()[1])
+        # the main process waits for this build when it ends after the ask
+        phase("mesh_build_overlap", built_at=built_at, asked_at=asked,
+              ahead_s=asked - built_at, waited_s=max(0.0, built_at - asked))
     t_all = time.perf_counter()
 
     # 1. mesh_share_2x2
@@ -6880,7 +7225,11 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
                     "seconds": time.perf_counter() - t0}
     phase("mesh_share_seconds", seconds=time.perf_counter() - t0)
     del index, subtab, grouptab, ranks
+    # the CSR table and its op-log hooks form a cycle, out of reach while
+    # frozen: free it, then freeze what is left for the next forks
+    gc.unfreeze()
     gc.collect()
+    gc.freeze()
 
     # 2. mesh_1m_2x2 and 3. mesh_1m_nccl1
     t0 = time.perf_counter()
@@ -6909,6 +7258,23 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
                    "collectives_per_batch": ranks[0]["collectives_per_batch"],
                    "breakdown": ranks[0]["breakdown"], "seconds": time.perf_counter() - t0}
     phase("mesh_plus_seconds", seconds=time.perf_counter() - t0)
+    del plus, ranks
+    gc.collect()
+
+    # 5. mesh_broker_2x2, mesh_ingest_broker_2x2, mesh_session_2x2
+    t0 = time.perf_counter()
+    ranks = launch.run(rank_mesh_broker, MESH_WORLD, backend=backend, tp=MESH_TP,
+                       timeout=MESH_TIMEOUT["broker"], state=broker_state)
+    mesh_check_ranks("mesh_broker_2x2", ranks)
+    for r in ranks[1:]:
+        for key in ("digests", "ingest_digests", "redeliveries"):
+            if r[key] != ranks[0][key]:
+                raise AssertionError(f"mesh_broker_2x2: rank {r['rank']}'s {key} differ")
+    out["broker"] = {"digests": [r["digests"] for r in ranks], "launches": ranks[0]["launches"],
+                     "peak_rss_mb": [r["peak_rss_mb"] for r in ranks],
+                     "seconds": time.perf_counter() - t0}
+    phase("mesh_broker_seconds", seconds=time.perf_counter() - t0,
+          peak_rss_mb=out["broker"]["peak_rss_mb"])
     phase("mesh_seconds", seconds=time.perf_counter() - t_all)
     print(json.dumps({"mesh_report": out}), flush=True)
     return 0
@@ -6955,7 +7321,7 @@ def mesh_finish(torch, proc) -> dict:
     watchdog.start()
     report = None
     try:
-        proc.stdin.write("go\n")
+        proc.stdin.write(f"go {time.time()}\n")  # the time of the ask, for the overlap
         proc.stdin.close()
         for line in proc.stdout:
             if line.startswith('{"mesh_report"'):
@@ -7065,7 +7431,8 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     # the broker's publish path and the NFA-only step: their kernels' cases
     # at these paths' shapes join the entries
     t0 = time.perf_counter()
-    broker_report, broker_launches = broker_path(torch, np.random.default_rng(SEED))
+    broker_report, broker_launches, broker_digests = broker_path(torch,
+                                                                 np.random.default_rng(SEED))
     phase("broker_seconds", seconds=time.perf_counter() - t0)
     for case in broker_report.values():
         report[case["name"]]["broker_1m"] = {**case, "launches": broker_launches[case["name"]]}
@@ -7095,6 +7462,17 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     report["compact_fanout_slots"]["mesh"] = {
         **mesh["1m"]["report"]["compact_fanout_slots/mesh"],
         "launches": mesh["1m"]["launches"]["compact_fanout_slots"]}
+    # the mesh broker: every rank delivered broker_1m's batches as the
+    # single-device broker did, and its launches join the entries
+    mb = mesh["broker"]
+    if any(d != broker_digests for d in mb["digests"]):
+        raise AssertionError(f"mesh_broker_2x2: digests {mb['digests']} against broker_1m's "
+                             f"{broker_digests}")
+    phase("mesh_broker_digests", ranks=len(mb["digests"]), batches=len(broker_digests),
+          equal_to_broker_1m=True)
+    for name, n in mb["launches"].items():
+        if n:
+            report[name]["mesh_broker_launches"] = n
     # the two composites this slice ports: route_step's bound per batch (the
     # sum of its kernels' bounds) beside dist_step's on a rank
     phase("composite_bounds_nfa", route_step_ms=plus_bound,

@@ -48,10 +48,25 @@ are `GroupTable` lanes whose member the device picks. Batches smaller than
 CPU path. A failed launch raises (out of `PendingDispatch.complete()` on
 the pipelined path): the degrade ladder is not ported.
 
-Not ported yet (ROADMAP items 3.4 and 10): the broker on a mesh; and,
-with the app, the cluster forward, the degrade controller, span tracing
-and the retained feed (`adispatch_begin` takes the reference's path for
-each of them absent).
+- with `Broker.mesh` set (this process's rank of a `parallel.mesh.Mesh`,
+  before the first device batch) the device router is a
+  `MeshServingRouter`: each batch runs sharded, its 'dp' rows on this
+  rank and the subscriber table's 'tp' shard, and every rank assembles
+  the same global `RouteResult`, $share picks with the ranks' offsets
+  included. The mesh is SPMD, one process a rank, so every rank holds a
+  replica of the broker and must make the same subscribes and publish the
+  same batches in the same order: a rank that routes a batch the others
+  do not, or a batch of another length, stalls or fails their
+  collectives. Every rank's fan-out delivers the whole batch; which
+  rank's deliverers own the connections is the app's part (ROADMAP item
+  10). `adispatch_begin` runs a mesh router's launches on a one-worker
+  pool (`mesh_dispatch_pool`), so each rank issues its batches'
+  collectives in launch order. A session store on a mesh takes no rider
+  (the mesh engine fuses none): its sweep is `tick(fused_path=False)`.
+
+Not ported yet (ROADMAP item 10): with the app, the cluster forward, the
+degrade controller, span tracing and the retained feed (`adispatch_begin`
+takes the reference's path for each of them absent).
 """
 
 from __future__ import annotations
@@ -70,6 +85,7 @@ from emqx_tpu_torch.broker.shared_sub import SharedSub, stable_hash
 from emqx_tpu_torch.models.router_model import (
     DeviceRouter,
     GroupTable,
+    MeshServingRouter,
     SubscriberTable,
     on_stream,
 )
@@ -96,6 +112,25 @@ def dispatch_pool():
         _dispatch_pool_inst = ThreadPoolExecutor(
             max_workers=2, thread_name_prefix="torch-dispatch")
     return _dispatch_pool_inst
+
+
+_mesh_pool_inst = None
+
+
+def mesh_dispatch_pool():
+    """Process-wide executor for a mesh router's launches: ONE worker, so
+    the batches' `route_prepared` calls, and with them their collectives,
+    run in launch order on every rank (two workers could interleave two
+    batches' collectives differently on two ranks, which gloo and NCCL
+    both refuse). Pipeline depth 2 still overlaps batch N + 1's prepare
+    and queued launch with batch N's round trip and host fan-out."""
+    global _mesh_pool_inst
+    if _mesh_pool_inst is None:
+        from concurrent.futures import ThreadPoolExecutor
+
+        _mesh_pool_inst = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="torch-mesh-dispatch")
+    return _mesh_pool_inst
 
 
 class Subscriber:
@@ -163,6 +198,13 @@ class Broker:
         self._slot_subs: List[Optional[Subscriber]] = []
         self._free_slots: List[int] = []
         self._device: Optional[DeviceRouter] = None  # lazy
+        # this rank of a ('dp', 'tp') mesh (parallel/mesh.py), set before
+        # the first device batch: the device router is then a
+        # MeshServingRouter (the SPMD contract in the module docstring)
+        self.mesh = None
+        # a label for this rank's slice, stamped on the mesh router's
+        # span attributes (`MeshServingRouter.shard_label`)
+        self.shard_label = None
         self.ingest = None  # BatchIngest, attached by its owner
         # SessionStore (broker/session_store.py), attached by its owner:
         # pending inflight writes and retry/expiry sweeps ride the device
@@ -422,6 +464,13 @@ class Broker:
         A failed prepare raises here, a failed launch or readback out of
         `complete()` (the reference's path without a degrade controller).
 
+        On a mesh (`Broker.mesh`) the launches run on `mesh_dispatch_pool`,
+        one worker: every rank issues each batch's collectives in launch
+        order, whatever the depth, and at depth 2 batch N + 1's prepare
+        and encode still overlap batch N. Every rank must begin the same
+        batches in the same order and settle them in launch order, and
+        no rider rides (the mesh engine fuses none).
+
         With a session store attached and a router that fuses sessions,
         the store's pending writes (and a requested sweep) ride the batch:
         `take_rider()` here on the loop thread after `prepare()`, the
@@ -468,8 +517,9 @@ class Broker:
         hashes = self._client_hashes(msgs)
         embeds = self._embeds(msgs)
         rules = self._rule_batch(msgs)
+        pool = dispatch_pool() if dev.mesh is None else mesh_dispatch_pool()
         fut = loop.run_in_executor(
-            dispatch_pool(), on_stream, dev.launch_stream(), dev.route_prepared,
+            pool, on_stream, dev.launch_stream(), dev.route_prepared,
             args, topics, hashes, None, rider, embeds, rules)
 
         async def _complete():
@@ -496,17 +546,24 @@ class Broker:
         return PendingDispatch(fut, _complete)
 
     def _device_router(self) -> DeviceRouter:
+        """The lazy device router: a `MeshServingRouter` when `mesh` is set
+        (sharded mirrors, the SPMD step), else a `DeviceRouter`
+        (emqx_tpu/broker/broker.py:732-758)."""
         if self._device is None:
-            self._device = DeviceRouter(
+            cls = DeviceRouter if self.mesh is None else MeshServingRouter
+            self._device = cls(
                 self.router.index,
                 self.subtab,
                 self.router.matcher_config,
                 grouptab=self.grouptab,
                 share_strategy=self.shared.strategy,
+                mesh=self.mesh,
                 metrics=self.metrics,
                 semtab=self.semantic.table if self.semantic is not None else None,
                 device=self.router.device,
             )
+            if self.mesh is not None and self.shard_label:
+                self._device.shard_label = self.shard_label
         return self._device
 
     def _embeds(self, msgs):

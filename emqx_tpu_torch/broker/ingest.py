@@ -24,6 +24,11 @@ Up to `pipeline` dispatches are in flight at once: batch N+1's prepare,
 encode and launch overlap batch N's readback and host fan-out, while
 settlement (delivery and the publishers' futures) stays strictly FIFO.
 
+On a broker whose mesh (`Broker.mesh`) has more than one rank, `start()`
+raises `NotImplementedError`: the ranks must agree on each batch's
+messages, and feeding them the same publishes is the app's part (ROADMAP
+item 10). On a one-rank mesh it runs as on one device.
+
 Not ported here (they come with the app, ROADMAP item 10): the fault
 injection sites (observe/faults.py) and the span recorder's batch and
 publish spans (observe/spans.py). This module takes the reference's path
@@ -109,6 +114,16 @@ class BatchIngest:
         self.running = False
 
     def start(self) -> None:
+        """Start the flusher. Refused on a broker whose mesh has more than
+        one rank: the ranks would each cut their own batches (by the
+        timer and the lanes' depths), and a mesh batch needs every rank to
+        route the same messages in the same order."""
+        mesh = getattr(self.broker, "mesh", None)
+        if mesh is not None and mesh.world > 1:
+            raise NotImplementedError(
+                f"BatchIngest on a {mesh.world}-rank mesh: the ranks must agree "
+                "on each batch's messages before it launches, and how "
+                "publishes reach the ranks is ROADMAP item 10 (the app)")
         if self._task is None:
             self.running = True
             self._task = asyncio.get_running_loop().create_task(self._run())

@@ -14,9 +14,11 @@ also enter the trie; match = trie match + direct lookup, :128-141):
 
 `match_batch` takes the device when the batch reaches `min_tpu_batch`,
 through a lazy match-only `DeviceRouter` on `device`, and falls back to
-`match` for every row the device flags. Not ported: the mesh attachment
-(`Router.mesh`, the broker on a mesh, ROADMAP item 3) and pickling
-(segment-state snapshots, ROADMAP item 13).
+`match` for every row the device flags. `Router.mesh` (a
+`parallel.mesh.Mesh`, set beside `Broker.mesh` before the first device
+match) hands the mesh to that router: its match tables then sit whole on
+the rank's device and each rank matches on its own, with no collective.
+Not ported: pickling (segment-state snapshots, ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ class Router:
         self.min_tpu_batch = min_tpu_batch
         self.enable_tpu = enable_tpu
         self.device = device
+        # this rank of a ('dp', 'tp') mesh, set beside `Broker.mesh`: the
+        # lazy match-only router is built on it
+        self.mesh = None
 
     def __len__(self) -> int:
         return len(self._exact) + len(self._trie)
@@ -111,7 +116,7 @@ class Router:
         fan-out DeviceRouter keeps a separate one)."""
         if self._matcher is None:
             self._matcher = DeviceRouter(self._index, None, self._matcher_config,
-                                         device=self.device)
+                                         device=self.device, mesh=self.mesh)
         return self._matcher
 
     @property

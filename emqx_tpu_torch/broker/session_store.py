@@ -27,11 +27,17 @@ inflight rows), its device mirror (a `DeviceSegmentManager` named
 - **mass resume**: `capture()`/`install()` swap the host state in, and the
   next sync is one full upload.
 
+- **on a mesh** (`mesh=`, one rank of a `parallel.mesh.Mesh`): the
+  mirror is this rank's 'dp' block of every lane
+  (`parallel.mesh.session_placement`), on the rank's device, and a delta
+  scatter lands as this rank's writes only. A mesh engine fuses no rider
+  (`DeviceRouter.supports_session_fusion`), so the store's sweep is
+  `tick(fused_path=False)`: the host sweep plus the manager's own scatter.
+
 Threading: every mutator runs on the event loop (single writer);
 `route_prepared` on the broker's dispatch pool only reads the rider's
 immutable arrays, so at most one rider is outstanding. Not in the port
-yet: `compaction_owner` (background compaction, ROADMAP item 13) and the
-mesh placement (`mesh=` raises, ROADMAP item 11).
+yet: `compaction_owner` (background compaction, ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 
 from emqx_tpu_torch.broker.inflight import Inflight
+from emqx_tpu_torch.convert import resolve_device
 from emqx_tpu_torch.ops.nfa import _next_pow2
 from emqx_tpu_torch.ops.segments import DeviceSegmentManager
 from emqx_tpu_torch.ops.session_table import (
@@ -121,15 +128,22 @@ class SessionStore:
         metrics=None,
         mesh=None,
         clock: Optional[Callable[[], float]] = None,
-        device="cuda",
+        device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SessionStore(mesh=...): the session placement on a mesh is "
-                "ROADMAP item 11"
-            )
+        """`device`: where the mirror lives (CUDA by default). On a `mesh`
+        it is the mesh rank's device, and a `device` other than it raises,
+        as `DeviceRouter` does."""
         self.table = SessionTable(capacity=capacity)
-        self.manager = DeviceSegmentManager(device, name="sessions")
+        placement = None
+        if mesh is not None:
+            from emqx_tpu_torch.parallel.mesh import session_placement
+
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's {mesh.device}")
+            device = mesh.device
+            placement = session_placement(mesh)
+        self.manager = DeviceSegmentManager("cuda" if device is None else device,
+                                            name="sessions", placement=placement)
         self.metrics = metrics
         self.sweep_slots = max(16, _next_pow2(sweep_slots))
         self.retry_ds = max(1, int(retry_interval * 10))

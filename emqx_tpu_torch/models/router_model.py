@@ -1334,9 +1334,10 @@ class DeviceRouter:
         sharded step, its global result assembled on every rank
         (`_route_mesh`). The router serves from the mesh's device; a
         `device` other than it raises. Without a mesh, `device` defaults to
-        CUDA. A match-only router (``subtab=None``) runs on one device."""
-        if mesh is not None and subtab is None:
-            raise ValueError("a match-only router runs on one device, not a mesh")
+        CUDA. A match-only router (``subtab=None``) on a mesh holds its
+        match tables whole and runs the single-device step on the rank's
+        device, with no collective (emqx_tpu/models/router_model.py:2036:
+        the mesh step needs a fan-out table)."""
         self.mesh = mesh
         if mesh is not None:
             self.device = mesh.device
@@ -1459,7 +1460,7 @@ class DeviceRouter:
         # tables were built re-partitions the CSR and semantic tables over
         # 'tp' here, like any growth.
         subtab = self.subtab
-        if self.mesh is not None:
+        if self.mesh is not None and subtab is not None:
             tp = self.mesh.tp
             if subtab.sparse and subtab.shards != tp:
                 subtab.set_shards(tp)
@@ -1663,8 +1664,9 @@ class DeviceRouter:
         storm, as in the JAX router (the broker never pairs them): given
         both, the storm is not launched and `retained` is None.
 
-        On a mesh the batch runs sharded (`_route_mesh`)."""
-        if self.mesh is not None:
+        On a mesh the batch runs sharded (`_route_mesh`); a match-only
+        router there runs the single-device step on the rank's device."""
+        if self.mesh is not None and self.subtab is not None:
             return self._route_mesh(args, list(topics), client_hashes,
                                     retained=retained, session=session,
                                     embeds=embeds, rules=rules)

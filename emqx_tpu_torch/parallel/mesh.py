@@ -28,7 +28,7 @@ CPU or on CUDA tensors (staged through the host by gloo itself). Nothing
 here picks or switches a backend. `parallel.launch` starts the ranks.
 
 `dist_route_step` is the NFA-only step over the mesh (the `dist_step`
-contract, `:171-261`). Not ported: `session_placement` (`:840`).
+contract, `:171-261`).
 """
 
 from __future__ import annotations
@@ -216,6 +216,15 @@ def semantic_placement(mesh: Mesh) -> Block:
 def retained_placement(mesh: Mesh) -> Block:
     """Retained topic chunks [CHUNK, bucket]: rows over 'dp' (CHUNK is a
     power of two, so any power-of-two dp divides it)."""
+    return Block(0, mesh.dp, mesh.axis_index("dp"), mesh.device)
+
+
+def session_placement(mesh: Mesh) -> Block:
+    """Session table lanes (ops/session_table.py, 1-D row and slot lanes):
+    blocks over 'dp' (`session_placement`, emqx_tpu/parallel/mesh.py:840;
+    power-of-two capacities, so any power-of-two dp divides them). Each
+    'dp' rank's mirror holds its share of the rows; a delta scatter lands
+    as this rank's writes only."""
     return Block(0, mesh.dp, mesh.axis_index("dp"), mesh.device)
 
 

@@ -321,11 +321,6 @@ def test_fanout_knobs_match_jax_router(cfg, mode, kslot):
                                       np.asarray(j.dense_rows[j.dense_index[r]]))
 
 
-def test_match_only_router_refuses_a_mesh():
-    with pytest.raises(ValueError, match="one device"):
-        P_router.DeviceRouter(P_ri.RouteIndex(), None, mesh=object())
-
-
 # -- on the card: the step's kernels against their twins (skips without CUDA)
 
 

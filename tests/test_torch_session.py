@@ -640,11 +640,6 @@ def test_host_sweep_and_tick_match_jax():
     assert tw.p.manager.full_resyncs == tw.j.manager.full_resyncs == 1
 
 
-def test_store_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        P_store.SessionStore(mesh=object(), device="cpu")
-
-
 def test_put_msg_takes_any_object():
     """The slab holds any object that can own its buffers, not only a
     `Message`: the stand-in `Msg` is kept as it is, after one
