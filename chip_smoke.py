@@ -393,6 +393,22 @@ a four-GPU host (no kernels line, no last line):
     redelivering exactly the wave, each rank's mirror against its block
     after every sync; `mesh_broker_digests` (this process): every rank's
     digests equal to broker_1m's single-device `publish_batch` digests;
+    the mesh paths run when asked, beside broker_1m's subscribe loop (host
+    work only), and are joined before its first prepare;
+39b. background compaction and segment-state snapshots, each phase on a
+    path's own tables: `compact_bitmaps` (mixed_1m, before `flip_1m`),
+    `compact_share` (the end of the share path), `compact_session`
+    (after `fused_session`), `compact_broker` (broker_1m, before its
+    semantic phases), `compact_semantic` (after `ingest_semantic_broker`),
+    `snapshot_broker` (the end of the broker path), and in the mesh
+    process `mesh_compact_broker_2x2` and `mesh_session_2x2`'s `compact`:
+    a `SegmentCompactor` cycle (ticked on an asyncio loop, or
+    `compact_now` at one batch boundary on every rank), its build and
+    upload on the compaction thread, the adopting prepare uploading none
+    of the offered arrays, mirrors equal to host (each rank's block),
+    checked batches before, during and after; `runs` and `aborted` 0
+    asserted; `mesh_compact_broker_digests` (this process): every rank's
+    digests after its cycle equal to broker_1m's;
 40. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
@@ -402,8 +418,9 @@ a four-GPU host (no kernels line, no last line):
     phases; the `mesh` cases of occurrence_index (with the totals
     mesh_share_2x2's round-robin branch all-gathers), of its rank-offset
     share_pick and of mesh_1m_2x2's lane-based compact_fanout_slots;
-    `mesh_broker_launches` on the kernels the mesh broker launched; the
-    broker_1m and
+    `mesh_broker_launches` on the kernels the mesh broker launched;
+    `compact_launches`, each kernel's launches by compaction or snapshot
+    phase; the broker_1m and
     plus_100k cases of the kernels those paths launch, with their
     launches there),
     its wrapper-call, device (CUPTI; CUDA events around calls queued
@@ -531,8 +548,13 @@ RULES_SQL = (
 )
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase's JSON line; `t_s`: seconds since this process started."""
+    print(json.dumps({"phase": name, **fields, "t_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def card_line() -> str:
@@ -1667,6 +1689,8 @@ def mixed_1m_path(torch, rng):
           segment_status=router.segment_status())
     brk = [topic_batch_1m(rng, BATCH) for _ in range(3)]
     phase("route_breakdown", **route_breakdown(torch, router, brk))
+    phase("compact_bitmaps", **compact_bitmaps(torch, router, index, subtab, oracle,
+                                               batches[:2]))
     flip_1m(torch, router, oracle, batches[:2])
     return report
 
@@ -2207,12 +2231,19 @@ def share_kinds(torch, router, args, topics):
     return kinds, inputs
 
 
+# the wave cut from churn_share: its rebuild is the compaction's build
+SHARE_ABSORB_CUT = (
+    "churn_share's storm past HOT_SERVE_MAX (the prepare folding the 80M-pair table inline) "
+    "is not run: compact_share rebuilds the same table on the compaction thread instead, "
+    "and the script's 1,200 s do not hold both rebuilds")
+
+
 def share_path(torch, rng):
     """Phases 10-13: the CSR subscriber table and the $share picks at
     share_10m_csr. -> (kernel report, launches on the path)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.models.router_model import STRATEGY_IDS, DeviceRouter
-    from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable
+    from emqx_tpu_torch.ops.csr_table import CSR_KEYS
     from emqx_tpu_torch.ops.matcher import MatcherConfig
 
     t0 = time.perf_counter()
@@ -2324,19 +2355,6 @@ def share_path(torch, rng):
     if churn["unsubscribe"]["packed_tombstones"] < len(gone_pairs):
         raise AssertionError("the unsubscribe wave left no packed tombstones")
 
-    storm_i = 9
-    storm = [(fid_of(storm_i), 600_000 + s) for s in range(CsrTable.HOT_SERVE_MAX + 104)]
-
-    def storm_subscribe():  # past the serve-time hot bound: the prepare absorbs
-        for f, s in storm:
-            subtab.add(f, s)
-
-    storm_topics = [f"device/{storm_i}/mid/{j}/leaf" for j in range(64)] + row_topics
-    churn["absorb"] = wave("subscribe storm", storm_subscribe, storm_topics)
-    if not churn["absorb"]["epoch_moved"]["bitmaps"] or \
-            not churn["absorb"]["routed"][0]["gather_window_rows"]:
-        raise AssertionError("the storm did not take rows past the gather window")
-
     def regroup():
         for i in range(50):
             grouptab.set_len(grouptab.gid_of(f"device/{i}/#", "ingest"), 8)
@@ -2352,7 +2370,8 @@ def share_path(torch, rng):
     if not all(launches[k] for k in path) or launches["fanout_bitmaps"] \
             or launches["compact_fanout_slots"] or launches["occurrence_index"] % 3:
         raise AssertionError(f"share_10m_csr launches: {launches}")
-    phase("churn_share", **churn, launches=launches, segment_status=mirror_counts(router))
+    phase("churn_share", **churn, launches=launches, segment_status=mirror_counts(router),
+          reduced=[SHARE_ABSORB_CUT])
 
     # -- kernels at share_10m_csr shapes
     args = router.prepare()
@@ -2361,6 +2380,9 @@ def share_path(torch, rng):
     phase("kernel_inputs_share", **inputs)
     brk = [topic_batch_share(rng, BATCH) for _ in range(3)]
     phase("route_breakdown_share", **route_breakdown(torch, router, brk))
+    # the background compaction of this table: the CSR cycle off the
+    # serving path, adopted by the next prepare
+    phase("compact_share", **compact_share(torch, router, index, subtab, oracle, rng))
     return report, launches
 
 
@@ -3456,8 +3478,9 @@ def live_session_broker(torch) -> None:
 
 def session_path(torch, rng, router=None):
     """Phases 19-22: the device session store at bench.py's session_storm,
-    ridden directly through `route_prepared` and then through the broker.
-    -> (kernel report, launches on the path)."""
+    ridden directly through `route_prepared` (then `compact_session`) and
+    then through the broker. -> (kernel report, launches on the path, a
+    copy of the bulk-loaded store's capture for `snapshot_broker`)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.broker.session_store import PID_SPACE, SessionStore
@@ -3487,8 +3510,9 @@ def session_path(torch, rng, router=None):
     state = store1.capture()  # the mass disconnect: the state IS the table
     t.append(time.perf_counter())
     # the broker's store installs the same state: a copy, as install takes
-    # the capture's objects as its own
+    # the capture's objects as its own (and one more for snapshot_broker)
     state_b = copy_capture(state)
+    state_c = copy_capture(state)
     t.append(time.perf_counter())
     metrics = Counters()
     store = SessionStore(capacity=64, sweep_slots=K, retry_interval=SESS_RETRY,
@@ -3704,6 +3728,9 @@ def session_path(torch, rng, router=None):
           readback_bytes=rf["readback_bytes"], route_readback_bytes=rf["route_readback_bytes"],
           mirror=check_session_mirror(torch, store), launches=launches)
 
+    # -- compact_session: ride A's acks purged by the background compaction
+    phase("compact_session", **compact_session(torch, store, router, args, rng))
+
     # -- the broker's phases: counters zeroed before the first, read after
     # the last
     kernels.reset_launches()
@@ -3745,8 +3772,10 @@ def session_path(torch, rng, router=None):
           due_count=int(got[1]), expired_count=int(got[3]), now_ds=now, retry_ds=retry,
           library="torch.nonzero of the precomputed due and expiry masks (the nearest "
                   "single call: no cap, no padding)")
-    # the path's launches: the direct rides' and the broker phases'
-    return report, dict(collections.Counter(launches) + collections.Counter(broker_launches))
+    # the path's launches: the direct rides' and the broker phases'; and
+    # the capture snapshot_broker installs
+    return (report, dict(collections.Counter(launches) + collections.Counter(broker_launches)),
+            state_c)
 
 
 # -- the semantic_256k path --------------------------------------------------
@@ -4815,20 +4844,29 @@ def delivery_digest(got) -> str:
     return hashlib.sha256(repr(pairs).encode()).hexdigest()
 
 
-def broker_path(torch, rng):
+def broker_path(torch, rng, sess_capture=None, mesh_proc=None):
     """broker_1m: BASELINE config 3 loaded through `Broker.subscribe`, with
-    100 $share groups, published through `publish_batch`. -> (the path's
-    kernel cases, its launches, the `delivery_digest`s of its first
-    ROUTE_BATCHES batches, which the mesh broker must reproduce)."""
+    100 $share groups, published through `publish_batch`; its background
+    compaction (`compact_broker`) and, with `sess_capture` (session_1m's
+    store capture), its segment-state snapshot (`snapshot_broker`). With
+    `mesh_proc`, the mesh paths run while the subscribe loop (no card
+    work) builds the broker, and are joined before the first prepare. ->
+    (the path's kernel cases, its launches, the `delivery_digest`s of its
+    first ROUTE_BATCHES batches, which the mesh broker must reproduce, and
+    the mesh report or None)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.mqtt.packet import SubOpts
     from emqx_tpu_torch.ops import segments as G
     from emqx_tpu_torch.ops.csr_table import CSR_KEYS
 
+    asked = mesh_ask(torch, mesh_proc) if mesh_proc is not None else None
     t0 = time.perf_counter()
     broker, rec, secs = broker_build()
     build_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    mesh = mesh_join(asked) if asked is not None else None
+    mesh_wait_s = time.perf_counter() - t1
     subtab = broker.subtab
     n_subs = BROKER_IDS * BROKER_NUMS + BROKER_HOT + BROKER_GROUPS * BROKER_MEMBERS
     if not subtab.sparse or broker.subscription_count() != n_subs:
@@ -4846,6 +4884,7 @@ def broker_path(torch, rng):
           kslot=args.kslot, kg=args.kg, m_active=args.m_active,
           residual_count=broker.router.index.residual_count,
           subscribe_seconds=secs, subscribes_per_s=n_subs / build_s,
+          mesh_paths_beside=asked is not None, mesh_wait_after_build_s=mesh_wait_s,
           first_prepare_seconds=upload_s,
           device_bytes={"shapes": sum(mirror_bytes({k: v for k, v in args.tables.items()
                                                     if k not in CSR_KEYS}).values()),
@@ -4987,16 +5026,21 @@ def broker_path(torch, rng):
     phase("kernel_inputs_broker", **inputs)
     phase("broker_launches", launches=dict(launches))
 
+    # the shape and CSR tables' background compaction
+    phase("compact_broker", **compact_broker(torch, broker, rec, rng))
+
     # the semantic plane and the rule engine's device attach on this broker
     t0 = time.perf_counter()
     sem_launches = semantic_broker(torch, broker, rec, rng)
     launches.update(sem_launches)
     phase("semantic_broker_seconds", seconds=time.perf_counter() - t0,
           launches=dict(sem_launches))
+    if sess_capture is not None:
+        phase("snapshot_broker", **snapshot_broker(torch, broker, rec, rng, sess_capture))
     del broker, rec, dev, timer
     gc.collect()
     torch.cuda.empty_cache()
-    return report, dict(launches), digests
+    return report, dict(launches), digests, mesh
 
 
 # -- the broker_1m semantic phases (the semantic plane and the rule engine) ------
@@ -5099,6 +5143,7 @@ def semantic_broker(torch, broker, rec, rng) -> collections.Counter:
         sync, sync_launches = sem_broker_publish(torch, broker, rec, traffic, fired)
         launches.update(sync_launches)
         launches.update(sem_broker_ingest(torch, broker, rec, traffic, fired, rr0, sync))
+        phase("compact_semantic", **compact_semantic(torch, broker, rec, rng, fired))
         # a broker of its own: its launches print in its phase, not here
         agentic_fabric_broker(torch)
     finally:
@@ -5169,7 +5214,8 @@ def sem_broker_tables(torch, broker, rec, rng) -> collections.Counter:
     return launches, fired
 
 
-def sem_broker_publish(torch, broker, rec, traffic, fired) -> tuple:
+def sem_broker_publish(torch, broker, rec, traffic, fired,
+                       name="publish_semantic_broker") -> tuple:
     """`publish_semantic_broker`: each batch of `traffic` through
     `publish_batch`, checked three ways: plain and $share deliveries
     against the host oracle (`broker_publish`); each message's semantic
@@ -5243,7 +5289,7 @@ def sem_broker_publish(torch, broker, rec, traffic, fired) -> tuple:
     med = {k: float(np.median([r[k] for r in out])) for k in (
         "publish_batch_ms", "prepare_ms", "route_ms", "rule_fire_ms", "host_fanout_ms",
         "host_dispatch_ms", "messages_per_s", "deliveries_per_s")}
-    phase("publish_semantic_broker", batches=out, median=med, card=card_line(),
+    phase(name, batches=out, median=med, card=card_line(),
           rules_device_batches=m.get("rules.device.batches"),
           rules_host_batches=m.get("rules.host.batches"),
           semantic_hits=m.get("semantic.hits"),
@@ -5879,6 +5925,852 @@ def plus_path(torch, rng):
     gc.collect()
     torch.cuda.empty_cache()
     return report, launches, comp
+
+
+# -- background compaction and segment-state snapshots ----------------------------
+
+COMPACT_STORM = 3072  # compact_share: hot pairs before the cycle (past 1,024, under 4,096)
+COMPACT_RACE = 384  # compact_share: adds, and removes, journaled while the build runs
+# the loop's pause between two batches while a build runs, and every how
+# many of them is checked against the oracle: the checks are Python loops
+# that hold the GIL the build needs too (a checked batch every 0.5 s
+# stretched the 80M-pair build to 219.6 s on the H100 host)
+COMPACT_POLL_S = 2.0
+COMPACT_CHECK_EVERY = 6
+COMPACT_BATCHES = 2  # checked batches after each cycle
+BROKER_COMPACT = 2048  # compact_broker: subscribes on fresh filters, and unsubscribes
+SEM_COMPACT = (1100, 256)  # compact_semantic: semantic subscribes, then removes
+# compact_session: the owner's tombstone_frac; ride A's 20,000 acks leave
+# 20,000 tombstones in 2^22 rows (0.0048), and the reference's replay check
+# uses 0.0
+SESS_COMPACT_FRAC = 0.004
+SNAPSHOT_BATCHES = 3  # snapshot_broker: batches through the original and the restored broker
+MESH_COMPACT = 1024  # mesh_broker_2x2: subscribes before the cycle
+MESH_SESS_ACKS = 4096  # mesh_session_2x2: the wave's rows acked before the session cycle
+# phase -> {kernel: launches} of the compaction phases, for the kernels line
+COMPACT_LAUNCHES: dict = {}
+
+
+class UploadLog:
+    """While open: the array names every full or array resync of a mirror
+    uploads (`convert.upload` as `ops.segments` calls it), apart from the
+    compaction thread's uploads (`upload_offer`), which it times: (start,
+    end, names, bytes) a call."""
+
+    def __init__(self):
+        import threading
+
+        from emqx_tpu_torch.ops import segments as G
+
+        self.G, self.names, self.offers = G, [], []
+        self._upload, self._offer = G.upload, G.upload_offer
+        self._local = threading.local()
+
+        def upload(arrays, *a, **k):
+            if not getattr(self._local, "offer", False):
+                self.names.extend(arrays)
+            return self._upload(arrays, *a, **k)
+
+        def offer(arrays, *a, **k):
+            self._local.offer = True
+            t0 = time.perf_counter()
+            try:
+                return self._offer(arrays, *a, **k)
+            finally:
+                self._local.offer = False
+                self.offers.append((t0, time.perf_counter(), sorted(arrays),
+                                    int(sum(np.asarray(v).nbytes for v in arrays.values()))))
+
+        G.upload, G.upload_offer = upload, offer
+
+    def take(self) -> list:
+        out, self.names = self.names, []
+        return out
+
+    def close(self) -> None:
+        self.G.upload, self.G.upload_offer = self._upload, self._offer
+
+
+def run_compactor(comp, owners, during=None, after_begin=None, poll_s=0.0,
+                  max_cycles=4) -> list:
+    """Housekeeping ticks of `comp` over `owners` on an asyncio loop, as the
+    reference app's housekeeping drives its compactor (emqx_tpu/app.py:
+    1224-1260), one cycle at a time until no owner needs compaction.
+    `after_begin(key)` runs on the loop once a cycle has captured its table
+    (its mutations are journaled), `during(key)` between polls while the
+    cycle builds. -> per cycle {"key", "seconds", "build_s", "apply_ms",
+    "during": [what `during` returned]}. Raises past `max_cycles` (an
+    owner whose cycles do not end its need) and when a cycle aborts."""
+    import asyncio
+
+    stats = {}
+    saved = []
+    for o in owners:
+        saved.append((o, o.begin, o.build, o.apply))
+
+        def begin(o=o, f=o.begin):
+            stats["key"] = o.key
+            return f()
+
+        def build(cap, f=o.build):
+            t0 = time.perf_counter()
+            out = f(cap)
+            stats["build_s"] = time.perf_counter() - t0
+            return out
+
+        def apply(built, f=o.apply):
+            t0 = time.perf_counter()
+            out = f(built)
+            stats["apply_ms"] = 1e3 * (time.perf_counter() - t0)
+            return out
+
+        o.begin, o.build, o.apply = begin, build, apply
+
+    async def drive():
+        cycles = []
+        while comp.tick(owners):
+            t0 = time.perf_counter()
+            await asyncio.sleep(0)  # the cycle's begin runs on the loop
+            key = stats.pop("key")
+            if after_begin is not None:
+                after_begin(key)
+            calls = []
+            while comp._busy:
+                if during is not None:
+                    calls.append(during(key))
+                await asyncio.sleep(poll_s)
+            cycles.append({"key": key, "seconds": time.perf_counter() - t0,
+                           "build_s": stats.pop("build_s", None),
+                           "apply_ms": stats.pop("apply_ms", None), "during": calls})
+            if comp.aborted:
+                raise AssertionError(f"compaction cycle {key} aborted ({comp.aborted})")
+            if len(cycles) > max_cycles:
+                raise AssertionError(f"{len(cycles)} cycles: {[c['key'] for c in cycles]}")
+        return cycles
+
+    try:
+        return asyncio.run(drive())
+    finally:
+        for o, b, bu, a in saved:
+            o.begin, o.build, o.apply = b, bu, a
+
+
+def adopting_prepare(torch, router, log) -> dict:
+    """The prepare after a cycle, timed: the mirrors' moves, the arrays it
+    uploaded (`log`) and its scatter launches, which must be the moved
+    delta launches' (SCATTER_LAUNCHES each)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.ops import segments as G
+
+    c0 = mirror_counts(router)
+    log.take()
+    s0 = kernels.LAUNCHES["segment_scatter"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    args = router.prepare()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    c1 = mirror_counts(router)
+    moves = {m: {k: c1[m][k] - c0[m][k] for k in c1[m]} for m in c1}
+    scatters = kernels.LAUNCHES["segment_scatter"] - s0
+    if scatters != G.SCATTER_LAUNCHES * sum(v["delta_launches"] for v in moves.values()):
+        raise AssertionError(f"adopting prepare: {scatters} scatter launches, moves {moves}")
+    return {"args": args, "prepare_ms": ms, "moves": moves, "uploaded": log.take(),
+            "scatter_launches": scatters}
+
+
+def compact_share(torch, router, index, subtab, oracle, rng) -> dict:
+    """`compact_share` at share_10m_csr's full width: COMPACT_STORM pairs
+    on the group filter device/9/# land in the CSR hot segment; one
+    `SegmentCompactor.tick` starts the CSR owner's cycle, whose build (the
+    80M-pair CSR and its registry, rebuilt on the compaction thread) and
+    upload (on a side stream) run while the loop journals COMPACT_RACE
+    adds and removes and routes checked batches; after the apply and the
+    offer the next prepare adopts the uploaded csr_* tensors (a full resync
+    with no csr_* upload, one scatter for the journal's suffix). The hot
+    segment stays at or under HOT_SERVE_MAX at every prepare, so no
+    prepare folds inline (the table's epoch moves once, by the apply).
+    Then a batch routed while the same arrays upload again beside it, and
+    checked batches against the oracle, with rows past the gather window
+    (device/9/# now holds its storm in the packed column)."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.ops import segments as G
+    from emqx_tpu_torch.ops.csr_table import CsrTable
+
+    csr = subtab.csr
+    router.prepare()
+    storm_i, hot0 = 9, csr.hot_fill
+    if hot0 + COMPACT_STORM + COMPACT_RACE > CsrTable.HOT_SERVE_MAX:
+        raise AssertionError(f"hot {hot0}: the storm would pass HOT_SERVE_MAX")
+    fid9 = index.filter_id(f"device/{storm_i}/#")
+    storm_topics = [f"device/{storm_i}/mid/{j}/leaf" for j in range(64)]
+
+    def batch():
+        topics = topic_batch_share(rng, BATCH)
+        topics[: len(storm_topics)] = storm_topics
+        return topics
+
+    hot_fills, prep_ms = [], []
+    real_args = router._device_args
+
+    def device_args():  # every prepare: the hot fill it sees, its time
+        hot_fills.append(csr.hot_fill)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_args()
+        torch.cuda.synchronize()
+        prep_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    router._device_args = device_args
+    log = UploadLog()
+    try:
+        kernels.reset_launches()
+        e0 = subtab.epoch
+        for s in range(COMPACT_STORM):
+            subtab.add(fid9, 700_000 + s)
+        storm = route_share_checked(router, [batch()], oracle)[0]
+        if not storm["overflow_rows"]:
+            raise AssertionError("the hot storm produced no rows past kslot")
+        outside = list(prep_ms)
+        owners = router.compaction_owners()
+        if [o.key for o in owners if o.needs_compact()] != ["bitmaps"]:
+            raise AssertionError(f"owners needing compaction: "
+                                 f"{[o.key for o in owners if o.needs_compact()]}")
+        # the racing churn: COMPACT_RACE fresh pairs on bench filters, and
+        # COMPACT_RACE removes of packed pairs
+        ij = rng.integers(0, [SHARE_IDS, SHARE_NUMS], size=(COMPACT_RACE, 2))
+        adds = [(index.filter_id(f"device/{i}/+/{j}/#"), 800_000 + k)
+                for k, (i, j) in enumerate(ij)]
+        removes = []
+        n_subs = SHARE_IDS * SHARE_NUMS * SHARE_SPF
+        for n in rng.choice(n_subs, size=4 * COMPACT_RACE, replace=False).tolist():
+            f, s = n // SHARE_SPF, n % SHARE_SLOTS
+            if len(removes) < COMPACT_RACE and csr._reg_get(csr._key(f, s)) is not None:
+                removes.append((f, s))
+        journal = {}
+
+        def race(key):
+            if csr._journal is None:
+                raise AssertionError("the CSR cycle's capture did not start a journal")
+            for (fa, sa), (fr, sr) in zip(adds, removes):
+                subtab.add(fa, sa)
+                subtab.remove(fr, sr)
+            journal["entries"] = len(csr._journal)
+
+        polls = []
+
+        def serve(key):
+            t0 = time.perf_counter()
+            topics = batch()
+            if len(polls) % COMPACT_CHECK_EVERY == 0:
+                rec = route_share_checked(router, [topics], oracle)[0]
+                out = {"checked": True, "route_ms": rec["route_ms"],
+                       "rows_past_kslot": rec["overflow_rows"]}
+            else:
+                router.route(topics)
+                out = {"checked": False, "route_ms": 1e3 * (time.perf_counter() - t0)}
+            polls.append(t0)
+            return {"at_s": t0, **out, "prepare_ms": prep_ms[-1], "hot_fill": hot_fills[-1]}
+
+        comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+        cycles = run_compactor(comp, owners, during=serve, after_begin=race,
+                               poll_s=COMPACT_POLL_S)
+        m = comp.metrics
+        if [c["key"] for c in cycles] != ["bitmaps"] or comp.runs != 1 or comp.aborted \
+                or journal.get("entries") != 2 * COMPACT_RACE \
+                or not any(d["checked"] for d in cycles[0]["during"]):
+            raise AssertionError(f"compact_share: cycles {[c['key'] for c in cycles]}, runs "
+                                 f"{comp.runs}, aborted {comp.aborted}, journal {journal}")
+        during = cycles[0]["during"]
+        offered = router._bits_sync._offer[1]
+        adopt = adopting_prepare(torch, router, log)
+        args, moves = adopt["args"], adopt["moves"]
+        uploaded_csr = sorted(k for k in adopt["uploaded"] if k.startswith("csr_"))
+        if uploaded_csr or moves["bitmaps"]["full_resyncs"] != 1 \
+                or moves["bitmaps"]["delta_launches"] != 1 \
+                or args.tables["csr_off"] is not offered["csr_off"] \
+                or args.tables["csr_len"] is not offered["csr_len"]:
+            raise AssertionError(f"adopting prepare: uploaded {adopt['uploaded']}, moves {moves}")
+        if subtab.epoch != e0 + 1 or max(hot_fills) > CsrTable.HOT_SERVE_MAX:
+            raise AssertionError(f"an inline fold: epoch {e0} -> {subtab.epoch}, "
+                                 f"hot fills up to {max(hot_fills)}")
+        mirrors = check_mirrors(torch, router)
+        after = route_share_checked(router, [batch() for _ in range(COMPACT_BATCHES)], oracle)
+        if not all(r["gather_window_rows"] for r in after):
+            raise AssertionError("the packed storm took no rows past the gather window")
+        # a serving batch while the same packed arrays upload on another
+        # thread's side stream, against the same batch alone
+        overlap = upload_overlap(torch, router, {k: getattr(csr, k) for k in
+                                                 ("csr_off", "csr_len", "csr_slots")}, batch)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        router._device_args = real_args
+        log.close()
+    for k in ("tokenize", "shape_match", "sparse_fanout_slots", "share_pick",
+              "occurrence_index", "segment_scatter"):
+        if not launches[k]:
+            raise AssertionError(f"compact_share: {k} never launched ({launches})")
+    COMPACT_LAUNCHES["compact_share"] = launches
+    build_window = [(t0, t1) for t0, t1, names, _b in log.offers if "csr_slots" in names]
+    out = {
+        "storm_pairs": COMPACT_STORM, "hot_fill_before": hot0, "race": COMPACT_RACE,
+        "journal_entries": journal["entries"], "storm_batch": storm,
+        "build_s": cycles[0]["build_s"], "cycle_s": cycles[0]["seconds"],
+        "apply_ms": cycles[0]["apply_ms"],
+        "offer_upload": [{"s": t1 - t0, "arrays": names, "bytes": b}
+                         for t0, t1, names, b in log.offers],
+        "prepare_ms_outside": outside,
+        "prepare_ms_during": {"p50": float(np.median([d["prepare_ms"] for d in during])),
+                              "max": float(max(d["prepare_ms"] for d in during)),
+                              "n": len(during)},
+        "route_ms_during": {"p50": float(np.median([d["route_ms"] for d in during])),
+                            "max": float(max(d["route_ms"] for d in during)),
+                            "checked": sum(d["checked"] for d in during)},
+        "batches_during": during, "during_upload": [
+            d for d in during if any(a <= d["at_s"] <= b for a, b in build_window)],
+        "adopting_prepare_ms": adopt["prepare_ms"], "adopting_moves": moves,
+        "adopting_uploads": adopt["uploaded"], "adopting_scatter_launches":
+            adopt["scatter_launches"], "hot_fill_at_each_prepare": hot_fills,
+        "epoch_moves": subtab.epoch - e0, "runs": comp.runs, "aborted": comp.aborted,
+        "merged": m.get("router.compact.merged"), "mirrors_equal": mirrors, "after": after,
+        "upload_overlap": overlap, "launches": launches, "card": card_line(), "reduced": [],
+    }
+    return out
+
+
+def upload_overlap(torch, router, arrays, batch) -> dict:
+    """Batches routed while `arrays` upload on another thread, against the
+    same batches alone: the port's `upload_offer` (a side stream, pinned
+    staging) and, beside it in turns (offer, pageable, pageable, offer),
+    one pageable `.to()` an array on a side stream (the first design,
+    whose neighbours waited for it). Host-clock ms of each `route()`, and
+    each upload's seconds."""
+    import threading
+
+    from emqx_tpu_torch.ops import segments as G
+
+    def pageable():
+        side = torch.cuda.Stream(router.device)
+        with torch.cuda.stream(side):
+            out = {k: torch.from_numpy(v).to(router.device) for k, v in arrays.items()}
+        side.synchronize()
+        return out
+
+    topics = [batch() for _ in range(3)]
+
+    def alone():
+        out = []
+        for t in topics:
+            t0 = time.perf_counter()
+            router.route(t)
+            out.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def beside(up):
+        box = {}
+
+        def run():
+            t0 = time.perf_counter()
+            box["t"] = up()
+            box["s"] = time.perf_counter() - t0
+
+        th = threading.Thread(target=run, name="segment-compact-probe")
+        routes = []
+        th.start()
+        k = 0
+        while th.is_alive():
+            t0 = time.perf_counter()
+            router.route(topics[k % len(topics)])
+            routes.append(1e3 * (time.perf_counter() - t0))
+            k += 1
+        th.join()
+        box.pop("t")
+        torch.cuda.empty_cache()
+        return {"upload_s": box["s"], "route_ms": routes}
+
+    out = {"bytes": int(sum(a.nbytes for a in arrays.values())), "route_ms_alone": alone()}
+    for name, up in (("offer", lambda: G.upload_offer(arrays, router.device)),
+                     ("pageable", pageable), ("pageable", pageable),
+                     ("offer", lambda: G.upload_offer(arrays, router.device))):
+        out.setdefault(name, []).append(beside(up))
+    out["route_ms_alone_after"] = alone()
+    return out
+
+
+def compact_bitmaps(torch, router, index, subtab, oracle, batches) -> dict:
+    """`compact_bitmaps` on mixed_1m's dense table: one `BitmapGrowthOwner`
+    cycle (started by a tick when the 1,000,100 filters already pass 3/4
+    of the matrix, else run at once), the grown matrix uploaded on the
+    compaction thread and adopted by the next prepare; the grown mirror
+    equal to host and the routed batches equal to the oracle through
+    `fanout_bitmaps` / `compact_fanout_slots`."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.ops import segments as G
+
+    owner = [o for o in router.compaction_owners() if o.key == "bitmaps"]
+    if len(owner) != 1 or type(owner[0]).__name__ != "BitmapGrowthOwner":
+        raise AssertionError(f"mixed_1m owners: {owner}")
+    owner = owner[0]
+    router.prepare()
+    need, fcap0, capacity = owner.needs_compact(), subtab._fcap, index.num_filters_capacity
+    log = UploadLog()
+    kernels.reset_launches()
+    try:
+        comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+        if need:
+            cycles = run_compactor(comp, [owner])
+        else:
+            t0 = time.perf_counter()
+            comp.compact_now(owner)
+            cycles = [{"key": owner.key, "seconds": time.perf_counter() - t0}]
+        if comp.runs != 1 or comp.aborted:
+            raise AssertionError(f"compact_bitmaps: runs {comp.runs}, aborted {comp.aborted}")
+        offered = router._bits_sync._offer[1]["sub_bitmaps"]
+        adopt = adopting_prepare(torch, router, log)
+        if "sub_bitmaps" in adopt["uploaded"] or adopt["moves"]["bitmaps"]["full_resyncs"] != 1 \
+                or adopt["args"].tables["sub_bitmaps"] is not offered:
+            raise AssertionError(f"adopting prepare: {adopt['uploaded']}, {adopt['moves']}")
+        mirrors = check_mirrors(torch, router)
+        routed = []
+        for topics in batches:
+            t0 = time.perf_counter()
+            res = router.route(topics)
+            routed.append({"route_ms": 1e3 * (time.perf_counter() - t0),
+                           **check_batch(res, topics, oracle)})
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        log.close()
+    if not launches["fanout_bitmaps"] or not launches["compact_fanout_slots"]:
+        raise AssertionError(f"compact_bitmaps: launches {launches}")
+    COMPACT_LAUNCHES["compact_bitmaps"] = launches
+    return {"needed": need, "filter_capacity": capacity, "fcap_before": fcap0,
+            "fcap_after": subtab._fcap, "cycles": cycles, "runs": comp.runs,
+            "aborted": comp.aborted, "offer_upload": [{"s": t1 - t0, "arrays": n, "bytes": b}
+                                                     for t0, t1, n, b in log.offers],
+            "adopting_prepare_ms": adopt["prepare_ms"], "adopting_moves": adopt["moves"],
+            "adopting_uploads": adopt["uploaded"], "mirrors_equal": mirrors, "routed": routed,
+            "launches": launches, "card": card_line()}
+
+
+def compact_broker(torch, broker, rec, rng) -> dict:
+    """`compact_broker` on broker_1m through `Broker.subscribe` /
+    `unsubscribe`: BROKER_COMPACT subscribes on fresh filters of the
+    table's shape (hot shape entries and hot CSR pairs) and BROKER_COMPACT
+    plain unsubscribes (tombstones); a checked `publish_batch` before; the
+    shape and CSR owners of `compaction_owners()` ticked to completion,
+    a checked batch published while each builds; a checked batch after
+    the adopting prepare; mirrors equal to host."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops import segments as G
+
+    dev = broker._device_router()
+    subtab, shapes = broker.subtab, broker.router.index.shapes
+    opts = SubOpts()
+    ids = rng.integers(0, BROKER_IDS, BROKER_COMPACT).tolist()
+    t0 = time.perf_counter()
+    for k, i in enumerate(ids):
+        sid = f"k{k}"
+        broker.subscribe(sid, sid, f"device/{i}/+/{3000 + k}/#", opts, rec.sink(sid))
+    gone = []
+    for k in rng.choice(BROKER_IDS * BROKER_NUMS, size=2 * BROKER_COMPACT,
+                        replace=False).tolist():
+        i, j = divmod(k, BROKER_NUMS)
+        if len(gone) < BROKER_COMPACT and broker.unsubscribe(f"c{i}_{j}", f"device/{i}/+/{j}/#"):
+            gone.append((i, j))
+    churn_s = time.perf_counter() - t0
+    if len(gone) != BROKER_COMPACT:
+        raise AssertionError(f"{len(gone)} unsubscribes of {BROKER_COMPACT}")
+    timer = BrokerTimer(torch, broker)
+    log = UploadLog()
+    kernels.reset_launches()
+    launches = collections.Counter()
+    tag = [40]
+
+    def publish():
+        tag[0] += 1
+        b = broker_publish(torch, broker, rec, timer, topic_batch_1m(rng, BATCH), tag[0])
+        launches.update(b["launches"])
+        got = {sid for _m, sid in rec.log}
+        if got & {f"c{i}_{j}" for i, j in gone}:
+            raise AssertionError("an unsubscribed client still received")
+        return {k: b[k] for k in ("deliveries", "publish_batch_ms", "prepare_ms", "route_ms")}
+
+    try:
+        before = publish()
+        state0 = {"shapes": {"hot_live": shapes.hot_live, "tombstones": shapes.packed_tombstones},
+                  "csr": {"hot_fill": subtab.csr.hot_fill,
+                          "tombstones": subtab.csr.packed_tombs + subtab.csr.hot_tombs}}
+        owners = [o for o in dev.compaction_owners() if o.key in ("shapes", "bitmaps")]
+        needs = {o.key: o.needs_compact() for o in owners}
+        comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+        c_start = mirror_counts(dev)
+        log.take()
+        # a batch published while the second cycle builds adopts the
+        # first cycle's offer: the moves and uploads count from here
+        cycles = run_compactor(comp, owners, during=lambda key: publish(),
+                               poll_s=COMPACT_POLL_S)
+        started = sorted(c["key"] for c in cycles)
+        want = sorted(k for k, v in needs.items() if v)
+        for o in owners:  # an owner the tick left alone runs its one cycle now
+            if o.key not in started:
+                t0 = time.perf_counter()
+                if not comp.compact_now(o):
+                    raise AssertionError(f"compact_broker: the {o.key} cycle aborted")
+                cycles.append({"key": o.key, "seconds": time.perf_counter() - t0,
+                               "compact_now": True})
+        if comp.runs != 2 or comp.aborted or started != want:
+            raise AssertionError(f"compact_broker: runs {comp.runs}, aborted {comp.aborted}, "
+                                 f"started {started}, needing {want}")
+        uploaded = log.take()
+        adopt = adopting_prepare(torch, dev, log)
+        uploaded += adopt["uploaded"]
+        c_end = mirror_counts(dev)
+        moves = {m: {k: c_end[m][k] - c_start[m][k] for k in c_end[m]} for m in c_end}
+        if any(k == "shape_tab" or k.startswith("csr_") for k in uploaded) \
+                or moves["shapes"]["full_resyncs"] != 1 or moves["bitmaps"]["full_resyncs"] != 1:
+            raise AssertionError(f"compact_broker: uploaded {uploaded}, moves {moves}")
+        mirrors = check_mirrors(torch, dev)
+        after = [publish() for _ in range(COMPACT_BATCHES)]
+    finally:
+        timer.remove(broker)
+        log.close()
+    COMPACT_LAUNCHES["compact_broker"] = dict(launches)
+    return {"subscribed": BROKER_COMPACT, "unsubscribed": len(gone), "churn_s": churn_s,
+            "state_before": state0, "needed": needs, "before": before,
+            "cycles": [{k: v for k, v in c.items()} for c in cycles], "runs": comp.runs,
+            "aborted": comp.aborted, "merged": comp.metrics.get("router.compact.merged"),
+            "offer_upload": [{"s": t1 - t0, "arrays": n, "bytes": b}
+                             for t0, t1, n, b in log.offers],
+            "adopting_prepare_ms": adopt["prepare_ms"], "adopting_moves": adopt["moves"],
+            "moves_from_the_first_cycle": moves, "uploads_from_the_first_cycle": uploaded,
+            "mirrors_equal": mirrors, "after": after, "launches": dict(launches),
+            "card": card_line()}
+
+
+def compact_semantic(torch, broker, rec, rng, fired) -> dict:
+    """`compact_semantic` on broker_1m's semantic plane: SEM_COMPACT[0]
+    semantic subscribes (semantic_256k's generator) and SEM_COMPACT[1]
+    removes of earlier ones, then one `SemanticSegmentOwner` cycle (f32)
+    on the compaction thread; the next prepare adopts the packed arrays,
+    the semantic mirror equals host, and a `publish_batch` with embeddings
+    and rule payloads passes `sem_broker_publish`'s checks (its semantic
+    half against the twin outside tau)."""
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops import segments as G
+
+    sem, dev = broker.semantic, broker._device_router()
+    table = sem.table
+    n_add, n_rm = SEM_COMPACT
+    filters, vecs, ths = sem_broker_filters(rng, n_add)
+    e0, opts = table.epoch, SubOpts()
+    t0 = time.perf_counter()
+    for i, f in enumerate(filters):
+        sid = f"e{SEM_BROKER_N + i}"
+        broker.subscribe(sid, sid, f, opts, rec.sink(sid), embedding=vecs[i],
+                         sem_threshold=float(ths[i]))
+    efilt = {sid: f for f, subs in broker._subs.items() for sid in subs
+             if sid.startswith("e") and int(sid[1:]) < SEM_BROKER_N}
+    for sid in sorted(efilt)[:: max(1, len(efilt) // n_rm)][:n_rm]:
+        if not broker.unsubscribe(sid, efilt[sid]):
+            raise AssertionError(f"unsubscribe {sid} refused")
+    churn_s = time.perf_counter() - t0
+    folds = table.epoch - e0
+    owner = [o for o in dev.compaction_owners() if o.key == "semantic"][0]
+    state0 = {"hot_fill": table.hot_fill, "tombstones": table.packed_tombs + table.hot_tombs,
+              "live": table.live, "needs_compact": owner.needs_compact(),
+              "inline_folds": folds}
+    log = UploadLog()
+    try:
+        comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+        if state0["needs_compact"]:
+            cycles = run_compactor(comp, [owner])
+        else:
+            t0 = time.perf_counter()
+            comp.compact_now(owner)
+            cycles = [{"key": owner.key, "seconds": time.perf_counter() - t0}]
+        if comp.runs != 1 or comp.aborted:
+            raise AssertionError(f"compact_semantic: runs {comp.runs}, aborted {comp.aborted}")
+        adopt = adopting_prepare(torch, dev, log)
+        packed = ("sem_vec", "sem_fid", "sem_slot", "sem_thresh")
+        if any(k in packed for k in adopt["uploaded"]) \
+                or adopt["moves"]["semantic"]["full_resyncs"] != 1:
+            raise AssertionError(f"adopting prepare: {adopt['uploaded']}, {adopt['moves']}")
+        mirror = check_sem_mirror(torch, adopt["args"], table)
+    finally:
+        log.close()
+    traffic = [sem_broker_traffic(rng, BATCH)]
+    sync, launches = sem_broker_publish(torch, broker, rec, traffic, fired,
+                                        name="compact_semantic_publish")
+    COMPACT_LAUNCHES["compact_semantic"] = dict(launches)
+    return {"subscribed": n_add, "removed": n_rm, "churn_s": churn_s, "state_before": state0,
+            "cycles": cycles, "runs": comp.runs, "aborted": comp.aborted,
+            "merged": comp.metrics.get("router.compact.merged"),
+            "offer_upload": [{"s": t1 - t0, "arrays": n, "bytes": b}
+                             for t0, t1, n, b in log.offers],
+            "adopting_prepare_ms": adopt["prepare_ms"], "adopting_moves": adopt["moves"],
+            "adopting_uploads": adopt["uploaded"], "mirror_bytes_equal": mirror,
+            "status": sem.status(), "launches": dict(launches), "card": card_line()}
+
+
+def compact_session(torch, store, router, args, rng) -> dict:
+    """`compact_session` on session_1m's store: with ride A's acks in the
+    table as tombstones, the due (slot, pid) pairs are predicted from the
+    host lanes; one `SessionSegmentOwner` cycle (tombstone_frac
+    SESS_COMPACT_FRAC) rebuilds the 2^22-row table on the compaction
+    thread and uploads it; the next rider's sync adopts it (no lane
+    uploaded), its sweep lists exactly the predicted pairs' first
+    SESS_SWEEP rows of the rebuilt table with the predicted count, and
+    the mirror equals host."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.ops import segments as G
+
+    table = store.table
+    now, retry = store.now_ds(), store.retry_ds
+    due = table.due_rows(now, retry)
+    predicted = set(zip(table.sess_slot[due].tolist(), table.sess_pid[due].tolist()))
+    owner = store.compaction_owner(tombstone_frac=SESS_COMPACT_FRAC)
+    state0 = {"rows": table._cap, "live": table.live, "tombstones": table.tombstones,
+              "tombstone_share": table.tombstones / table._cap,
+              "needs_compact": owner.needs_compact(), "due": len(due)}
+    if not state0["needs_compact"]:
+        raise AssertionError(f"compact_session: the acks left {table.tombstones} tombstones")
+    log = UploadLog()
+    kernels.reset_launches()
+    try:
+        comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+        cycles = run_compactor(comp, [owner])
+        if comp.runs != 1 or comp.aborted or store.table.tombstones:
+            raise AssertionError(f"compact_session: runs {comp.runs}, aborted {comp.aborted}")
+        c0 = store.manager.counters()
+        log.take()
+        store.request_sweep()
+        ride = session_ride(torch, store, router, args, topic_batch_1m(rng, SESS_BATCH))
+        c1 = store.manager.counters()
+        uploaded = log.take()
+    finally:
+        log.close()
+    moves = {k: c1[k] - c0[k] for k in c1}
+    rows = ride["due"][ride["due"] >= 0]
+    got = set(zip(store.table.sess_slot[rows].tolist(), store.table.sess_pid[rows].tolist()))
+    if uploaded or moves["full_resyncs"] != 1 or ride["due_count"] != len(predicted) \
+            or not got <= predicted or len(rows) != min(SESS_SWEEP, len(predicted)):
+        raise AssertionError(f"compact_session: uploads {uploaded}, moves {moves}, due "
+                             f"{ride['due_count']} against {len(predicted)}")
+    launches = dict(kernels.LAUNCHES)
+    COMPACT_LAUNCHES["compact_session"] = launches
+    return {**state0, "tombstone_frac": SESS_COMPACT_FRAC, "cycles": cycles,
+            "runs": comp.runs, "aborted": comp.aborted,
+            "merged": comp.metrics.get("router.compact.merged"),
+            "offer_upload": [{"s": t1 - t0, "arrays": n, "bytes": b}
+                             for t0, t1, n, b in log.offers],
+            "rows_after": store.table._cap, "adopting_moves": moves, "adopting_uploads": uploaded,
+            "ride": {"due_count": ride["due_count"], "listed": int(len(rows)),
+                     "ms": ride["ms"]},
+            "mirror": check_session_mirror(torch, store), "launches": launches,
+            "card": card_line()}
+
+
+def snapshot_broker(torch, broker, rec, rng, sess_capture) -> dict:
+    """`snapshot_broker`: broker_1m's tables and session_1m's store (its
+    capture installed into a `SessionStore` attached to the broker)
+    through `SegmentStateSnapshot`: the capture and install callables are
+    the reference app's closures (emqx_tpu/app.py:660-700: router,
+    subscriber table, group table, the store's capture; the install drops
+    the device router). `save` writes a pickle beside the script (removed
+    after); `load` installs it into a broker shell (a shallow copy of the
+    broker: its registry, the session layer the app restores, is shared).
+    The restored tables are byte-identical, the shell's first prepare is
+    one full upload a mirror and the store's first sync one full upload,
+    and the same batches from the same round-robin bases deliver what the
+    original broker delivered (digests equal)."""
+    import copy
+    import os
+    import tempfile
+
+    from emqx_tpu_torch.broker.session_store import SessionStore
+    from emqx_tpu_torch.ops import segments as G
+
+    mono = [0.0]
+    clock = lambda: mono[0]  # noqa: E731 — the frozen store clock
+    store = SessionStore(capacity=64, sweep_slots=SESS_SWEEP, retry_interval=SESS_RETRY,
+                         clock=clock, device="cuda")
+    store.install(sess_capture)
+    store.manager.sync(store.table)
+    broker.session_store = store
+    shell = copy.copy(broker)
+    shell.session_store = SessionStore(capacity=64, sweep_slots=SESS_SWEEP,
+                                       retry_interval=SESS_RETRY, clock=clock, device="cuda")
+    shell._device = None
+
+    def capture():
+        return {"router": broker.router, "subtab": broker.subtab,
+                "grouptab": broker.grouptab,
+                "session_store": broker.session_store.capture()}
+
+    def install(state):
+        shell.router = state["router"]
+        shell.subtab = state["subtab"]
+        shell.grouptab = state["grouptab"]
+        shell.session_store.install(state["session_store"])
+        shell._device = None  # rebuilt on the next batch
+
+    def table_bytes(b, st):
+        out = {}
+        for name, src in (("shapes", b.router.index.shapes), ("nfa", b.router.index.nfa),
+                          ("subtab", b.subtab), ("groups", b.grouptab), ("sessions", st.table)):
+            for k, v in src.device_snapshot().items():
+                out[f"{name}.{k}"] = np.ascontiguousarray(v).tobytes()
+        return out
+
+    rr0 = ingest_rr_state(broker)
+    want_tables = table_bytes(broker, store)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".snapshot-") as td:
+        path = os.path.join(td, "segments.pkl")
+        gc.disable()  # the restore allocates millions of objects
+        try:
+            t0 = time.perf_counter()
+            meta = G.SegmentStateSnapshot(path, capture=capture).save()
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            G.SegmentStateSnapshot(path, capture=dict, install=install).load(meta)
+            load_s = time.perf_counter() - t0
+        finally:
+            # out of the collector's reach for the batches below: a full
+            # collection over both brokers' objects took 9.7 s of the
+            # first batch on the H100 host
+            gc.freeze()
+            gc.enable()
+    if shell.router is broker.router or shell.router._matcher is not None:
+        raise AssertionError("the shell did not take the restored router")
+    if table_bytes(shell, shell.session_store) != want_tables:
+        raise AssertionError("a restored table differs from the saved one")
+    sems = {"semantic_match": 2, "rule_masks": 1} if len(broker.semantic.table) else {}
+    batches = [topic_batch_1m(rng, BATCH) for _ in range(SNAPSHOT_BATCHES)]
+    launches = collections.Counter()
+    runs = {}
+    for name, b in (("original", broker), ("restored", shell)):
+        ingest_rr_restore(b, rr0)
+        timer = BrokerTimer(torch, b)
+        try:
+            dev = b._device_router()
+            first = None
+            if name == "restored":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dev.prepare()
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                st = dev.segment_status()
+                if any(c["delta_launches"] or c["array_resyncs"] or c["full_resyncs"] != 1
+                       for m, c in st.items() if m != "nfa"):
+                    raise AssertionError(f"the restored broker's first prepare: {st}")
+            digests, pubs = [], []
+            for k, topics in enumerate(batches):
+                got = []
+                pubs.append(broker_publish(torch, b, rec, timer, topics, 60 + k, got_out=got,
+                                           want_extra=sems))
+                launches.update(pubs[-1]["launches"])
+                digests.append(delivery_digest(got))
+        finally:
+            timer.remove(b)
+        runs[name] = {"digests": digests, "first_prepare_s": first,
+                      "publish_batch_ms": [p["publish_batch_ms"] for p in pubs],
+                      "deliveries": [p["deliveries"] for p in pubs]}
+    if runs["restored"]["digests"] != runs["original"]["digests"]:
+        raise AssertionError("the restored broker delivered differently")
+    c0 = shell.session_store.manager.counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shell.session_store.manager.sync(shell.session_store.table)
+    torch.cuda.synchronize()
+    sess_sync_s = time.perf_counter() - t0
+    c1 = shell.session_store.manager.counters()
+    if c1["full_resyncs"] - c0["full_resyncs"] != 1:
+        raise AssertionError(f"the restored store's first sync: {c0} -> {c1}")
+    mirror = check_session_mirror(torch, shell.session_store)
+    launches = dict(launches)
+    COMPACT_LAUNCHES["snapshot_broker"] = launches
+    broker.session_store = None
+    gc.unfreeze()
+    return {"save_s": save_s, "file_bytes": size, "load_s": load_s, "keys": meta["keys"],
+            "tables_equal": len(want_tables), "sessions": len(shell.session_store._slots),
+            "session_first_sync_s": sess_sync_s, "session_mirror": mirror, **{
+                f"{k}_{n}": v for n, r in runs.items() for k, v in r.items()},
+            "launches": launches, "card": card_line()}
+
+
+def mesh_compact_broker(torch, mesh, broker, rec, dev, batches, rr0, got_sync) -> dict:
+    """The mesh broker's compaction (in `mesh_broker_2x2`): MESH_COMPACT
+    subscribes on fresh filters no batch hits, then one shape and one CSR
+    cycle with `compact_now` on every rank at the same batch boundary (the
+    ranks hold the same host tables and compact their own copies; each
+    rank's CSR build uploads its own 'tp' shard); the next prepare adopts
+    them, every rank's mirror equals its block, and the same batches from
+    the same bases deliver what they delivered before the cycle."""
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.ops import segments as G
+
+    opts = SubOpts()
+    t0 = time.perf_counter()
+    for k in range(MESH_COMPACT):
+        sid = f"m{k}"
+        broker.subscribe(sid, sid, f"device/{k % BROKER_IDS}/+/{2000 + k}/#", opts,
+                         rec.sink(sid))
+    storm_s = time.perf_counter() - t0
+    owners = [o for o in dev.compaction_owners() if o.key in ("shapes", "bitmaps")]
+    comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+    log = UploadLog()
+    cycles = {}
+    try:
+        for o in owners:
+            need = o.needs_compact()
+            t0 = time.perf_counter()
+            if not comp.compact_now(o):
+                raise AssertionError(f"mesh compaction: the {o.key} cycle aborted")
+            cycles[o.key] = {"needed": need, "seconds": time.perf_counter() - t0}
+        if comp.metrics.get("mesh.shard.compact.runs") != 2:
+            raise AssertionError("mesh compaction: the owners carry no mesh placement")
+        adopt = adopting_prepare(torch, dev, log)
+        if any(k == "shape_tab" or k.startswith("csr_") for k in adopt["uploaded"]) \
+                or adopt["moves"]["shapes"]["full_resyncs"] != 1 \
+                or adopt["moves"]["bitmaps"]["full_resyncs"] != 1:
+            raise AssertionError(f"mesh adopting prepare: {adopt['uploaded']}, {adopt['moves']}")
+        mirrors = mesh_mirrors(torch, [(dev._shape_sync, broker.router.index.shapes),
+                                       (dev._bits_sync, broker.subtab)])
+    finally:
+        log.close()
+    ingest_rr_restore(broker, rr0)
+    timer = BrokerTimer(torch, broker)
+    launches = collections.Counter()
+    digests = []
+    try:
+        for b, topics in enumerate(batches):
+            got = []
+            pub = broker_publish(torch, broker, rec, timer, topics, b, got_out=got)
+            launches.update(pub["launches"])
+            digests.append(delivery_digest(got))
+    finally:
+        timer.remove(broker)
+    if digests != [delivery_digest(g) for g in got_sync]:
+        raise AssertionError(f"mesh compaction: digests {digests} after the cycle")
+    return {"storm": MESH_COMPACT, "storm_s": storm_s, "cycles": cycles, "runs": comp.runs,
+            "aborted": comp.aborted, "merged": comp.metrics.get("router.compact.merged"),
+            "offer_upload": [{"s": t1 - t0, "arrays": n, "bytes": b}
+                             for t0, t1, n, b in log.offers],
+            "adopting_prepare_ms": adopt["prepare_ms"], "adopting_moves": adopt["moves"],
+            "adopting_uploads": adopt["uploaded"], "mirrors": mirrors, "digests": digests,
+            "launches": dict(launches)}
 
 
 # -- the mesh paths (port of emqx_tpu/parallel/mesh.py) ---------------------------
@@ -7047,12 +7939,59 @@ def mesh_session(torch, mesh, st) -> dict:
     mirrors["tick"] = mesh_mirrors(torch, [(store.manager, store.table)])
     if sorted(sink.pids) != sorted(pids.tolist()) or metrics.get("session.sweep.host") != 1:
         raise AssertionError(f"mesh tick redelivered {len(sink.pids)} of {MESH_SESS_WAVE}")
-    return {"first_full_sync_s": full_s, "rank_mirror_bytes": rank_bytes,
+    compact = mesh_session_compact(torch, store, slots, pids)
+    mirrors["session_compact"] = compact.pop("mirrors")
+    return {"first_full_sync_s": full_s, "rank_mirror_bytes": rank_bytes, "compact": compact,
             "local_rows": int(arrays["sess_slot"].shape[0]), "table_rows": store.table._cap,
             "wave_rows": MESH_SESS_WAVE, "wave_sync_ms": wave_ms,
             "wave_scatter_launches": wave_scatters, "tick_ms": tick_ms,
             "tick_scatter_launches": tick_scatters, "redeliveries": len(sink.pids),
             "mirrors": mirrors, "manager": store.manager.counters()}
+
+
+def mesh_session_compact(torch, store, slots, pids) -> dict:
+    """mesh_session_2x2's compaction: the first MESH_SESS_ACKS rows of the
+    wave acked (tombstones, one delta), then one `SessionSegmentOwner`
+    cycle (tombstone_frac 0, as the reference's replay check) on every
+    rank with the store's 'dp' placement: its build uploads this rank's
+    block, the next sync adopts it (no lane uploaded), and the mirror
+    equals this rank's block of the rebuilt host lanes."""
+    from emqx_tpu_torch.broker.metrics import Metrics
+    from emqx_tpu_torch.ops import segments as G
+
+    for slot, pid in zip(slots[:MESH_SESS_ACKS].tolist(), pids[:MESH_SESS_ACKS].tolist()):
+        store.inflight_delete(slot, pid)
+    store.manager.sync(store.table)
+    owner = store.compaction_owner(tombstone_frac=0.0)
+    tombs = store.table.tombstones
+    comp = G.SegmentCompactor(metrics=Metrics(), interval_s=0.0)
+    log = UploadLog()
+    try:
+        t0 = time.perf_counter()
+        if not owner.needs_compact() or not comp.compact_now(owner):
+            raise AssertionError(f"mesh session cycle: {tombs} tombstones, aborted")
+        cycle_s = time.perf_counter() - t0
+        c0 = store.manager.counters()
+        log.take()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.manager.sync(store.table)
+        torch.cuda.synchronize()
+        adopt_ms = 1e3 * (time.perf_counter() - t0)
+        c1 = store.manager.counters()
+        uploaded = log.take()
+    finally:
+        log.close()
+    moves = {k: c1[k] - c0[k] for k in c1}
+    if uploaded or moves["full_resyncs"] != 1 or store.table.tombstones \
+            or comp.metrics.get("mesh.shard.compact.runs") != 1:
+        raise AssertionError(f"mesh session cycle: uploads {uploaded}, moves {moves}")
+    return {"acked": MESH_SESS_ACKS, "tombstones": tombs, "cycle_s": cycle_s,
+            "offer_upload": [{"s": t1 - t0, "arrays": n, "bytes": b}
+                             for t0, t1, n, b in log.offers],
+            "adopting_sync_ms": adopt_ms, "adopting_moves": moves,
+            "merged": comp.metrics.get("router.compact.merged"),
+            "mirrors": mesh_mirrors(torch, [(store.manager, store.table)])}
 
 
 def rank_mesh_broker(mesh, st) -> dict:
@@ -7120,6 +8059,10 @@ def rank_mesh_broker(mesh, st) -> dict:
         launches.update(run["launches"])
     if lead:
         phase("mesh_ingest_broker_2x2", depths=ingest, peak_rss_mb=peak_rss_mb())
+    cmp_ = mesh_compact_broker(torch, mesh, broker, rec, dev, batches, rr0, got_sync)
+    if lead:
+        phase("mesh_compact_broker_2x2", **{k: v for k, v in cmp_.items() if k != "mirrors"},
+              card=card_line(), peak_rss_mb=peak_rss_mb())
     sess = mesh_session(torch, mesh, st)
     launches["segment_scatter"] += sess["wave_scatter_launches"] + sess["tick_scatter_launches"]
     if lead:
@@ -7127,9 +8070,11 @@ def rank_mesh_broker(mesh, st) -> dict:
               peak_rss_mb=peak_rss_mb())
     return {"rank": mesh.rank, "launches": dict(launches), "digests": digests,
             "ingest_digests": {d: r["digests"] for d, r in ingest.items()},
+            "compact_digests": cmp_["digests"], "compact_launches": cmp_["launches"],
             "redeliveries": sess["redeliveries"], "peak_rss_mb": peak_rss_mb(),
             "collectives_per_batch": published[-1]["collectives"],
-            "mirrors": {"publish": dev.segment_status(), **sess["mirrors"]},
+            "mirrors": {"publish": dev.segment_status(), "compact": cmp_["mirrors"],
+                        **sess["mirrors"]},
             "ingest": {d: {k: v for k, v in r.items() if k != "digests"}
                        for d, r in ingest.items()},
             "session": {k: v for k, v in sess.items() if k != "mirrors"}}
@@ -7267,10 +8212,12 @@ def mesh_main(backend: str, n_gpu: int, wait: bool = False) -> int:
                        timeout=MESH_TIMEOUT["broker"], state=broker_state)
     mesh_check_ranks("mesh_broker_2x2", ranks)
     for r in ranks[1:]:
-        for key in ("digests", "ingest_digests", "redeliveries"):
+        for key in ("digests", "ingest_digests", "redeliveries", "compact_digests"):
             if r[key] != ranks[0][key]:
                 raise AssertionError(f"mesh_broker_2x2: rank {r['rank']}'s {key} differ")
     out["broker"] = {"digests": [r["digests"] for r in ranks], "launches": ranks[0]["launches"],
+                     "compact_digests": [r["compact_digests"] for r in ranks],
+                     "compact_launches": ranks[0]["compact_launches"],
                      "peak_rss_mb": [r["peak_rss_mb"] for r in ranks],
                      "seconds": time.perf_counter() - t0}
     phase("mesh_broker_seconds", seconds=time.perf_counter() - t0,
@@ -7284,7 +8231,7 @@ def mesh_start(torch):
     """Start the mesh paths' process (`python3 chip_smoke.py --mesh BACKEND
     GPUS`: a process that has used CUDA cannot fork ranks that use it). It
     builds its host tables while this process runs the earlier paths, then
-    waits for `mesh_finish`. 4 ranks on NCCL with four GPUs or more, else
+    waits for `mesh_ask`. 4 ranks on NCCL with four GPUs or more, else
     4 gloo ranks sharing cuda:0. -> (process, backend)."""
     import os
 
@@ -7309,31 +8256,52 @@ def mesh_kill(proc) -> None:
     proc.wait()
 
 
-def mesh_finish(torch, proc) -> dict:
-    """Phases 34-37: let the mesh process run its paths, relay its lines,
-    -> the `mesh_report` it printed. Raises when it fails or outlives
-    MESH_DEADLINE (then it is killed with its ranks)."""
+def mesh_ask(torch, proc) -> dict:
+    """Phases 34-37, first half: let the mesh process run its paths now,
+    its lines collected by a reader thread (so a full pipe never stalls
+    it) while this process goes on with host-only work (broker_1m's
+    subscribe loop: the card is the mesh ranks' meanwhile). -> the handle
+    `mesh_join` takes."""
     import threading
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     watchdog = threading.Timer(MESH_DEADLINE, mesh_kill, (proc,))
     watchdog.start()
-    report = None
-    try:
-        proc.stdin.write(f"go {time.time()}\n")  # the time of the ask, for the overlap
-        proc.stdin.close()
+    lines = []
+
+    def read():
         for line in proc.stdout:
-            if line.startswith('{"mesh_report"'):
-                report = json.loads(line)["mesh_report"]
-                continue
-            print(line, end="", flush=True)
+            lines.append(line)
+
+    reader = threading.Thread(target=read, name="mesh-lines")
+    proc.stdin.write(f"go {time.time()}\n")  # the time of the ask, for the overlap
+    proc.stdin.close()
+    reader.start()
+    return {"proc": proc, "watchdog": watchdog, "reader": reader, "lines": lines,
+            "asked": time.perf_counter()}
+
+
+def mesh_join(asked) -> dict:
+    """Second half: wait for the mesh process, relay its lines, -> the
+    `mesh_report` it printed. Raises when it fails or outlives
+    MESH_DEADLINE (then it is killed with its ranks)."""
+    proc = asked["proc"]
+    try:
+        asked["reader"].join()
         rc = proc.wait()
     finally:
-        watchdog.cancel()
+        asked["watchdog"].cancel()
         mesh_kill(proc)
+    report = None
+    for line in asked["lines"]:
+        if line.startswith('{"mesh_report"'):
+            report = json.loads(line)["mesh_report"]
+            continue
+        print(line, end="", flush=True)
     if rc != 0 or report is None:
         raise AssertionError(f"the mesh paths failed (exit code {rc})")
+    report["joined_after_s"] = time.perf_counter() - asked["asked"]
     return report
 
 
@@ -7409,7 +8377,7 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sess_report, sess_launches = session_path(torch, rng, router_1m)
+    sess_report, sess_launches, sess_capture = session_path(torch, rng, router_1m)
     phase("session_seconds", seconds=time.perf_counter() - t0)
     # and the session path's one
     report["session_sweep"] = {**sess_report["session_sweep"],
@@ -7431,8 +8399,11 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     # the broker's publish path and the NFA-only step: their kernels' cases
     # at these paths' shapes join the entries
     t0 = time.perf_counter()
-    broker_report, broker_launches, broker_digests = broker_path(torch,
-                                                                 np.random.default_rng(SEED))
+    # the mesh paths run while broker_1m's subscribe loop (host work only)
+    # builds its broker
+    broker_report, broker_launches, broker_digests, mesh = broker_path(
+        torch, np.random.default_rng(SEED), sess_capture, mesh_proc)
+    del sess_capture
     phase("broker_seconds", seconds=time.perf_counter() - t0)
     for case in broker_report.values():
         report[case["name"]]["broker_1m"] = {**case, "launches": broker_launches[case["name"]]}
@@ -7450,10 +8421,8 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     # the mesh paths: occurrence_index (with its totals, the round-robin
     # branch's group counts), compact_fanout_slots and share_pick gain their
     # mesh cases (totals, lane base, rank offsets)
-    t0 = time.perf_counter()
-    mesh = mesh_finish(torch, mesh_proc)
-    phase("mesh_paths_seconds", seconds=time.perf_counter() - t0, backend=mesh["backend"],
-          reduced=mesh["reduced"])
+    phase("mesh_paths_seconds", seconds=mesh["joined_after_s"], backend=mesh["backend"],
+          reduced=mesh["reduced"], beside="broker_1m's subscribe loop")
     share_mesh, launches_share = mesh["share"]["report"], mesh["share"]["launches"]
     report["occurrence_index"]["mesh"] = {**share_mesh["occurrence_index/mesh_totals"],
                                           "launches": launches_share["occurrence_index"]}
@@ -7473,6 +8442,17 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     for name, n in mb["launches"].items():
         if n:
             report[name]["mesh_broker_launches"] = n
+    # ... and after its shape and CSR cycle on every rank
+    if any(d != broker_digests for d in mb["compact_digests"]):
+        raise AssertionError(f"mesh_compact_broker_2x2: digests {mb['compact_digests']} "
+                             f"against broker_1m's {broker_digests}")
+    phase("mesh_compact_broker_digests", ranks=len(mb["compact_digests"]),
+          batches=len(broker_digests), equal_to_broker_1m=True)
+    # the compaction and snapshot phases' launches, each kernel's by phase
+    COMPACT_LAUNCHES["mesh_compact_broker_2x2"] = mb["compact_launches"]
+    for case in report.values():
+        case["compact_launches"] = {ph: n[case["name"]] for ph, n in COMPACT_LAUNCHES.items()
+                                    if n.get(case["name"])}
     # the two composites this slice ports: route_step's bound per batch (the
     # sum of its kernels' bounds) beside dist_step's on a rank
     phase("composite_bounds_nfa", route_step_ms=plus_bound,

@@ -18,7 +18,12 @@ through a lazy match-only `DeviceRouter` on `device`, and falls back to
 `parallel.mesh.Mesh`, set beside `Broker.mesh` before the first device
 match) hands the mesh to that router: its match tables then sit whole on
 the rank's device and each rank matches on its own, with no collective.
-Not ported: pickling (segment-state snapshots, ROADMAP item 13).
+
+A `Router` pickles (segment-state snapshots,
+`ops.segments.SegmentStateSnapshot`) without its lazy matcher, which holds
+tensors, and without its mesh, which holds a process group: a restored
+router rebuilds its matcher on its own `device` at first use, and the
+restoring process attaches its own mesh.
 """
 
 from __future__ import annotations
@@ -55,6 +60,16 @@ class Router:
         # this rank of a ('dp', 'tp') mesh, set beside `Broker.mesh`: the
         # lazy match-only router is built on it
         self.mesh = None
+
+    def __getstate__(self):
+        # segment-state snapshots pickle the router; the lazy
+        # DeviceRouter holds tensors and is rebuilt on first use after a
+        # restore. The mesh holds a process group (unpicklable by
+        # design): the restoring process attaches its OWN mesh.
+        d = self.__dict__.copy()
+        d["_matcher"] = None
+        d["mesh"] = None
+        return d
 
     def __len__(self) -> int:
         return len(self._exact) + len(self._trie)

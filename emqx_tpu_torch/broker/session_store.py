@@ -34,10 +34,15 @@ inflight rows), its device mirror (a `DeviceSegmentManager` named
   (`DeviceRouter.supports_session_fusion`), so the store's sweep is
   `tick(fused_path=False)`: the host sweep plus the manager's own scatter.
 
+- **compaction**: `compaction_owner()` is the table's
+  `ops.session_table.SessionSegmentOwner` for the one
+  `ops.segments.SegmentCompactor`: acked (tombstoned) rows are purged off
+  the serving path, and on a mesh the rebuilt lanes upload as this rank's
+  'dp' block.
+
 Threading: every mutator runs on the event loop (single writer);
 `route_prepared` on the broker's dispatch pool only reads the rider's
-immutable arrays, so at most one rider is outstanding. Not in the port
-yet: `compaction_owner` (background compaction, ROADMAP item 13).
+immutable arrays, so at most one rider is outstanding.
 """
 
 from __future__ import annotations
@@ -560,7 +565,20 @@ class SessionStore:
         if self.on_expired is not None and cids:
             self.on_expired(cids)
 
-    # -- durability --------------------------------------------------------
+    # -- compaction + durability -------------------------------------------
+    def compaction_owner(self, tombstone_frac: float = 0.25):
+        """The session table's owner on the segment compactor
+        (emqx_tpu/broker/session_store.py:555), uploading with the
+        mirror's placement (this rank's 'dp' block on a mesh)."""
+        from emqx_tpu_torch.ops.session_table import SessionSegmentOwner
+
+        return SessionSegmentOwner(
+            self.table,
+            self.manager,
+            placement=self.manager.placement,
+            tombstone_frac=tombstone_frac,
+        )
+
     def capture(self) -> Dict:
         """Loop-thread checkpoint for `SegmentStateSnapshot` — the whole
         store as plain numpy + lists (mnesia disc_copies analog)."""

@@ -30,6 +30,12 @@ mirror replays only the writes it owns.
 `session_state_from_reference` carries a reference session store's capture
 across: the port's store installs it and redelivers what the reference's
 would.
+`segment_state_from_reference` carries a reference segment-state
+snapshot across (the reference app's `segments.pkl`: its router,
+subscriber table, group table and session store capture): a restricted
+unpickler maps each reference class onto the port's copy, refuses every
+other class, and hands the session capture to
+`session_state_from_reference`.
 `semantic_state_from_reference` does the same for a reference
 `SemanticRouting`: its live entries, slot registry and default threshold
 become a port `SemanticRouting` whose table is the packed layout the
@@ -44,6 +50,8 @@ absent.
 
 from __future__ import annotations
 
+import io
+import pickle
 from typing import Dict
 
 import numpy as np
@@ -104,10 +112,31 @@ def _as_device_type(arr: np.ndarray, name: str) -> np.ndarray:
     return arr
 
 
-def _to_device(arr: np.ndarray, name: str, device) -> torch.Tensor:
+def _to_device(arr: np.ndarray, name: str, device, chunk_bytes: int = 0) -> torch.Tensor:
     """One host array -> a fresh tensor on `device` (always a copy: the
-    host builders mutate their arrays in place)."""
-    t = torch.from_numpy(_as_device_type(arr, name)).to(device, copy=True)
+    host builders mutate their arrays in place). With `chunk_bytes`, a
+    card copy is staged through two pinned buffers of that size: a piece
+    is copied into one while the other's asynchronous copy runs on the
+    current stream, which is waited for at the end."""
+    src = torch.from_numpy(_as_device_type(arr, name))
+    if chunk_bytes and device.type == "cuda" and src.nbytes > chunk_bytes:
+        t = torch.empty(src.shape, dtype=src.dtype, device=device)
+        step = max(1, chunk_bytes // src.element_size())
+        flat_s, flat_d = src.view(-1), t.view(-1)
+        stream = torch.cuda.current_stream(device)
+        bufs = [torch.empty(step, dtype=src.dtype, pin_memory=True) for _ in range(2)]
+        done = [None, None]
+        for i, a in enumerate(range(0, flat_s.numel(), step)):
+            n, b = min(step, flat_s.numel() - a), i % 2
+            if done[b] is not None:
+                done[b].synchronize()  # the copy that read this buffer is over
+            bufs[b][:n].copy_(flat_s[a:a + n])
+            flat_d[a:a + n].copy_(bufs[b][:n], non_blocking=True)
+            done[b] = torch.cuda.Event()
+            done[b].record(stream)
+        stream.synchronize()
+    else:
+        t = src.to(device, copy=True)
     return t.view(torch.bfloat16) if np.asarray(arr).dtype == BF16 else t
 
 
@@ -174,15 +203,18 @@ class Block(Replicated):
 
 
 def upload(snapshot: Dict[str, np.ndarray], device="cuda",
-           placement=None) -> Dict[str, torch.Tensor]:
+           placement=None, chunk_bytes: int = 0) -> Dict[str, torch.Tensor]:
     """{name: host array} -> {name: fresh tensor on `device`} of the same
     bits: int32 for the int32 and uint32 arrays, uint8 for byte arrays,
     float32 for float32 lanes, bfloat16 for `BF16` arrays. With a
     `placement` each tensor holds this rank's part of its array (`Block`),
-    or all of it (`Replicated`, the default)."""
+    or all of it (`Replicated`, the default). `chunk_bytes` > 0: copies to
+    a card are staged through pinned buffers of that size (a background
+    upload's copies are then asynchronous DMA, not pageable copies that
+    other threads' copies queue behind)."""
     dev = resolve_device(device)
     place = placement.place if placement is not None else (lambda _k, v: v)
-    return {k: _to_device(place(k, v), k, dev) for k, v in snapshot.items()}
+    return {k: _to_device(place(k, v), k, dev, chunk_bytes) for k, v in snapshot.items()}
 
 
 def tables_to_device(
@@ -298,3 +330,118 @@ def semantic_state_from_reference(entries, by_slot: Dict, default_threshold: flo
     routing._by_slot = {int(s): (str(sid), scope, float(th))
                         for s, (sid, scope, th) in by_slot.items()}
     return routing
+
+
+# reference class -> the port's copy of it, for `segment_state_from_reference`
+_REFERENCE_CLASSES = {
+    ("emqx_tpu.broker.router", "Router"): ("emqx_tpu_torch.broker.router", "Router"),
+    ("emqx_tpu.broker.trie", "TopicTrie"): ("emqx_tpu_torch.broker.trie", "TopicTrie"),
+    ("emqx_tpu.broker.trie", "_Node"): ("emqx_tpu_torch.broker.trie", "_Node"),
+    ("emqx_tpu.ops.route_index", "RouteIndex"): ("emqx_tpu_torch.ops.route_index", "RouteIndex"),
+    ("emqx_tpu.ops.shape_index", "ShapeIndex"): ("emqx_tpu_torch.ops.shape_index", "ShapeIndex"),
+    ("emqx_tpu.ops.nfa", "NfaBuilder"): ("emqx_tpu_torch.ops.nfa", "NfaBuilder"),
+    ("emqx_tpu.ops.matcher", "MatcherConfig"): ("emqx_tpu_torch.ops.matcher", "MatcherConfig"),
+    ("emqx_tpu.ops.csr_table", "CsrTable"): ("emqx_tpu_torch.ops.csr_table", "CsrTable"),
+    ("emqx_tpu.models.router_model", "SubscriberTable"):
+        ("emqx_tpu_torch.models.router_model", "SubscriberTable"),
+    ("emqx_tpu.models.router_model", "GroupTable"):
+        ("emqx_tpu_torch.models.router_model", "GroupTable"),
+    ("emqx_tpu.ops.session_table", "SessionTable"):
+        ("emqx_tpu_torch.ops.session_table", "SessionTable"),
+}
+# what numpy pickles its arrays, scalars and dtypes through
+_NUMPY_GLOBALS = {
+    (mod, name)
+    for core in ("numpy.core", "numpy._core")
+    for mod, name in ((f"{core}.multiarray", "_reconstruct"), (f"{core}.multiarray", "scalar"),
+                      (f"{core}.numeric", "_frombuffer"))
+} | {("numpy", "ndarray"), ("numpy", "dtype")}
+_MESSAGE_CLASSES = {("emqx_tpu.broker.message", "Message"),
+                    ("emqx_tpu.broker.message", "SlabMessage")}
+
+
+class _ReferenceMessage:
+    """A reference message's pickled fields, read by attribute
+    (`session_state_from_reference` turns it into a port `Message`). A
+    slab message pickles its owned topic and payload as ``_topic`` and
+    ``_payload``."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+    def __getattr__(self, name):
+        if name in ("topic", "payload"):
+            return self.__dict__[f"_{name}"]
+        raise AttributeError(name)
+
+
+def _bound_method(obj, name: str):
+    """``getattr`` as a pickled bound method uses it (a `CsrTable`'s
+    op-log callbacks are its `SubscriberTable`'s methods), allowed only
+    for a method of a mapped class."""
+    mapped = {v for v in _REFERENCE_CLASSES.values()}
+    cls = type(obj)
+    if (cls.__module__, cls.__qualname__) not in mapped or name.startswith("__") \
+            or not callable(getattr(cls, name, None)):
+        raise pickle.UnpicklingError(f"refused getattr({cls.__qualname__}, {name!r})")
+    return getattr(obj, name)
+
+
+class _ReferenceUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        import importlib
+
+        if (module, name) in _REFERENCE_CLASSES:
+            mod, cls = _REFERENCE_CLASSES[(module, name)]
+            return getattr(importlib.import_module(mod), cls)
+        if (module, name) in _MESSAGE_CLASSES:
+            return _ReferenceMessage
+        if (module, name) in _NUMPY_GLOBALS:
+            return getattr(importlib.import_module(module), name)
+        if (module, name) == ("builtins", "getattr"):
+            return _bound_method
+        raise pickle.UnpicklingError(f"refused class {module}.{name}")
+
+
+def segment_state_from_reference(state, device="cuda") -> Dict:
+    """A reference segment-state snapshot (what the reference app's
+    `_cap_segments` captures, emqx_tpu/app.py:660-681) -> the port's, for
+    an install into a port broker.
+
+    `state`: the snapshot file's path, its bytes, or the captured dict
+    itself (its objects are pickled here as the reference pickles them).
+    A restricted unpickler maps the reference's `Router`, `TopicTrie`,
+    `RouteIndex`, `ShapeIndex`, `NfaBuilder`, `MatcherConfig`,
+    `SubscriberTable`, `CsrTable`, `GroupTable` and `SessionTable` onto the
+    port's copies (whose host arrays and registries are the reference's,
+    bit for bit), reads messages as plain records, and refuses any other
+    class. The router's matcher and mesh come back None (as the reference
+    pickles them) and its `device` is `device`; a ``session_store`` capture
+    goes through `session_state_from_reference`. Nothing of the reference
+    package is imported."""
+    import dataclasses
+
+    from emqx_tpu_torch.ops.matcher import MatcherConfig
+
+    if isinstance(state, dict):
+        data = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+    elif isinstance(state, (bytes, bytearray, memoryview)):
+        data = bytes(state)
+    else:
+        with open(state, "rb") as f:
+            data = f.read()
+    got = _ReferenceUnpickler(io.BytesIO(data)).load()
+    if not isinstance(got, dict):
+        raise TypeError(f"a segment snapshot is a dict, got {type(got).__name__}")
+    out = dict(got)
+    router = out.get("router")
+    if router is not None:
+        router._matcher = None
+        router.mesh = None
+        router.device = device
+        cfg = router._matcher_config
+        router._matcher_config = MatcherConfig(**{
+            f.name: getattr(cfg, f.name) for f in dataclasses.fields(MatcherConfig)})
+    if out.get("session_store") is not None:
+        out["session_store"] = session_state_from_reference(out["session_store"])
+    return out

@@ -50,8 +50,11 @@ compaction with a lane base, the round-robin picks with the lower dp
 ranks' group counts), and assembles the global result from one
 all-gather (`_route_mesh`, `_readback_mesh`).
 
-Not in the port yet: background compaction (`CsrSegmentOwner`,
-`SemanticSegmentOwner`).
+Background compaction: `DeviceRouter.compaction_owners()` hands the
+`ops.segments.SegmentCompactor` one owner per table it can merge (shapes,
+the CSR table or the dense matrix's growth, the semantic table); each
+rebuild is uploaded off the serving path and adopted by the next
+`prepare()`.
 """
 
 from __future__ import annotations
@@ -1568,6 +1571,72 @@ class DeviceRouter:
         if self.semtab is not None:
             mirrors.append(self._sem_sync)
         return {m.name: m.counters() for m in mirrors}
+
+    def compaction_owners(self, hot_entries: int = 1024,
+                          tombstone_frac: float = 0.25) -> list:
+        """Adapters the background `ops.segments.SegmentCompactor` drives
+        (emqx_tpu/models/router_model.py:1807; the defaults are the
+        reference's `router.compact_*` settings): merge the shape hot
+        segment into the packed table; for the subscriber table, merge a
+        CSR table's hot segment and tombstones, or grow a dense matrix
+        ahead of need; and merge a semantic table's. Each builds and
+        uploads on the compaction thread and is applied on the loop, so
+        the subscribe path never pays an O(table) rebuild or a full
+        upload. On a mesh each owner uploads this rank's part: the shape
+        table whole, the CSR and semantic shards over 'tp'."""
+        from emqx_tpu_torch.ops.csr_table import CsrSegmentOwner
+        from emqx_tpu_torch.ops.segments import BitmapGrowthOwner, ShapeSegmentOwner
+        from emqx_tpu_torch.ops.semantic_table import SemanticSegmentOwner
+
+        owners = [
+            ShapeSegmentOwner(
+                self.index.shapes,
+                self._shape_sync,
+                placement=self._shape_sync.placement,
+                hot_entries=hot_entries,
+                tombstone_frac=tombstone_frac,
+            )
+        ]
+        if self.subtab is not None and self.subtab.sparse:
+            placement = None
+            if self.mesh is not None:
+                from emqx_tpu_torch.parallel.mesh import csr_placement
+
+                placement = csr_placement(self.mesh)
+            owners.append(
+                CsrSegmentOwner(
+                    self.subtab,
+                    self._bits_sync,
+                    placement=placement,
+                    hot_entries=hot_entries,
+                    tombstone_frac=tombstone_frac,
+                )
+            )
+        elif self.subtab is not None:
+            owners.append(
+                BitmapGrowthOwner(
+                    self.subtab,
+                    self.index,
+                    self._bits_sync,
+                    placement=self._bits_sync.placement,
+                )
+            )
+        if self.semtab is not None:
+            sem_place = None
+            if self.mesh is not None:
+                from emqx_tpu_torch.parallel.mesh import semantic_placement
+
+                sem_place = semantic_placement(self.mesh)
+            owners.append(
+                SemanticSegmentOwner(
+                    self.semtab,
+                    self._sem_sync,
+                    placement=sem_place,
+                    hot_entries=hot_entries,
+                    tombstone_frac=tombstone_frac,
+                )
+            )
+        return owners
 
     def route(self, topics, client_hashes=None, embeds=None, rules=None) -> RouteResult:
         """Batch route: returns a host-side `RouteResult` (all numpy).

@@ -34,8 +34,11 @@ ever stored (the JAX program materialises the [B, E] similarities and a
 [B, E] membership mask: 8.6 GB and 2.1 GB at B = 8,192, E = 2^18).
 
 The broker binds subscriptions into this table through `SemanticRouting`
-(`broker/semantic.py`). Not in the port yet: `SemanticSegmentOwner` and
-the table's compaction cycle (ROADMAP item 13).
+(`broker/semantic.py`). `SemanticSegmentOwner` drives the table's
+compaction cycle (`begin_compact` / `build_compact` / `apply_compact`) on
+`ops.segments.SegmentCompactor`: the packed segment is rebuilt and
+uploaded off the subscribe path (a bf16 table's vectors as their bf16
+bits), and the next prepare adopts it.
 """
 
 from __future__ import annotations
@@ -306,12 +309,13 @@ def semantic_route_stage(sem: Dict[str, torch.Tensor], q_vecs, matched, topk: in
 class SemanticTable:
     """Host-side embedding-filter registry + its device mirror source
     (epoch/oplog/version protocol, docs/update_path.md): the port's copy of
-    `SemanticTable` (emqx_tpu/ops/semantic_table.py:202), single device
-    (``shards`` entries' owner axis: an entry is owned by shard ``slot %
-    shards``, the mesh's 'tp' rank of that index holds it), without the
-    compaction cycle (`begin_compact`, `build_compact`, `apply_compact`;
-    ROADMAP item 13): a hot segment past `HOT_ABSORB_MAX` folds inline by
-    `_rebuild`. `_journal` stays None until that cycle is ported.
+    `SemanticTable` (emqx_tpu/ops/semantic_table.py:202) (``shards``
+    entries' owner axis: an entry is owned by shard ``slot % shards``, the
+    mesh's 'tp' rank of that index holds it), with its compaction cycle
+    (`begin_compact`, `build_compact`, `apply_compact`): mutations that
+    race a build are journaled and replayed by the apply. With no
+    compactor draining it, a hot segment past `HOT_ABSORB_MAX` folds
+    inline by `_rebuild`.
 
     One entry per subscriber slot: ``slot`` is the broker's fan-out
     slot (`Broker._slot_subs`), so a semantic hit IS an ordinary slot
@@ -669,3 +673,91 @@ class SemanticTable:
         self.live = built["n"]
         self._reg = dict(built["reg"])
 
+    # -- background compaction (ops/segments.SegmentCompactor cycle) -------
+    def begin_compact(self) -> Dict:
+        cap = {
+            "entries": self._live_tuples(),
+            "shards": self.shards,
+            "dim": self.dim,
+            "gen": self._structure_gen,
+        }
+        self._journal = []
+        return cap
+
+    @staticmethod
+    def build_compact(cap: Dict) -> Dict:
+        built = SemanticTable._build(
+            cap["entries"], cap["shards"], cap["dim"]
+        )
+        built["gen"] = cap["gen"]
+        return built
+
+    def apply_compact(self, built: Dict) -> bool:
+        """Install a built table (loop thread) + replay the journal of
+        mutations that raced the build. False = capture invalidated by
+        a structural rebuild (the cycle aborts cleanly)."""
+        if self._journal is None or built["gen"] != self._structure_gen:
+            self._journal = None
+            return False
+        journal, self._journal = self._journal, None
+        self._structure_gen += 1
+        self._install(built)
+        self._bump()
+        for op, slot, v, th, fid in journal:
+            if op == "add":
+                self.add(slot, v, th, fid)
+            else:
+                self.remove(slot)
+        return True
+
+
+class SemanticSegmentOwner:
+    """Compaction adapter for a `SemanticTable` + its segment manager:
+    merge ``packed - tombstones + hot`` into a fresh exact-size table off
+    the subscribe path, uploading the packed arrays on the compaction
+    thread (`ops.segments.SegmentCompactor` drives the cycle). The port's
+    copy of emqx_tpu/ops/semantic_table.py:602; a bf16 table's vectors
+    upload as their bf16 bits (`convert.to_bf16`), the mirror's type."""
+
+    key = "semantic"
+
+    def __init__(self, semtab: SemanticTable, manager, placement=None,
+                 hot_entries: int = 1024, tombstone_frac: float = 0.25):
+        self.semtab = semtab
+        self.manager = manager
+        self._placement = placement
+        self.hot_entries = hot_entries
+        self.tombstone_frac = tombstone_frac
+
+    def needs_compact(self) -> bool:
+        t = self.semtab
+        if t.hot_fill >= self.hot_entries:
+            return True
+        tombs = t.packed_tombs + t.hot_tombs
+        return tombs > 0 and tombs >= self.tombstone_frac * max(1, t.live)
+
+    def begin(self):
+        return self.semtab.begin_compact()
+
+    def build(self, cap):
+        from emqx_tpu_torch.ops.segments import upload_offer
+
+        built = SemanticTable.build_compact(cap)
+        # upload the packed arrays on THIS (executor) thread: the built
+        # table is immutable, so the upload is race-free
+        arrays = {name: built[name] for name in ("sem_vec", "sem_fid", "sem_slot",
+                                                 "sem_thresh")}
+        if self.semtab.dtype == "bfloat16":
+            arrays["sem_vec"] = to_bf16(arrays["sem_vec"])
+        built["dev"] = upload_offer(arrays, self.manager.device, self._placement)
+        return built
+
+    def apply(self, built):
+        from emqx_tpu_torch.ops.segments import fresh_offer
+
+        merged = self.semtab.hot_fill
+        epoch0 = self.semtab.epoch
+        if not self.semtab.apply_compact(built):
+            return None
+        epoch = self.semtab.epoch
+        return epoch, fresh_offer(built["dev"], epoch, epoch0), 0, merged

@@ -29,9 +29,10 @@ Row lanes (all int32):
 Session lanes (indexed by slot; grown alone via the `!resync` marker):
   ``slot_expiry`` session-expiry deadline in deciseconds (0 = none)
 
-Not in the port yet: `SessionSegmentOwner`, the background compaction
-adapter (its compactor is not ported); the table's compaction journal
-methods are here because `insert` and `clear` write the journal.
+`SessionSegmentOwner` drives the table's compaction cycle on
+`ops.segments.SegmentCompactor`: acked (tombstoned) rows are purged by a
+rebuild off the serving path, uploaded there (this rank's 'dp' block on a
+mesh), and the next sync adopts it.
 """
 
 from __future__ import annotations
@@ -646,3 +647,47 @@ class SessionTable:
             elif op == "expiry":
                 self.set_expiry(slot, ts)
         return self.epoch
+
+
+class SessionSegmentOwner:
+    """Compaction adapter for a `SessionTable` + its manager: purge
+    tombstoned (acked) rows off the critical path, uploading the rebuilt
+    table on the compaction thread — the `ShapeSegmentOwner` contract,
+    fourth owner on the one `SegmentCompactor`. The port's copy of
+    emqx_tpu/ops/session_table.py:564."""
+
+    key = "sessions"
+
+    def __init__(self, table: SessionTable, manager, placement=None,
+                 tombstone_frac: float = 0.25):
+        self.table = table
+        self.manager = manager
+        self._placement = placement
+        self.tombstone_frac = tombstone_frac
+
+    def needs_compact(self) -> bool:
+        t = self.table
+        return t.tombstones > 0 and (
+            t.tombstones >= self.tombstone_frac * t._cap
+        )
+
+    def begin(self):
+        return self.table.begin_compact()
+
+    def build(self, cap):
+        from emqx_tpu_torch.ops.segments import upload_offer
+
+        built = SessionTable.build_compact(cap)
+        built["devs"] = upload_offer(built["table"].device_snapshot(), self.manager.device,
+                                     self._placement)
+        return built
+
+    def apply(self, built):
+        from emqx_tpu_torch.ops.segments import fresh_offer
+
+        merged = self.table.tombstones
+        epoch0 = self.table.epoch
+        epoch = self.table.apply_compact(built)
+        if epoch is None:
+            return None
+        return epoch, fresh_offer(built["devs"], epoch, epoch0), 0, merged

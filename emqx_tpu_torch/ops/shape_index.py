@@ -26,9 +26,10 @@ a 2^-64 combined-hash collision) fall back to the residual NFA engine —
 correctness never depends on the shape heuristic.
 
 Host-side updates follow the same delta-overlay protocol as NfaBuilder
-(epoch / oplog / device_snapshot; see ops/nfa.py). The port's device
-mirror does not replay the op-log yet: `DeviceRouter.prepare` re-uploads
-the table set when the version moves.
+(epoch / oplog / device_snapshot; see ops/nfa.py): the router's device
+mirror (`ops.segments.DeviceSegmentManager`) replays the op-log suffix as
+one `segment_scatter` launch, and uploads in full only when the epoch
+moves.
 
 Update-path segmentation (docs/update_path.md): the PACKED table
 (`arr_table`) is written only by rebuilds — cold bulk loads and
@@ -39,10 +40,10 @@ one device scatter, never an O(table) rehash; unsubscribes of packed
 entries set a bit in a **tombstone mask** (`arr_tomb`) instead of
 touching the row. The device kernel matches against
 ``packed ∪ hot − tombstones`` in the same single launch, and a
-background compaction (`SegmentCompactor` in the JAX package; not ported
-yet) periodically merges the hot segment into a rebuilt packed table off
-the critical path, replaying the mutations that raced the build from a
-journal.
+background compaction (`ops.segments.SegmentCompactor` with
+`ShapeSegmentOwner`) periodically merges the hot segment into a rebuilt
+packed table off the critical path, replaying the mutations that raced
+the build from a journal.
 """
 
 from __future__ import annotations
