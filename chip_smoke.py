@@ -267,6 +267,43 @@ subscriber id):
 31. `kernel` for tokenize, shape_match, sparse_fanout_slots,
     occurrence_index and share_pick (round_robin) at broker_1m's shapes,
     each against its twin (their `broker_1m` cases in the kernels line);
+31a. the retained feed and the degrade ladder on the same broker, after
+    `broker_launches`, the heap frozen, the injector's metrics on the
+    broker's (`feed_ladder_broker`): `feed_broker`: retained_5m's storm
+    over the retained path's churned store (about 5.3M topics in 6 chunks
+    of 2^20 x 64 bytes, handed over by `retained_path`) submitted to a
+    `RetainedStormFeed(window_s=30)` and answered by one B = 8192 batch
+    through `adispatch_begin` at depth 1: every filter's topics equal to a
+    standalone `match_many` of the storm, the deliveries equal to the same
+    batch's without a storm (from the same round-robin bases),
+    `retained.storm.fused` 1 and `flushed` 0, one storm launch train a
+    chunk beside the route half; the fused batch's time beside the bare
+    batch's and the standalone storm's. `flush_broker`: the same storm
+    with no publish (window 10 ms): one standalone flush answers it, the
+    topics equal, `flushed` 1. `retainer_broker`: a port `Retainer(
+    enable_device=True, device_threshold=10,000)` holding 65,536 retained
+    messages (`reduced` says why) on the broker's hooks with a feed on its
+    device index: 256 `session.subscribed` calls with stub channels (255
+    storm filters, one past max_levels that walks the trie), one batch:
+    each channel's retained deliveries equal the host oracle over
+    `Retainer.topics()`, each marked retained. These three (and every
+    phase after the fault phases) count no degraded batch, no injected
+    fault, no rollback, and every row they route on the device.
+    `degrade_broker`: `DegradeController(max_retries=2, open_secs=0.5)`,
+    `device.launch` raising: 2 full batches through `BatchIngest` at
+    pipeline 1 with a 64-filter storm pending: 2 retries, 1 trip, 3
+    injected faults, both batches from the CPU path (the second with no
+    device attempt), plain deliveries equal the healthy run's and each
+    matched group delivering each message once, the storm's waiters
+    answered with the CPU-fallback signal and the storm on no retry; the
+    fault disarmed and the dwell out, a probe batch launches the kernels,
+    closes the breaker and delivers as the healthy batch did; then the
+    synchronous gate (`device.readback` on `publish_batch`) the same way;
+    each CPU-fallback batch's time beside the device batch's.
+    `rollback_broker`: 16 fresh subscriptions, `router.delta_sync` armed
+    `raise` then `corrupt`: the batch delivers as before the subscribes
+    (`router.sync.rollback` 1), the next batch, disarmed, delivers to the
+    fresh subscriptions; mirrors equal to the host tables after;
 31b. the semantic plane and the rule engine on the same broker, which
     `broker_build` made with an empty `SemanticRouting(dim=384, topk=16,
     threshold=0.90)` and a `RuleEngine` whose device plane is attached
@@ -412,7 +449,9 @@ a four-GPU host (no kernels line, no last line):
 40. one JSON line {"kernels": [...]}: the fifteen kernels, each with its
     launches on its path (the seven of mixed_10m there; the CSR gather,
     the picks (round_robin) and the occurrence index on share_10m_csr;
-    row_lengths and narrow_i16 on retained_5m; session_sweep on
+    row_lengths and narrow_i16 on retained_5m, with
+    `broker_1m_storm_launches` (theirs, tokenize's and shape_match's) from
+    the broker batches that carried a storm; session_sweep on
     session_1m, the direct rides' and the broker phases'; semantic_match (f32 table) and rule_masks on
     semantic_256k, with `broker_1m_launches` from the broker's semantic
     phases; the `mesh` cases of occurrence_index (with the totals
@@ -2564,7 +2603,8 @@ def retained_kinds(torch, chunks, tables, kw, scatter_call, wide):
 
 def retained_path(torch, rng):
     """Phases 15-18: the retained replay storm at BASELINE config 5.
-    -> (kernel report, launches on the path, the mixed_1m router it built)."""
+    -> (kernel report, launches on the path, the mixed_1m router it built,
+    the churned store, which broker_1m's feed phases ride)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.models.retained_index import (
         CHUNK,
@@ -2824,7 +2864,7 @@ def retained_path(torch, rng):
                                               "hits": int((got >= 0).sum())}
     report = kernel_report(torch, kinds, plain_reps=RET_PLAIN_REPS)
     phase("kernel_inputs_retained", **inputs)
-    return report, launches, router
+    return report, launches, router, index
 
 
 # -- the session_1m path -----------------------------------------------------
@@ -4512,6 +4552,9 @@ class OverlapProbe:
         del self.dev._readback
         self.torch.cuda.synchronize()
         rows = sorted(self.rows, key=lambda r: r[0])  # in launch order
+        if not rows:  # every batch served from the CPU (degrade_broker)
+            return {"routed_batches": 0, "launch_before_prev_readback_end": 0,
+                    "launch_before_prev_readback_end_host": 0}
         ref = rows[0][1]
         start = [ref.elapsed_time(r[1]) for r in rows]
         end = [ref.elapsed_time(r[2]) for r in rows]
@@ -4536,12 +4579,14 @@ def ingest_rr_restore(broker, state) -> None:
         broker.grouptab.set_rr(broker.grouptab.gid_of(real, gname), v)
 
 
-def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None) -> dict:
+def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None, feed=None,
+                 filters=()) -> dict:
     """`topics` (or the messages `msgs`) from concurrent `apublish` tasks
     through a running `BatchIngest(broker, max_batch=INGEST_MAX_BATCH,
-    pipeline=pipeline)`, the launch counters zeroed before and read after.
-    -> the run's deliveries [(message index, subscriber)], its schedule
-    and figures."""
+    pipeline=pipeline)`, with `filters` submitted to `feed` first, the
+    launch counters zeroed before and read after. -> the run's deliveries
+    [(message index, subscriber)], its schedule, its figures and each
+    filter's answer."""
     import asyncio
 
     from emqx_tpu_torch import kernels
@@ -4563,6 +4608,7 @@ def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None) -> dict:
     gc0 = [g["collections"] for g in gc.get_stats()]
 
     async def run():
+        futs = [feed.submit(f) for f in filters]
         ing = BatchIngest(broker, max_batch=INGEST_MAX_BATCH, pipeline=pipeline)
         broker.ingest = ing
         ing.start()
@@ -4571,13 +4617,13 @@ def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None) -> dict:
         wall = time.perf_counter() - t0
         await ing.stop()
         broker.ingest = None
-        return counts, wall
+        return counts, wall, await asyncio.gather(*futs)
 
     try:
         kernels.reset_launches()
         torch.cuda.synchronize()
         with TraceCollector() as tc:
-            counts, wall = asyncio.run(run())
+            counts, wall, answers = asyncio.run(run())
         torch.cuda.synchronize()
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     finally:
@@ -4592,8 +4638,13 @@ def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None) -> dict:
     settle = np.asarray(raw["ingest.settle.seconds"]) * 1e3
     idle = np.asarray(raw["ingest.device.idle.seconds"]) * 1e3
     sizes = raw["ingest.batch.size"]
+
+    def p50_ms(name):  # None where no batch reached the stage
+        return 1e3 * float(np.median(raw[name])) if raw[name] else None
+
     return {
         "deliveries": [(index[id(msg)], sid) for msg, sid in rec.log],
+        "answers": answers,
         "schedule": sched,
         "figures": {
             "pipeline": pipeline, "messages": len(msgs), "batches": len(sizes),
@@ -4605,9 +4656,8 @@ def ingest_drive(torch, broker, rec, topics, pipeline: int, msgs=None) -> dict:
             "device_idle": {"gaps": len(idle), "total_ms": float(idle.sum()),
                             "p50_ms": float(np.percentile(idle, 50)) if len(idle) else None,
                             "max_ms": float(idle.max()) if len(idle) else None},
-            "prepare_p50_ms": 1e3 * float(np.median(raw["profile.stage.prepare.seconds"])),
-            "host_dispatch_p50_ms": 1e3 * float(np.median(
-                raw["profile.stage.host_dispatch.seconds"])),
+            "prepare_p50_ms": p50_ms("profile.stage.prepare.seconds"),
+            "host_dispatch_p50_ms": p50_ms("profile.stage.host_dispatch.seconds"),
             "launches": launches,
             "gc_collections_by_generation": gc_runs,
         },
@@ -4844,7 +4894,7 @@ def delivery_digest(got) -> str:
     return hashlib.sha256(repr(pairs).encode()).hexdigest()
 
 
-def broker_path(torch, rng, sess_capture=None, mesh_proc=None):
+def broker_path(torch, rng, sess_capture=None, mesh_proc=None, ret_index=None):
     """broker_1m: BASELINE config 3 loaded through `Broker.subscribe`, with
     100 $share groups, published through `publish_batch`; its background
     compaction (`compact_broker`) and, with `sess_capture` (session_1m's
@@ -4853,7 +4903,9 @@ def broker_path(torch, rng, sess_capture=None, mesh_proc=None):
     work) builds the broker, and are joined before the first prepare. ->
     (the path's kernel cases, its launches, the `delivery_digest`s of its
     first ROUTE_BATCHES batches, which the mesh broker must reproduce, and
-    the mesh report or None)."""
+    the mesh report or None, the launches of its storm-carrying batches).
+    With `ret_index` (the retained path's churned store) the retained feed
+    and the degrade ladder run on the broker (`feed_ladder_broker`)."""
     from emqx_tpu_torch import kernels
     from emqx_tpu_torch.broker.message import Message
     from emqx_tpu_torch.mqtt.packet import SubOpts
@@ -5026,6 +5078,11 @@ def broker_path(torch, rng, sess_capture=None, mesh_proc=None):
     phase("kernel_inputs_broker", **inputs)
     phase("broker_launches", launches=dict(launches))
 
+    # the retained feed and the degrade ladder on this broker
+    storm_launches, fault_after = {}, None
+    if ret_index is not None:
+        storm_launches, fault_after = feed_ladder_broker(torch, broker, rec, ret_index)
+
     # the shape and CSR tables' background compaction
     phase("compact_broker", **compact_broker(torch, broker, rec, rng))
 
@@ -5037,10 +5094,596 @@ def broker_path(torch, rng, sess_capture=None, mesh_proc=None):
           launches=dict(sem_launches))
     if sess_capture is not None:
         phase("snapshot_broker", **snapshot_broker(torch, broker, rec, rng, sess_capture))
+    if fault_after is not None and fault_series(broker) != {
+            **fault_after, "messages.routed.device": broker.metrics.get(
+                "messages.routed.device")}:
+        # no phase after the fault phases degraded a batch or met a fault
+        raise AssertionError(f"broker_1m after the fault phases: {fault_series(broker)} "
+                             f"against {fault_after}")
     del broker, rec, dev, timer
     gc.collect()
     torch.cuda.empty_cache()
-    return report, dict(launches), digests, mesh
+    return report, dict(launches), digests, mesh, storm_launches
+
+
+# -- the broker_1m retained feed and degrade ladder phases -----------------------
+
+FEED_WINDOW_S = 30.0  # past the phase: only a device batch can answer the storm
+FLUSH_WINDOW_S = 0.01  # flush_broker: the standalone flush's window
+RETAINER_N = 1 << 16  # retainer_broker: retained messages in the port's Retainer
+RETAINER_THRESHOLD = 10_000
+RETAINER_REDUCED = [
+    "retained messages 65,536 (+16 deep topics) of retained_5m's 5,000,000 in the "
+    "Retainer: its Python trie at 5M would cost minutes of host inserts; feed_broker "
+    "and flush_broker ride the full 5.3M-topic store"]
+RETAINER_DEEP = 16  # deep/1/2/3/4/5/6/{k}: 8 levels, under a 9-level filter
+DEGRADE_OPEN_S = 0.5
+DEGRADE_BATCHES = 2  # full batches through BatchIngest while launches fail
+LADDER_STORM = 64  # storm filters pending while the launches fail
+ROLLBACK_SUBS = 16  # fresh subscriptions each rollback round
+FAULT_SERIES = ("degrade.retries", "degrade.fallback.batches", "degrade.trips.device",
+                "degrade.probe.ok", "degrade.probe.fail", "faults.injected",
+                "router.sync.rollback", "messages.routed.device")
+
+
+class NoTimer:
+    """`broker_publish`'s timer once `BrokerTimer` is off: no spans."""
+
+    def take(self) -> dict:
+        return {}
+
+
+class Chan:
+    """A stub channel: each retained delivery's (topic, retained mark)."""
+
+    def __init__(self):
+        self.got = []
+
+    def handle_deliver(self, msg, _opts):
+        self.got.append((msg.topic, msg.headers.get("retained")))
+
+
+def broker_msgs(topics, tag: str) -> list:
+    from emqx_tpu_torch.broker.message import Message
+
+    return [Message(topic=t, payload=b"%d" % k, from_client=f"pub{tag}")
+            for k, t in enumerate(topics)]
+
+
+def per_message(rec, msgs) -> list:
+    """The recorded deliveries -> each message's recipients, in order."""
+    pos = {id(m): k for k, m in enumerate(msgs)}
+    got = [[] for _ in msgs]
+    for m, sid in rec.log:
+        got[pos[id(m)]].append(sid)
+    return got
+
+
+def as_pairs(got) -> list:
+    return [(k, sid) for k, sids in enumerate(got) for sid in sids]
+
+
+def fault_series(broker) -> dict:
+    return {k: broker.metrics.get(k) for k in FAULT_SERIES}
+
+
+def series_moved(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def healthy_series(what: str, moved: dict, rows: int) -> dict:
+    """A phase without a fault: no degraded batch, no injected fault, no
+    rollback, and every row it routed on the device."""
+    want = {k: 0 for k in FAULT_SERIES}
+    want["messages.routed.device"] = rows
+    if moved != want:
+        raise AssertionError(f"{what}: {moved}, expected {want}")
+    return moved
+
+
+def timed_batch(torch, broker, rec, msgs, feed=None, filters=(), sync=False) -> tuple:
+    """One batch, the launch counters zeroed before and read after: through
+    `adispatch_begin` and `complete()` (depth 1), with `filters` submitted
+    to `feed` just before it, or (`sync`) through `publish_batch`. -> (each
+    message's recipients, the batch's ms, its launches, each filter's
+    answer)."""
+    import asyncio
+
+    from emqx_tpu_torch import kernels
+
+    async def run():
+        futs = [feed.submit(f) for f in filters]
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sync:
+            counts = broker.publish_batch(msgs)
+        else:
+            counts = await broker.adispatch_begin(msgs).complete()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        return counts, ms, launches, await asyncio.gather(*futs)
+
+    rec.log.clear()
+    counts, ms, launches, answers = asyncio.run(run())
+    total = counts if sync else sum(counts)  # publish_batch returns the total
+    if total != len(rec.log):
+        raise AssertionError(f"{total} counted, {len(rec.log)} deliveries recorded")
+    return per_message(rec, msgs), ms, launches, answers
+
+
+def ladder_ingest(torch, broker, rec, msgs, feed=None, filters=()) -> tuple:
+    """`ingest_drive` at pipeline 1 over `msgs` (full batches, each settled
+    before the next launches). -> (deliveries [(message index,
+    subscriber)], the run's ms, its launches, each filter's answer)."""
+    run = ingest_drive(torch, broker, rec, None, 1, msgs=msgs, feed=feed, filters=filters)
+    fig = run["figures"]
+    return run["deliveries"], 1e3 * fig["wall_s"], fig["launches"], run["answers"]
+
+
+def storm_topics(index, rows) -> list:
+    return sorted(index.topic_at(int(r)) for r in rows)
+
+
+def storm_launch_want(chunks: int) -> dict:
+    """A B-row broker_1m batch carrying a storm over `chunks` chunks: one
+    storm launch train a chunk beside the route half's launches."""
+    return {"row_lengths": chunks, "narrow_i16": chunks, "tokenize": 1 + chunks,
+            "shape_match": 1 + chunks, "sparse_fanout_slots": 1, "share_pick": 2,
+            "occurrence_index": 3}
+
+
+def feed_broker(torch, broker, rec, rng, index) -> tuple:
+    """retained_5m's storm (the churned 5.3M-topic store of the retained
+    path) submitted to a `RetainedStormFeed` on broker_1m's broker and
+    answered by one B = 8192 batch through `adispatch_begin`: every
+    filter's topics equal to a standalone `match_many` of the storm, the
+    batch's deliveries equal to the same batch's without a storm (from the
+    same round-robin bases), `retained.storm.fused` 1. -> (record, the
+    fused batch's launches)."""
+    from emqx_tpu_torch.broker.retained_feed import RetainedStormFeed
+
+    storm = [f"site/+/dev/{d}/ch/#" for d in range(RET_STORM)]
+    topics = topic_batch_1m(rng, BATCH)
+    dev = broker._device_router()
+    dev.prepare()
+    rr0 = ingest_rr_state(broker)
+    s0 = fault_series(broker)
+    m = broker.metrics
+    c0 = {k: m.get(f"retained.storm.{k}") for k in ("filters", "fused", "flushed")}
+    bare, bare_ms, bare_launches, _ = timed_batch(torch, broker, rec, broker_msgs(topics, "f"))
+    ingest_rr_restore(broker, rr0)
+    feed = RetainedStormFeed(index, metrics=m, window_s=FEED_WINDOW_S)
+    broker.retained_feed = feed
+    try:
+        fused, fused_ms, launches, answers = timed_batch(
+            torch, broker, rec, broker_msgs(topics, "f"), feed, storm)
+    finally:
+        broker.retained_feed = None
+    moved = healthy_series("feed_broker", series_moved(s0, fault_series(broker)), 2 * BATCH)
+    counts = {k: m.get(f"retained.storm.{k}") - c0[k] for k in c0}
+    if counts != {"filters": RET_STORM, "fused": 1, "flushed": 0}:
+        raise AssertionError(f"feed_broker: storm counters {counts}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    alone = index.match_many(storm)
+    alone_ms = 1e3 * (time.perf_counter() - t0)
+    pairs = 0
+    for f, got in zip(storm, answers):
+        want = storm_topics(index, alone[f])
+        if got is None or sorted(got) != want:
+            raise AssertionError(f"feed_broker {f}: the fused storm's topics differ from "
+                                 "match_many's")
+        pairs += len(want)
+    if delivery_digest(fused) != delivery_digest(bare):
+        raise AssertionError("feed_broker: the fused batch delivered otherwise than the bare one")
+    chunks = len(index._host_b)
+    want = storm_launch_want(chunks)
+    if any(launches.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"feed_broker: launches {launches}, expected {want}")
+    return {"filters": RET_STORM, "pairs": pairs, "chunks": chunks, "topics": len(index),
+            "bucket": index.bucket, "storm_counters": counts, "series": moved,
+            "digest": delivery_digest(fused), "fused_publish_ms": fused_ms,
+            "bare_publish_ms": bare_ms, "standalone_match_many_ms": alone_ms,
+            "launches": launches, "bare_launches": bare_launches}, \
+        {k: launches[k] for k in ("row_lengths", "narrow_i16", "tokenize", "shape_match")}
+
+
+def flush_broker(torch, broker, index) -> dict:
+    """The same storm with no publish: the feed's window (10 ms) elapses
+    and one standalone pass answers every filter (the chunk sync on the
+    loop thread, the launches and readback on the dispatch pool): the
+    topics equal to `match_many`'s, `retained.storm.flushed` 1."""
+    import asyncio
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.retained_feed import RetainedStormFeed
+
+    storm = [f"site/+/dev/{d}/ch/#" for d in range(RET_STORM)]
+    m = broker.metrics
+    s0 = fault_series(broker)
+    c0 = {k: m.get(f"retained.storm.{k}") for k in ("filters", "fused", "flushed")}
+    feed = RetainedStormFeed(index, metrics=m, window_s=FLUSH_WINDOW_S)
+    broker.retained_feed = feed
+
+    async def run():
+        t0 = time.perf_counter()
+        answers = await asyncio.gather(*[feed.submit(f) for f in storm])
+        return answers, 1e3 * (time.perf_counter() - t0)
+
+    kernels.reset_launches()
+    try:
+        answers, ms = asyncio.run(run())
+    finally:
+        broker.retained_feed = None
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    moved = healthy_series("flush_broker", series_moved(s0, fault_series(broker)), 0)
+    counts = {k: m.get(f"retained.storm.{k}") - c0[k] for k in c0}
+    if counts != {"filters": RET_STORM, "fused": 0, "flushed": 1}:
+        raise AssertionError(f"flush_broker: storm counters {counts}")
+    alone = index.match_many(storm)
+    for f, got in zip(storm, answers):
+        if got is None or sorted(got) != storm_topics(index, alone[f]):
+            raise AssertionError(f"flush_broker {f}: the flushed topics differ from match_many's")
+    chunks = len(index._host_b)
+    want = {"row_lengths": chunks, "narrow_i16": chunks, "tokenize": chunks,
+            "shape_match": chunks}
+    if launches != want:
+        raise AssertionError(f"flush_broker: launches {launches}, expected {want}")
+    return {"filters": RET_STORM, "window_s": FLUSH_WINDOW_S, "storm_counters": counts,
+            "series": moved, "submit_to_answer_ms": ms, "launches": launches}
+
+
+class RetainedWords:
+    """A host oracle over the stored topics (`Retainer.topics()`): a
+    filter's matches are the topics `topics.match` accepts among those
+    that carry its rarest literal word at its position."""
+
+    def __init__(self, topics):
+        self.topics = topics
+        self.at = collections.defaultdict(list)
+        for t in topics:
+            for pos, w in enumerate(t.split("/")):
+                self.at[(pos, w)].append(t)
+
+    def match(self, filter_: str) -> list:
+        from emqx_tpu_torch.ops import topics as T
+
+        lit = [(pos, w) for pos, w in enumerate(filter_.split("/")) if w not in ("+", "#")]
+        cands = min((self.at.get(k, []) for k in lit), key=len) if lit else self.topics
+        return sorted(t for t in cands if T.match(t, filter_))
+
+
+def retainer_broker(torch, broker, rec, rng) -> tuple:
+    """A port `Retainer(enable_device=True, device_threshold=10,000)` with
+    65,536 retained messages of retained_5m's topics (and 16 deep ones),
+    attached to broker_1m's hooks with a feed on its device index: 256
+    `session.subscribed` hook calls (255 storm filters and one filter past
+    max_levels, which takes the trie walk), then one broker_1m batch that
+    carries the storm. Each channel's retained deliveries equal the host
+    oracle over `Retainer.topics()`, each marked retained. -> (record, the
+    batch's launches)."""
+    import asyncio
+
+    from emqx_tpu_torch import kernels
+    from emqx_tpu_torch.broker.message import Message
+    from emqx_tpu_torch.broker.retained_feed import RetainedStormFeed
+    from emqx_tpu_torch.broker.retainer import Retainer
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+
+    t0 = time.perf_counter()
+    retainer = Retainer(enable_device=True, device_threshold=RETAINER_THRESHOLD)
+    stored = retained_topics(range(RETAINER_N)) + \
+        [f"deep/1/2/3/4/5/6/{k}" for k in range(RETAINER_DEEP)]
+    retainer.load(Message(topic=t, payload=b"r%d" % k, retain=True)
+                  for k, t in enumerate(stored))
+    load_s = time.perf_counter() - t0
+    index = retainer._device
+    if len(retainer) != len(stored) or len(index) != len(stored) or retainer._device_unfit:
+        raise AssertionError(f"retainer: {len(retainer)} stored, {len(index)} on the device")
+    filters = [f"site/{s}/#" for s in range(128)] + \
+        [f"site/{s}/dev/+/ch/+" for s in range(128, 192)] + \
+        [f"site/+/dev/{d}/ch/#" for d in range(63)]
+    deep = "deep/1/2/3/4/5/+/+/#"  # 9 levels: past max_levels, the trie walk
+    feed = RetainedStormFeed(index, metrics=broker.metrics, window_s=FEED_WINDOW_S)
+    retainer.storm_feed = feed
+    if not all(retainer._storm_eligible(f) for f in filters) or retainer._storm_eligible(deep):
+        raise AssertionError("retainer: the storm filters' eligibility is not as planned")
+    hooks = broker.hooks
+    saved = {k: list(v) for k, v in hooks._table.items()}
+    m = broker.metrics
+    s0 = fault_series(broker)
+    c0 = {k: m.get(f"retained.storm.{k}") for k in ("filters", "fused", "flushed")}
+    msgs = broker_msgs(topic_batch_1m(rng, BATCH), "r")
+    chans = {f: Chan() for f in filters + [deep]}
+
+    async def run():
+        for f, ch in chans.items():
+            await hooks.arun("session.subscribed", {}, f, SubOpts(), ch)
+        for _ in range(1000):  # the replay tasks submit to the feed
+            if len(feed) == len(filters):
+                break
+            await asyncio.sleep(0)
+        pending = len(feed)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts = await broker.adispatch_begin(msgs).complete()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for _ in range(2000):  # the replay tasks deliver
+            if all(ch.got for ch in chans.values()):
+                break
+            await asyncio.sleep(0.005)
+        return pending, counts, ms, launches
+
+    broker.retained_feed = feed
+    retainer.attach(hooks)
+    rec.log.clear()
+    try:
+        pending, counts, ms, launches = asyncio.run(run())
+    finally:
+        hooks._table.clear()
+        hooks._table.update(saved)
+        broker.retained_feed = None
+    if sum(counts) != len(rec.log):
+        raise AssertionError(f"retainer_broker: {sum(counts)} counted, {len(rec.log)} recorded")
+    moved = healthy_series("retainer_broker", series_moved(s0, fault_series(broker)), BATCH)
+    storm_counts = {k: m.get(f"retained.storm.{k}") - c0[k] for k in c0}
+    if pending != len(filters) or storm_counts != {"filters": len(filters), "fused": 1,
+                                                     "flushed": 0}:
+        raise AssertionError(f"retainer_broker: {pending} pending, counters {storm_counts}")
+    want = storm_launch_want(1)
+    if any(launches.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"retainer_broker: launches {launches}, expected {want}")
+    oracle = RetainedWords(retainer.topics())
+    deliveries = 0
+    for f, ch in chans.items():
+        got = sorted(ch.got)
+        if got != [(t, True) for t in oracle.match(f)] or not got:
+            raise AssertionError(f"retainer_broker {f}: {len(got)} deliveries against the "
+                                 "oracle's")
+        deliveries += len(got)
+    return {"retained": len(retainer), "device_threshold": RETAINER_THRESHOLD,
+            "load_seconds": load_s, "subscribes": len(chans), "storm_filters": len(filters),
+            "trie_walk_filter": deep, "retained_deliveries": deliveries,
+            "storm_counters": storm_counts, "series": moved, "batch_publish_ms": ms,
+            "launches": launches, "reduced": RETAINER_REDUCED}, \
+        {k: launches[k] for k in ("row_lengths", "narrow_i16", "tokenize", "shape_match")}
+
+
+def degrade_broker(torch, broker, rec, rng, index) -> dict:
+    """`DegradeController(max_retries=2, open_secs=0.5)` on broker_1m, the
+    `device.launch` fault armed: 2 full batches through `BatchIngest` at
+    pipeline 1, a 64-filter storm pending on the feed: batch 1 fails its
+    launch and 2 bare retries and is served from the CPU (the breaker
+    trips), batch 2 makes no device attempt; plain deliveries equal the
+    healthy run's, each matched group delivers each message once, the
+    storm's waiters get the CPU-fallback signal and the storm rides no
+    retry. Disarmed, the dwell out, one probe batch: the kernels launch,
+    the breaker closes, the deliveries are the healthy batch's. Then the
+    synchronous gate with `device.readback` on `publish_batch`."""
+    from emqx_tpu_torch.broker.degrade import CLOSED, OPEN, DegradeController
+    from emqx_tpu_torch.broker.retained_feed import RetainedStormFeed
+    from emqx_tpu_torch.observe import faults
+
+    m = broker.metrics
+    inj = faults.default_faults
+    deg = DegradeController(metrics=m, max_retries=2, open_secs=DEGRADE_OPEN_S, seed=SEED)
+    topics = topic_batch_1m(rng, DEGRADE_BATCHES * BATCH)
+    dev = broker._device_router()
+    dev.prepare()
+    rr0 = ingest_rr_state(broker)
+    s0 = fault_series(broker)
+    healthy, healthy_ms, healthy_launches, _ = ladder_ingest(
+        torch, broker, rec, broker_msgs(topics, "d"))
+    healthy_series("degrade_broker (healthy)", series_moved(s0, fault_series(broker)),
+                   DEGRADE_BATCHES * BATCH)
+    if healthy_launches.get("tokenize") != DEGRADE_BATCHES:
+        raise AssertionError(f"degrade_broker healthy launches {healthy_launches}")
+    out = {"healthy": {"batches": DEGRADE_BATCHES, "ms": healthy_ms,
+                       "ms_per_batch": healthy_ms / DEGRADE_BATCHES,
+                       "launches": healthy_launches}}
+
+    # the ladder: every launch raises
+    broker.degrade = deg
+    ingest_rr_restore(broker, rr0)
+    feed = RetainedStormFeed(index, metrics=m, window_s=FEED_WINDOW_S)
+    broker.retained_feed = feed
+    calls, cpu_ms = [], []
+    real_route, real_cpu = dev.route_prepared, broker._dispatch_cpu_batch
+
+    def spy(args, topics_, client_hashes=None, retained=None, *a, **k):
+        calls.append(retained is not None)
+        return real_route(args, topics_, client_hashes, retained, *a, **k)
+
+    def timed_cpu(msgs_):
+        t0 = time.perf_counter()
+        res = real_cpu(msgs_)
+        cpu_ms.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    dev.route_prepared, broker._dispatch_cpu_batch = spy, timed_cpu
+    s0 = fault_series(broker)
+    inj.arm("device.launch", mode="raise")
+    try:
+        got, ms, launches, answers = ladder_ingest(
+            torch, broker, rec, broker_msgs(topics, "d"), feed,
+            [f"site/+/dev/{d}/ch/#" for d in range(LADDER_STORM)])
+    finally:
+        inj.disarm()
+        del dev.route_prepared, broker._dispatch_cpu_batch
+        broker.retained_feed = None
+    moved = series_moved(s0, fault_series(broker))
+    want = {"degrade.retries": 2, "degrade.fallback.batches": DEGRADE_BATCHES,
+            "degrade.trips.device": 1, "degrade.probe.ok": 0, "degrade.probe.fail": 0,
+            "faults.injected": 3, "router.sync.rollback": 0, "messages.routed.device": 0}
+    if moved != want or deg.device.trips != 1 or deg.device.state != OPEN:
+        raise AssertionError(f"degrade_broker: {moved} ({deg.device.state}), expected {want}")
+    # the prepares' group-table deltas scatter (the bases put back); no
+    # route kernel launches: every launch raised at its fault site first
+    if calls != [True, False, False] or set(launches) - {"segment_scatter"} or \
+            any(a is not None for a in answers):
+        raise AssertionError(f"degrade_broker: route_prepared calls {calls} (storm-carrying "
+                             f"True), launches {launches}, storm answers "
+                             f"{sorted(set(map(type, answers)), key=str)}")
+    if len(cpu_ms) != DEGRADE_BATCHES:
+        raise AssertionError(f"degrade_broker: {len(cpu_ms)} CPU batches")
+    check = ingest_check("degrade_broker", got, healthy, members=False)
+    out["ladder"] = {"series": moved, "route_prepared_calls": calls,
+                     "storm_filters": LADDER_STORM, "storm_answers_fallback": len(answers),
+                     "ms": ms, "cpu_batch_ms": cpu_ms, **check}
+
+    # the probe: disarmed, the dwell out, one batch re-closes the breaker
+    time.sleep(DEGRADE_OPEN_S + 0.05)
+    ingest_rr_restore(broker, rr0)
+    s0 = fault_series(broker)
+    probe, probe_ms, probe_launches, _ = ladder_ingest(
+        torch, broker, rec, broker_msgs(topics[:BATCH], "d"))
+    moved = series_moved(s0, fault_series(broker))
+    if deg.device.state != CLOSED or moved["degrade.probe.ok"] != 1 or \
+            moved["messages.routed.device"] != BATCH or moved["faults.injected"]:
+        raise AssertionError(f"degrade_broker probe: {moved} ({deg.device.state})")
+    if any(probe_launches.get(k) != v for k, v in
+           {"tokenize": 1, "shape_match": 1, "sparse_fanout_slots": 1}.items()):
+        raise AssertionError(f"degrade_broker probe launches {probe_launches}")
+    if sorted(probe) != sorted(p for p in healthy if p[0] < BATCH):
+        raise AssertionError("degrade_broker: the probe batch delivered otherwise than "
+                             "the healthy batch")
+    out["probe"] = {"series": moved, "ms": probe_ms, "launches": probe_launches,
+                    "state": deg.device.state, "digest_equal": True}
+
+    # the synchronous gate: `device.readback` on publish_batch
+    ingest_rr_restore(broker, rr0)
+    sync_ok, sync_ms, _l, _a = timed_batch(torch, broker, rec,
+                                           broker_msgs(topics[:BATCH], "s"), sync=True)
+    ingest_rr_restore(broker, rr0)
+    s0 = fault_series(broker)
+    inj.arm("device.readback", mode="raise")
+    try:
+        sync_bad, bad_ms, bad_launches, _a = timed_batch(
+            torch, broker, rec, broker_msgs(topics[:BATCH], "s"), sync=True)
+    finally:
+        inj.disarm()
+    moved = series_moved(s0, fault_series(broker))
+    if (moved["degrade.fallback.batches"], moved["faults.injected"],
+            moved["degrade.trips.device"], moved["messages.routed.device"]) != (1, 1, 1, 0) \
+            or deg.device.state != OPEN:
+        raise AssertionError(f"degrade_broker sync: {moved} ({deg.device.state})")
+    sync_check = ingest_check("degrade_broker sync", as_pairs(sync_bad), as_pairs(sync_ok),
+                              members=False)
+    time.sleep(DEGRADE_OPEN_S + 0.05)
+    ingest_rr_restore(broker, rr0)
+    s1 = fault_series(broker)
+    sync_probe, sync_probe_ms, sync_probe_launches, _a = timed_batch(
+        torch, broker, rec, broker_msgs(topics[:BATCH], "s"), sync=True)
+    moved_probe = series_moved(s1, fault_series(broker))
+    if deg.device.state != CLOSED or moved_probe["degrade.probe.ok"] != 1 or \
+            sync_probe_launches.get("tokenize") != 1 or \
+            delivery_digest(sync_probe) != delivery_digest(sync_ok):
+        raise AssertionError(f"degrade_broker sync probe: {moved_probe} ({deg.device.state})")
+    broker.degrade = None
+    out["sync"] = {"device_batch_ms": sync_ms, "cpu_fallback_batch_ms": bad_ms,
+                   "failed_batch_launches": bad_launches, "series": moved,
+                   "probe_ms": sync_probe_ms, "probe_launches": sync_probe_launches,
+                   **sync_check}
+    out["controller"] = deg.snapshot()
+    return out
+
+
+def rollback_broker(torch, broker, rec, rng) -> dict:
+    """Two rounds, `router.delta_sync` armed `raise` then `corrupt`: 16
+    fresh subscriptions whose topics the batch carries, the sync failing:
+    the batch's deliveries equal the pre-subscribe batch's (the last good
+    epoch serves), `router.sync.rollback` 1; disarmed, the next batch
+    (checked as `broker_publish` checks) delivers to every fresh
+    subscription; the mirrors equal the host tables after."""
+    from emqx_tpu_torch.mqtt.packet import SubOpts
+    from emqx_tpu_torch.observe import faults
+
+    inj = faults.default_faults
+    dev = broker._device_router()
+    out = {}
+    for r, mode in enumerate(("raise", "corrupt")):
+        topics = topic_batch_1m(rng, BATCH)
+        fresh = [(100 * r + k, 3000 + 100 * r + k) for k in range(ROLLBACK_SUBS)]
+        for k, (i, j) in enumerate(fresh):
+            topics[BATCH - 1 - k] = f"device/{i}/mid/{j}/leaf"
+        dev.prepare()
+        rr0 = ingest_rr_state(broker)
+        pre, pre_ms, _l, _a = timed_batch(torch, broker, rec, broker_msgs(topics, "b"),
+                                          sync=True)
+        sids = {f"rb{i}_{j}" for i, j in fresh}
+        for i, j in fresh:
+            broker.subscribe(f"rb{i}_{j}", f"rb{i}_{j}", f"device/{i}/+/{j}/#", SubOpts(),
+                             rec.sink(f"rb{i}_{j}"))
+        ingest_rr_restore(broker, rr0)
+        s0 = fault_series(broker)
+        inj.arm("router.delta_sync", mode=mode)
+        try:
+            stale, stale_ms, stale_launches, _a = timed_batch(
+                torch, broker, rec, broker_msgs(topics, "b"), sync=True)
+        finally:
+            inj.disarm()
+        moved = series_moved(s0, fault_series(broker))
+        if moved["router.sync.rollback"] != 1 or moved["messages.routed.device"] != BATCH or \
+                moved["degrade.fallback.batches"] or \
+                delivery_digest(stale) != delivery_digest(pre) or \
+                sids & {s for g in stale for s in g}:
+            raise AssertionError(f"rollback_broker {mode}: {moved}, digest equal "
+                                 f"{delivery_digest(stale) == delivery_digest(pre)}")
+        ingest_rr_restore(broker, rr0)
+        got = []
+        healed = broker_publish(torch, broker, rec, NoTimer(), topics, 40 + r, got_out=got)
+        if not sids <= {s for g in got for s in g}:
+            raise AssertionError(f"rollback_broker {mode}: a fresh subscription got nothing")
+        out[mode] = {"subscribed": len(fresh), "series": moved, "pre_ms": pre_ms,
+                     "rolled_back_batch_ms": stale_ms, "rolled_back_launches": stale_launches,
+                     "healed": healed}
+    out["mirrors_equal"] = check_mirrors(torch, dev)
+    for r in range(2):
+        for k in range(ROLLBACK_SUBS):
+            i, j = 100 * r + k, 3000 + 100 * r + k
+            broker.unsubscribe(f"rb{i}_{j}", f"device/{i}/+/{j}/#")
+    return out
+
+
+def feed_ladder_broker(torch, broker, rec, index) -> dict:
+    """The retained feed and the degrade ladder on broker_1m: `feed_broker`,
+    `flush_broker`, `retainer_broker`, then the fault phases
+    `degrade_broker` and `rollback_broker`, on a frozen heap, with the
+    injector's metrics on the broker's. -> the launches of the batches
+    that carried a storm (`broker_1m_storm_launches`)."""
+    from emqx_tpu_torch.observe import faults
+
+    rng = np.random.default_rng(SEED + 22)
+    faults.default_faults.metrics = broker.metrics
+    heap = frozen_heap()
+    t0 = time.perf_counter()
+    storm_launches = collections.Counter()
+    try:
+        rec_feed, launches = feed_broker(torch, broker, rec, rng, index)
+        storm_launches.update(launches)
+        phase("feed_broker", **rec_feed, gc=heap, card=card_line())
+        phase("flush_broker", **flush_broker(torch, broker, index), card=card_line())
+        rec_ret, launches = retainer_broker(torch, broker, rec, rng)
+        storm_launches.update(launches)
+        phase("retainer_broker", **rec_ret, card=card_line())
+        phase("degrade_broker", **degrade_broker(torch, broker, rec, rng, index),
+              card=card_line())
+        phase("rollback_broker", **rollback_broker(torch, broker, rec, rng), card=card_line())
+    finally:
+        faults.default_faults.disarm()
+        broker.degrade = None
+        broker.retained_feed = None
+        gc.unfreeze()
+    after = fault_series(broker)
+    phase("feed_ladder_seconds", seconds=time.perf_counter() - t0, series=after,
+          storm_launches=dict(storm_launches))
+    return dict(storm_launches), after
 
 
 # -- the broker_1m semantic phases (the semantic plane and the rule engine) ------
@@ -8357,7 +9000,7 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ret_report, ret_launches, router_1m = retained_path(torch, rng)
+    ret_report, ret_launches, router_1m, ret_index = retained_path(torch, rng)
     phase("retained_seconds", seconds=time.perf_counter() - t0)
     # and the retained path's two; tokenize and shape_match gain their storm
     # cases (their launches: one a chunk of every storm, and the fused
@@ -8401,15 +9044,19 @@ def run_paths(torch, build, card, t0, mesh_proc) -> int:
     t0 = time.perf_counter()
     # the mesh paths run while broker_1m's subscribe loop (host work only)
     # builds its broker
-    broker_report, broker_launches, broker_digests, mesh = broker_path(
-        torch, np.random.default_rng(SEED), sess_capture, mesh_proc)
-    del sess_capture
+    broker_report, broker_launches, broker_digests, mesh, storm_launches = broker_path(
+        torch, np.random.default_rng(SEED), sess_capture, mesh_proc, ret_index)
+    del sess_capture, ret_index
     phase("broker_seconds", seconds=time.perf_counter() - t0)
     for case in broker_report.values():
         report[case["name"]]["broker_1m"] = {**case, "launches": broker_launches[case["name"]]}
     # the broker's semantic phases launch the semantic path's two kernels
     for k in ("semantic_match", "rule_masks"):
         report[k]["broker_1m_launches"] = broker_launches[k]
+    # and the batches that carried a retained storm (feed_broker,
+    # retainer_broker) launched the storm's four
+    for k in ("row_lengths", "narrow_i16", "tokenize", "shape_match"):
+        report[k]["broker_1m_storm_launches"] = storm_launches[k]
     t0 = time.perf_counter()
     plus_report, plus_launches, plus_bound = plus_path(torch, np.random.default_rng(SEED + 70))
     phase("plus_seconds", seconds=time.perf_counter() - t0)

@@ -41,12 +41,32 @@ Parity with the reference kernel (apps/emqx/src/emqx_broker.erl):
   when the batch settles, before its fan-out (`RuleEngine.fire_settled`:
   the readback's masks, or the numpy host ladder for a CPU batch).
 
+- with a `RetainedStormFeed` attached (`Broker.retained_feed`,
+  broker/retained_feed.py) and a router that fuses storms, the feed's
+  pending wildcard-subscribe replays ride the next device batch of
+  `adispatch_begin`: `take_job()` on the loop thread after `prepare()`,
+  the storm into `route_prepared(..., retained=)` (then no session rider
+  rides), and `resolve` at settle, before the fan-out; a failed launch
+  answers the storm's waiters with the CPU-fallback signal.
+- with a `DegradeController` attached (`Broker.degrade`,
+  broker/degrade.py) both publish paths walk the reference's ladder: an
+  open device breaker, a failed launch or readback (after the bounded
+  retries on the pipelined path) or a failed `prepare()` with no good
+  epoch serve the whole batch from the CPU path (`_dispatch_cpu_batch`:
+  the trie and the host fan-out), counted in `degrade.fallback.batches`
+  and the `dispatch.degraded` tracepoint, and move the breaker; a good
+  device batch records a success (a half-open probe closes it). Without
+  a controller a failed launch raises, out of `PendingDispatch.complete()`
+  on the pipelined path, as in the reference. A kernel library that fails
+  to build (`kernels.build.KernelBuildError`) raises either way: the
+  device router loads the library when it is made, on a card, and the
+  ladder re-raises the error.
+
 Every plain subscription owns a subscriber slot in `SubscriberTable`
 (dense bitmaps or CSR, as `MatcherConfig.sub_table` says); $share groups
 are `GroupTable` lanes whose member the device picks. Batches smaller than
 `Router.min_tpu_batch` and rows the device flags take the authoritative
-CPU path. A failed launch raises (out of `PendingDispatch.complete()` on
-the pipelined path): the degrade ladder is not ported.
+CPU path.
 
 - with `Broker.mesh` set (this process's rank of a `parallel.mesh.Mesh`,
   before the first device batch) the device router is a
@@ -63,10 +83,16 @@ the pipelined path): the degrade ladder is not ported.
   pool (`mesh_dispatch_pool`), so each rank issues its batches'
   collectives in launch order. A session store on a mesh takes no rider
   (the mesh engine fuses none): its sweep is `tick(fused_path=False)`.
+  On a mesh of more than one rank the broker refuses a retained feed and
+  a degrade controller (`NotImplementedError`): each rank's window timer
+  and breaker would be its own, a storm must ride the same batch on every
+  rank, and a rank that falls back to the CPU while the others enter a
+  collective stalls them. Agreeing each batch across the ranks is the
+  app's part (ROADMAP item 10.3); a one-rank mesh runs as one device.
 
-Not ported yet (ROADMAP item 10): with the app, the cluster forward, the
-degrade controller, span tracing and the retained feed (`adispatch_begin`
-takes the reference's path for each of them absent).
+Not ported yet (ROADMAP item 10): with the app, the cluster forward and
+span tracing (`adispatch_begin` takes the reference's path for both
+absent).
 """
 
 from __future__ import annotations
@@ -82,6 +108,8 @@ from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.metrics import Metrics
 from emqx_tpu_torch.broker.router import Router
 from emqx_tpu_torch.broker.shared_sub import SharedSub, stable_hash
+from emqx_tpu_torch.kernels import build
+from emqx_tpu_torch.kernels.build import KernelBuildError
 from emqx_tpu_torch.models.router_model import (
     DeviceRouter,
     GroupTable,
@@ -91,6 +119,7 @@ from emqx_tpu_torch.models.router_model import (
 )
 from emqx_tpu_torch.mqtt import packet as pkt
 from emqx_tpu_torch.ops import topics as T
+from emqx_tpu_torch.utils.tracepoints import tp
 
 # deliverer: called with (msg, subopts); a raise counts as not delivered
 Deliverer = Callable[[Message, pkt.SubOpts], None]
@@ -198,10 +227,16 @@ class Broker:
         self._slot_subs: List[Optional[Subscriber]] = []
         self._free_slots: List[int] = []
         self._device: Optional[DeviceRouter] = None  # lazy
+        # RetainedStormFeed and DegradeController, attached by their owner
+        # (the `retained_feed` / `degrade` properties): pending replay
+        # storms ride the device batches; the device breaker and the
+        # bounded retries. None = no storm rides; a failed launch raises
+        self._retained_feed = None
+        self._degrade = None
         # this rank of a ('dp', 'tp') mesh (parallel/mesh.py), set before
         # the first device batch: the device router is then a
         # MeshServingRouter (the SPMD contract in the module docstring)
-        self.mesh = None
+        self._mesh = None
         # a label for this rank's slice, stamped on the mesh router's
         # span attributes (`MeshServingRouter.shard_label`)
         self.shard_label = None
@@ -219,6 +254,50 @@ class Broker:
         # compiled WHERE masks run inside the route launch and fire at
         # settle; None = hook-path rules only
         self.rule_hook = None
+
+    # -- attachments the mesh refuses -------------------------------------
+    def _refuse_multirank(self, mesh, what: str) -> None:
+        if mesh is not None and mesh.world > 1:
+            raise NotImplementedError(
+                f"{what} on a {mesh.world}-rank mesh: each rank's window timer and "
+                "breaker would be its own, a storm must ride the same batch on every "
+                "rank, and a rank falling back to the CPU while the others enter a "
+                "collective stalls them; agreeing each batch across the ranks is "
+                "ROADMAP item 10.3 (the app)")
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        if self._retained_feed is not None:
+            self._refuse_multirank(mesh, "Broker.retained_feed")
+        if self._degrade is not None:
+            self._refuse_multirank(mesh, "Broker.degrade")
+        self._mesh = mesh
+
+    @property
+    def retained_feed(self):
+        return self._retained_feed
+
+    @retained_feed.setter
+    def retained_feed(self, feed) -> None:
+        """Refused (`NotImplementedError`) on a mesh of more than one rank."""
+        if feed is not None:
+            self._refuse_multirank(self._mesh, "Broker.retained_feed")
+        self._retained_feed = feed
+
+    @property
+    def degrade(self):
+        return self._degrade
+
+    @degrade.setter
+    def degrade(self, ctl) -> None:
+        """Refused (`NotImplementedError`) on a mesh of more than one rank."""
+        if ctl is not None:
+            self._refuse_multirank(self._mesh, "Broker.degrade")
+        self._degrade = ctl
 
     # -- subscribe side ---------------------------------------------------
     def subscribe(
@@ -417,20 +496,47 @@ class Broker:
         then host delivery straight from the slots. Rows the device flags
         (too deep / overflow / too long) fall back to the CPU path per row;
         batches below `min_tpu_batch` skip the device. -> deliveries per
-        message."""
+        message.
+
+        With a `DegradeController`: an open breaker, or a failed sync,
+        launch or readback, serves the whole batch from the CPU path
+        (`_dispatch_cpu_batch`) and moves the breaker. No retries here:
+        the caller may hold the event loop, so the pipelined path owns the
+        retry ladder. Without one a failure raises."""
         r = self.router
         if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
             return self._dispatch_cpu_batch(msgs)
+        deg = self.degrade
+        if deg is not None and not deg.device.allow():
+            return self._degraded_cpu_batch(msgs)
         dev = self._device_router()
-        results = dev.route([m.topic_key() for m in msgs], self._client_hashes(msgs),
-                            embeds=self._embeds(msgs), rules=self._rule_batch(msgs))
+        try:
+            results = dev.route([m.topic_key() for m in msgs], self._client_hashes(msgs),
+                                embeds=self._embeds(msgs), rules=self._rule_batch(msgs))
+        except KernelBuildError:
+            raise
+        except Exception:
+            if deg is None:
+                raise
+            deg.device.record_failure("route")
+            return self._degraded_cpu_batch(msgs)
+        if deg is not None:
+            deg.device.record_success()
         return self._dispatch_device_results(msgs, results)
+
+    def _degraded_cpu_batch(self, msgs: Sequence[Message]) -> List[int]:
+        """A batch the degrade ladder sends to the CPU path, counted."""
+        self.metrics.inc("degrade.fallback.batches")
+        tp("dispatch.degraded", n=len(msgs))
+        return self._dispatch_cpu_batch(msgs)
 
     def _dispatch_cpu_batch(self, msgs: Sequence[Message]) -> List[int]:
         """The authoritative CPU path for a whole batch: per-message trie
-        match + host fan-out. Never touches the device. Deferred compiled
-        rules fire here through the numpy host ladder; semantic recipients
-        resolve per message in `_route_dispatch` through the host twin."""
+        match + host fan-out. Never touches the device: it is both the
+        small-batch branch and the degrade ladder's target. Deferred
+        compiled rules fire here through the numpy host ladder; semantic
+        recipients resolve per message in `_route_dispatch` through the
+        host twin."""
         if self.rule_hook is not None:
             self.rule_hook.fire_settled(msgs)
         return [self._dispatch_routed(m) for m in msgs]
@@ -461,8 +567,18 @@ class Broker:
         A batch below `min_tpu_batch` (or with the device path off) is a
         CPU batch: `ready` is already done and its dispatch, too, waits
         for `complete()`, so it never overtakes an in-flight device batch.
-        A failed prepare raises here, a failed launch or readback out of
-        `complete()` (the reference's path without a degrade controller).
+
+        The degrade ladder (with `degrade` attached, as in the reference):
+        an open breaker makes the batch a degraded CPU batch at once (a
+        half-open breaker admits one probe batch); so does a `prepare()`
+        that raised with no good epoch to roll back to (recorded as a
+        `delta_sync` failure). A launch or readback that raised is retried
+        `max_retries` times after `retry_delays()`' backoff, each retry
+        re-preparing and relaunching bare (no storm, no rider; the rider
+        aborted first), then recorded as a `launch` failure and served
+        from the CPU path; a good settle records a success. Without a
+        controller a failed prepare raises here and a failed launch or
+        readback out of `complete()`. A `KernelBuildError` always raises.
 
         On a mesh (`Broker.mesh`) the launches run on `mesh_dispatch_pool`,
         one worker: every rank issues each batch's collectives in launch
@@ -471,45 +587,79 @@ class Broker:
         batches in the same order and settle them in launch order, and
         no rider rides (the mesh engine fuses none).
 
+        With a retained feed attached and a router that fuses storms, the
+        feed's pending storm (`take_job()`, on the loop thread after
+        `prepare()`) rides the batch into `route_prepared(..., retained=)`,
+        `attach` fails its waiters over to the CPU walk if the launch
+        raises, and `complete()` resolves them from the readback's
+        `retained` before the fan-out. A batch carrying a storm takes no
+        session rider.
+
         With a session store attached and a router that fuses sessions,
         the store's pending writes (and a requested sweep) ride the batch:
         `take_rider()` here on the loop thread after `prepare()`, the
         rider into `route_prepared(..., session=)` on the pool thread, and
         `complete()` commits it on the loop before the fan-out (whose
         `Session.deliver` calls append to the op-log the next rider
-        takes), or aborts it when the launch or readback raised, then
-        re-raises. At most one rider is outstanding: with batch N's rider
-        in flight, batch N+1 takes none.
+        takes), or aborts it when the launch or readback raised. At most
+        one rider is outstanding: with batch N's rider in flight, batch
+        N+1 takes none.
 
         The batch's embeddings (`_embeds`) and the compiled rules'
         features (`_rule_batch`) are built here on the loop thread too:
         `extract_features` writes ``_rule_suspect`` into the message
         headers. `complete()` fires the deferred rules from the readback's
-        masks before the fan-out (`_dispatch_device_results`). The
-        retained feed and spans are not ported: their hand-offs take the
-        reference's path for none attached."""
+        masks before the fan-out (`_dispatch_device_results`). Spans are
+        not ported: their hand-offs take the reference's path for none
+        attached."""
         loop = asyncio.get_running_loop()
         r = self.router
-        if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
+        deg = self.degrade
+
+        def _cpu_pending(degraded: bool = False):
             ready = loop.create_future()
             ready.set_result(None)
 
             async def _cpu():
+                # a degraded batch bypasses the device gate inside
+                # dispatch_batch_folded, not just prefers the CPU
+                if degraded:
+                    return self._degraded_cpu_batch(msgs)
                 return self.dispatch_batch_folded(msgs)
 
             return PendingDispatch(ready, _cpu)
+
+        if not (r.enable_tpu and len(msgs) >= r.min_tpu_batch):
+            return _cpu_pending()
+        if deg is not None and not deg.device.allow():
+            # breaker open: the whole batch serves from the CPU path (a
+            # half-open breaker lets one probe batch through)
+            return _cpu_pending(degraded=True)
         dev = self._device_router()
         t_prep = time.perf_counter()
-        args = dev.prepare()
+        try:
+            args = dev.prepare()
+        except KernelBuildError:
+            raise
+        except Exception:
+            # a failed sync with no good epoch to roll back to
+            if deg is None:
+                raise
+            deg.device.record_failure("delta_sync")
+            return _cpu_pending(degraded=True)
         # waterfall `prepare`: the table sync this launch paid before any
         # device work
         self.metrics.observe(
             "profile.stage.prepare.seconds", time.perf_counter() - t_prep)
+        feed = self.retained_feed
+        storm = None
+        if feed is not None and dev.supports_retained_fusion:
+            # pending wildcard-subscribe replays ride THIS launch: every
+            # chunk's storm match joins the batch's launches and readback
+            storm = feed.take_job()
         store = self.session_store
         rider = None
-        # the port has no retained feed, so no storm ever rides and the
-        # reference's `storm is None` condition always holds
-        if store is not None and dev.supports_session_fusion:
+        if store is not None and storm is None and dev.supports_session_fusion:
             # pending session-table writes (+ a requested retry/expiry
             # sweep) fuse into THIS launch as the session-ack stage
             rider = store.take_rider()
@@ -520,21 +670,56 @@ class Broker:
         pool = dispatch_pool() if dev.mesh is None else mesh_dispatch_pool()
         fut = loop.run_in_executor(
             pool, on_stream, dev.launch_stream(), dev.route_prepared,
-            args, topics, hashes, None, rider, embeds, rules)
+            args, topics, hashes, storm, rider, embeds, rules)
+        if storm is not None:
+            feed.attach(storm, fut)
 
         async def _complete():
+            srd = rider
             try:
                 results = await fut
-            except Exception:
-                if rider is not None:
-                    # the mirror never advanced: the rider's writes stay
-                    # in the op-log and ride a later launch
-                    store.abort(rider)
-                raise
-            if rider is not None:
+            except Exception as e:
+                if deg is None or isinstance(e, KernelBuildError):
+                    if srd is not None:
+                        # the mirror never advanced: the rider's writes
+                        # stay in the op-log and ride a later launch
+                        store.abort(srd)
+                    raise
+                results = None
+            if results is None:
+                if srd is not None:
+                    store.abort(srd)
+                    srd = None
+                # bounded backoff + jitter, then degrade: each retry
+                # re-prepares (a torn sync rolls back to the last good
+                # epoch) and relaunches bare: the storm's waiters already
+                # fell back to the CPU walk (`feed.attach`)
+                for delay in deg.retry_delays():
+                    await asyncio.sleep(delay)
+                    try:
+                        args2 = dev.prepare()
+                        results = await loop.run_in_executor(
+                            pool, on_stream, dev.launch_stream(), dev.route_prepared,
+                            args2, topics, hashes, None, None, embeds, rules)
+                        break
+                    except KernelBuildError:
+                        raise
+                    except Exception:
+                        results = None
+            if results is None:
+                # retries exhausted: trip the breaker and serve the batch
+                # from the CPU path; the publishes succeed, same recipients
+                deg.device.record_failure("launch")
+                return self._degraded_cpu_batch(msgs)
+            if deg is not None:
+                deg.device.record_success()
+            if srd is not None:
                 # adopt the updated mirror + act on the sweep, on the loop
                 # (the single-writer discipline), before the fan-out
-                store.commit(rider, results.session)
+                store.commit(srd, results.session)
+            if storm is not None:
+                # a no-op when the storm already failed over
+                feed.resolve(storm, results.retained)
             # waterfall `host_dispatch`: the settle-time fan-out of this
             # device batch (delivery resolution + writes)
             t_hd = time.perf_counter()
@@ -548,10 +733,12 @@ class Broker:
     def _device_router(self) -> DeviceRouter:
         """The lazy device router: a `MeshServingRouter` when `mesh` is set
         (sharded mirrors, the SPMD step), else a `DeviceRouter`
-        (emqx_tpu/broker/broker.py:732-758)."""
+        (emqx_tpu/broker/broker.py:732-758). On a card the kernel library
+        is built and loaded here, outside every call the degrade ladder
+        guards, so a build failure raises to the caller."""
         if self._device is None:
             cls = DeviceRouter if self.mesh is None else MeshServingRouter
-            self._device = cls(
+            dev = cls(
                 self.router.index,
                 self.subtab,
                 self.router.matcher_config,
@@ -562,6 +749,9 @@ class Broker:
                 semtab=self.semantic.table if self.semantic is not None else None,
                 device=self.router.device,
             )
+            if dev.device.type == "cuda":
+                build.load()
+            self._device = dev
             if self.mesh is not None and self.shard_label:
                 self._device.shard_label = self.shard_label
         return self._device

@@ -29,10 +29,11 @@ raises `NotImplementedError`: the ranks must agree on each batch's
 messages, and feeding them the same publishes is the app's part (ROADMAP
 item 10). On a one-rank mesh it runs as on one device.
 
-Not ported here (they come with the app, ROADMAP item 10): the fault
-injection sites (observe/faults.py) and the span recorder's batch and
-publish spans (observe/spans.py). This module takes the reference's path
-for neither attached: no `ingest.enqueue` fault site, no spans.
+The `ingest.enqueue` fault site (observe/faults.py) sits at the top of
+`enqueue`: ``raise`` fails the publisher's call, ``drop`` sheds the
+enqueue. With the broker's `DegradeController` attached, the shed gate
+reads its bound and its device breaker. The span recorder's batch and
+publish spans come with the app (ROADMAP item 10.4): no spans here.
 
 Flight recorder: batch size and occupancy, window hold time, pipeline
 depth, per-message and per-lane enqueue->settle latency, lane depths,
@@ -53,6 +54,7 @@ from emqx_tpu_torch.broker.degrade import OPEN, IngestShed
 from emqx_tpu_torch.broker.message import Message
 from emqx_tpu_torch.broker.metrics import Metrics
 from emqx_tpu_torch.broker.slo import LANE_CONTROL, LANE_LOW, LANE_NAMES, LANE_NORMAL
+from emqx_tpu_torch.observe import faults as _faults
 from emqx_tpu_torch.utils.tracepoints import tp
 
 log = logging.getLogger("emqx_tpu_torch.ingest")
@@ -185,13 +187,15 @@ class BatchIngest:
         is open, a backlog past the shed bound refuses new enqueues with
         `IngestShed` on the returned future. Both need the broker's
         `degrade` controller (its shed bound); without one every enqueue
-        is admitted."""
+        is admitted, except the ones the ``ingest.enqueue`` fault site
+        drops (``raise`` there fails the caller)."""
+        act = _faults.hit("ingest.enqueue")  # raise -> the publisher's task
         fut = asyncio.get_running_loop().create_future()
         if lane is None:
             lane = self.lane_of(msg)
-        shed = False
+        shed = act == "drop"
         deg = getattr(self.broker, "degrade", None)
-        if deg is not None:
+        if not shed and deg is not None:
             bound = deg.shed_queue_batches * self.max_batch
             if self.slo is not None:
                 if self.slo.shed(lane, self._backlog(), bound):

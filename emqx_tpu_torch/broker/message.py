@@ -6,8 +6,8 @@ read slab) is not ported: the slab fabric is not, so `topic_key()`
 always returns the topic string, `topic_bytes()` encodes it,
 `payload_view()` is the payload and `own_buffers()` (the ownership hook
 every long-lived store calls: inflight windows, queues, the session
-store's message slab) has nothing to take. `is_expired` is left out: the
-port's broker does not call it.
+store's message slab) has nothing to take. `is_expired` reads the MQTT 5
+Message-Expiry-Interval property; the retainer calls it.
 """
 
 from __future__ import annotations
@@ -32,6 +32,12 @@ class Message:
     headers: Dict = field(default_factory=dict)
     properties: Dict = field(default_factory=dict)
     timestamp: float = field(default_factory=time.time)
+
+    def is_expired(self, now: Optional[float] = None) -> bool:
+        exp = self.properties.get("Message-Expiry-Interval")
+        if exp is None:
+            return False
+        return (now or time.time()) > self.timestamp + exp
 
     def topic_key(self):
         """Tokenizer input: the topic string."""

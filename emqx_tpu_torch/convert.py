@@ -41,6 +41,9 @@ other class, and hands the session capture to
 become a port `SemanticRouting` whose table is the packed layout the
 reference's own fold builds. Rules carry across as their SQL strings: the
 port's `RuleEngine.create_rule` takes the reference rule's id and SQL.
+`retained_messages_from_reference` carries a reference retainer's messages
+into port `Message`s for `Retainer.load`. A reference `DegradeController.
+snapshot()` needs no conversion: the port's `restore` takes it as it is.
 
 `resolve_device` is the one place an entry point turns its `device`
 argument into a torch device: CUDA unless the caller asks for the CPU, and
@@ -52,7 +55,7 @@ from __future__ import annotations
 
 import io
 import pickle
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -292,6 +295,18 @@ def session_state_from_reference(state: Dict) -> Dict:
         "free_slots": list(state["free_slots"]),
         "t0_age_ds": int(state.get("t0_age_ds", 0)),
     }
+
+
+def retained_messages_from_reference(msgs) -> List:
+    """A reference `Retainer.all_messages()` (emqx_tpu/broker/retainer.py
+    :236) -> port `Message`s, for the port's `Retainer.load`: the retained
+    store carried across. Each message is read by field (headers and
+    properties copied); nothing of the reference package is imported."""
+    from emqx_tpu_torch.broker.message import Message
+
+    return [Message(**{f: (dict(getattr(m, f)) if f in ("headers", "properties")
+                           else getattr(m, f)) for f in MESSAGE_FIELDS})
+            for m in msgs]
 
 
 def semantic_state_from_reference(entries, by_slot: Dict, default_threshold: float, *,

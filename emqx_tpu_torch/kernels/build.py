@@ -113,6 +113,15 @@ _SIGNATURES = {
     "emqx_rule_masks": (_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P),
 }
 
+
+class KernelBuildError(RuntimeError):
+    """The kernel library could not be built or loaded (no nvcc, a compile
+    or link error, a library that will not load). A fault of the
+    checkout, not of the device: the broker's degrade ladder, which
+    serves a batch from the CPU when a launch or a sync raises, re-raises
+    this one instead."""
+
+
 _lib = None  # the loaded library (the port's one extension handle)
 _load_lock = threading.Lock()  # one build and load when threads race to it
 
@@ -125,7 +134,7 @@ def nvcc_path() -> str:
     cand = Path(home) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelBuildError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _sources():
@@ -155,7 +164,7 @@ def _run_all(cmds):
         if proc.returncode != 0 and failed is None:
             failed = (cmd, logs[-1])
     if failed is not None:
-        raise RuntimeError(
+        raise KernelBuildError(
             f"nvcc failed: {' '.join(failed[0])}\n{failed[1]}"
         )
     return logs
@@ -204,7 +213,11 @@ def load():
 
 def _load():  # holds-lock: _load_lock
     global _lib
-    lib = ctypes.CDLL(str(library_path()))
+    path = library_path()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise KernelBuildError(f"cannot load {path}: {e}") from e
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -43,6 +43,7 @@ import torch
 
 from emqx_tpu_torch import kernels
 from emqx_tpu_torch.convert import resolve_device, upload
+from emqx_tpu_torch.kernels import build
 from emqx_tpu_torch.models.router_model import shape_route_step
 from emqx_tpu_torch.ops import topics as T
 from emqx_tpu_torch.ops.matcher import batch_match_syms_plain
@@ -164,6 +165,9 @@ class StormJob(NamedTuple):
     kwargs: Dict
     chunks: List[torch.Tensor]  # device chunk mirrors, uint8 [CHUNK, bucket]
     nrows: int  # live-row high-water at prepare time
+    # the index's count of reused rows at prepare time (-1: unknown); while
+    # it stands, every row that holds a topic holds the one it held here
+    reused: int = -1
 
     def decode(self, matched_list) -> Dict[str, np.ndarray]:
         return self.index._decode_storm(
@@ -186,7 +190,10 @@ class DeviceRetainedIndex:
                  device=None):
         """`mesh`: a `parallel.mesh.Mesh` rank: the chunk mirror uploads
         this rank's 'dp' row block and storms run on the mesh's device.
-        Without a mesh, `device` defaults to CUDA."""
+        Without a mesh, `device` defaults to CUDA. On a card the kernel
+        library is built and loaded here, as `Broker._device_router` does,
+        so a build failure raises from the constructor and never from a
+        storm whose caller would answer it from a CPU walk."""
         self.max_bytes = max_bytes  # hard cap (device-budget gate)
         self.max_levels = max_levels
         # storage width: a pow2 bucket grown to the longest stored topic
@@ -195,6 +202,7 @@ class DeviceRetainedIndex:
         self._by_row: List[Optional[str]] = []
         self._free: List[int] = []
         self._tombstones = 0  # live rows removed
+        self._reused = 0  # freed rows a new topic took (StormJob.reused)
         self._host_b: List[np.ndarray] = []  # mirrored-array
         self.epoch = 0
         self.oplog: list = []
@@ -207,6 +215,8 @@ class DeviceRetainedIndex:
         else:
             self.device = resolve_device("cuda" if device is None else device)
             self._seg = DeviceSegmentManager(self.device, name="retained")
+        if self.device.type == "cuda":
+            build.load()
 
     def place(self, mesh) -> None:
         """Serve from rank `mesh` of a ('dp', 'tp') mesh: a fresh chunk
@@ -280,6 +290,7 @@ class DeviceRetainedIndex:
             row = self._free.pop()
             self._by_row[row] = topic
             self._tombstones -= 1
+            self._reused += 1
         else:
             row = len(self._by_row)
             self._by_row.append(topic)
@@ -369,13 +380,14 @@ class DeviceRetainedIndex:
         segs = self._seg.sync(self)
         return [segs[f"chunk_{c}"] for c in range(len(self._host_b))]
 
-    def _launch_all(self, shape_tables, nfa_tables, kwargs) -> List[torch.Tensor]:
-        """One storm launch per chunk, all before any readback; on a mesh,
-        this rank's row blocks, gathered over 'dp' into whole chunks."""
-        outs = [
-            retained_step(shape_tables, nfa_tables, d, **kwargs)
-            for d in self._ensure_chunks()
-        ]
+    def _launch_all(self, shape_tables, nfa_tables, kwargs,
+                    chunks=None) -> List[torch.Tensor]:
+        """One storm launch per chunk (`chunks`, else the chunks synced
+        now), all before any readback; on a mesh, this rank's row blocks,
+        gathered over 'dp' into whole chunks."""
+        if chunks is None:
+            chunks = self._ensure_chunks()
+        outs = [retained_step(shape_tables, nfa_tables, d, **kwargs) for d in chunks]
         if self.mesh is None:
             return outs
         return [self.mesh.all_gather(m, "dp", "retained").reshape(-1, m.shape[1])
@@ -389,9 +401,16 @@ class DeviceRetainedIndex:
         None when the index is empty or a filter exceeds the device budget
         (the caller falls back to its CPU walk). Must run on the thread that
         mutates the index, as `DeviceRouter.prepare` must."""
-        if not self._host_b:
-            return None
         if any(len(T.words(f)) > self.max_levels for f in filters):
+            return None
+        return self.storm_job(filters)
+
+    def storm_job(self, filters: List[str]) -> Optional[StormJob]:
+        """The storm's filter tables built and uploaded and the chunks
+        synced, for `run_storm` or a routed batch; None for an empty index
+        (nothing can match), a raise for a filter past `max_levels`. Must
+        run on the thread that mutates the index."""
+        if not self._host_b:
             return None
         _idx, fids, shape_tables, nfa_tables, kwargs = self._build_tables(
             filters, floor=1
@@ -405,7 +424,34 @@ class DeviceRetainedIndex:
             kwargs=kwargs,
             chunks=self._ensure_chunks(),
             nrows=len(self._by_row),
+            reused=self._reused,
         )
+
+    def run_storm(self, job: StormJob) -> Dict[str, np.ndarray]:
+        """One prepared storm run alone: one launch train per chunk, every
+        chunk launched before the one readback (on a mesh, this rank's row
+        blocks gathered over 'dp'), then the host decode -> {filter:
+        row-index array}. Syncs nothing, so it may run on a pool thread
+        while the loop thread mutates the index (`broker.retained_feed`'s
+        standalone flush): the job holds its own generation of the chunk
+        mirrors. Its decode reads one copy of the index's freed rows (see
+        `_decode_storm`), so a row may have changed topic between the sync
+        and the answer: the caller turns rows into topics on the loop
+        thread and, once `changed_since(job)`, checks each against its
+        filter."""
+        outs = self._launch_all(job.shape_tables, job.nfa_tables, job.kwargs,
+                                job.chunks)
+        matched_list = [m.cpu().numpy() for m in outs]
+        del outs
+        return job.decode(matched_list)
+
+    def launch_stream(self):
+        """The CUDA stream this thread launches on (None on the CPU): a
+        pool thread that runs `run_storm` for the loop runs on it
+        (`router_model.on_stream`), after the loop's chunk sync."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
 
     def match(self, filter_: str) -> Optional[List[str]]:
         """Retained topics matching `filter_`, or None when the filter
@@ -451,22 +497,30 @@ class DeviceRetainedIndex:
         shape at most one filter matches a topic). Returns {filter: global
         row-index array}; `topic_at` gives the topics. Hits are
         spot-checked on the host (sampled), as in the JAX index."""
-        if not self._host_b:  # empty index: nothing can match
+        job = self.storm_job(filters)
+        if job is None:  # empty index: nothing can match
             return {f: np.empty(0, np.int64) for f in filters}
-        _idx, fids, shape_tables, nfa_tables, kwargs = self._build_tables(
-            filters, floor=1
-        )
-        outs = self._launch_all(shape_tables, nfa_tables, kwargs)
         # every chunk launched before any readback
-        matched_list = [m.cpu().numpy() for m in outs]
-        del outs
-        return self._decode_storm(fids, filters, matched_list, len(self._by_row))
+        out = self.run_storm(job)
+        # sampled verification: one hit row of each filter
+        rng = np.random.default_rng(0)
+        for f, sel in out.items():
+            if len(sel):
+                t = self._by_row[int(rng.choice(sel))]
+                assert t is None or T.match(t, f), (t, f)
+        return out
 
     def _decode_storm(self, fids, filters: List[str], matched_list,
                       nrows: int) -> Dict[str, np.ndarray]:
         """Host decode: per-chunk match matrices (numpy) -> {filter:
-        row-index array}. Device-free, so a fused batch's readback can run
-        it wherever it landed."""
+        row-index array}, dropping padding rows (at or past `nrows`) and
+        the rows freed by the time of the decode, as JAX's decode does.
+        Device-free, so a fused batch's readback can run it wherever it
+        landed. Off the loop thread it reads one copy of the freed-row list
+        (taken at once under the GIL), and a row that a new topic took
+        since the storm's sync is kept: the feed re-checks every topic
+        against its filter on the loop thread (`RetainedStormFeed.
+        _topics`)."""
         lanes = int(matched_list[0].shape[1])
         flat = np.concatenate([np.asarray(m).ravel() for m in matched_list])
         # flat index = row_g * lanes + lane; hit rows grouped by fid with
@@ -482,13 +536,13 @@ class DeviceRetainedIndex:
             if oob.any():
                 keep = ~oob
                 hits, rows_g = hits[keep], rows_g[keep]
-        if self._tombstones:
+        dead = np.asarray(list(self._free), dtype=np.int64)
+        dead = dead[dead < nrows]  # on the fused path the store may have grown
+        if len(dead):
             # removed rows can still match plen-0 filters like '#' through
-            # their zero length. Sliced to nrows: on the fused path the
-            # store may have grown since prepare.
-            live = np.zeros(nrows, dtype=bool)
-            for r, t in enumerate(self._by_row[:nrows]):
-                live[r] = t is not None
+            # their zero length
+            live = np.ones(nrows, dtype=bool)
+            live[dead] = False
             keep = live[rows_g]
             hits, rows_g = hits[keep], rows_g[keep]
         hit_fids = flat[hits]
@@ -499,20 +553,20 @@ class DeviceRetainedIndex:
         starts = np.concatenate([[0], bounds])
         ends = np.concatenate([bounds, [len(hit_fids)]])
         out: Dict[str, np.ndarray] = {f: np.empty(0, np.int64) for f in filters}
-        rng = np.random.default_rng(0)
         for s, e in zip(starts, ends):
             if e <= s:
                 continue
             f = fids.get(int(hit_fids[s]))
             if f is None:
                 continue
-            sel = rows_g[s:e]
-            out[f] = sel
-            # sampled verification (see match_many)
-            row = int(rng.choice(sel))
-            t = self._by_row[row]
-            assert t is None or T.match(t, f), (t, f)
+            out[f] = rows_g[s:e]
         return out
+
+    def changed_since(self, job: StormJob) -> bool:
+        """Did a freed row take a new topic since `job`'s sync? Until one
+        does, each of the job's rows that still holds a topic holds the
+        topic it was matched as."""
+        return job.reused != self._reused
 
     def topic_at(self, row: int) -> Optional[str]:
         return self._by_row[row] if 0 <= row < len(self._by_row) else None

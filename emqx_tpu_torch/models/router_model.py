@@ -70,6 +70,8 @@ from emqx_tpu_torch import kernels
 from emqx_tpu_torch.broker.session_store import SessionStepOut
 from emqx_tpu_torch.broker.shared_sub import stable_hash
 from emqx_tpu_torch.convert import resolve_device
+from emqx_tpu_torch.kernels.build import KernelBuildError
+from emqx_tpu_torch.observe import faults as _faults
 from emqx_tpu_torch.ops.csr_table import CSR_KEYS, CsrTable, sparse_fanout_slots
 from emqx_tpu_torch.ops.matcher import (
     MatcherConfig,
@@ -1487,8 +1489,42 @@ class DeviceRouter:
                                            semantic=sem_on)
                 if kslot != self._prep_args.kslot:
                     self._prep_args = self._prep_args._replace(kslot=kslot)
+            if self.metrics is not None:
+                self.metrics.inc("router.sync.skipped")
             return self._prep_args
         self._clean_streak = 0
+        # the epoch discipline around the dirty sync: a sync that raises,
+        # or tears (the version key moved during it, or the fault site's
+        # "corrupt"), never becomes the serving snapshot. The last good
+        # `Prepared` serves instead, and `_prep_key` stays stale so the
+        # next prepare retries the sync; with no good epoch yet it raises
+        # (the broker's ladder serves the batch from the CPU). A mirror
+        # that synced before the failure keeps its tensors and its op-log
+        # cursor together, so the retry replays nothing twice and loses no
+        # write; a held `Prepared` keeps its tensors, which no sync writes.
+        # A kernel that failed to build is no table fault: it escapes.
+        try:
+            action = _faults.hit("router.delta_sync")
+            args = self._sync_dirty(subtab, sem_on)
+            if action == "corrupt" or self._version_key() != key:
+                raise RuntimeError(
+                    "torn delta sync: table generations moved during the snapshot")
+        except KernelBuildError:
+            raise
+        except Exception:
+            if self._prep_args is None:
+                raise
+            if self.metrics is not None:
+                self.metrics.inc("router.sync.rollback")
+            return self._prep_args
+        self._prep_key = key
+        self._prep_args = args
+        if self.metrics is not None:
+            self.metrics.inc("router.prepare.dirty")
+        return args
+
+    def _sync_dirty(self, subtab, sem_on: bool) -> Prepared:
+        """Every mirror synced with its host table -> a fresh `Prepared`."""
         idx = self.index
         bits, kslot, kg = {}, 0, 0
         if subtab is not None:
@@ -1514,7 +1550,7 @@ class DeviceRouter:
             # full upload on an epoch change, op-logged float and int
             # writes as one scatter otherwise
             sem_tables = self._sem_sync.sync(self.semtab)
-        args = Prepared(
+        return Prepared(
             tables,
             nfa_tables,
             idx.salt,
@@ -1525,11 +1561,6 @@ class DeviceRouter:
             self.semtab.topk if sem_on else 0,
             kg,
         )
-        if self._version_key() == key:
-            # a sync that raced a mutation is used once, never cached
-            self._prep_key = key
-            self._prep_args = args
-        return args
 
     def prepare(self) -> Prepared:
         """Sync the device mirrors with the current tables. MUST run on the
@@ -1544,7 +1575,13 @@ class DeviceRouter:
         waits on nothing: its entries go up through pinned memory without
         a wait, and it reads no device value back. Only a full or array
         resync (an epoch change: table growth, a flip, a torn sync) copies
-        pageable host arrays, which waits for the stream."""
+        pageable host arrays, which waits for the stream.
+
+        A dirty sync that raises or tears (fault site ``router.delta_sync``)
+        returns the last good `Prepared` instead, counting
+        `router.sync.rollback`, and the next call retries it; with no good
+        epoch yet it raises (`_device_args`). Counters, as in JAX:
+        `router.prepare.dirty`, `router.sync.skipped`."""
         return self._device_args()
 
     def launch_stream(self):
@@ -1734,7 +1771,13 @@ class DeviceRouter:
         both, the storm is not launched and `retained` is None.
 
         On a mesh the batch runs sharded (`_route_mesh`); a match-only
-        router there runs the single-device step on the rank's device."""
+        router there runs the single-device step on the rank's device.
+
+        Fault sites: ``device.launch`` here, before anything is encoded or
+        launched, and ``device.readback`` at the top of the readback (on
+        a mesh too), as in JAX (emqx_tpu/models/router_model.py:1967,
+        :2171): the broker's degrade ladder handles both."""
+        _faults.hit("device.launch")
         if self.mesh is not None and self.subtab is not None:
             return self._route_mesh(args, list(topics), client_hashes,
                                     retained=retained, session=session,
@@ -1823,6 +1866,7 @@ class DeviceRouter:
         the dict `session_ack` returns; its updated lanes stay on the
         device), the semantic stage's ``sem_count`` (its winners are in
         ``slots`` already) and the rule masks, four to a word."""
+        _faults.hit("device.readback")
         M = out["matched"].shape[1]
         with_groups = "pick_gid" in out
         sparse = out["bitmaps"] is None
@@ -2054,6 +2098,7 @@ class DeviceRouter:
         over 'dp'). A dense table's overflow rows come back through a
         second, masked gather; a CSR table's are built from the host table
         when read (`_LazyDenseRows`)."""
+        _faults.hit("device.readback")
         mesh = self.mesh
         dp, tp = mesh.dp, mesh.tp
         M_ = out["matched"].shape[1]

@@ -246,7 +246,9 @@ def test_importing_the_port_loads_no_jax():
             "emqx_tpu_torch.rules.runtime", "emqx_tpu_torch.rules.funcs",
             "emqx_tpu_torch.rules.events", "emqx_tpu_torch.utils.placeholder",
             "emqx_tpu_torch.utils.node", "emqx_tpu_torch.ops.segments",
-            "emqx_tpu_torch.ops.shape_index", "emqx_tpu_torch.convert"} <= set(port_modules())
+            "emqx_tpu_torch.ops.shape_index", "emqx_tpu_torch.convert",
+            "emqx_tpu_torch.observe.faults", "emqx_tpu_torch.broker.retained_feed",
+            "emqx_tpu_torch.broker.retainer"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"
@@ -263,8 +265,8 @@ def test_no_jax_or_emqx_tpu_import_in_port_sources():
     files = sorted((ROOT / "emqx_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     # the pipelined publish path's, the session half's, the semantic
-    # plane's, the rule engine's and the compaction and snapshot modules
-    # are scanned too
+    # plane's, the rule engine's, the compaction and snapshot modules, the
+    # fault sites, the retained feed and the retainer are scanned too
     assert {ROOT / "emqx_tpu_torch" / p for p in (
         "broker/ingest.py", "broker/slo.py", "broker/degrade.py",
         "utils/tracepoints.py", "broker/inflight.py", "broker/mqueue.py",
@@ -273,7 +275,8 @@ def test_no_jax_or_emqx_tpu_import_in_port_sources():
         "rules/events.py", "utils/placeholder.py", "utils/node.py",
         "ops/segments.py", "ops/csr_table.py", "ops/semantic_table.py",
         "ops/session_table.py", "ops/shape_index.py", "convert.py", "broker/router.py",
-        "broker/session_store.py", "models/router_model.py")} <= set(files)
+        "broker/session_store.py", "models/router_model.py", "observe/faults.py",
+        "broker/retained_feed.py", "broker/retainer.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
