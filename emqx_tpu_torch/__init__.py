@@ -30,7 +30,12 @@ the NFA-only step (`models.router_model.route_step`, on the mesh
 (`broker.broker.Broker` over `broker.router.Router`: subscribe and
 unsubscribe, plain and `$share`, `publish_batch` through one
 `DeviceRouter.route` a batch, the CPU trie for small batches and flagged
-rows).
+rows); and the application around the broker (`app.BrokerApp`, built from
+`config.schema.AppConfig` and started by `python -m emqx_tpu_torch`: the
+MQTT wire codec `mqtt.frame`, channels and their manager
+`broker.channel` / `broker.cm`, TCP and TLS listeners `transport`, durable
+state with the segment-state snapshot `broker.persistent_session`, and
+the housekeeping tick that drives the background compactor).
 
 The package imports torch and numpy only — never jax, never emqx_tpu.
 Entry points run on CUDA unless the caller passes ``device="cpu"``, which

@@ -78,21 +78,25 @@ CPU path.
   same batches in the same order: a rank that routes a batch the others
   do not, or a batch of another length, stalls or fails their
   collectives. Every rank's fan-out delivers the whole batch; which
-  rank's deliverers own the connections is the app's part (ROADMAP item
-  10). `adispatch_begin` runs a mesh router's launches on a one-worker
-  pool (`mesh_dispatch_pool`), so each rank issues its batches'
-  collectives in launch order. A session store on a mesh takes no rider
+  rank's deliverers own the connections is the multi-rank app's part
+  (ROADMAP item 10.3b). `adispatch_begin` runs a mesh router's launches
+  on a one-worker pool (`mesh_dispatch_pool`), so each rank issues its
+  batches' collectives in launch order. A session store on a mesh takes no rider
   (the mesh engine fuses none): its sweep is `tick(fused_path=False)`.
   On a mesh of more than one rank the broker refuses a retained feed and
   a degrade controller (`NotImplementedError`): each rank's window timer
   and breaker would be its own, a storm must ride the same batch on every
   rank, and a rank that falls back to the CPU while the others enter a
   collective stalls them. Agreeing each batch across the ranks is the
-  app's part (ROADMAP item 10.3); a one-rank mesh runs as one device.
+  multi-rank app's part (ROADMAP item 10.3b); a one-rank mesh runs as one
+  device.
 
-Not ported yet (ROADMAP item 10): with the app, the cluster forward and
-span tracing (`adispatch_begin` takes the reference's path for both
-absent).
+The app on one device (app.py) attaches `BatchIngest`, the
+retained feed, the degrade ladder, the session store and the semantic
+plane as the reference's does, and feeds the broker from MQTT channels.
+Not ported yet: the cluster forward (ROADMAP item 10.3e) and span tracing
+(item 10.3c); `adispatch_begin` takes the reference's path for both
+absent.
 """
 
 from __future__ import annotations
@@ -263,7 +267,7 @@ class Broker:
                 "breaker would be its own, a storm must ride the same batch on every "
                 "rank, and a rank falling back to the CPU while the others enter a "
                 "collective stalls them; agreeing each batch across the ranks is "
-                "ROADMAP item 10.3 (the app)")
+                "ROADMAP item 10.3b (the app on a multi-rank mesh)")
 
     @property
     def mesh(self):

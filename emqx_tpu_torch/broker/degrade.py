@@ -22,7 +22,7 @@ Every transition sets the `degrade.state.*` gauge (0 closed, 1 half-open,
 `degrade.probe.fail`; `retry_delays` counts `degrade.retries`. With a span
 recorder (`spans`, duck-typed: `start(name, attrs=)` / `finish(span)`)
 each transition is also a `degrade.transition` span event; the port has
-no recorder yet (ROADMAP item 10.4), so `spans` is None there.
+no recorder yet (ROADMAP item 10.3c), so `spans` is None there.
 
 `cluster_breaker` keeps the reference's per-destination breakers so a
 reference `snapshot()` restores whole; the port has no cluster bus that

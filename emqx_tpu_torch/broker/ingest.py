@@ -26,14 +26,15 @@ settlement (delivery and the publishers' futures) stays strictly FIFO.
 
 On a broker whose mesh (`Broker.mesh`) has more than one rank, `start()`
 raises `NotImplementedError`: the ranks must agree on each batch's
-messages, and feeding them the same publishes is the app's part (ROADMAP
-item 10). On a one-rank mesh it runs as on one device.
+messages, and feeding them the same publishes is the multi-rank app's
+part (ROADMAP item 10.3b). On a one-rank mesh it runs as on one device.
 
 The `ingest.enqueue` fault site (observe/faults.py) sits at the top of
 `enqueue`: ``raise`` fails the publisher's call, ``drop`` sheds the
 enqueue. With the broker's `DegradeController` attached, the shed gate
 reads its bound and its device breaker. The span recorder's batch and
-publish spans come with the app (ROADMAP item 10.4): no spans here.
+publish spans come with the host observability (ROADMAP item 10.3c): no
+spans here.
 
 Flight recorder: batch size and occupancy, window hold time, pipeline
 depth, per-message and per-lane enqueue->settle latency, lane depths,
@@ -125,7 +126,8 @@ class BatchIngest:
             raise NotImplementedError(
                 f"BatchIngest on a {mesh.world}-rank mesh: the ranks must agree "
                 "on each batch's messages before it launches, and how "
-                "publishes reach the ranks is ROADMAP item 10 (the app)")
+                "publishes reach the ranks is ROADMAP item 10.3b (the app on "
+                "a multi-rank mesh)")
         if self._task is None:
             self.running = True
             self._task = asyncio.get_running_loop().create_task(self._run())

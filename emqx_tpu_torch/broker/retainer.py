@@ -19,8 +19,9 @@ sends it to the trie walk.
 
 `ensure_device` builds the index on an explicit device: CUDA unless the
 retainer was made with ``device="cpu"`` (the tests' plain twins). The
-REST page reader (`messages_page`) comes with the app (ROADMAP item 10.3);
-`all_messages` and `load` carry a store across (`convert.
+app (app.py) wires the retainer, its device index and the feed; the REST
+page reader (`messages_page`) stays with the management API (ROADMAP item
+10.3d). `all_messages` and `load` carry a store across (`convert.
 retained_messages_from_reference`).
 """
 

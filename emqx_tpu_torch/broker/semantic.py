@@ -3,7 +3,7 @@
 `SemanticRouting`), unchanged but for the modules it imports (the port's
 `ops/topics.py` and `ops/semantic_table.py`). The REST intake the text
 below names belongs to the management API, which the port does not have
-yet (ROADMAP item 10).
+yet (ROADMAP item 10.3d).
 
 `SemanticRouting` owns the `SemanticTable` (ops/semantic_table.py) and
 everything host-side around it:

@@ -15,9 +15,10 @@ to the device session table, whose op-log rides the broker's next launch
 live session, so a store-backed session sends exactly what a plain one
 sends.
 
-`SessionConfig` keeps the fields the session reads; the reference's
-device-store and expiry knobs belong to the app and channel manager,
-which are not ported.
+`SessionConfig` carries every field of the reference's: the await-rel
+timeout the channel's tick reads, the expiry interval the channel and the
+channel manager (broker/cm.py) read, and the device-store knobs the app
+(app.py) reads.
 """
 
 from __future__ import annotations
@@ -39,7 +40,24 @@ class SessionConfig:
     max_inflight: int = 32
     max_mqueue: int = 1000
     retry_interval: float = 30.0
+    await_rel_timeout: float = 300.0
     max_awaiting_rel: int = 100
+    # default persistence for v3.1.1 clean_session=0 clients (the reference
+    # defaults to 2h); v5 clients override via Session-Expiry-Interval, and
+    # clean-start v4 sessions are forced to 0 by the channel manager
+    expiry_interval: float = 7200.0
+    # device-resident session store (broker/session_store.py): inflight
+    # windows + QoS state land on segment tables, ack clears fuse into
+    # serving launches, retry scans become device sweeps. Off = the
+    # host-dict path alone (also the degrade-ladder fallback when on)
+    device_store: bool = False
+    # initial (slot, packet-id) row capacity; grows by doubling
+    store_capacity: int = 4096
+    # compact width of the device retry/expiry sweep (pow2-rounded);
+    # uncapped counts tell the store when a flood needs a second sweep
+    store_sweep_slots: int = 1024
+    # how often housekeeping arms a sweep / runs the host fallback scan
+    store_sweep_interval: float = 5.0
 
 
 class Session:

@@ -3,8 +3,8 @@ The port's copy of `emqx_tpu/broker/slo.py` (pure Python): the priority
 lanes and ladder rungs `BatchIngest` reads, `delta_percentile` and
 `SloController`. Its feedback signal is the port's `Metrics` histogram
 `ingest.settle.seconds` (`Histogram.snapshot`); the `spans` recorder
-(observe/spans.py) and the `SloViolationWatch` alarm come with the app
-(ROADMAP item 10), so `spans` stays None there.
+(observe/spans.py) and the `SloViolationWatch` alarm come with the host
+observability (ROADMAP item 10.3c), so `spans` stays None there.
 
 The ingest window used to be a fixed policy (`window_us=1000`) with one
 binary escape hatch — shed everything past `shed_queue_batches *

@@ -1200,6 +1200,27 @@ class SubscriberTable:
             return self._sp.nbytes
         return int(self.arr.nbytes)
 
+    def status(self) -> Dict:
+        """Mode, bytes, fill and tombstones: the app's `router.sparse.*`
+        gauges (emqx_tpu/models/router_model.py:1303)."""
+        out = {
+            "mode": "sparse" if self._sp is not None else "dense",
+            "policy": self.mode,
+            "bytes": self.table_bytes(),
+            "subscriptions": self.live,
+            "width_words": self.width_words,
+            "fcap": self._fcap,
+            "flips": self.flips,
+            "shards": self.shards,
+        }
+        if self._sp is not None:
+            sp = self._sp
+            out["csr_fill"] = sp.live
+            out["csr_tombstones"] = sp.packed_tombs + sp.hot_tombs
+            out["hot_fill"] = sp.hot_fill
+            out["max_region"] = sp.max_region
+        return out
+
 
 class RouteResult(NamedTuple):
     """Host-side outputs of one routed batch (all numpy, device-free).

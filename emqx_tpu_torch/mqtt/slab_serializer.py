@@ -1,6 +1,6 @@
 """Batched PUBLISH serialization into one preallocated slab: the port's
-copy of `serialize_pub_slab`, `frames_of`, `pid_bytes` and `pubrel_frame`
-(emqx_tpu/mqtt/slab_serializer.py:56-201).
+copy of `serialize_pub_slab`, `frames_of`, `split_publish`, `pid_bytes`
+and `pubrel_frame` (emqx_tpu/mqtt/slab_serializer.py:56-201).
 
 `serialize_pub_slab` builds N (possibly distinct) PUBLISH frames into ONE
 bytearray: every fixed header, remaining-length varint, topic length and
@@ -18,11 +18,12 @@ property block), up to the MQTT maximum of 268,435,455 bytes.
 from __future__ import annotations
 
 import struct
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from emqx_tpu_torch.mqtt import packet as pkt
+from emqx_tpu_torch.mqtt.frame import encode_properties
 
 _U16BE = struct.Struct(">H")
 
@@ -134,6 +135,40 @@ def frames_of(slab: bytearray, offs: np.ndarray) -> List[memoryview]:
     mv = memoryview(slab)
     ol = offs.tolist()
     return [mv[ol[i] : ol[i + 1]] for i in range(len(ol) - 1)]
+
+
+def split_publish(
+    topic_b,
+    payload,
+    qos: int,
+    retain: bool,
+    dup: bool,
+    version: int = pkt.MQTT_V4,
+    props: Optional[dict] = None,
+) -> Tuple[bytes, bytes]:
+    """One QoS>0 PUBLISH split around its packet-id slot: -> (head,
+    tail). `writelines([head, _U16BE.pack(pid), tail])` emits the frame
+    byte-identical to frame.serialize — serialize once per message,
+    patch 2 bytes per target."""
+    assert qos > 0, "split frames exist for per-target packet ids"
+    pb = b""
+    if version == pkt.MQTT_V5:
+        pb = encode_properties(props)
+    p = payload or b""
+    rem = 2 + len(topic_b) + 2 + len(pb) + len(p)
+    head = bytearray()
+    head.append(
+        0x30 | (0x8 if dup else 0) | (qos << 1) | (0x1 if retain else 0)
+    )
+    while True:
+        b = rem % 128
+        rem //= 128
+        head.append(b | 0x80 if rem else b)
+        if not rem:
+            break
+    head += _U16BE.pack(len(topic_b))
+    head += topic_b
+    return bytes(head), pb + bytes(p)
 
 
 def pid_bytes(pid: int) -> bytes:

@@ -762,14 +762,18 @@ class SegmentStateSnapshot:
     `capture()` must run on the thread that owns the tables (the loop).
     Nothing it returns may hold a tensor or a process group: a `Router`
     drops its lazy matcher and its mesh when pickled, and a broker's
-    device router is rebuilt on the next batch after `install`.
+    device router is rebuilt on the next batch after `install`. `read`
+    (a path -> the captured dict) replaces the plain unpickle: the app
+    reads the reference's files through it (`app.load_segment_state`).
     """
 
     def __init__(self, path: str, capture: Callable[[], Dict],
-                 install: Optional[Callable[[Dict], None]] = None):
+                 install: Optional[Callable[[Dict], None]] = None,
+                 read: Optional[Callable[[str], Dict]] = None):
         self.path = path
         self._capture = capture
         self._install = install
+        self._read = read
 
     def save(self) -> Dict:
         import os
@@ -793,8 +797,11 @@ class SegmentStateSnapshot:
         path = (meta or {}).get("path", self.path)
         if not path or not os.path.exists(path):
             return None
-        with open(path, "rb") as f:
-            state = pickle.load(f)
+        if self._read is not None:
+            state = self._read(path)
+        else:
+            with open(path, "rb") as f:
+                state = pickle.load(f)
         if self._install is not None:
             self._install(state)
         return state

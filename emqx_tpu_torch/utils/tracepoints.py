@@ -1,8 +1,9 @@
 """Structured trace points for concurrency tests: the port's copy of
 `emqx_tpu/utils/tracepoints.py`, trimmed to what the port uses.
-`BatchIngest` emits `ingest.launch` / `ingest.settle` through `tp`, and
-tests collect them with a `TraceCollector` to assert the pipeline's
-schedule. The reference's nemesis (`atp`, the injections) and its causal
+`BatchIngest` emits `ingest.launch` / `ingest.settle` through `tp` (the
+channel and the channel manager their CONNECT, takeover and resume
+points), and tests collect them with a `TraceCollector` to assert the
+pipeline's schedule. The reference's nemesis (`atp`, the injections) and its causal
 assertions are not ported: no port module emits an `atp` point.
 
 `tp(kind, **fields)` emits a structured event into the active collector

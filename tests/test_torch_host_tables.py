@@ -248,7 +248,20 @@ def test_importing_the_port_loads_no_jax():
             "emqx_tpu_torch.utils.node", "emqx_tpu_torch.ops.segments",
             "emqx_tpu_torch.ops.shape_index", "emqx_tpu_torch.convert",
             "emqx_tpu_torch.observe.faults", "emqx_tpu_torch.broker.retained_feed",
-            "emqx_tpu_torch.broker.retainer"} <= set(port_modules())
+            "emqx_tpu_torch.broker.retainer",
+            # the app and everything it boots (the wire codec, channels,
+            # transports, config, durable state, the entry point)
+            "emqx_tpu_torch.app", "emqx_tpu_torch.__main__",
+            "emqx_tpu_torch.mqtt.reason_codes", "emqx_tpu_torch.mqtt.client",
+            "emqx_tpu_torch.broker.mountpoint", "emqx_tpu_torch.broker.channel",
+            "emqx_tpu_torch.broker.cm", "emqx_tpu_torch.transport.connection",
+            "emqx_tpu_torch.transport.listener", "emqx_tpu_torch.broker.limiter",
+            "emqx_tpu_torch.broker.olp", "emqx_tpu_torch.transport.congestion",
+            "emqx_tpu_torch.broker.banned", "emqx_tpu_torch.broker.delayed",
+            "emqx_tpu_torch.broker.authz", "emqx_tpu_torch.config.schema",
+            "emqx_tpu_torch.storage.kv", "emqx_tpu_torch.storage.codec",
+            "emqx_tpu_torch.storage.wal",
+            "emqx_tpu_torch.broker.persistent_session"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {port_modules()!r}: importlib.import_module(m)\n"
@@ -266,7 +279,8 @@ def test_no_jax_or_emqx_tpu_import_in_port_sources():
     assert len(files) > 10
     # the pipelined publish path's, the session half's, the semantic
     # plane's, the rule engine's, the compaction and snapshot modules, the
-    # fault sites, the retained feed and the retainer are scanned too
+    # fault sites, the retained feed, the retainer and the app's modules
+    # are scanned too
     assert {ROOT / "emqx_tpu_torch" / p for p in (
         "broker/ingest.py", "broker/slo.py", "broker/degrade.py",
         "utils/tracepoints.py", "broker/inflight.py", "broker/mqueue.py",
@@ -276,7 +290,14 @@ def test_no_jax_or_emqx_tpu_import_in_port_sources():
         "ops/segments.py", "ops/csr_table.py", "ops/semantic_table.py",
         "ops/session_table.py", "ops/shape_index.py", "convert.py", "broker/router.py",
         "broker/session_store.py", "models/router_model.py", "observe/faults.py",
-        "broker/retained_feed.py", "broker/retainer.py")} <= set(files)
+        "broker/retained_feed.py", "broker/retainer.py",
+        "app.py", "__main__.py", "mqtt/reason_codes.py", "mqtt/packet.py",
+        "mqtt/client.py", "broker/mountpoint.py", "broker/channel.py", "broker/cm.py",
+        "transport/connection.py", "transport/listener.py", "broker/limiter.py",
+        "broker/olp.py", "transport/congestion.py", "broker/banned.py",
+        "broker/delayed.py", "broker/authz.py", "config/schema.py", "storage/kv.py",
+        "storage/codec.py", "storage/wal.py",
+        "broker/persistent_session.py")} <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

@@ -335,6 +335,73 @@ def test_settle_firing_matches_jax(path):
         assert p.rule_metrics() == hook.rule_metrics()
 
 
+# payloads whose f32 sum or difference lands on the other side of the
+# rule's constant than the scalar evaluator's f64 (RULES_SQL[0] and [4])
+F32_BOUNDARY = ({"temp": -4.95, "base": 34.95}, {"temp": 8.05, "base": 3.05})
+
+
+@pytest.mark.parametrize("device", [True, False])
+def test_f32_masks_drop_rows_the_scalar_where_passes_as_jax(device):
+    """The device masks are f32 programs and drop a row whose f32
+    arithmetic misses the constant that the scalar evaluator's f64 meets;
+    the engine never re-verifies a dropped row, so with the device
+    attached those rows do not fire, in both packages, while the hook
+    path (the scalar evaluator alone) fires them."""
+    out = {}
+    for name, pkg in PKG.items():
+        run = EngineRun(pkg, device=device)
+        run.sub("all", "device/#")
+        for i in (0, 4):
+            run.eng.create_rule(f"r{i}", f'SELECT * FROM "device/#" WHERE '
+                                f'{chip_smoke.RULES_SQL[i]}', [run.record(f"r{i}")])
+        msgs = [run.msg(f"device/{k}/mid/0/leaf", F32_BOUNDARY[k % 2], qos=1)
+                for k in range(MIN_TPU_BATCH)]
+        run.broker.publish_batch(msgs)
+        out[name] = (sorted(run.rows, key=repr), run.counters())
+    assert out["port"] == out["jax"]
+    fired = {(tag, row["topic"]) for tag, row, _t in out["port"][0]}
+    want = {("r0", f"device/{k}/mid/0/leaf") for k in range(0, MIN_TPU_BATCH, 2)} | {
+        ("r4", f"device/{k}/mid/0/leaf") for k in range(1, MIN_TPU_BATCH, 2)}
+    assert fired == (set() if device else want)
+
+
+@pytest.mark.parametrize("i", sorted(chip_smoke.RULES_F32_COMPARED))
+def test_f32_boundary_check_names_exactly_the_rows_the_masks_drop(i):
+    """`chip_smoke.rule_f32_boundary`, which reads the payload alone, names
+    exactly the rows that RULES_SQL[i]'s f32 host masks drop (in both
+    packages) while the scalar evaluator passes them: over seeded
+    `rule_messages` rows plus rows built to meet the constant in two
+    decimals, some of which f32 puts on the other side."""
+    from emqx_tpu.rules import compile as J_compile
+    from emqx_tpu_torch.rules import compile as P_compile
+
+    rng = np.random.default_rng(23 + i)
+    ctxs = chip_smoke.rule_messages(rng, [f"device/{k}/mid/0/leaf" for k in range(2048)])
+    for k in range(2048):
+        t = round(float(rng.uniform(-5, 50)), 2)
+        base = round(30 - t, 2) if i == 0 else round(t - 5, 2)
+        ctxs.append({"qos": 0, "topic": f"device/{k}/x", "payload": json.dumps(
+            {"temp": t, "base": base}).encode()})
+    ctxs += [{"qos": 0, "topic": "device/f32", "payload": json.dumps(p).encode()}
+             for p in F32_BOUNDARY]
+    masks = {}
+    for name, sql, comp in (("port", P_sql, P_compile), ("jax", J_sql, J_compile)):
+        f = chip_smoke.rule_filter([chip_smoke.RULES_SQL[i]], sql, comp)
+        suspect = comp.extract_features(ctxs, f.lanes)[2]
+        masks[name] = f.host_masks(ctxs)[0] | suspect
+    assert np.array_equal(masks["port"], masks["jax"])
+    query = P_sql.parse_sql(f'SELECT * FROM "device/#" WHERE {chip_smoke.RULES_SQL[i]}')
+
+    def passes(c):
+        got = outcome(P_runtime.apply_query, query, dict(c))
+        return got[0] == "ok" and bool(got[1])
+
+    dropped = np.array([passes(c) for c in ctxs]) & ~masks["port"]
+    named = np.array([chip_smoke.rule_f32_boundary(i, c["payload"]) for c in ctxs])
+    assert np.array_equal(dropped, named)
+    assert 0 < dropped.sum() < 2048
+
+
 def test_hook_path_rules_skip_compiled_rules_for_marked_messages_as_jax():
     """With the device attached, the fold fires only the uncompilable
     rules; a single `publish` (never marked) fires every rule in the fold."""
